@@ -4,15 +4,19 @@
     python3 chip_smoke.py          # from the repository root, one GPU
 
 Builds the port's CUDA kernels from rectified_spaattn_tpu_torch/csrc with
-nvcc (sm_90a) and drives the HunyuanVideo sparse denoise path:
+nvcc (sm_90a, one nvcc per source, all started together) and drives the
+HunyuanVideo sparse denoise path and the Wan2.1-14B denoise path:
 
   1. device: the card's name and power limit; TF32 off.
-  2. kernels: K1 (single-row gather) and K2 (grouped-row gather) against
-     their plain PyTorch versions in bf16 at small shapes — random masks,
-     the text window at B=2, zero-count and all-masked rows, full index
-     lists with block_m 1024, K2 at G=2 and G=4 (and K2 == K1 row by row);
-     max abs error <= 2e-2 and, relative to the output's own scale, max
-     abs error <= 5 % of max |output| and rms error <= 2 % of its std.
+  2. kernels: K1 (single-row gather), K2 (grouped-row gather) and K3
+     (dense flash) against their plain PyTorch versions in bf16 at small
+     shapes — random masks, the text window at B=2, zero-count and
+     all-masked rows, full index lists with block_m 1024, K2 at G=2 and
+     G=4 (and K2 == K1 row by row); K3 with Sq and Sk off its tiles, 512
+     and 257 keys, a kv_valid mask at B=2 with a row of no valid key, a
+     given sm_scale; max abs error <= 2e-2 and, relative to the output's
+     own scale, max abs error <= 5 % of max |output| and rms error <= 2 %
+     of its std.
   3. site: one rectified sparse-attention site at the HunyuanVideo
      operating point (115,200 visual + 256 text tokens, 24 heads x 128,
      sa_drop_rate 0.8, p_remain 0.3, the Gilbert neighbour mask of
@@ -28,6 +32,21 @@ nvcc (sm_90a) and drives the HunyuanVideo sparse denoise path:
      then one step with the density probe on (untimed in the above); plus
      a small pipeline on the GPU (bf16) against the same one on the CPU
      (fp32).
+  5. Wan site: the self-attention site at the Wan2.1-14B operating point
+     (75,600 visual tokens padded once to 75,648, 40 heads x 128, visual
+     layout with first-frame retention, sa_drop_rate 0.75, p_remain 0.3)
+     on random and smooth inputs: plan, K1 at G=1 with its plain version
+     at full shape; on random inputs the windowed dense K1 of the warm
+     layers against SDPA with the same key mask, and K3 at the T2V text
+     cross shape (512 keys) and the I2V image cross shape (257 keys)
+     against its plain version and SDPA.
+  6. Wan pipeline: a small sparse Wan pipeline on the GPU (bf16) against
+     the CPU (fp32); then WanPipeline at full width (WanConfig()) cut to 4
+     blocks, 720x1280x81 frames, 3 UniPC steps under CFG, TeaCache on,
+     warm_calls 2 (step 1 dense, steps 2-3 sparse past the 2 warm layers),
+     seeded bf16 random weights — the launch counters and the sparse plans
+     built are zeroed just before and read just after; then one sparse
+     step under the profiler.
 
 Each phase prints one JSON line with its seconds.  Then a {"kernels": ...}
 line, the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any
@@ -58,6 +77,15 @@ SITE = dict(grid=(32, 45, 80), heads=24, head_dim=128, text_len=256, tlen=100)
 # the denoise run: full-width config cut to 2 dual + 2 single blocks
 PIPE = dict(cfg=dict(num_dual_blocks=2, num_single_blocks=2), height=720,
             width=1280, frames=128, steps=3)
+# the Wan2.1-14B operating point: latent grid (T', H', W') of 81x720x1280
+# video, heads, the text and CLIP-image context lengths of the cross
+# attention
+WAN_SITE = dict(grid=(21, 45, 80), heads=40, head_dim=128, text_len=512,
+                image_len=257)
+# the Wan denoise run: WanConfig() cut from 40 to 4 blocks; warm_calls 2
+# makes step 1 dense and steps 2-3 sparse (past the 2 warm layers)
+WAN_PIPE = dict(cfg=dict(num_blocks=4), height=720, width=1280, frames=81,
+                steps=3, warm_layers=2, warm_calls=2)
 
 
 def emit(phase: str, t0: float, **fields):
@@ -112,22 +140,23 @@ def bound_ms(flops: float, nbytes: float):
 # ------------------------------------------------------------- phase 0/1 ---
 
 def build(kernels):
-    """nvcc for the CUDA kernels and g++ for the curve walker, in
-    parallel; returns the kernels' ptxas resource lines."""
+    """nvcc for each CUDA source (all started together) and g++ for the
+    curve walker, in parallel; returns the kernels' ptxas resource lines."""
     from rectified_spaattn_tpu_torch.curves import native
     out = {}
 
     def nvcc():
-        out["lib"], out["log"] = kernels.build_kernels(("-Xptxas", "-v"))
+        out["libs"] = kernels.build_kernels(("-Xptxas", "-v"))
 
     th = threading.Thread(target=nvcc)
     th.start()
     out["walker"] = native.walker()
     th.join()
-    if "lib" not in out:
+    if "libs" not in out:
         raise RuntimeError("kernel build failed (see the error above)")
-    ptxas = [ln.strip() for ln in out["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, (_, log) in out["libs"].items()}
     return out["walker"], ptxas
 
 
@@ -147,7 +176,7 @@ def kernel_cases(kernels, ops):
     gen.manual_seed(1234)
     rnd = lambda *s, dt=torch.bfloat16: torch.randn(
         s, generator=gen, device=dev).to(dt)
-    errs = {"K1": 0.0, "K2": 0.0}
+    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
     cases = []
 
     def check(name, got, want, kern):
@@ -223,16 +252,39 @@ def kernel_cases(kernels, ops):
             q, k, v, ui, uc, rb, cl, tl, **kw)
         check(f"k2_g{grp}", got, want, "K2")
         check(f"k2_g{grp}_vs_k1_rows", got, ref1, "K2")
+
+    # K3: rows and keys off the 64-row / 64-key tiles, Wan's 512 text and
+    # 257 image keys, a kv_valid mask at B=2 with a row of no valid key
+    # (V averaged over all keys), a given sm_scale
+    def k3_case(name, b, h, sq, sk, valid=None, sm_scale=None):
+        q, k, v = rnd(b, h, sq, 128), rnd(b, h, sk, 128), rnd(b, h, sk, 128)
+        got = kernels.dense_attention(q, k, v, valid, mode="flash",
+                                      sm_scale=sm_scale)
+        want = kernels.flash._vanilla_attention(q, k, v, valid, sm_scale)
+        check(name, got, want, "K3")
+        return got, v
+
+    k3_case("k3_sq200_sk130", 1, 3, 200, 130)
+    k3_case("k3_sk512", 1, 4, 256, 512)
+    k3_case("k3_sk257_no_mask", 1, 4, 333, 257)
+    valid = torch.rand((2, 257), generator=gen, device=dev) < 0.6
+    valid[1] = False
+    got, v = k3_case("k3_mask_b2_no_valid_row", 2, 2, 100, 257, valid)
+    e = max_err(got[1], v[1].float().mean(1, keepdim=True).expand_as(got[1]))
+    if e > TOL:
+        raise AssertionError(f"K3 row with no valid key: {e} from the mean")
+    k3_case("k3_sm_scale", 1, 2, 130, 512, sm_scale=0.03)
     return errs, cases
 
 
 # --------------------------------------------------------------- phase 3 ---
 
-def smooth_qkv(gen, h, sv, text_len, d, h2l, grid, alpha=4.0, sigma=1.0):
+def smooth_qkv(gen, h, sv, tail, d, h2l, grid, alpha=4.0, sigma=1.0):
     """Spatially smooth q/k/v (a shared low-frequency field over the
-    latent grid plus per-token noise, in curve order): the regime real
-    checkpoints run in, where pooled attention concentrates (bench.py's
-    smooth_inputs, in torch)."""
+    latent grid plus per-token noise, in curve order, then ``tail`` rows of
+    noise: the text slot or the padding): the regime real checkpoints run
+    in, where pooled attention concentrates (bench.py's smooth_inputs, in
+    torch)."""
     dev = h2l.device
     lt, lh, lw = grid
     lin = h2l.long()
@@ -246,11 +298,40 @@ def smooth_qkv(gen, h, sv, text_len, d, h2l, grid, alpha=4.0, sigma=1.0):
     mix = torch.randn((h, 2 * nfreq, d), generator=gen, device=dev) \
         / (2 * nfreq) ** 0.5
     field = torch.nn.functional.pad(
-        torch.einsum("sf,hfd->hsd", basis, mix), (0, 0, 0, text_len))
+        torch.einsum("sf,hfd->hsd", basis, mix), (0, 0, 0, tail))
     return tuple(
         (alpha * field + sigma * torch.randn(field.shape, generator=gen,
                                              device=dev))[None].to(
             torch.bfloat16) for _ in range(3))
+
+
+def measure(kern, name, regime, check: bool, kern_fn, plain_fn, flops,
+            nbytes, library=None):
+    """One kernel at the main path's shapes: with ``check``, its plain
+    version on the same inputs (time and the relative limits); then its
+    CUDA-event time, its bound and, where one PyTorch call computes the
+    same function, that call's time.  Stores the result in ``kern[name]``
+    and prints it on a kernel_at_site line."""
+    got = kern_fn()
+    r = {}
+    if check:
+        t_plain = time.perf_counter()
+        want = plain_fn()
+        torch.cuda.synchronize()
+        r["plain_ms"] = (time.perf_counter() - t_plain) * 1e3
+        r.update(held_to_scale(name, got, want))
+        del want
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: output is not finite")
+    del got
+    torch.cuda.empty_cache()
+    r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes)
+    r["ms"] = cuda_ms(kern_fn)
+    r["library_ms"] = cuda_ms(library, reps=2) if library else None
+    r["roofline_share"] = r["bound_ms"] / r["ms"]
+    kern[name] = r
+    print(json.dumps({"kernel_at_site": name, "regime": regime, **r}),
+          flush=True)
 
 
 def site_phase(kernels, ops, regime: str):
@@ -340,28 +421,6 @@ def site_phase(kernels, ops, regime: str):
     idx_bytes = lambda *ts: sum(t.numel() * 4 for t in ts)
     kw = dict(visual_len=sv, text_start=sv)
 
-    def measure(name, kern_fn, plain_fn, flops, nbytes, library=None):
-        got = kern_fn()
-        r = {}
-        if full:
-            t_plain = time.perf_counter()
-            want = plain_fn()
-            torch.cuda.synchronize()
-            r["plain_ms"] = (time.perf_counter() - t_plain) * 1e3
-            r.update(held_to_scale(name, got, want))
-            del want
-        if not torch.isfinite(got.float()).all():
-            raise AssertionError(f"{name}: output is not finite")
-        del got
-        torch.cuda.empty_cache()
-        r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes)
-        r["ms"] = cuda_ms(kern_fn)
-        r["library_ms"] = cuda_ms(library, reps=2) if library else None
-        r["roofline_share"] = r["bound_ms"] / r["ms"]
-        kern[name] = r
-        print(json.dumps({"kernel_at_site": name, "regime": regime, **r}),
-              flush=True)
-
     # K2, visual rows at group_rows 2 (the pipeline's visual job); the
     # bound counts each row block's own (member) pairs
     ui, uc, rb, cl = ops.group_rows(plan.block_mask, 2,
@@ -370,7 +429,7 @@ def site_phase(kernels, ops, regime: str):
     # tile would do, relative to the plan (K2 skips non-member tiles)
     res["k2_union_growth"] = float(uc.sum()) * 2 / pairs
     g2 = dict(group=2, **kw)
-    measure("K2_visual_g2",
+    measure(kern, "K2_visual_g2", regime, full,
             lambda: kernels.block_sparse_flash_attention_grouped(
                 q_vis, kz, vz, ui, uc, rb, cl, tlen, **g2),
             # group_rows' clean prefix is exact: the wrapper's clamp keeps it
@@ -380,7 +439,7 @@ def site_phase(kernels, ops, regime: str):
             nbytes=qo_bytes(sv) + kv_bytes(vis_kv_blocks)
             + idx_bytes(ui, uc, rb, cl))
     # K1, visual rows at group_rows 1
-    measure("K1_visual_g1",
+    measure(kern, "K1_visual_g1", regime, full,
             lambda: kernels.block_sparse_flash_attention(
                 q_vis, kz, vz, plan.indices, plan.counts, tlen, **kw),
             lambda: kernels.block_sparse_flash_attention_torch(
@@ -395,7 +454,7 @@ def site_phase(kernels, ops, regime: str):
     fidx = torch.arange(nbt, dtype=torch.int32, device=dev).expand(
         b, h, nt, nbt)
     fcnt = torch.full((b, h, nt), nbt, dtype=torch.int32, device=dev)
-    measure("K1_text_rows",
+    measure(kern, "K1_text_rows", regime, full,
             lambda: kernels.block_sparse_flash_attention(
                 q_txt, kz, vz, fidx, fcnt, tlen, **kw),
             lambda: kernels.block_sparse_flash_attention_torch(
@@ -411,7 +470,7 @@ def site_phase(kernels, ops, regime: str):
         b, h, nqd, nbt)
     dcnt = torch.full((b, h, nqd), nbt, dtype=torch.int32, device=dev)
     dkw = dict(block_m=1024, **kw)
-    measure("K1_dense_bm1024",
+    measure(kern, "K1_dense_bm1024", regime, full,
             lambda: kernels.block_sparse_flash_attention(
                 qd, k, v, didx, dcnt, tlen, **dkw),
             lambda: kernels.block_sparse_flash_attention_torch(
@@ -508,19 +567,22 @@ def pipeline_phase(kernels):
     noise = torch.Generator(device=dev)
     noise.manual_seed(42)
     torch.cuda.reset_peak_memory_stats()
-    k1, k2 = (kernels.block_sparse_flash_attention,
-              kernels.block_sparse_flash_attention_grouped)
-    k1.launches = k2.launches = 0
+    kerns = {"K1": kernels.block_sparse_flash_attention,
+             "K2": kernels.block_sparse_flash_attention_grouped,
+             "K3": kernels.dense_flash_attention}
+    for f in kerns.values():
+        f.launches = 0
     out = pipe(text, mask, generator=noise)
-    launches = {"K1": k1.launches, "K2": k2.launches}
+    launches = {n: f.launches for n, f in kerns.items()}
     torch.cuda.synchronize()
     if out.shape != (1, cfg.in_channels, *pipe.grid):
         raise AssertionError(f"pipeline output shape {tuple(out.shape)}")
     if not torch.isfinite(out).all():
         raise AssertionError("pipeline output is not finite")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel did not run on the main path: "
-                             f"{launches}")
+    # K1 and K2 are this path's kernels; K3 is not on it
+    if min(launches["K1"], launches["K2"]) == 0 or launches["K3"]:
+        raise AssertionError(f"unexpected launches on the HunyuanVideo "
+                             f"path: {launches}")
     computed = pipe.teacache_stats["computed"]
     res = {"launches": launches, "step_seconds": pipe.step_seconds,
            "denoise_seconds": pipe.denoise_seconds,
@@ -601,6 +663,253 @@ def small_pipeline_check():
     return {"max_abs_err": err, "ref_max_abs": scale}
 
 
+# ------------------------------------------------------------- Wan phases ---
+
+def plain_dense(kernels, q, k, v, heads: int = 8):
+    """K3's plain version over chunks of heads (its fp32 scores at the
+    T2V cross shape would take 6 GB per 40 heads)."""
+    out = torch.empty_like(q)
+    for h0 in range(0, q.shape[1], heads):
+        hs = slice(h0, h0 + heads)
+        out[:, hs] = kernels.flash._vanilla_attention(q[:, hs], k[:, hs],
+                                                      v[:, hs])
+    return out
+
+
+def wan_site_phase(kernels, regime: str):
+    """The Wan2.1-14B self-attention site (visual layout, first-frame
+    retention, 75,600 tokens padded once to 75,648 as the pipeline pads
+    them) on "random" or "smooth" inputs: plan, K1 at G=1 and, on random
+    inputs, the windowed dense K1 of the warm layers against SDPA with the
+    same key mask and K3 at the text (512 keys) and CLIP-image (257 keys)
+    cross shapes against SDPA."""
+    from rectified_spaattn_tpu_torch.attention import (
+        kv_validity, rectified_sparse_attention)
+    from rectified_spaattn_tpu_torch.pipelines import build_site
+    from rectified_spaattn_tpu_torch.sparse import build_sparse_plan
+
+    dev = torch.device(DEV)
+    full = regime == "random"
+    b, h, d = 1, WAN_SITE["heads"], WAN_SITE["head_dim"]
+    site, _, h2l = build_site(*WAN_SITE["grid"], sa_drop_rate=0.75,
+                              p_remain=0.3, layout="visual",
+                              first_frame_retention=True, device=dev)
+    sv = site.visual_len                      # 75,600
+    s = sv + (-sv) % 128                      # 75,648
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    if full:
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev
+                               ).to(torch.bfloat16) for _ in range(3))
+    else:
+        q, k, v = smooth_qkv(gen, h, sv, s - sv, d, h2l, WAN_SITE["grid"])
+    cfg, nbr = site.cfg, site.neighbor_mask
+    res = {"regime": regime, "visual_len": sv, "tokens": s,
+           "first_frame_blocks": cfg.first_frame_blocks}
+    kern = {}
+
+    def site_call(**kw):
+        return rectified_sparse_attention(q, k, v, cfg, nbr, visual_len=sv,
+                                          **kw)
+
+    res["plan_ms"] = cuda_ms(lambda: site_call(density_only=True))
+    res["density"] = float(site_call(density_only=True))
+    res["sparse_ms"] = cuda_ms(lambda: site_call())
+    k1 = kernels.block_sparse_flash_attention
+    k1.launches = 0
+    out = site_call()
+    res["launches_per_call"] = {"K1": k1.launches}
+    # the 48 padding rows too: the head slices them off, but they must
+    # not carry a NaN into the residual stream
+    if out.shape != q.shape or not torch.isfinite(out.float()).all():
+        raise AssertionError("Wan site output is not finite of shape q.shape")
+    del out
+
+    # the kernel's own inputs, as rectified_sparse_attention builds them
+    valid = kv_validity(b, s, sv, None, None, device=dev)
+    zero = torch.zeros((), dtype=q.dtype, device=dev)
+    kz = torch.where(valid[:, None, :, None], k, zero)
+    vz = torch.where(valid[:, None, :, None], v, zero)
+    plan = build_sparse_plan(q, kz, vz, cfg, neighbor_mask=nbr)
+    nbt = s // 128
+    pairs = float(plan.counts.sum())
+    res["pairs"] = pairs
+    used = torch.zeros((b * h, nbt), dtype=torch.int32, device=dev)
+    used.scatter_add_(1, plan.indices.reshape(b * h, -1).long(),
+                      (torch.arange(plan.indices.shape[-1], device=dev)
+                       < plan.counts[..., None]).reshape(b * h, -1).int())
+    kv_bytes = lambda blocks: 2 * blocks * 128 * d * 2
+    qo_bytes = 2 * b * h * s * d * 2
+    tl0 = torch.zeros((b,), dtype=torch.int32, device=dev)
+    kw = dict(visual_len=sv, text_start=None)
+    measure(kern, "K1_wan_visual_g1", regime, full,
+            lambda: kernels.block_sparse_flash_attention(
+                q, kz, vz, plan.indices, plan.counts, tl0, **kw),
+            lambda: kernels.block_sparse_flash_attention_torch(
+                q, kz, vz, plan.indices, plan.counts, tl0, **kw),
+            flops=pairs * 4.0 * 128 * 128 * d,
+            nbytes=qo_bytes + kv_bytes(float((used > 0).sum()))
+            + plan.indices.numel() * 4 + plan.counts.numel() * 4)
+    if not full:
+        return res, kern
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # K1 with full lists at block_m 1024: the dense warm layers (the
+    # windowed path pads q to 74 row tiles of 1024)
+    nqd = -(-s // 1024)
+    qd = torch.nn.functional.pad(q, (0, 0, 0, nqd * 1024 - s))
+    didx = torch.arange(nbt, dtype=torch.int32, device=dev).expand(
+        b, h, nqd, nbt)
+    dcnt = torch.full((b, h, nqd), nbt, dtype=torch.int32, device=dev)
+    dkw = dict(block_m=1024, **kw)
+    measure(kern, "K1_wan_dense_bm1024", regime, full,
+            lambda: kernels.block_sparse_flash_attention(
+                qd, k, v, didx, dcnt, tl0, **dkw),
+            lambda: kernels.block_sparse_flash_attention_torch(
+                qd, k, v, didx, dcnt, tl0, **dkw),
+            flops=4.0 * b * h * s * s * d,
+            nbytes=qo_bytes + 2 * b * h * s * d * 2 + didx.numel() * 4,
+            library=lambda: sdpa(q, k, v,
+                                 attn_mask=valid[:, None, None, :]))
+    del qd, plan, kz, vz
+    torch.cuda.empty_cache()
+    # K3 at the cross shapes, q and k/v as the blocks hand them over:
+    # head-split views of [B, S, H, D] projections
+    qx = torch.randn((b, s, h, d), generator=gen, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    for name, sk in (("K3_t2v_text", WAN_SITE["text_len"]),
+                     ("K3_i2v_image", WAN_SITE["image_len"])):
+        kx, vx = (torch.randn((b, sk, h, d), generator=gen, device=dev).to(
+            torch.bfloat16).transpose(1, 2) for _ in range(2))
+        measure(kern, name, regime, True,
+                lambda: kernels.dense_attention(qx, kx, vx, mode="flash"),
+                lambda: plain_dense(kernels, qx, kx, vx),
+                flops=4.0 * b * h * s * sk * d,
+                nbytes=2 * b * h * (s + sk) * d * 2,
+                library=lambda: sdpa(qx, kx, vx))
+    return res, kern
+
+
+def count_sparse_plans():
+    """Count the rectified site's plan builds (one per sparse-layer call)
+    by wrapping the plan builder where the site looks it up; returns
+    (counter, restore)."""
+    from rectified_spaattn_tpu_torch.attention import rectified
+    orig, count = rectified.build_sparse_plan, [0]
+
+    def counted(*a, **kw):
+        count[0] += 1
+        return orig(*a, **kw)
+
+    rectified.build_sparse_plan = counted
+    return count, lambda: setattr(rectified, "build_sparse_plan", orig)
+
+
+def wan_pipeline_phase(kernels):
+    """WanPipeline at full width (WanConfig()) cut to 4 blocks,
+    720x1280x81, 3 UniPC steps under CFG, TeaCache on, seeded bf16 random
+    weights; the launch counters (and the sparse plans built) are zeroed
+    just before the run and read just after."""
+    from rectified_spaattn_tpu_torch.cli.generate import _random_text
+    from rectified_spaattn_tpu_torch.models import (
+        WanConfig, WanDiT, init_random_weights)
+    from rectified_spaattn_tpu_torch.pipelines import WanPipeline
+
+    dev = torch.device(DEV)
+    cfg = WanConfig(**WAN_PIPE["cfg"])
+    with torch.device(dev):
+        model = WanDiT(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = init_random_weights(model.to(torch.bfloat16), gen)
+    pipe = WanPipeline(
+        model=model, height=WAN_PIPE["height"], width=WAN_PIPE["width"],
+        frames=WAN_PIPE["frames"], num_steps=WAN_PIPE["steps"],
+        sa_drop_rate=0.75, p_remain_rates=0.3, mode="sparse",
+        enable_teacache=True, teacache_thresh=0.2,
+        warm_layers=WAN_PIPE["warm_layers"],
+        warm_calls=WAN_PIPE["warm_calls"], group_rows=1, device=dev)
+    text, _ = _random_text("several hot air balloons flying over a city.",
+                           512, cfg.text_dim, device=dev)
+    neg, _ = _random_text("", 512, cfg.text_dim, device=dev)
+    noise = torch.Generator(device=dev)
+    noise.manual_seed(42)
+    torch.cuda.reset_peak_memory_stats()
+    kerns = {"K1": kernels.block_sparse_flash_attention,
+             "K2": kernels.block_sparse_flash_attention_grouped,
+             "K3": kernels.dense_flash_attention}
+    plans, restore = count_sparse_plans()
+    try:
+        for f in kerns.values():
+            f.launches = 0
+        out = pipe(text, neg, generator=noise)
+        launches = {n: f.launches for n, f in kerns.items()}
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    if out.shape != (1, cfg.out_channels, *pipe.grid):
+        raise AssertionError(f"Wan pipeline output shape {tuple(out.shape)}")
+    if not torch.isfinite(out).all():
+        raise AssertionError("Wan pipeline output is not finite")
+    decisions = pipe.teacache.decisions
+    computed = sum(decisions)
+    sparse_calls = sum(1 for i, c in enumerate(decisions)
+                       if c and i >= WAN_PIPE["warm_calls"])
+    want_plans = sparse_calls * (cfg.num_blocks - WAN_PIPE["warm_layers"])
+    # K3 once per block per computed call (T2V: the text cross only); K1
+    # once per block per computed call (windowed dense or sparse)
+    want = {"K1": cfg.num_blocks * computed, "K2": 0,
+            "K3": cfg.num_blocks * computed}
+    if launches != want or plans[0] != want_plans or want_plans == 0:
+        raise AssertionError(f"Wan launches {launches} (want {want}), "
+                             f"sparse plans {plans[0]} (want {want_plans} "
+                             "> 0)")
+    res = {"launches": launches, "sparse_plans": plans[0],
+           "step_seconds": pipe.step_seconds,
+           "denoise_seconds": pipe.denoise_seconds,
+           "teacache": pipe.teacache_stats, "teacache_decisions": decisions,
+           "visual_tokens": pipe.site.visual_len, "pad": pipe.pad,
+           "launches_per_computed_call": {
+               n: c / computed for n, c in launches.items()},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    # one more step, both CFG calls computed and sparse past the warm
+    # layers, under the profiler
+    pipe.warm_calls = 0
+    res["profiled_sparse_step"] = profile_step(pipe, text, neg)
+    return res
+
+
+def small_wan_pipeline_check():
+    """A small sparse Wan pipeline (head_dim 128, 360 tokens padded to 384)
+    on the GPU in bf16 against the same weights on the CPU in fp32."""
+    from rectified_spaattn_tpu_torch.models import (
+        WanConfig, WanDiT, init_random_weights)
+    from rectified_spaattn_tpu_torch.pipelines import WanPipeline
+
+    cfg = WanConfig(hidden_dim=256, heads=2, num_blocks=2, ffn_dim=512,
+                    text_dim=64)
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    ref = init_random_weights(WanDiT(cfg), gen)
+    gpu = WanDiT(cfg)
+    gpu.load_state_dict(ref.state_dict())
+    gpu = gpu.to(torch.bfloat16)
+    text = torch.randn((1, 32, cfg.text_dim), generator=gen)
+    neg = torch.zeros_like(text)
+    kw = dict(height=192, width=240, frames=5, num_steps=3, sa_drop_rate=0.5,
+              p_remain_rates=0.5, warm_layers=1, warm_calls=0)
+    p_cpu = WanPipeline(model=ref, device="cpu", **kw)
+    init = torch.randn((1, cfg.in_channels, *p_cpu.grid), generator=gen)
+    want = p_cpu(text, neg, init_latents=init)
+    got = WanPipeline(model=gpu, device=DEV, **kw)(
+        text, neg, init_latents=init).cpu()
+    err = max_err(got, want)
+    scale = float(want.abs().max())
+    if not err <= 0.05 * scale:
+        raise AssertionError(f"small Wan pipeline GPU vs CPU: {err} > 5% of "
+                             f"{scale}")
+    return {"max_abs_err": err, "ref_max_abs": scale}
+
+
 # ------------------------------------------------------------------ main ---
 
 def main() -> int:
@@ -642,13 +951,32 @@ def main() -> int:
     pipe = pipeline_phase(kernels)
     emit("pipeline", t0, **pipe)
 
+    wsites = {}
+    for regime in ("random", "smooth"):
+        t0 = time.perf_counter()
+        res, wsites[regime] = wan_site_phase(kernels, regime)
+        emit(f"wan_site_{regime}", t0, **res)
+    wsite = wsites["random"]
+
+    t0 = time.perf_counter()
+    small = small_wan_pipeline_check()
+    emit("small_wan_pipeline_gpu_vs_cpu", t0, **small)
+
+    t0 = time.perf_counter()
+    wpipe = wan_pipeline_phase(kernels)
+    emit("wan_pipeline", t0, **wpipe)
+
     src = "rectified_spaattn_tpu_torch/csrc/block_sparse.cu"
     k1, k2, k1t = (site["K1_visual_g1"], site["K2_visual_g2"],
                    site["K1_text_rows"])
+    k3, k3i = wsite["K3_t2v_text"], wsite["K3_i2v_image"]
+    by_path = lambda n: {"hunyuan": pipe["launches"][n],
+                         "wan": wpipe["launches"][n]}
     line = {"kernels": [
         {"name": "K1", "route": "cuda", "source": src,
          "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:89",
-         "launches": pipe["launches"]["K1"],
+         "launches": pipe["launches"]["K1"] + wpipe["launches"]["K1"],
+         "launches_by_path": by_path("K1"),
          "max_abs_err": max(errs["K1"], k1t["max_abs_err"]),
          "ms": k1t["ms"], "plain_ms": k1t["plain_ms"],
          "bound_ms": k1t["bound_ms"], "bound_by": k1t["bound_by"],
@@ -656,16 +984,33 @@ def main() -> int:
          "shape": "text rows: q [1,24,256,128] x full lists over 902 blocks",
          "other_jobs": {"visual_rows_g1": k1,
                         "visual_rows_g1_smooth": smooth["K1_visual_g1"],
-                        "dense_bm1024": site["K1_dense_bm1024"]}},
+                        "dense_bm1024": site["K1_dense_bm1024"],
+                        "wan_visual_g1": wsite["K1_wan_visual_g1"],
+                        "wan_visual_g1_smooth":
+                            wsites["smooth"]["K1_wan_visual_g1"],
+                        "wan_dense_bm1024": wsite["K1_wan_dense_bm1024"]}},
         {"name": "K2", "route": "cuda", "source": src,
          "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:317",
-         "launches": pipe["launches"]["K2"],
+         "launches": pipe["launches"]["K2"] + wpipe["launches"]["K2"],
+         "launches_by_path": by_path("K2"),
          "max_abs_err": max(errs["K2"], k2["max_abs_err"]),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None,
          "shape": "visual rows: q [1,24,115200,128], G=2 union lists",
          "other_jobs": {"visual_rows_g2_smooth": smooth["K2_visual_g2"]}},
+        {"name": "K3", "route": "cuda",
+         "source": "rectified_spaattn_tpu_torch/csrc/dense_flash.cu",
+         "replaces": "rectified_spaattn_tpu/kernels/flash.py:49",
+         "launches": pipe["launches"]["K3"] + wpipe["launches"]["K3"],
+         "launches_by_path": by_path("K3"),
+         "max_abs_err": max(errs["K3"], k3["max_abs_err"],
+                            k3i["max_abs_err"]),
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": k3["library_ms"],
+         "shape": "Wan T2V text cross: q [1,40,75648,128] x 512 keys",
+         "other_jobs": {"i2v_image_cross_257": k3i}},
     ]}
     print(json.dumps(line))
     print(smi)

@@ -4,8 +4,9 @@ reference: rectified_hunyuan_attn.py:506-524, attn.py:60-154).
   "sparse"          rectified block-sparse attention (K1 / K2)
   "flash", "torch"  exact attention with the [visual | pad | text | pad]
                     key window, through K1 with full index lists
-                    (``_windowed_dense_flash``); without a window it is K3,
-                    not ported yet
+                    (``_windowed_dense_flash``); without a window
+                    (``visual_len=None``: Wan's cross-attention) it is the
+                    dense flash kernel K3
   "vanilla"         explicit fp32 softmax attention, the oracle
 """
 

@@ -5,7 +5,8 @@ The whole transformer-stack residual (hidden_out - hidden_in) is cached; a
 step is SKIPPED (residual re-applied) when the modulated input changed
 little since the last computed step, as measured by an accumulated,
 polynomial-rescaled relative-L1 signal (reference:
-scripts/main_hunyuan.py:110-157).  The signal is computed on the device;
+scripts/main_hunyuan.py:110-157; the CFG even/odd dual-stream variant,
+scripts/main_wan21t2v.py:105-133).  The signal is computed on the device;
 ONE scalar per step crosses to the host, where the sampler loop branches.
 
 Not ported yet: the int8 residual encode, host offload of the residual and
@@ -22,10 +23,30 @@ import torch
 
 # Polynomial rescaling coefficients for the raw rel-L1 signal
 # (numpy.poly1d convention: highest power first; reference:
-# main_hunyuan.py:118).
+# main_hunyuan.py:118 and the Wan drivers).
 COEFFICIENTS: dict[str, list[float]] = {
     "hunyuan-video": [7.33226126e+02, -4.01131952e+02, 6.75869174e+01,
                       -3.14987800e+00, 9.61237896e-02],
+    # Wan (reference: main_wan21t2v.py:273-286, main_wan21i2v.py,
+    # main_wan22ti2v.py, main_wan22t2v.py)
+    "wan2.1-t2v-1.3b": [2.39676752e+03, -1.31110545e+03, 2.01331979e+02,
+                        -8.29855975e+00, 1.37887774e-01],
+    "wan2.1-t2v-14b": [-5784.54975374, 5449.50911966, -1811.16591783,
+                       256.27178429, -13.02252404],
+    "wan2.1-t2v-14b-ret": [-3.03318725e+05, 4.90537029e+04, -2.65530556e+03,
+                           5.87365115e+01, -3.15583525e-01],
+    "wan2.1-i2v-480p": [-3.02331670e+02, 2.23948934e+02, -5.25463970e+01,
+                        5.87348440e+00, -2.01973289e-01],
+    "wan2.1-i2v-480p-ret": [2.57151496e+05, -3.54229917e+04, 1.40286849e+03,
+                            -1.35890334e+01, 1.32517977e-01],
+    "wan2.1-i2v-720p": [-114.36346466, 65.26524496, -18.82220707,
+                        4.91518089, -0.23412683],
+    "wan2.1-i2v-720p-ret": [8.10705460e+03, 2.13393892e+02, -3.72934672e+01,
+                            1.66203073e+00, -4.17769401e-02],
+    "wan2.2-ti2v-5b": [-3.03318725e+05, 4.90537029e+04, -2.65530556e+03,
+                       5.87365115e+01, -3.15583525e-01],
+    "wan2.2-a14b": [-3.03318725e+05, 4.90537029e+04, -2.65530556e+03,
+                    5.87365115e+01, -3.15583525e-01],
     "identity": [1.0, 0.0],
 }
 

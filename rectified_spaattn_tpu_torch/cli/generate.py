@@ -1,9 +1,12 @@
 """Generation CLI of the PyTorch port (port of
-rectified_spaattn_tpu/cli/generate.py, ``--model hunyuan``):
+rectified_spaattn_tpu/cli/generate.py, ``--model hunyuan``, ``wan21-t2v``
+and ``wan21-i2v``):
 
     python -m rectified_spaattn_tpu_torch.cli.generate --model hunyuan \
         --height 720 --width 1280 --frame 128 --sa_drop_rate 0.8 \
         --p_remain_rates 0.3 --enable_teacache --mode sparse --group_rows 2
+    python -m rectified_spaattn_tpu_torch.cli.generate --model wan21-t2v \
+        --height 720 --width 1280 --frame 81 --enable_teacache
 
 The flags are the JAX CLI's, plus ``--device`` (default cuda; the run
 raises without a GPU unless ``--device cpu``).  Without ``--ckpt_dir`` the
@@ -12,7 +15,9 @@ CLI builds them; weights and activations are bf16 on the GPU (the CUDA
 kernels take bf16) and fp32 on the CPU.  Flags of parts not ported yet
 (checkpoints, other model families, multi-GPU, quantization, scan
 execution, I2V images, int8/offloaded TeaCache residuals, schedule traces)
-raise NotImplementedError.
+raise NotImplementedError.  ``wan21-i2v`` without ``--image`` runs the
+JAX CLI's neutral conditioning: zero condition channels and a zero
+[1, 257, image_dim] CLIP context.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ MODEL_CHOICES = (
 )
 
 # (sa_drop_rate, teacache_thresh) per reference Inference.md
-DEFAULTS = {"hunyuan": (0.8, 0.15)}
+DEFAULTS = {"hunyuan": (0.8, 0.15), "wan21-t2v": (0.75, 0.2),
+            "wan21-i2v": (0.75, 0.3)}
 
 
 def parse_args(argv=None):
@@ -93,11 +99,12 @@ def parse_args(argv=None):
 
 
 def _check_ported(args):
-    if args.model != "hunyuan":
+    if args.model not in DEFAULTS:
         raise NotImplementedError(f"--model {args.model} is not ported yet")
-    # flags the JAX CLI honours for --model hunyuan; the rest
-    # (--use_ret_steps, --teacache_signal_scale, --controlnet_dir,
-    # --host_swap) belong to other families and are ignored there too
+    # flags the JAX CLI honours for these models; the rest
+    # (--controlnet_dir, --host_swap, and --use_ret_steps /
+    # --teacache_signal_scale for hunyuan) belong to other families and
+    # are ignored there too
     unported = {
         "--ckpt_dir (checkpoint loading)": args.ckpt_dir,
         "--tp": args.tp > 1, "--scan_blocks": args.scan_blocks,
@@ -129,7 +136,7 @@ def build_hunyuan(args):
     """Returns (pipe, (text, mask)) with seeded random weights at
     ``--scale`` (the JAX CLI's random-weight config)."""
     from ..models import HunyuanVideoConfig, HunyuanVideoDiT
-    from ..models.hunyuan import init_random_weights
+    from ..models import init_random_weights
     from ..pipelines import HunyuanVideoPipeline
     from ..utils import resolve_device
     device = resolve_device(args.device)
@@ -146,10 +153,6 @@ def build_hunyuan(args):
     gen.manual_seed(0)
     model = init_random_weights(model.to(dtype), gen)
     text, mask = _random_text(args.prompt, 256, cfg.text_dim, device=device)
-    schedule = None
-    if args.replay_trace:
-        with open(args.replay_trace) as f:
-            schedule = [bool(r["compute"]) for r in json.load(f) if "call" in r]
     pipe = HunyuanVideoPipeline(
         model=model, height=args.height, width=args.width,
         frames=args.frame, num_steps=args.num_steps,
@@ -159,9 +162,68 @@ def build_hunyuan(args):
         rel_l1_thresh=args.teacache_thresh, group_rows=args.group_rows,
         plan_row_chunk=args.plan_row_chunk, plan_kv_tile=args.plan_kv_tile,
         kv_pack=args.kv_pack, head_chunk=args.head_chunk,
-        teacache_schedule=schedule, density_probe=args.density,
+        teacache_schedule=_replay_schedule(args), density_probe=args.density,
         device=device)
     return pipe, (text, mask)
+
+
+def _replay_schedule(args):
+    if not args.replay_trace:
+        return None
+    with open(args.replay_trace) as f:
+        return [bool(r["compute"]) for r in json.load(f) if "call" in r]
+
+
+def build_wan(args):
+    """Returns (pipe, (text, negative text), extra inputs) with seeded
+    random weights at ``--scale``, built as the JAX CLI builds them
+    (text_dim 512; I2V: 36 input channels and the CLIP image branch)."""
+    from ..models import WanConfig, WanDiT, init_random_weights
+    from ..pipelines import WanPipeline
+    from ..utils import resolve_device
+    device = resolve_device(args.device)
+    s = args.scale
+    is_i2v = args.model == "wan21-i2v"
+    latent_ch = 16
+    cfg = WanConfig(
+        # I2V transformers take [noise 16 | mask 4 | image latents 16]
+        in_channels=latent_ch + 4 + latent_ch if is_i2v else latent_ch,
+        out_channels=latent_ch,
+        hidden_dim=max(128, int(5120 * s) // 128 * 128),
+        heads=max(1, int(40 * s)), num_blocks=max(2, int(40 * s)),
+        ffn_dim=max(256, int(13824 * s)), text_dim=512, freq_dim=256,
+        mlp_chunk=args.mlp_chunk, image_cross=is_i2v)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    with torch.device(device):
+        model = WanDiT(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    model = init_random_weights(model.to(dtype), gen)
+    text, _ = _random_text(args.prompt, 512, cfg.text_dim, device=device)
+    neg, _ = _random_text("", 512, cfg.text_dim, device=device)
+    pipe = WanPipeline(
+        model=model, height=args.height, width=args.width, frames=args.frame,
+        num_steps=args.num_steps, sa_drop_rate=args.sa_drop_rate,
+        p_remain_rates=args.p_remain_rates,
+        mode="flash" if args.mode == "torch" else args.mode,
+        enable_teacache=args.enable_teacache,
+        teacache_thresh=args.teacache_thresh,
+        use_ret_steps=args.use_ret_steps,
+        teacache_signal_scale=args.teacache_signal_scale, is_i2v=is_i2v,
+        group_rows=args.group_rows, plan_row_chunk=args.plan_row_chunk,
+        plan_kv_tile=args.plan_kv_tile, kv_pack=args.kv_pack,
+        head_chunk=args.head_chunk, teacache_schedule=_replay_schedule(args),
+        density_probe=args.density, device=device)
+    extra = {}
+    if is_i2v:
+        # no --image: neutral zero conditioning (a black first frame) and
+        # a zero CLIP context, so the I2V architecture still runs
+        extra["condition"] = torch.zeros(
+            (1, cfg.in_channels - cfg.out_channels, *pipe.grid),
+            device=device)
+        extra["image_emb"] = torch.zeros((1, 257, cfg.image_dim),
+                                         device=device)
+    return pipe, (text, neg), extra
 
 
 @contextlib.contextmanager
@@ -188,10 +250,14 @@ def main(argv=None):
         args.teacache_thresh = tea
 
     from ..utils import set_seed
-    pipe, (text, mask) = build_hunyuan(args)
+    if args.model == "hunyuan":
+        pipe, inputs = build_hunyuan(args)
+        extra = {}
+    else:
+        pipe, inputs, extra = build_wan(args)
     noise = set_seed(args.seed, pipe.device)
     with _profiler(args.profile):
-        latents = pipe(text, mask, generator=noise)
+        latents = pipe(*inputs, generator=noise, **extra)
 
     os.makedirs(args.out_dir, exist_ok=True)
     stamp = datetime.fromtimestamp(time.time()).strftime("%m-%d-%H:%M:%S")

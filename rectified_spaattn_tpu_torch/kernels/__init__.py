@@ -4,9 +4,9 @@ from .block_sparse import (
     block_sparse_flash_attention_torch,
     block_sparse_flash_attention_grouped_torch,
     block_sparse_attention_reference,
-    build_kernels,
 )
-from .flash import dense_attention
+from .cuda_build import build_kernels
+from .flash import dense_attention, dense_flash_attention
 
 __all__ = [
     "block_sparse_flash_attention",
@@ -16,4 +16,5 @@ __all__ = [
     "block_sparse_attention_reference",
     "build_kernels",
     "dense_attention",
+    "dense_flash_attention",
 ]

@@ -14,7 +14,8 @@ PyTorch versions (port of rectified_spaattn_tpu/kernels/block_sparse.py).
 Both kernels are hand-written CUDA C++ for sm_90a in ``csrc/block_sparse.cu``
 (mma.sync bf16/fp16 with fp32 accumulation; its header gives the design
 and what bounds it on the H100).  The library is built with nvcc at first
-use into the package's ``build/`` directory and loaded with ctypes.
+use into the package's ``build/`` directory and loaded with ctypes
+(kernels/cuda_build.py).
 
 Each wrapper keeps the JAX signature (minus ``interpret``).  A CPU tensor
 runs the plain PyTorch version in this module — the tests' path; a CUDA
@@ -37,71 +38,19 @@ attention), ``kv_quant``/``quant_mode`` (K1q).  ``prefetch_next`` and
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 
 import torch
 
-from ..utils.build import BUILD_DIR
+from . import cuda_build
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc", "block_sparse.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
 _TILE_M = 64          # query rows per CUDA thread block (csrc TILE_M)
-_lib = None
 
 
-def _nvcc() -> str:
-    # PATH first, then the toolkit's conventional home (as torch's own
-    # extension builder does)
-    path = shutil.which("nvcc")
-    home = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    if path is None and os.path.exists(home):
-        path = home
-    if path is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
-                           f"{_SRC} at first use and need the CUDA toolkit")
-    return path
-
-
-def library_path() -> str:
-    """Where the kernel library for the current source lives (keyed by a
-    hash of the source and the flags, so an edit rebuilds)."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"block_sparse_{digest.hexdigest()[:12]}.so")
-
-
-def build_kernels(extra_flags: tuple = ()) -> tuple[str, str]:
-    """Compile csrc/block_sparse.cu (if not built yet) and return (library
-    path, compiler output).  ``extra_flags`` such as ("-Xptxas", "-v") are
-    passed to nvcc and force a rebuild."""
-    out = library_path()
-    if os.path.exists(out) and not extra_flags:
-        return out, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp,
-                           _SRC], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
-
-
-def _load():
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(build_kernels()[0])
+def _declare(lib):
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.rsa_k1_launch.argtypes = [p, p, p, p, p, p, p, p, ll, ll, i, i, i, i,
                                   i, i, i, i, i, i, f, i, i, p]
@@ -109,10 +58,10 @@ def _load():
     lib.rsa_k2_launch.argtypes = [p, p, p, p, p, p, p, p, p, ll, ll, i, i, i,
                                   i, i, i, i, i, i, i, i, f, i, i, p]
     lib.rsa_k2_launch.restype = i
-    lib.rsa_error_string.argtypes = [i]
-    lib.rsa_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+
+
+def _load():
+    return cuda_build.load("block_sparse", _declare)
 
 
 # ----------------------------------------------------------- plain version ---

@@ -3,8 +3,11 @@ nested dicts of numpy arrays, into the port's ``state_dict``.
 
   * Flax ``Dense`` kernels are [in, out]; ``nn.Linear`` weights [out, in].
   * Norm ``scale`` becomes ``weight``.
-  * Flax names blocks ``dual_{i}`` / ``single_{i}``; the port holds them in
-    ``dual_blocks`` / ``single_blocks`` module lists.
+  * Flax names blocks ``dual_{i}`` / ``single_{i}`` (HunyuanVideo) and
+    ``block_{i}`` (Wan); the port holds them in ``dual_blocks`` /
+    ``single_blocks`` / ``blocks`` module lists.
+  * Parameters that are no module's (Wan's ``scale_shift_table`` and
+    ``scale_shift_table_out``) keep their names.
 
 Loading is strict: every source key is consumed, every target key is
 filled, and shapes must agree.
@@ -19,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-_BLOCK = re.compile(r"^(dual|single)_(\d+)$")
+_BLOCK = re.compile(r"^(?:(dual|single)_|block_)(\d+)$")
 
 
 def _flatten(tree, prefix=()):
@@ -34,7 +37,10 @@ def _torch_key(path) -> str:
     parts = []
     for seg in path[:-1]:
         m = _BLOCK.match(seg)
-        parts.append(f"{m.group(1)}_blocks.{m.group(2)}" if m else seg)
+        if m:
+            seg = (f"{m.group(1)}_blocks.{m.group(2)}" if m.group(1)
+                   else f"blocks.{m.group(2)}")
+        parts.append(seg)
     leaf = path[-1]
     parts.append({"kernel": "weight", "scale": "weight"}.get(leaf, leaf))
     return ".".join(parts)

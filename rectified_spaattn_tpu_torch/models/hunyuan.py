@@ -21,7 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .layers import (AdaLayerNormContinuous, AttnFn, Dense, DualStreamBlock,
-                     LayerNorm, MLP, RMSNorm, SingleStreamBlock, rope_axial_freqs,
+                     LayerNorm, MLP, SingleStreamBlock, rope_axial_freqs,
                      timestep_embedding)
 
 
@@ -249,24 +249,3 @@ class HunyuanVideoDiT(nn.Module):
                                         hilbert_to_linear)
         x, ctx = self.run_blocks(x, ctx, temb, rope, attn_fn)
         return self.head(x, temb, linear_to_hilbert, t, hh, ww)
-
-
-@torch.no_grad()
-def init_random_weights(model: nn.Module, generator: torch.Generator):
-    """Seeded random weights for checkpoint-less runs: every dense kernel
-    ~ N(0, 1/fan_in) (Flax's lecun_normal scale), biases 0, norm scales 1.
-    Draws from ``generator`` on the parameters' device."""
-    for mod in model.modules():
-        if isinstance(mod, nn.Linear):
-            w = torch.empty(mod.weight.shape, dtype=torch.float32,
-                            device=mod.weight.device)
-            w.normal_(0.0, mod.in_features ** -0.5, generator=generator)
-            mod.weight.copy_(w)
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, nn.LayerNorm):
-            mod.weight.fill_(1.0)
-            mod.bias.zero_()
-        elif isinstance(mod, RMSNorm) and mod.weight is not None:
-            mod.weight.fill_(1.0)
-    return model

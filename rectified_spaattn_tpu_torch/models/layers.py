@@ -1,4 +1,4 @@
-"""Shared DiT building blocks, HunyuanVideo subset (port of
+"""Shared DiT building blocks, the HunyuanVideo and Wan subset (port of
 rectified_spaattn_tpu/models/layers.py).
 
 All modules operate on [B, S, C] token streams; attention functions are
@@ -146,10 +146,13 @@ class MLP(nn.Module):
     intermediate is live (identical math; a peak-memory lever)."""
 
     def __init__(self, dim: int, mult: float = 4.0,
-                 activation: str = "gelu_tanh", chunk: int = 1):
+                 activation: str = "gelu_tanh", chunk: int = 1,
+                 in_dim: int | None = None):
         super().__init__()
         hidden = int(dim * mult)
-        self.fc1 = Dense(dim, hidden)
+        # ``in_dim``: the input width where it is not ``dim`` (Flax infers
+        # it; Wan's text and image embedders take text_dim / image_dim)
+        self.fc1 = Dense(in_dim or dim, hidden)
         self.fc2 = Dense(hidden, dim)
         if activation not in _ACTIVATIONS:
             raise ValueError(activation)
@@ -194,6 +197,14 @@ def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor,
     c, s = cos[None, None], sin[None, None]
     out = torch.stack([x0 * c - x1 * s, x0 * s + x1 * c], dim=-1)
     return out.reshape(xf.shape).to(dtype)
+
+
+def apply_rope_complex(x: torch.Tensor, cos: torch.Tensor,
+                       sin: torch.Tensor) -> torch.Tensor:
+    """Wan-style rotation: the reference multiplies complex numbers
+    (rectified_wan21_attn.py:434-441), which is the interleaved-pairs
+    rotation."""
+    return apply_rope_interleaved(x, cos, sin)
 
 
 # --------------------------------------------------------------- blocks ----
@@ -321,3 +332,95 @@ class SingleStreamBlock(nn.Module):
                             dim=1)
         fused = fused + gate * out
         return fused[:, :sv], fused[:, sv:]
+
+
+class CrossAttnBlock(nn.Module):
+    """Wan block: modulated self-attention over the visual tokens, then
+    un-modulated cross-attention to the text (and, for Wan2.1-I2V, to the
+    CLIP image context), then the modulated FFN (reference: the Wan drivers
+    keep attn1 sparse and attn2 dense, scripts/main_wan21t2v.py:293-301)."""
+
+    def __init__(self, dim: int, heads: int, mlp_mult: float = 4.0,
+                 image_cross: bool = False, mlp_chunk: int = 1):
+        super().__init__()
+        self.heads = heads
+        self.image_cross = image_cross
+        # per-block learned modulation, added to the shared 6-way projection
+        self.scale_shift_table = nn.Parameter(torch.zeros(1, 6, dim))
+        for n in ("attn1_to_q", "attn1_to_k", "attn1_to_v", "attn1_to_out",
+                  "attn2_to_q", "attn2_to_k", "attn2_to_v", "attn2_to_out"):
+            setattr(self, n, Dense(dim, dim))
+        # Wan norms q/k over the FULL hidden dim before the head split
+        # (rectified_wan21_attn.py:423-430), unlike Hunyuan's per-head norm
+        for n in ("attn1_norm_q", "attn1_norm_k", "attn2_norm_q",
+                  "attn2_norm_k"):
+            setattr(self, n, RMSNorm(dim))
+        self.norm2 = LayerNorm(dim)
+        if image_cross:
+            self.attn2_add_k_proj = Dense(dim, dim)
+            self.attn2_add_v_proj = Dense(dim, dim)
+            self.attn2_norm_added_k = RMSNorm(dim)
+        self.ffn = MLP(dim, mlp_mult, chunk=mlp_chunk)
+
+    def forward(self, x, ctx, temb6, rope, self_attn_fn: AttnFn,
+                cross_attn_fn: AttnFn, ctx_img=None):
+        """``temb6``: the shared 6-way time projection, [B, 6, C] or
+        [B, S, 6, C] for per-token timesteps (Wan2.2 TI2V)."""
+        h = self.heads
+        tm = temb6[:, None] if temb6.ndim == 3 else temb6   # [B,1|S,6,C]
+        m = self.scale_shift_table[:, None] + tm
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
+            m[:, :, i] for i in range(6))
+
+        xn = layer_norm(x) * (1 + scale_msa) + shift_msa
+        q = _split_heads(self.attn1_norm_q(self.attn1_to_q(xn)), h)
+        k = _split_heads(self.attn1_norm_k(self.attn1_to_k(xn)), h)
+        v = _split_heads(self.attn1_to_v(xn), h)
+        if rope is not None:
+            cos, sin = rope
+            q = apply_rope_complex(q, cos, sin)
+            k = apply_rope_complex(k, cos, sin)
+        attn = self.attn1_to_out(_merge_heads(self_attn_fn(q, k, v)))
+        x = x + gate_msa * attn
+
+        # cross-attention to the text (always dense)
+        xc = self.norm2(x)
+        q2 = _split_heads(self.attn2_norm_q(self.attn2_to_q(xc)), h)
+        k2 = _split_heads(self.attn2_norm_k(self.attn2_to_k(ctx)), h)
+        v2 = _split_heads(self.attn2_to_v(ctx), h)
+        cross = cross_attn_fn(q2, k2, v2)
+        if self.image_cross and ctx_img is not None:
+            k2i = _split_heads(self.attn2_norm_added_k(
+                self.attn2_add_k_proj(ctx_img)), h)
+            v2i = _split_heads(self.attn2_add_v_proj(ctx_img), h)
+            cross = cross + cross_attn_fn(q2, k2i, v2i)
+        x = x + self.attn2_to_out(_merge_heads(cross))
+
+        xm = layer_norm(x) * (1 + scale_mlp) + shift_mlp
+        return x + gate_mlp * self.ffn(xm)
+
+
+@torch.no_grad()
+def init_random_weights(model: nn.Module, generator: torch.Generator):
+    """Seeded random weights for checkpoint-less runs: every dense kernel
+    ~ N(0, 1/fan_in) (Flax's lecun_normal scale), biases 0, norm scales 1,
+    Wan's modulation tables ~ N(0, 0.02) (their Flax init).  Draws from
+    ``generator`` on the parameters' device."""
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            w = torch.empty(mod.weight.shape, dtype=torch.float32,
+                            device=mod.weight.device)
+            w.normal_(0.0, mod.in_features ** -0.5, generator=generator)
+            mod.weight.copy_(w)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, RMSNorm) and mod.weight is not None:
+            mod.weight.fill_(1.0)
+    for name, p in model.named_parameters():
+        if name.rsplit(".", 1)[-1].startswith("scale_shift_table"):
+            w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            p.copy_(w.normal_(0.0, 0.02, generator=generator))
+    return model

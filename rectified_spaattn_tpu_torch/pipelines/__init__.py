@@ -1,10 +1,12 @@
-from .schedulers import FlowMatchEulerScheduler, flow_shift_timesteps
+from .schedulers import (FlowMatchEulerScheduler, UniPCScheduler,
+                         flow_shift_timesteps)
 from .base import (SparseSite, build_site, pad_tokens,
                    classifier_free_guidance, param_compute_dtype)
 from .hunyuan import HunyuanVideoPipeline
+from .wan import WanPipeline
 
 __all__ = [
-    "FlowMatchEulerScheduler", "flow_shift_timesteps",
+    "FlowMatchEulerScheduler", "UniPCScheduler", "flow_shift_timesteps",
     "SparseSite", "build_site", "pad_tokens", "classifier_free_guidance",
-    "param_compute_dtype", "HunyuanVideoPipeline",
+    "param_compute_dtype", "HunyuanVideoPipeline", "WanPipeline",
 ]

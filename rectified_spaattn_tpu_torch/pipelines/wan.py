@@ -1,0 +1,322 @@
+"""Wan2.1 T2V / I2V pipeline (port of rectified_spaattn_tpu/pipelines/wan.py;
+reference drivers scripts/main_wan21t2v.py, main_wan21i2v.py).
+
+Wan specifics:
+  * classifier-free guidance with TWO transformer calls per step and
+    even/odd TeaCache state (main_wan21t2v.py:105-133);
+  * visual-only sparse self-attention with first-frame block retention
+    and the warm-up gates: dense for the first ``warm_layers`` and last
+    ``warm_last_layers`` layers and, T2V only, for every layer until call
+    ``warm_calls`` (rectified_wan21_attn.py:467; I2V gates layers only,
+    :591);
+  * the cross-attention (text, and the CLIP image context for I2V) is
+    dense: kernel K3.
+
+The visual token stream is padded once in embed to a multiple of the mask
+block, so every layer's attention sees block-aligned shapes, and sliced
+back in head.
+
+Left out of this slice (raise NotImplementedError): ``scan_blocks``,
+``dispatch_segments``, ``mesh``, ``defer_device`` and the int8 or
+host-offloaded TeaCache residual; ``i2v_condition`` / ``ti2v_first_frame``
+(they need the VAE encoder) and ``Wan22A14BPipeline`` are later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..models.wan import WanDiT
+from ..attention import attention
+from ..cache import TeaCache
+from ..cache.teacache import residual_value
+from ..utils.device import resolve_device
+from ..utils.timing import device_sync
+from .base import build_site, classifier_free_guidance, param_compute_dtype
+from .schedulers import FlowMatchEulerScheduler, UniPCScheduler
+
+
+@dataclasses.dataclass
+class WanPipeline:
+    """Wan2.1 T2V / I2V (single transformer).  ``model`` carries its
+    weights; it is moved to ``device`` (default "cuda"; raises without a
+    GPU unless ``device="cpu"``).  ``mode`` "sparse" runs the rectified
+    site past the warm gates, "flash" dense everywhere (K1 windowed, K3
+    cross), "vanilla" the fp32 oracle everywhere."""
+    model: WanDiT
+    height: int = 720
+    width: int = 1280
+    frames: int = 81
+    num_steps: int = 50
+    sa_drop_rate: float = 0.75
+    p_remain_rates: float = 0.3
+    mode: str = "sparse"                 # sparse | flash | vanilla
+    enable_teacache: bool = False
+    teacache_thresh: float = 0.2
+    use_ret_steps: bool = False
+    # None: the per-checkpoint polynomial, resolved as the reference
+    # drivers do (tea_coefficients)
+    teacache_coefficients: Optional[str] = None
+    teacache_signal_scale: float = 1.0
+    guidance_scale: float = 5.0
+    flow_shift: float = 5.0
+    vae_stride: tuple = (4, 16, 16)
+    warm_layers: int = 2
+    warm_last_layers: int = 0
+    warm_calls: int = 10
+    scheduler: str = "unipc"             # unipc | euler
+    is_i2v: bool = False
+    plan_row_chunk: int = 0              # SparseConfig.plan_row_chunk
+    plan_kv_tile: int = 0                # SparseConfig.plan_kv_tile
+    group_rows: int = 1                  # SparseConfig.group_rows (K2 if > 1)
+    kv_pack: bool = False                # SparseConfig.kv_pack
+    head_chunk: int = 0                  # SparseConfig.head_chunk
+    # replay a recorded per-call compute/skip list instead of deciding
+    teacache_schedule: Optional[list] = None
+    # probe the executed mask density of the first sparse layer per call
+    density_probe: bool = False
+    # TPU execution, multi-device and residual-memory levers of the JAX
+    # pipeline: not ported yet
+    scan_blocks: bool = False
+    dispatch_segments: int = 1
+    mesh: Optional[object] = None
+    defer_device: bool = False
+    teacache_residual: str = "bf16"
+    teacache_offload: bool = False
+    device: str = "cuda"
+
+    def __post_init__(self):
+        unported = {"scan_blocks": self.scan_blocks,
+                    "dispatch_segments > 1": self.dispatch_segments > 1,
+                    "mesh": self.mesh is not None,
+                    "defer_device": self.defer_device,
+                    "teacache_residual int8": self.teacache_residual != "bf16",
+                    "teacache_offload": self.teacache_offload}
+        bad = [k for k, v in unported.items() if v]
+        if bad:
+            raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+        self.device = resolve_device(self.device)
+        self.model = self.model.to(self.device).eval()
+        cfg = self.model.cfg
+        self.lt = (self.frames + 3) // self.vae_stride[0]
+        self.lh = self.height // self.vae_stride[1]
+        self.lw = self.width // self.vae_stride[2]
+        pt, ph, pw = cfg.patch_size
+        self.grid = (self.lt * pt, self.lh * ph, self.lw * pw)
+        self.site, self.l2h, self.h2l = build_site(
+            self.lt, self.lh, self.lw, sa_drop_rate=self.sa_drop_rate,
+            p_remain=self.p_remain_rates, layout="visual",
+            first_frame_retention=True, plan_row_chunk=self.plan_row_chunk,
+            plan_kv_tile=self.plan_kv_tile, group_rows=self.group_rows,
+            kv_pack=self.kv_pack, head_chunk=self.head_chunk,
+            device=self.device)
+        self.pad = (-self.site.visual_len) % self.site.cfg.block_m
+        # activations run in the parameter dtype; RoPE tables stay fp32
+        self.compute_dtype = param_compute_dtype(self.model)
+        self.density_samples = []
+        self.step_seconds = []
+
+    def _embed(self, latents, t, text, image_emb):
+        x, ctx, ctx_img, temb, temb6, rope = self.model.embed(
+            latents, t, text, self.h2l, image_emb)
+        if self.pad:
+            # pad the token stream ONCE so every layer's attention sees
+            # block-aligned shapes
+            p = self.pad
+            x = F.pad(x, (0, 0, 0, p))
+            rope = tuple(F.pad(r, (0, 0, 0, p)) for r in rope)
+            if temb.ndim == 3:
+                temb = F.pad(temb, (0, 0, 0, p))
+            if temb6.ndim == 4:
+                temb6 = F.pad(temb6, (0, 0, 0, 0, 0, p))
+        cd = self.compute_dtype
+        return (x.to(cd), ctx.to(cd),
+                ctx_img.to(cd) if ctx_img is not None else None,
+                temb.to(cd), temb6.to(cd), rope)
+
+    def _cross(self, q, k, v):
+        return attention(q, k, v, mode="vanilla" if self.mode == "vanilla"
+                         else "flash")
+
+    def _run_blocks(self, x, ctx, ctx_img, temb6, rope, sparse: bool):
+        dense = self.site.attn_fn("vanilla" if self.mode == "vanilla"
+                                  else "flash")
+        n = self.model.cfg.num_blocks
+        if sparse:
+            sp = self.site.attn_fn("sparse")
+            fns = [dense if (i < self.warm_layers
+                             or i >= n - self.warm_last_layers) else sp
+                   for i in range(n)]
+        else:
+            fns = [dense] * n
+        return self.model.run_blocks(x, ctx, ctx_img, temb6, rope, dense,
+                                     self._cross, fns)
+
+    def _head(self, x, temb):
+        sv = self.site.visual_len
+        if self.pad:
+            x = x[:, :sv]
+            if temb.ndim == 3:
+                temb = temb[:, :sv]
+        return self.model.head(x, temb, self.l2h, *self.grid)
+
+    def _density(self, x, ctx, ctx_img, temb6, rope) -> float:
+        """Mean executed density of the first sparse layer's plan on this
+        call's activations: that block runs with a probe attention
+        function that builds the plan only (density_only) and returns
+        zeros."""
+        from ..attention.rectified import rectified_sparse_attention
+        site, got = self.site, {}
+
+        def attn_probe(q, k, v):
+            got["d"] = rectified_sparse_attention(
+                q, k, v, site.cfg, site.neighbor_mask,
+                visual_len=site.visual_len, density_only=True)
+            return torch.zeros_like(q)
+
+        self.model.blocks[self.warm_layers](x, ctx, temb6, rope, attn_probe,
+                                            self._cross, ctx_img=ctx_img)
+        return float(got["d"])
+
+    def _scheduler(self, steps):
+        if self.scheduler == "unipc":
+            return UniPCScheduler(steps, shift=self.flow_shift)
+        return FlowMatchEulerScheduler(steps, shift=self.flow_shift)
+
+    def tea_coefficients(self) -> str:
+        """Per-checkpoint rescale polynomial, resolved as the reference
+        drivers hard-code it: -ret sets under use_ret_steps
+        (main_wan21t2v.py:273-286), a 480p/720p split for I2V
+        (main_wan21i2v.py), the TI2V-5B table for Wan2.2-TI2V.  An explicit
+        ``teacache_coefficients`` wins."""
+        if self.teacache_coefficients is not None:
+            return self.teacache_coefficients
+        if self.model.cfg.per_token_timesteps or self.vae_stride[1] == 32:
+            return "wan2.2-ti2v-5b"
+        if self.is_i2v:
+            base = ("wan2.1-i2v-480p" if self.height <= 480
+                    else "wan2.1-i2v-720p")
+        else:
+            base = "wan2.1-t2v-14b"
+        return base + ("-ret" if self.use_ret_steps else "")
+
+    def _as_tensor(self, x, dtype=None):
+        return None if x is None else torch.as_tensor(
+            x, dtype=dtype, device=self.device)
+
+    @torch.no_grad()
+    def denoise(self, latents, text_cond, text_uncond, image_emb=None,
+                condition=None, first_frame=None,
+                num_steps: Optional[int] = None):
+        """The CFG loop: cond (even) and uncond (odd) calls per step with
+        dual-stream TeaCache, the reference's call pattern.
+
+        ``condition``: I2V channels, concatenated onto the noise channels
+        every call (in_channels-36 models).  ``first_frame``: TI2V image
+        mode, the first latent frame held at this value while its tokens
+        denoise at timestep 0 (needs ``cfg.per_token_timesteps``)."""
+        latents, text_cond, text_uncond, image_emb, condition, first_frame = (
+            self._as_tensor(a, torch.float32) for a in (
+                latents, text_cond, text_uncond, image_emb, condition,
+                first_frame))
+        cfg = self.model.cfg
+        steps = num_steps or self.num_steps
+        sched = self._scheduler(steps)
+        use_sparse = self.mode == "sparse"
+        self.density_samples = []
+        tea = TeaCache(
+            self.teacache_thresh if self.enable_teacache else 0.0,
+            steps * 2, coefficients=self.tea_coefficients(),
+            ret_steps=(5 * 2 if self.use_ret_steps else 1 * 2),
+            cutoff_steps=(steps * 2 if self.use_ret_steps
+                          else steps * 2 - 2),
+            cfg_streams=2, signal_scale=self.teacache_signal_scale,
+            forced_schedule=self.teacache_schedule)
+        self.teacache = tea
+
+        b = latents.shape[0]
+        ff_tokens = 0
+        if first_frame is not None:
+            if not cfg.per_token_timesteps:
+                raise ValueError("TI2V image mode needs per_token_timesteps")
+            latents = latents.clone()
+            latents[:, :, :1] = first_frame
+            # linear token order: latent frame 0 holds the first
+            # (H'/ph)*(W'/pw) tokens (patch_size[0] == 1 for Wan)
+            ph, pw = cfg.patch_size[1:]
+            ff_tokens = (self.grid[1] // ph) * (self.grid[2] // pw)
+            n_tok = ff_tokens * self.lt
+
+        self.step_seconds = []      # wall-clock per step, device-synced
+        device_sync(latents)
+        t0 = time.perf_counter()
+        call = 0
+        for i, t in enumerate(sched.timesteps):
+            if first_frame is not None:
+                ts = torch.full((b, n_tok), float(t), device=self.device)
+                ts[:, :ff_tokens] = 0.0
+            else:
+                ts = torch.full((b,), float(t), device=self.device)
+            model_in = (latents if condition is None
+                        else torch.cat([latents, condition], dim=1))
+            outs = []
+            for text in (text_cond, text_uncond):
+                x, ctx, ctx_img, temb, temb6, rope = self._embed(
+                    model_in, ts, text, image_emb)
+                if self.density_probe:
+                    self.density_samples.append(self._density(
+                        x, ctx, ctx_img, temb6, rope))
+                # the reference's signal: timestep_proj under use_ret_steps,
+                # else temb (main_wan21t2v.py:103)
+                sig = temb6 if self.use_ret_steps else temb
+                if tea.enabled and not tea.should_compute(sig):
+                    x = tea.apply_residual(x)
+                else:
+                    sparse_now = use_sparse and (
+                        self.is_i2v or call >= self.warm_calls)
+                    x_in = x
+                    x = self._run_blocks(x, ctx, ctx_img, temb6, rope,
+                                         sparse_now)
+                    if tea.enabled:
+                        tea.record_residual_value(residual_value(x, x_in))
+                outs.append(self._head(x, temb))
+                call += 1
+            v = classifier_free_guidance(outs[0], outs[1],
+                                         self.guidance_scale)
+            latents = sched.step(v, latents, i)
+            if first_frame is not None:
+                latents[:, :, :1] = first_frame
+            device_sync(latents)
+            self.step_seconds.append(time.perf_counter() - t0
+                                     - sum(self.step_seconds))
+        self.denoise_seconds = time.perf_counter() - t0
+        self.teacache_stats = tea.stats()
+        return latents
+
+    def __call__(self, text_cond, text_uncond, image_emb=None,
+                 condition=None, first_frame=None, seed: int = 42,
+                 num_steps: Optional[int] = None, init_latents=None,
+                 generator: Optional[torch.Generator] = None):
+        """Draw the initial noise from ``generator`` (default: a generator
+        on the pipeline's device seeded with ``seed``) unless
+        ``init_latents`` is given, and denoise; returns latents (the VAE
+        decode belongs to a later slice)."""
+        cfg = self.model.cfg
+        if init_latents is not None:
+            latents = init_latents
+        else:
+            if generator is None:
+                generator = torch.Generator(device=self.device)
+                generator.manual_seed(seed)
+            noise_ch = cfg.in_channels - (
+                condition.shape[1] if condition is not None else 0)
+            latents = torch.randn((text_cond.shape[0], noise_ch, *self.grid),
+                                  generator=generator, dtype=torch.float32,
+                                  device=self.device)
+        return self.denoise(latents, text_cond, text_uncond, image_emb,
+                            condition, first_frame, num_steps)

@@ -181,8 +181,70 @@ def test_dense_attention_vanilla_masks_invalid_keys():
     want = np.asarray(jk.dense_attention(
         *map(jnp.asarray, (q, k, v)), jnp.asarray(valid), mode="vanilla"))
     np.testing.assert_allclose(got, want, **F32)
-    with pytest.raises(NotImplementedError, match="K3"):
-        tk.dense_attention(*map(torch.from_numpy, (q, k, v)), mode="flash")
+    # "flash" (K3) on CPU tensors runs the plain version, the same oracle
+    flash = tk.dense_attention(*map(torch.from_numpy, (q, k, v)),
+                               torch.from_numpy(valid), mode="flash").numpy()
+    np.testing.assert_array_equal(flash, got)
+
+
+def test_all_masked_row_differs_from_jax_only_there():
+    """A row block whose only listed block is the text block of a batch
+    with text_len 0: every gathered key is masked while its count is 1.
+    The port averages V over the listed block; the JAX kernel averages
+    over its whole chunk, chunk-padding slots included (ROADMAP Queue 3).
+    Every other row agrees at fp32; on that row the two differ by 0.236 at
+    most (these inputs)."""
+    q, k, v = make_inputs(51, 1, 2, 3, 4, 64)
+    mask = random_mask(52, (1, 2, 3, 4), 0.5)
+    mask[0, 1, 1] = False
+    mask[0, 1, 1, 3] = True
+    got, want = run_both(q, k, v, mask, [0], 3 * BN, 3 * BN)
+    row = (0, 1, slice(BM, 2 * BM))
+    keep = np.ones(got.shape, bool)
+    keep[row] = False
+    np.testing.assert_allclose(got[keep], want[keep], **F32)
+    np.testing.assert_allclose(got[row], np.broadcast_to(
+        v[0, 1, 3 * BN:].mean(0), (BM, 64)), **F32)
+    assert np.abs(got[row] - want[row]).max() > 0.1
+
+
+@pytest.mark.parametrize("case", ["fp32", "fp32_mask_b2", "fp32_scale",
+                                  "bf16_mask_b2"])
+def test_dense_flash_plain_matches_jax(case):
+    """K3's plain version (the CPU path of dense_attention "flash")
+    against JAX dense_attention(mode="flash"), which runs its vanilla path
+    off the TPU: Sq 200 and Sk 257 (off every tile), a kv_valid mask at
+    B=2 with a row of no valid key; fp32 rtol 2e-4 / atol 2e-5, bf16
+    2e-2."""
+    b = 2 if "b2" in case else 1
+    g = np.random.default_rng(61)
+    q, k, v = (g.normal(size=(b, 3, n, 64)).astype(np.float32)
+               for n in (200, 257, 257))
+    valid, kw = None, {}
+    if "mask" in case:
+        valid = g.uniform(size=(b, 257)) < 0.6
+        valid[1] = False
+    if case == "fp32_scale":
+        kw["sm_scale"] = 0.05
+    tq = [torch.from_numpy(x) for x in (q, k, v)]
+    jq = [jnp.asarray(x) for x in (q, k, v)]
+    tol = F32
+    if case.startswith("bf16"):
+        tq = [x.to(torch.bfloat16) for x in tq]
+        jq = [x.astype(jnp.bfloat16) for x in jq]
+        tol = BF16
+    got = tk.dense_attention(*tq, None if valid is None
+                             else torch.from_numpy(valid), mode="flash", **kw)
+    want = jk.dense_attention(*jq, None if valid is None
+                              else jnp.asarray(valid), mode="flash", **kw)
+    assert got.shape == (b, 3, 200, 64) and got.dtype == tq[0].dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+    if valid is not None:          # no valid key: V averaged over all keys
+        np.testing.assert_allclose(
+            got[1].float().numpy(),
+            np.broadcast_to(tq[2][1].float().mean(1, keepdim=True).numpy(),
+                            (3, 200, 64)), **tol)
 
 
 @pytest.mark.parametrize("bm", [128, 256, 512])

@@ -159,8 +159,8 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     assert res["teacache"] == {"skipped": 0, "computed": 2}
     assert 0 < res["density"] <= 1
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == res
-    with pytest.raises(NotImplementedError, match="wan21-t2v"):
-        main(["--model", "wan21-t2v", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="cogvideox-t2v"):
+        main(["--model", "cogvideox-t2v", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ckpt_dir"):
         main(["--device", "cpu", "--ckpt_dir", str(tmp_path)])
 
