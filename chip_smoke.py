@@ -5,18 +5,24 @@
 
 Builds the port's CUDA kernels from rectified_spaattn_tpu_torch/csrc with
 nvcc (sm_90a, one nvcc per source, all started together) and drives the
-HunyuanVideo sparse denoise path and the Wan2.1-14B denoise path:
+HunyuanVideo sparse denoise path, its int8 serving levers (K1q, S1, int8 /
+int4 weights, the int8 offloaded TeaCache residual) and the Wan2.1-14B
+denoise path:
 
   1. device: the card's name and power limit; TF32 off.
   2. kernels: K1 (single-row gather), K2 (grouped-row gather) and K3
      (dense flash) against their plain PyTorch versions in bf16 at small
      shapes — random masks, the text window at B=2, zero-count and
-     all-masked rows, full index lists with block_m 1024, K2 at G=2 and
-     G=4 (and K2 == K1 row by row); K3 with Sq and Sk off its tiles, 512
+     all-masked rows, degenerate rows (every gathered key masked, count >
+     0: V averaged over the chunk's lanes) at chunk_blocks 2 and 16 for K1
+     and K2, full index lists with block_m 1024, K2 at G=2 and G=4 (and K2
+     == K1 row by row); K3 with Sq and Sk off its tiles, 512
      and 257 keys, a kv_valid mask at B=2 with a row of no valid key, a
      given sm_scale; max abs error <= 2e-2 and, relative to the output's
      own scale, max abs error <= 5 % of max |output| and rms error <= 2 %
-     of its std.
+     of its std.  Then K1q ("int8" and "mxu8") against its plain version:
+     random masks, the text window at B=2, zero-count and all-masked rows,
+     a clean prefix followed by text blocks, chunk_blocks 2 and 16.
   3. site: one rectified sparse-attention site at the HunyuanVideo
      operating point (115,200 visual + 256 text tokens, 24 heads x 128,
      sa_drop_rate 0.8, p_remain 0.3, the Gilbert neighbour mask of
@@ -25,6 +31,9 @@ HunyuanVideo sparse denoise path and the Wan2.1-14B denoise path:
      timed with CUDA events; each kernel at these shapes against its plain
      version on the full inputs (the relative limits), with its bound; and
      each kernel again on inputs whose text keys carry most of the weight.
+     K1q in both modes on the same plan at the site's chunk_blocks (24):
+     quantize_kv_blocks ms, K1q ms against bf16 K1's, its error against
+     bf16 K1, and (random inputs) its plain version.
   4. pipeline: HunyuanVideoPipeline at full width (HunyuanVideoConfig()
      defaults) cut to 2 dual + 2 single blocks, 720x1280x128 frames, 3
      steps, TeaCache on, group_rows 2, seeded bf16 random weights — the
@@ -32,6 +41,14 @@ HunyuanVideo sparse denoise path and the Wan2.1-14B denoise path:
      then one step with the density probe on (untimed in the above); plus
      a small pipeline on the GPU (bf16) against the same one on the CPU
      (fp32).
+  4b. int8: S1 (bf16 and int8 looped dots, int8 bit for bit against its
+     plain version, rates against the peaks, torch.bmm / torch._int_mm as
+     yardsticks); a small pipeline on the GPU (bf16) against the CPU (fp32)
+     with int4 weights, K1q "int8" and the int8 residual; then the
+     full-width 2+2-block HunyuanVideo pipeline with int8 weights, K1q
+     "mxu8" and the int8 TeaCache residual held in pinned host memory
+     (a replayed schedule computes, skips, computes) — weight bytes and
+     peak memory against the bf16 pipeline.
   5. Wan site: the self-attention site at the Wan2.1-14B operating point
      (75,600 visual tokens padded once to 75,648, 40 heads x 128, visual
      layout with first-frame retention, sa_drop_rate 0.75, p_remain 0.3)
@@ -67,6 +84,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12       # H100 SXM dense int8 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12      # H100 SXM HBM3
 TOL = 2e-2                    # the repo's bf16 tolerance (tests/test_kernels.py:101)
 REL_MAX, REL_RMS = 0.05, 0.02  # limits relative to the output's scale
@@ -131,8 +149,8 @@ def held_to_scale(name, got, want) -> dict:
     return r
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -187,13 +205,13 @@ def kernel_cases(kernels, ops):
         cases.append({"case": name, **held_to_scale(name, got, want)})
 
     def k1_case(name, b, h, nq, nb, d, mask, visual_len, text_start, tlen,
-                block_m=128, dtype=torch.bfloat16):
+                block_m=128, dtype=torch.bfloat16, **extra):
         q = rnd(b, h, nq * block_m, d, dt=dtype)
         k, v = rnd(b, h, nb * 128, d, dt=dtype), rnd(b, h, nb * 128, d, dt=dtype)
         idx, cnt = ops.mask_to_indices(mask)
         tl = torch.tensor(tlen, dtype=torch.int32, device=dev)
         kw = dict(visual_len=visual_len, text_start=text_start,
-                  block_m=block_m)
+                  block_m=block_m, **extra)
         got = kernels.block_sparse_flash_attention(q, k, v, idx, cnt, tl, **kw)
         want = kernels.block_sparse_flash_attention_torch(
             q, k, v, idx, cnt, tl, **kw)
@@ -221,6 +239,15 @@ def kernel_cases(kernels, ops):
         q, k, v, idx, cnt, tl, visual_len=4 * 128, text_start=4 * 128)
     if out[:, :, 128:256].abs().max() != 0 or out[:, :, 384:].abs().max() != 0:
         raise AssertionError("a count == 0 row is not exactly 0")
+    # degenerate rows: a row whose only block is the text block of a batch
+    # with text_len 0 averages V over its chunk's lanes, padding included
+    m = torch.rand((2, 2, 4, 6), generator=gen, device=dev) < 0.5
+    m[..., 0] = True
+    m[1, 0, 1] = False
+    m[1, 0, 1, 5] = True
+    for cb in (2, 16):
+        k1_case(f"k1_degenerate_chunk{cb}", 2, 2, 4, 6, 128, m, 5 * 128 - 20,
+                5 * 128, [60, 0], chunk_blocks=cb)
     # full index lists with block_m 1024, Sq != S (the dense baseline)
     nb = 10
     full = torch.ones((1, 4, 2, nb), dtype=torch.bool, device=dev)
@@ -252,6 +279,18 @@ def kernel_cases(kernels, ops):
             q, k, v, ui, uc, rb, cl, tl, **kw)
         check(f"k2_g{grp}", got, want, "K2")
         check(f"k2_g{grp}_vs_k1_rows", got, ref1, "K2")
+    # K2 degenerate rows: a row block with no block of its own in a G=2
+    # union averages V over the union's lanes
+    m2 = m.clone()
+    m2[0, 1, 2] = False
+    ui, uc, rb, cl = ops.group_rows(m2, 2, clean_blocks=vis // 128)
+    for cb in (2, 16):
+        kw = dict(group=2, visual_len=vis, text_start=tstart, chunk_blocks=cb)
+        check(f"k2_g2_degenerate_chunk{cb}",
+              kernels.block_sparse_flash_attention_grouped(
+                  q, k, v, ui, uc, rb, cl, tl, **kw),
+              kernels.block_sparse_flash_attention_grouped_torch(
+                  q, k, v, ui, uc, rb, cl, tl, **kw), "K2")
 
     # K3: rows and keys off the 64-row / 64-key tiles, Wan's 512 text and
     # 257 image keys, a kv_valid mask at B=2 with a row of no valid key
@@ -274,6 +313,62 @@ def kernel_cases(kernels, ops):
     if e > TOL:
         raise AssertionError(f"K3 row with no valid key: {e} from the mean")
     k3_case("k3_sm_scale", 1, 2, 130, 512, sm_scale=0.03)
+    return errs, cases
+
+
+def k1q_cases(kernels, ops):
+    """K1q in both modes against its plain version on small bf16 cases;
+    returns max errors per mode and the cases."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    errs = {"int8": 0.0, "mxu8": 0.0}
+    cases = []
+
+    def case(name, b, h, nq, nb, mask, visual_len, text_start, tlen):
+        q, k, v = rnd(b, h, nq * 128, 128), rnd(b, h, nb * 128, 128), \
+            rnd(b, h, nb * 128, 128)
+        tl = torch.tensor(tlen, dtype=torch.int32, device=dev)
+        payload = ops.quantize_kv_blocks(k, v, 128)
+        idx, cnt = ops.mask_to_indices(mask)
+        for cb in (2, 16):
+            for mode in ("int8", "mxu8"):
+                kw = dict(visual_len=visual_len, text_start=text_start,
+                          chunk_blocks=cb, kv_quant=payload, quant_mode=mode)
+                got = kernels.block_sparse_flash_attention(
+                    q, k, v, idx, cnt, tl, **kw)
+                want = kernels.block_sparse_flash_attention_torch(
+                    q, k, v, idx, cnt, tl, **kw)
+                full = f"{name}_chunk{cb}_{mode}"
+                e = max_err(got, want)
+                if not (torch.isfinite(got.float()).all() and e <= TOL):
+                    raise AssertionError(f"{full}: max abs err {e} > {TOL}")
+                zero = (cnt == 0).repeat_interleave(128, dim=2)
+                if zero.any() and got[zero].abs().max() != 0:
+                    raise AssertionError(f"{full}: a count == 0 row is not 0")
+                errs[mode] = max(errs[mode], e)
+                cases.append({"case": full, **held_to_scale(full, got, want)})
+
+    m = torch.rand((1, 4, 16, 16), generator=gen, device=dev) < 0.4
+    m[..., 0] = True
+    case("k1q_random_masks", 1, 4, 16, 16, m, 16 * 128, None, [0])
+    m = torch.rand((2, 4, 15, 16), generator=gen, device=dev) < 0.5
+    m[..., -1] = True
+    case("k1q_text_window_b2", 2, 4, 15, 16, m, 15 * 128 - 40, 15 * 128,
+         [100, 37])
+    m = torch.zeros((2, 2, 4, 5), dtype=torch.bool, device=dev)
+    m[:, :, 0, :3] = True
+    m[:, :, 2, 4] = True
+    case("k1q_zero_count_and_all_masked", 2, 2, 4, 5, m, 4 * 128, 4 * 128,
+         [64, 0])
+    # a clean prefix of 10 visual blocks, then a padded boundary block and
+    # the text blocks: chunk_blocks 2 splits it into clean and tail chunks
+    m = torch.zeros((1, 2, 4, 14), dtype=torch.bool, device=dev)
+    m[..., :11] = True
+    m[..., 12:] = True
+    case("k1q_clean_prefix", 1, 2, 4, 14, m, 11 * 128 - 60, 12 * 128, [150])
     return errs, cases
 
 
@@ -306,7 +401,7 @@ def smooth_qkv(gen, h, sv, tail, d, h2l, grid, alpha=4.0, sigma=1.0):
 
 
 def measure(kern, name, regime, check: bool, kern_fn, plain_fn, flops,
-            nbytes, library=None):
+            nbytes, library=None, peak=PEAK_BF16_FLOPS):
     """One kernel at the main path's shapes: with ``check``, its plain
     version on the same inputs (time and the relative limits); then its
     CUDA-event time, its bound and, where one PyTorch call computes the
@@ -325,7 +420,7 @@ def measure(kern, name, regime, check: bool, kern_fn, plain_fn, flops,
         raise AssertionError(f"{name}: output is not finite")
     del got
     torch.cuda.empty_cache()
-    r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes)
+    r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes, peak)
     r["ms"] = cuda_ms(kern_fn)
     r["library_ms"] = cuda_ms(library, reps=2) if library else None
     r["roofline_share"] = r["bound_ms"] / r["ms"]
@@ -447,6 +542,28 @@ def site_phase(kernels, ops, regime: str):
             flops=pairs * flops_pair(128),
             nbytes=qo_bytes(sv) + kv_bytes(vis_kv_blocks)
             + idx_bytes(plan.indices, plan.counts))
+    # lists whose every listed key is masked (K1's second pass runs only
+    # for them)
+    valid_blk = valid[0].reshape(nbt, 128).any(dim=1)
+    slot = torch.arange(plan.indices.shape[-1], device=dev)
+    live = (slot < plan.counts[..., None]) & valid_blk[plan.indices.long()]
+    res["degenerate_lists"] = int(((plan.counts > 0)
+                                   & ~live.any(dim=-1)).sum())
+    del live
+    # K1q, both modes, on the same plan at the site's chunk_blocks
+    ref = kernels.block_sparse_flash_attention(
+        q_vis, kz, vz, plan.indices, plan.counts, tlen, **kw)
+    qkw = dict(chunk_blocks=cfg1.kernel_chunk_blocks, **kw)
+    res["k1q_chunk_blocks"] = qkw["chunk_blocks"]
+    for mode in ("int8", "mxu8"):
+        k1q_at_site(kernels, ops, kern, mode, regime, full, ref,
+                    (q_vis, kz, vz, plan.indices, plan.counts, tlen), qkw,
+                    flops=pairs * flops_pair(128),
+                    nbytes=qo_bytes(sv) + kv_bytes(vis_kv_blocks) / 2
+                    + 2 * b * h * nbt * 4
+                    + idx_bytes(plan.indices, plan.counts))
+    del ref
+    torch.cuda.empty_cache()
     if not full:
         return res, kern
     # K1, text rows with full index lists (the pipeline's text job)
@@ -480,13 +597,46 @@ def site_phase(kernels, ops, regime: str):
             + idx_bytes(didx, dcnt),
             library=lambda: sdpa(q, k, v, attn_mask=amask))
     res["text_weighted"] = text_weighted_checks(
-        kernels, q, k, v, (plan.indices, plan.counts), (ui, uc, rb, cl),
-        (fidx, fcnt), tlen, gen, kw)
+        kernels, ops, q, k, v, (plan.indices, plan.counts), (ui, uc, rb, cl),
+        (fidx, fcnt), tlen, gen, kw, cfg1.kernel_chunk_blocks)
     return res, kern
 
 
-def text_weighted_checks(kernels, q, k, v, k1_lists, k2_lists, text_lists,
-                         tlen, gen, kw, heads: int = 2):
+def k1q_at_site(kernels, ops, kern, mode, regime, check, ref, args, qkw,
+                flops, nbytes):
+    """K1q in one mode at the site: the payload's build time, the kernel
+    against its plain version (``check``) and its bound ("int8" by bf16
+    operations, "mxu8" by int8 operations), and its output against bf16
+    K1's on the same plan."""
+    q_vis, kz, vz = args[:3]
+    quantize = lambda: ops.quantize_kv_blocks(kz, vz, 128)
+    quantize_ms = cuda_ms(quantize)
+    payload = quantize()
+    kkw = dict(kv_quant=payload, quant_mode=mode, **qkw)
+    name = f"K1q_{mode}_visual"
+    measure(kern, name, regime, check,
+            lambda: kernels.block_sparse_flash_attention(*args, **kkw),
+            lambda: kernels.block_sparse_flash_attention_torch(*args, **kkw),
+            flops=flops, nbytes=nbytes,
+            peak=PEAK_INT8_OPS if mode == "mxu8" else PEAK_BF16_FLOPS)
+    got = kernels.block_sparse_flash_attention(*args, **kkw)
+    diff = got.float() - ref.float()
+    kern[name].update({
+        "quantize_kv_ms": quantize_ms,
+        "vs_bf16_k1": {"max_abs_err": float(diff.abs().max()),
+                       "rel_max": float(diff.abs().max()
+                                        / ref.float().abs().max()),
+                       "rel_rms": float(diff.square().mean().sqrt()
+                                        / ref.float().std())}})
+    print(json.dumps({"kernel_at_site_vs_bf16": name, "regime": regime,
+                      **kern[name]["vs_bf16_k1"]}), flush=True)
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: output is not finite")
+
+
+def text_weighted_checks(kernels, ops, q, k, v, k1_lists, k2_lists,
+                         text_lists, tlen, gen, kw, chunk_blocks,
+                         heads: int = 2):
     """Each kernel at the operating point's shapes on inputs whose text
     keys carry most of the softmax weight, against its plain version.
 
@@ -497,7 +647,8 @@ def text_weighted_checks(kernels, q, k, v, k1_lists, k2_lists, text_lists,
     padding, so a kernel that gets the text window wrong, even by one
     token at either end, moves the output far past the limits; with iid
     inputs 100 text keys among 10^5 hardly move it.  The visual rows run
-    on ``heads`` heads to keep the plain version short."""
+    on ``heads`` heads to keep the plain version short; K1q (both modes)
+    takes the int8 payload of these K/V."""
     gap, tlen_w = 11.0, 7
     sv = kw["visual_len"]
     d = q.shape[-1]
@@ -519,7 +670,16 @@ def text_weighted_checks(kernels, q, k, v, k1_lists, k2_lists, text_lists,
     idx, cnt = (t[:, hs] for t in k1_lists)
     qv, kv, vv = qp[:, hs, :sv], kp[:, hs], v[:, hs]
     g2 = dict(group=2, **kw)
+    payload = ops.quantize_kv_blocks(kv, vv, 128)
+    qkw = {m: dict(chunk_blocks=chunk_blocks, kv_quant=payload, quant_mode=m,
+                   **kw) for m in ("int8", "mxu8")}
     cases = {
+        **{f"K1q_{m}_visual": (
+            lambda m=m: kernels.block_sparse_flash_attention(
+                qv, kv, vv, idx, cnt, tlen, **qkw[m]),
+            lambda m=m: kernels.block_sparse_flash_attention_torch(
+                qv, kv, vv, idx, cnt, tlen, **qkw[m]))
+           for m in ("int8", "mxu8")},
         "K1_text_rows": (
             lambda: kernels.block_sparse_flash_attention(
                 qp[:, :, sv:], kp, v, *text_lists, tlen, **kw),
@@ -629,11 +789,13 @@ def profile_step(pipe, text, mask, top: int = 12):
                      "calls": e.count} for e in rows]}
 
 
-def small_pipeline_check():
+def small_pipeline_check(quant_bits: int = 0, **pipe_kw):
     """A small pipeline (head_dim 128, one block of each kind) on the GPU
-    in bf16 against the same weights on the CPU in fp32."""
+    in bf16 against the same weights on the CPU in fp32; with
+    ``quant_bits`` both run the same quantized weights, and ``pipe_kw``
+    sets pipeline options (K1q, the TeaCache residual) on both."""
     from rectified_spaattn_tpu_torch.models import (
-        HunyuanVideoConfig, HunyuanVideoDiT, init_random_weights)
+        HunyuanVideoConfig, HunyuanVideoDiT, init_random_weights, quant)
     from rectified_spaattn_tpu_torch.pipelines import HunyuanVideoPipeline
 
     cfg = HunyuanVideoConfig(hidden_dim=256, heads=2, num_dual_blocks=1,
@@ -642,7 +804,11 @@ def small_pipeline_check():
     gen = torch.Generator()
     gen.manual_seed(3)
     ref = init_random_weights(HunyuanVideoDiT(cfg), gen)
+    if quant_bits:
+        # min_size 1: these widths are far below quantize_params' 1 << 20
+        quant.quantize_model(ref, bits=quant_bits, min_size=1)
     gpu = HunyuanVideoDiT(cfg)
+    quant.adopt_layout(gpu, ref.state_dict())
     gpu.load_state_dict(ref.state_dict())
     gpu = gpu.to(torch.bfloat16)
     text = torch.randn((1, 256, cfg.text_dim), generator=gen)
@@ -650,17 +816,151 @@ def small_pipeline_check():
     mask[:, :20] = True
     kw = dict(height=128, width=128, frames=8, num_steps=3, sa_drop_rate=0.5,
               p_remain_rates=0.5, group_rows=2)
+    kw.update(pipe_kw)
     p_cpu = HunyuanVideoPipeline(model=ref, device="cpu", **kw)
     init = torch.randn((1, cfg.in_channels, *p_cpu.grid), generator=gen)
     want = p_cpu(text, mask, init_latents=init)
-    got = HunyuanVideoPipeline(model=gpu, device=DEV, **kw)(
-        text, mask, init_latents=init).cpu()
+    p_gpu = HunyuanVideoPipeline(model=gpu, device=DEV, **kw)
+    got = p_gpu(text, mask, init_latents=init).cpu()
     err = max_err(got, want)
     scale = float(want.abs().max())
     if not err <= 0.05 * scale:
         raise AssertionError(f"small pipeline GPU vs CPU: {err} > 5% of "
                              f"{scale}")
-    return {"max_abs_err": err, "ref_max_abs": scale}
+    res = {"max_abs_err": err, "ref_max_abs": scale}
+    if quant_bits:
+        res["layouts"] = sorted({m.layout for m in gpu.modules()
+                                 if isinstance(m, quant.QLinear)})
+    if p_gpu.teacache.enabled:
+        res["teacache_decisions"] = p_gpu.teacache.decisions
+    return res
+
+
+# ------------------------------------------------------------ int8 phases ---
+
+def int8_probe_phase():
+    """S1: both types against the plain version (int8 bit for bit), then
+    the probe's timed path with the launch counter zeroed before and read
+    after."""
+    from rectified_spaattn_tpu_torch.kernels import int8_probe
+    res = {"check": int8_probe.check()}
+    int8_probe.loop_dots.launches = 0
+    res.update(int8_probe.measure())
+    res["launches"] = int8_probe.loop_dots.launches
+    if res["launches"] == 0:
+        raise AssertionError("S1 was never launched")
+    return res
+
+
+def quant_launches(kernels):
+    """{kernel: launches} for K1, K2, K3 and the two K1q modes."""
+    k1 = kernels.block_sparse_flash_attention
+    return {"K1": k1.launches, "K1q_int8": k1.quant_launches["int8"],
+            "K1q_mxu8": k1.quant_launches["mxu8"],
+            "K2": kernels.block_sparse_flash_attention_grouped.launches,
+            "K3": kernels.dense_flash_attention.launches}
+
+
+def zero_launches(kernels):
+    k1 = kernels.block_sparse_flash_attention
+    k1.launches = 0
+    k1.quant_launches.update(int8=0, mxu8=0)
+    kernels.block_sparse_flash_attention_grouped.launches = 0
+    kernels.dense_flash_attention.launches = 0
+
+
+def small_int4_check(kernels):
+    """The small GPU-vs-CPU pipeline with int4 weights, K1q "int8" and the
+    int8 TeaCache residual (a replayed schedule that skips step 2), the
+    launch counters zeroed before and read after."""
+    zero_launches(kernels)
+    res = small_pipeline_check(
+        quant_bits=4, group_rows=1, kv_quant="int8", enable_teacache=True,
+        teacache_residual="int8", teacache_schedule=[True, False, True])
+    res["launches"] = quant_launches(kernels)
+    if res["launches"]["K1q_int8"] == 0 or res["layouts"] != ["int4"]:
+        raise AssertionError(f"small int4 pipeline: {res}")
+    return res
+
+
+def pipeline_int8_phase(kernels, bf16_peak_gb: float):
+    """HunyuanVideoPipeline at full width, 2+2 blocks, 3 steps, with int8
+    weights (quantize_model in place), K1q "mxu8" for the visual rows and
+    the int8 TeaCache residual in pinned host memory; a replayed schedule
+    computes, skips and computes, so the skip applies the offloaded
+    residual.  Launch counters zeroed just before the run, read after."""
+    from rectified_spaattn_tpu_torch.cli.generate import _random_text
+    from rectified_spaattn_tpu_torch.models import (
+        HunyuanVideoConfig, HunyuanVideoDiT, init_random_weights, quant)
+    from rectified_spaattn_tpu_torch.pipelines import HunyuanVideoPipeline
+
+    dev = torch.device(DEV)
+    cfg = HunyuanVideoConfig(**PIPE["cfg"])
+    with torch.device(dev):
+        model = HunyuanVideoDiT(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = init_random_weights(model.to(torch.bfloat16), gen)
+    bf16_bytes = quant.quantized_nbytes(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quant.quantize_model(model, bits=8)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    int8_bytes = quant.quantized_nbytes(model)
+    layouts = {}
+    for m in model.modules():
+        if isinstance(m, quant.QLinear):
+            layouts[m.layout] = layouts.get(m.layout, 0) + 1
+    pipe = HunyuanVideoPipeline(
+        model=model, height=PIPE["height"], width=PIPE["width"],
+        frames=PIPE["frames"], num_steps=PIPE["steps"],
+        sa_drop_rate=0.8, p_remain_rates=0.3, mode="sparse",
+        enable_teacache=True, rel_l1_thresh=0.15, group_rows=1,
+        kv_quant="mxu8", teacache_residual="int8", teacache_offload=True,
+        teacache_schedule=[True, False, True], device=dev)
+    text, mask = _random_text("several hot air balloons flying over a city.",
+                              256, cfg.text_dim, device=dev)
+    noise = torch.Generator(device=dev)
+    noise.manual_seed(42)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    out = pipe(text, mask, generator=noise)
+    launches = quant_launches(kernels)
+    torch.cuda.synchronize()
+    held = pipe.teacache.states[0].previous_residual
+    if out.shape != (1, cfg.in_channels, *pipe.grid) \
+            or not torch.isfinite(out).all():
+        raise AssertionError("int8 pipeline output is not finite of its shape")
+    # K1q (mxu8) runs the visual rows, bf16 K1 the text rows; no K2 at
+    # group_rows 1, no K3 on this path
+    if min(launches["K1"], launches["K1q_mxu8"]) == 0 or launches["K2"] \
+            or launches["K3"] or launches["K1q_int8"]:
+        raise AssertionError(f"unexpected launches on the int8 path: "
+                             f"{launches}")
+    if not (isinstance(held, tuple) and held[0].dtype == torch.int8
+            and held[0].device.type == "cpu" and held[0].is_pinned()):
+        raise AssertionError("the TeaCache residual is not int8 in pinned "
+                             "host memory")
+    computed = pipe.teacache_stats["computed"]
+    res = {"launches": launches, "step_seconds": pipe.step_seconds,
+           "denoise_seconds": pipe.denoise_seconds,
+           "teacache": pipe.teacache_stats,
+           "teacache_decisions": pipe.teacache.decisions,
+           "launches_per_computed_step": {
+               n: c / computed for n, c in launches.items()},
+           "weights_gb": {"bf16": bf16_bytes / 2**30,
+                          "int8": int8_bytes / 2**30},
+           "qlinear_layouts": layouts, "quantize_seconds": quant_s,
+           "residual_host_mb": sum(t.numel() * t.element_size()
+                                   for t in held) / 2**20,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "bf16_pipeline_peak_mem_gb": bf16_peak_gb}
+    # one more computed step under the profiler (the schedule's first
+    # call computes)
+    res["profiled_step"] = profile_step(pipe, text, mask)
+    return res
 
 
 # ------------------------------------------------------------- Wan phases ---
@@ -913,6 +1213,7 @@ def small_wan_pipeline_check():
 # ------------------------------------------------------------------ main ---
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs one CUDA GPU", file=sys.stderr)
@@ -936,11 +1237,19 @@ def main() -> int:
     errs, cases = kernel_cases(kernels, ops)
     emit("kernels_vs_plain", t0, tolerance=TOL, max_abs_err=errs, cases=cases)
 
+    t0 = time.perf_counter()
+    qerrs, qcases = k1q_cases(kernels, ops)
+    emit("k1q_vs_plain", t0, tolerance=TOL, max_abs_err=qerrs, cases=qcases)
+
     sites = {}
     for regime in ("random", "smooth"):
         t0 = time.perf_counter()
         res, sites[regime] = site_phase(kernels, ops, regime)
         emit(f"site_{regime}", t0, **res)
+        emit(f"site_k1q_{regime}", t0, chunk_blocks=res["k1q_chunk_blocks"],
+             bf16_k1_ms=sites[regime]["K1_visual_g1"]["ms"],
+             **{n: r for n, r in sites[regime].items()
+                if n.startswith("K1q")})
     site, smooth = sites["random"], sites["smooth"]
 
     t0 = time.perf_counter()
@@ -950,6 +1259,18 @@ def main() -> int:
     t0 = time.perf_counter()
     pipe = pipeline_phase(kernels)
     emit("pipeline", t0, **pipe)
+
+    t0 = time.perf_counter()
+    probe = int8_probe_phase()
+    emit("int8_probe", t0, **probe)
+
+    t0 = time.perf_counter()
+    small4 = small_int4_check(kernels)
+    emit("small_pipeline_int4_gpu_vs_cpu", t0, **small4)
+
+    t0 = time.perf_counter()
+    pipe8 = pipeline_int8_phase(kernels, pipe["peak_mem_gb"])
+    emit("pipeline_int8", t0, **pipe8)
 
     wsites = {}
     for regime in ("random", "smooth"):
@@ -1011,7 +1332,42 @@ def main() -> int:
          "library_ms": k3["library_ms"],
          "shape": "Wan T2V text cross: q [1,40,75648,128] x 512 keys",
          "other_jobs": {"i2v_image_cross_257": k3i}},
+        {"name": "K1q", "route": "cuda", "source": src,
+         "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:176",
+         "launches": (pipe8["launches"]["K1q_mxu8"]
+                      + small4["launches"]["K1q_int8"]),
+         "launches_by_path": {
+             "hunyuan_int8_pipeline_mxu8": pipe8["launches"]["K1q_mxu8"],
+             "small_int4_pipeline_int8": small4["launches"]["K1q_int8"]},
+         "max_abs_err": max(*qerrs.values(),
+                            site["K1q_mxu8_visual"]["max_abs_err"],
+                            site["K1q_int8_visual"]["max_abs_err"]),
+         "ms": site["K1q_mxu8_visual"]["ms"],
+         "plain_ms": site["K1q_mxu8_visual"]["plain_ms"],
+         "bound_ms": site["K1q_mxu8_visual"]["bound_ms"],
+         "bound_by": site["K1q_mxu8_visual"]["bound_by"],
+         "library_ms": None,
+         "shape": "mxu8, visual rows: q [1,24,115200,128], int8 K|V "
+                  "[24,115456,256], chunk_blocks 24",
+         "other_jobs": {"int8_visual": site["K1q_int8_visual"],
+                        "mxu8_visual_smooth": smooth["K1q_mxu8_visual"],
+                        "int8_visual_smooth": smooth["K1q_int8_visual"]}},
+        {"name": "S1", "route": "cuda",
+         "source": "rectified_spaattn_tpu_torch/csrc/int8_probe.cu",
+         "replaces": "scripts/bench_int8mxu.py:30",
+         "launches": probe["launches"],
+         "launches_by_path": {"int8_probe": probe["launches"]},
+         "max_abs_err": probe["check"]["int8"]["max_abs_err"],
+         "ms": probe["int8"]["ms"],
+         "plain_ms": probe["check"]["int8"]["plain_ms"],
+         "bound_ms": probe["int8"]["bound_ms"], "bound_by": "operations",
+         "library_ms": probe["int8"]["library_ms"],
+         "shape": f"int8, {probe['pairs']} pairs of {probe['shape']}",
+         "other_jobs": {"bf16": {**probe["bf16"],
+                                 **probe["check"]["bf16"]}}},
     ]}
+    t0 = time.perf_counter()
+    emit("total", t0, total_seconds=time.perf_counter() - t_start)
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

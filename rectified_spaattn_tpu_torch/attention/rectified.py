@@ -3,8 +3,9 @@
 rectified_hunyuan_attn.py:283-417 for the joint flavour,
 rectified_wan21_attn.py:276-386 for the visual-only one):
 
-  1. visual-query rows run the block-sparse kernel (K1, or K2 with
-     ``group_rows`` > 1) and are rectified:  out = sparse_out * R + comp
+  1. visual-query rows run the block-sparse kernel (K1, K2 with
+     ``group_rows`` > 1, or K1q on an int8 K|V payload with ``kv_quant``)
+     and are rectified:  out = sparse_out * R + comp
   2. text-query rows (joint layout) get exact attention over all keys
      through K1 with full index lists
   3. key/value positions outside the valid windows are zeroed before any
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..sparse import SparseConfig, build_sparse_plan
-from ..sparse.ops import group_rows
+from ..sparse.ops import group_rows, quantize_kv_blocks
 from ..kernels import (block_sparse_flash_attention,
                        block_sparse_flash_attention_grouped)
 
@@ -99,9 +100,6 @@ def rectified_sparse_attention(
                              visual_len=visual_len, text_len_rt=text_len_rt,
                              kv_packed=kv_packed, q_text=q_text,
                              density_only=density_only)
-    if cfg.kv_quant != "none":
-        raise NotImplementedError(
-            "kv_quant needs the int8 kernel K1q, which is not ported yet")
     bm = cfg.block_m
     dev = q.device
     if q_text is not None:
@@ -165,6 +163,10 @@ def rectified_sparse_attention(
     if density_only:
         return (plan.counts.float().mean() / plan.block_mask.shape[-1])
 
+    if kv_packed is not None and cfg.kv_quant != "none":
+        # validity zeroing of k/v is skipped under kv_packed, and the
+        # quantized payload is built from the zeroed k/v
+        raise ValueError("kv_packed does not compose with kv_quant")
     if cfg.group_rows > 1:
         # G query blocks per union list; a non-multiple NQ pads empty rows
         # whose outputs are dropped
@@ -179,14 +181,22 @@ def rectified_sparse_attention(
         sparse_out = block_sparse_flash_attention_grouped(
             q_kern, k, v, u_idx, u_counts, rowbits, u_clean, tlen, group=gr,
             visual_len=visual_len, text_start=text_start, block_m=bm,
-            block_n=cfg.block_n, packed_kv=kv_packed)
+            block_n=cfg.block_n, chunk_blocks=cfg.kernel_chunk_blocks,
+            packed_kv=kv_packed)
         if row_pad:
             sparse_out = sparse_out[:, :, :sv_pad]
     else:
+        kv_quant = None
+        if cfg.kv_quant != "none":
+            kv_quant = quantize_kv_blocks(k, v, cfg.block_n)
         sparse_out = block_sparse_flash_attention(
             q_vis, k, v, plan.indices, plan.counts, tlen,
             visual_len=visual_len, text_start=text_start, block_m=bm,
-            block_n=cfg.block_n, packed_kv=kv_packed)
+            block_n=cfg.block_n, chunk_blocks=cfg.kernel_chunk_blocks,
+            kv_quant=kv_quant,
+            quant_mode=None if kv_quant is None else cfg.kv_quant,
+            packed_kv=kv_packed)
+        del kv_quant      # the payload is not held through rectification
 
     # R/comp broadcast at block granularity (the reference
     # repeat_interleaves to tokens, rectified_hunyuan_attn.py:352,357),
@@ -202,8 +212,9 @@ def rectified_sparse_attention(
     out_vis = so_blocks.reshape(b, h, sv_pad, d)
 
     if cfg.layout == "joint":
-        # text-query rows: exact attention over ALL keys through K1 with
-        # full index lists (reference: rectified_hunyuan_attn.py:369-383)
+        # text-query rows: exact attention over ALL keys through bf16 K1
+        # with full index lists, also under kv_quant (reference:
+        # rectified_hunyuan_attn.py:369-383)
         nb_total = s // cfg.block_n
         nq_text = cfg.text_blocks
         full_idx = torch.arange(nb_total, dtype=torch.int32, device=dev

@@ -9,8 +9,12 @@ scripts/main_hunyuan.py:110-157; the CFG even/odd dual-stream variant,
 scripts/main_wan21t2v.py:105-133).  The signal is computed on the device;
 ONE scalar per step crosses to the host, where the sampler loop branches.
 
-Not ported yet: the int8 residual encode, host offload of the residual and
-schedule tracing (later slices).
+The residual is stored as bf16 (the reference's format) or, with
+``residual_value(..., "int8")``, as per-token-row absmax int8 plus fp32
+row scales (half the bytes); ``offload_residual`` keeps it in pinned host
+memory between calls.
+
+Not ported yet: schedule tracing (``TRACE``, ``trace_to``).
 """
 
 from __future__ import annotations
@@ -52,15 +56,45 @@ COEFFICIENTS: dict[str, list[float]] = {
 
 
 def residual_value(x_out: torch.Tensor, x_in: torch.Tensor,
-                   store: str = "bf16") -> torch.Tensor:
-    """Encode the stack residual for record_residual_value: bf16, the
-    reference's format (main_hunyuan.py:152)."""
+                   store: str = "bf16"):
+    """Encode the stack residual for record_residual_value.
+
+    ``store`` "bf16": the reference's format (main_hunyuan.py:152).
+    "int8": (q int8, scale fp32 [..., 1]) with scale = max|r| over the
+    last dim / 127 and q = round(r / max(scale, 1e-30)), the JAX package's
+    encode (bit for bit on the same r)."""
+    r = x_out - x_in
     if store == "int8":
-        raise NotImplementedError("the int8 TeaCache residual is not "
-                                  "ported yet")
+        scale = r.abs().float().amax(dim=-1, keepdim=True) / 127.0
+        q = torch.round(r.float() / torch.clamp(scale, min=1e-30))
+        return q.to(torch.int8), scale
     if store != "bf16":
         raise ValueError(f"residual store must be bf16|int8, got {store!r}")
-    return (x_out - x_in).to(torch.bfloat16)
+    return r.to(torch.bfloat16)
+
+
+def _dequant_add(hidden: torch.Tensor, q: torch.Tensor,
+                 scale: torch.Tensor) -> torch.Tensor:
+    """hidden + q * scale in fp32, returned in hidden's dtype."""
+    return (hidden.float() + q.float() * scale).to(hidden.dtype)
+
+
+def _to_host(res):
+    """A residual (a tensor or the int8 (q, scale) pair) in pinned host
+    memory where there is a GPU (one device-to-host copy each)."""
+    if isinstance(res, tuple):
+        return tuple(_to_host(t) for t in res)
+    if res.device.type == "cpu":
+        return res.clone()
+    host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
+    host.copy_(res)
+    return host
+
+
+def _to_device(res, device):
+    if isinstance(res, tuple):
+        return tuple(_to_device(t, device) for t in res)
+    return res.to(device, non_blocking=True)
 
 
 def rel_l1_signal(modulated: torch.Tensor,
@@ -98,6 +132,9 @@ class TeaCache:
       signal_scale: multiplier on the raw signal before the polynomial.
       forced_schedule: per-call compute/skip list to replay instead of
         deciding from the signal; calls past its end compute.
+      offload_residual: keep previous_residual in (pinned) host memory
+        between calls: one device-to-host copy per computed call, one
+        host-to-device copy per skipped call, and no device memory held.
     """
     thresh: float
     num_steps: int
@@ -107,6 +144,7 @@ class TeaCache:
     cfg_streams: int = 1
     signal_scale: float = 1.0
     forced_schedule: Optional[Sequence[bool]] = None
+    offload_residual: bool = False
 
     def __post_init__(self):
         coeffs = (COEFFICIENTS[self.coefficients]
@@ -160,7 +198,13 @@ class TeaCache:
 
     def apply_residual(self, hidden, ctx=None):
         st = self.states[(self._call_count - 1) % self.cfg_streams]
-        hidden = hidden + st.previous_residual
+        res = st.previous_residual
+        if self.offload_residual:
+            res = _to_device(res, hidden.device)
+        if isinstance(res, tuple):          # int8 encode (residual_value)
+            hidden = _dequant_add(hidden, *res)
+        else:
+            hidden = hidden + res
         if ctx is not None:
             if st.previous_residual_ctx is not None:
                 ctx = ctx + st.previous_residual_ctx
@@ -168,8 +212,11 @@ class TeaCache:
         return hidden
 
     def record_residual_value(self, residual, residual_ctx=None):
-        """Store an already-computed stack residual (residual_value)."""
+        """Store an already-computed stack residual: the bf16 tensor or the
+        int8 (q, scale) encode of residual_value."""
         st = self.states[(self._call_count - 1) % self.cfg_streams]
+        if self.offload_residual:
+            residual = _to_host(residual)
         st.previous_residual = residual
         if residual_ctx is not None:
             st.previous_residual_ctx = residual_ctx

@@ -12,12 +12,14 @@ The flags are the JAX CLI's, plus ``--device`` (default cuda; the run
 raises without a GPU unless ``--device cpu``).  Without ``--ckpt_dir`` the
 run uses seeded random weights at a ``--scale``d config, built as the JAX
 CLI builds them; weights and activations are bf16 on the GPU (the CUDA
-kernels take bf16) and fp32 on the CPU.  Flags of parts not ported yet
-(checkpoints, other model families, multi-GPU, quantization, scan
-execution, I2V images, int8/offloaded TeaCache residuals, schedule traces)
-raise NotImplementedError.  ``wan21-i2v`` without ``--image`` runs the
-JAX CLI's neutral conditioning: zero condition channels and a zero
-[1, 257, image_dim] CLIP context.
+kernels take bf16) and fp32 on the CPU.  ``--quant 8|4`` quantizes the
+weights in place, layer by layer (models/quant.py::quantize_model, the JAX
+CLI's ``quantize_params`` rules), so the device never holds a second full
+copy.  Flags of parts not ported yet (checkpoints, other model families,
+multi-GPU, scan execution, I2V images, schedule traces) raise
+NotImplementedError.  ``wan21-i2v`` without ``--image`` runs the JAX CLI's
+neutral conditioning: zero condition channels and a zero [1, 257,
+image_dim] CLIP context.
 """
 
 from __future__ import annotations
@@ -109,10 +111,7 @@ def _check_ported(args):
         "--ckpt_dir (checkpoint loading)": args.ckpt_dir,
         "--tp": args.tp > 1, "--scan_blocks": args.scan_blocks,
         "--dispatch_segments": args.dispatch_segments > 1,
-        "--quant": args.quant, "--image": args.image,
-        "--teacache_residual int8": args.teacache_residual == "int8",
-        "--teacache_offload": args.teacache_offload,
-        "--trace_out": args.trace_out,
+        "--image": args.image, "--trace_out": args.trace_out,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -130,6 +129,28 @@ def _random_text(prompt: str, length: int, dim: int, batch: int = 1,
     mask = torch.zeros((batch, length), dtype=torch.bool, device=device)
     mask[:, :n] = True
     return emb * mask[..., None], mask
+
+
+def _quantized(model, args):
+    """--quant: int8 / int4 weights, converted in place one layer at a
+    time (the JAX CLI quantizes its host tree for the same reason: no
+    second full device copy)."""
+    if args.quant:
+        from ..models import quant
+        quant.quantize_model(model, bits=args.quant)
+    return model
+
+
+def _serving(args) -> dict:
+    """Pipeline keywords of the serving levers shared by the families."""
+    return dict(group_rows=args.group_rows,
+                plan_row_chunk=args.plan_row_chunk,
+                plan_kv_tile=args.plan_kv_tile, kv_pack=args.kv_pack,
+                head_chunk=args.head_chunk,
+                teacache_residual=args.teacache_residual,
+                teacache_offload=args.teacache_offload,
+                teacache_schedule=_replay_schedule(args),
+                density_probe=args.density)
 
 
 def build_hunyuan(args):
@@ -151,7 +172,7 @@ def build_hunyuan(args):
         model = HunyuanVideoDiT(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    model = init_random_weights(model.to(dtype), gen)
+    model = _quantized(init_random_weights(model.to(dtype), gen), args)
     text, mask = _random_text(args.prompt, 256, cfg.text_dim, device=device)
     pipe = HunyuanVideoPipeline(
         model=model, height=args.height, width=args.width,
@@ -159,11 +180,7 @@ def build_hunyuan(args):
         sa_drop_rate=args.sa_drop_rate, p_remain_rates=args.p_remain_rates,
         mode="flash" if args.mode == "torch" else args.mode,
         enable_teacache=args.enable_teacache,
-        rel_l1_thresh=args.teacache_thresh, group_rows=args.group_rows,
-        plan_row_chunk=args.plan_row_chunk, plan_kv_tile=args.plan_kv_tile,
-        kv_pack=args.kv_pack, head_chunk=args.head_chunk,
-        teacache_schedule=_replay_schedule(args), density_probe=args.density,
-        device=device)
+        rel_l1_thresh=args.teacache_thresh, device=device, **_serving(args))
     return pipe, (text, mask)
 
 
@@ -198,7 +215,7 @@ def build_wan(args):
         model = WanDiT(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    model = init_random_weights(model.to(dtype), gen)
+    model = _quantized(init_random_weights(model.to(dtype), gen), args)
     text, _ = _random_text(args.prompt, 512, cfg.text_dim, device=device)
     neg, _ = _random_text("", 512, cfg.text_dim, device=device)
     pipe = WanPipeline(
@@ -210,10 +227,7 @@ def build_wan(args):
         teacache_thresh=args.teacache_thresh,
         use_ret_steps=args.use_ret_steps,
         teacache_signal_scale=args.teacache_signal_scale, is_i2v=is_i2v,
-        group_rows=args.group_rows, plan_row_chunk=args.plan_row_chunk,
-        plan_kv_tile=args.plan_kv_tile, kv_pack=args.kv_pack,
-        head_chunk=args.head_chunk, teacache_schedule=_replay_schedule(args),
-        density_probe=args.density, device=device)
+        device=device, **_serving(args))
     extra = {}
     if is_i2v:
         # no --image: neutral zero conditioning (a black first frame) and

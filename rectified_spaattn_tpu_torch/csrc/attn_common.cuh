@@ -1,6 +1,7 @@
-// Device helpers shared by the port's attention kernels (block_sparse.cu: K1
-// and K2; dense_flash.cu: K3): the masked-score constant, mma.sync m16n8k16
-// for bf16 and fp16 with fp32 accumulation, ldmatrix and cp.async.
+// Device helpers shared by the port's kernels (block_sparse.cu: K1, K2 and
+// K1q; dense_flash.cu: K3; int8_probe.cu: S1): the masked-score constant,
+// mma.sync m16n8k16 for bf16 and fp16 with fp32 accumulation, mma.sync
+// m16n8k32 for int8 with int32 accumulation, ldmatrix and cp.async.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,6 +51,19 @@ template <> struct Type<__half> {
     return __half22float2(*reinterpret_cast<__half2*>(&x));
   }
 };
+
+// D += A * B for int8: A 16x32 row-major (4 registers of 4 bytes: rows g /
+// g+8, k 4*t..4*t+3 and 16+4*t..), B 32x8 "col" (2 registers: k 4*t.. and
+// 16+4*t.., column g), D 16x8 int32 (rows g / g+8, columns 2t, 2t+1) with
+// g = lane / 4, t = lane % 4; the lowest k sits in a register's low byte
+__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

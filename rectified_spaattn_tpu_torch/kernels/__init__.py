@@ -7,6 +7,7 @@ from .block_sparse import (
 )
 from .cuda_build import build_kernels
 from .flash import dense_attention, dense_flash_attention
+from . import int8_probe
 
 __all__ = [
     "block_sparse_flash_attention",
@@ -17,4 +18,5 @@ __all__ = [
     "build_kernels",
     "dense_attention",
     "dense_flash_attention",
+    "int8_probe",
 ]

@@ -1,38 +1,46 @@
-"""Block-sparse gather attention: the CUDA kernels K1/K2 and their plain
+"""Block-sparse gather attention: the CUDA kernels K1/K2/K1q and their plain
 PyTorch versions (port of rectified_spaattn_tpu/kernels/block_sparse.py).
 
-  K1  ``block_sparse_flash_attention``          replaces the Pallas kernel
-      ``_sparse_attn_kernel`` (JAX kernels/block_sparse.py:89, launched at
-      :746): one index list per ``block_m`` query rows.
-  K2  ``block_sparse_flash_attention_grouped``  replaces
-      ``_sparse_attn_kernel_grouped`` (:317, launched at :560): one UNION
-      index list per ``group * block_m`` rows, membership in ``rowbits``.
-      The JAX kernel adds MASK_VALUE to a non-member tile's scores; the
-      port skips the tile, which gives the same output whenever a row has
-      one unmasked key and makes K2 equal K1 row by row in every case.
+  K1   ``block_sparse_flash_attention``          replaces the Pallas kernel
+       ``_sparse_attn_kernel`` (JAX kernels/block_sparse.py:89, launched at
+       :746): one index list per ``block_m`` query rows.
+  K1q  the same entry point with ``kv_quant`` (the same Pallas kernel with
+       ``quant="int8"`` / ``"mxu8"``, :176-253): an int8 K|V payload with
+       per-(head, key block) scales (sparse/ops.py::quantize_kv_blocks).
+       "int8" dequantizes K and V to bf16 before bf16 dots; "mxu8"
+       quantizes q per row and p per row and chunk, and runs both dots as
+       int8 x int8 -> int32.
+  K2   ``block_sparse_flash_attention_grouped``  replaces
+       ``_sparse_attn_kernel_grouped`` (:317, launched at :560): one UNION
+       index list per ``group * block_m`` rows, membership in ``rowbits``.
 
-Both kernels are hand-written CUDA C++ for sm_90a in ``csrc/block_sparse.cu``
-(mma.sync bf16/fp16 with fp32 accumulation; its header gives the design
-and what bounds it on the H100).  The library is built with nvcc at first
-use into the package's ``build/`` directory and loaded with ctypes
+The kernels are hand-written CUDA C++ for sm_90a in ``csrc/block_sparse.cu``
+(mma.sync with fp32 or int32 accumulation; its header gives the designs and
+what bounds them on the H100).  The library is built with nvcc at first use
+into the package's ``build/`` directory and loaded with ctypes
 (kernels/cuda_build.py).
 
 Each wrapper keeps the JAX signature (minus ``interpret``).  A CPU tensor
 runs the plain PyTorch version in this module — the tests' path; a CUDA
 tensor launches the kernel or raises; nothing falls back.  Each wrapper
-counts its kernel launches in a plain integer attribute ``launches``.
+counts its kernel launches in a plain attribute ``launches`` (K1q: a dict
+per mode, ``block_sparse_flash_attention.quant_launches``).
 
-Semantics shared by kernel and plain version (the JAX kernel's contract):
-masked scores are MASK_VALUE (finite), the running max starts at -inf, so a
-row whose gathered keys are all masked averages its gathered values
-uniformly and a row with count 0 is exactly 0.  The JAX kernel also
-averages over its chunk-padding slots in that degenerate case; the port
-averages over the ``count`` listed slots only (index lists from
-mask_to_indices / group_rows hold distinct blocks).
+The plain version replays the JAX kernel's arithmetic chunk by chunk: the
+index list is padded to a multiple of ``chunk_blocks`` slots (pad slots
+gather block 0, with K1q scale 0), each chunk of ``chunk_blocks`` slots is
+one online-softmax update, masked scores are MASK_VALUE (finite) and the
+running max starts at -inf.  So a row whose every gathered key is masked
+while its count is above 0 averages V uniformly over every lane of its
+``ceil(count / chunk_blocks)`` chunks (the slots past ``count`` included);
+a K2 non-member tile scores MASK_VALUE (the JAX kernel adds MASK_VALUE,
+which absorbs any real score in fp32), so a row block with no unmasked own
+key gets the same average over its union's lanes, and a count of 0 gives
+exact zeros.  The CUDA kernels walk 64-key units instead and add the
+chunk-padding lanes in a second pass only for such degenerate rows.
 
-Not ported yet (raise NotImplementedError): ``return_stats`` (K1s, ring
-attention), ``kv_quant``/``quant_mode`` (K1q).  ``prefetch_next`` and
-``chunk_blocks`` are TPU DMA/VMEM knobs: accepted and ignored.
+Not ported yet (raises NotImplementedError): ``return_stats`` (K1s, ring
+attention).  ``prefetch_next`` is a TPU DMA knob: accepted and ignored.
 """
 
 from __future__ import annotations
@@ -47,17 +55,21 @@ from . import cuda_build
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
+_QUANT_CODE = {"int8": 0, "mxu8": 1}
 _TILE_M = 64          # query rows per CUDA thread block (csrc TILE_M)
 
 
 def _declare(lib):
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.rsa_k1_launch.argtypes = [p, p, p, p, p, p, p, p, ll, ll, i, i, i, i,
-                                  i, i, i, i, i, i, f, i, i, p]
+                                  i, i, i, i, i, i, i, f, i, i, p]
     lib.rsa_k1_launch.restype = i
     lib.rsa_k2_launch.argtypes = [p, p, p, p, p, p, p, p, p, ll, ll, i, i, i,
-                                  i, i, i, i, i, i, i, i, f, i, i, p]
+                                  i, i, i, i, i, i, i, i, i, f, i, i, p]
     lib.rsa_k2_launch.restype = i
+    lib.rsa_k1q_launch.argtypes = [p, p, p, p, p, p, p, p, p, ll, i, i, i,
+                                   i, i, i, i, i, i, i, i, f, f, i, i, p]
+    lib.rsa_k1q_launch.restype = i
 
 
 def _load():
@@ -66,136 +78,186 @@ def _load():
 
 # ----------------------------------------------------------- plain version ---
 
-def _window(s: int, visual_len: int, text_start, text_len, device):
-    """[B, S] bool key validity: col < visual_len, or inside the runtime
-    text window [text_start, text_start + text_len[b])."""
-    col = torch.arange(s, device=device)[None, :]
-    valid = col < visual_len
-    if text_start is not None:
-        valid = valid | ((col >= text_start)
-                         & (col < text_start + text_len.to(device)[:, None]))
-    return valid
-
-
-def _scatter_blocks(indices, flags, nbt):
-    """Per (row list, key block): does any slot with ``flags`` list it."""
-    acc = torch.zeros((*indices.shape[:-1], nbt), dtype=torch.int32,
-                      device=indices.device)
-    acc.scatter_add_(-1, indices.long().clamp(0, nbt - 1), flags.to(torch.int32))
-    return acc > 0
-
-
-def _masked_softmax_av(q, k, v, gathered, dirty, valid, sm_scale):
-    """The kernels' arithmetic on dense scores: q*scale rounded to the K/V
-    type, masked scores MASK_VALUE, keys that are not gathered -inf, P
-    rounded to the K/V type before PV, 0 where l == 0.  ``gathered`` and
-    ``dirty`` (gathered past the clean prefix) are [B,H,Sq,S] bool."""
-    qs = (q.float() * sm_scale).to(k.dtype).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", qs, k.float())
-    mask = torch.tensor(MASK_VALUE, dtype=torch.float32, device=q.device)
-    s = torch.where(dirty & ~valid[:, None, None, :], mask, s)
-    s = torch.where(gathered, s, torch.tensor(-math.inf, device=q.device))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
-    return (o * torch.where(l == 0, torch.ones_like(l), 1.0 / l)).to(q.dtype)
-
-
-def _expand(blk, rows_per_list: int, block_n: int):
-    """[B,H,NL,NBt] block flags -> [B,H,NL*rows,NBt*block_n] token flags."""
-    return blk.repeat_interleave(rows_per_list, dim=2).repeat_interleave(
-        block_n, dim=3)
-
-
-def _plain_lists(q, k, v, indices, counts, clean, rowbits, text_len, *,
-                 group, visual_len, text_start, block_m, block_n, sm_scale):
-    """The plain version on one chunk of index lists: dense scores under
-    the token masks the lists imply.  With ``rowbits`` (K2) a row block
-    gathers the union slots it is a member of (the clean prefix is
-    all-member)."""
-    b, h = q.shape[:2]
-    nbt = k.shape[2] // block_n
-    slot = torch.arange(indices.shape[-1], device=q.device)
-    listed = slot < counts[..., None]
-    past_clean = slot >= clean[..., None]
-    if rowbits is None:
-        members = [listed]
-    else:
-        members = [listed & (~past_clean | ((rowbits >> r) & 1 == 1))
-                   for r in range(group)]
-
-    def tokens(flags):
-        # [B,H,NL,NB] slot flags -> [B,H,NL*G*block_m,S] token flags
-        blk = torch.stack([_scatter_blocks(indices, f, nbt) for f in flags],
-                          dim=3).reshape(b, h, -1, nbt)
-        return _expand(blk, block_m, block_n)
-
-    valid = _window(k.shape[2], visual_len, text_start, text_len, q.device)
-    return _masked_softmax_av(q, k, v, tokens(members),
-                              tokens([f & past_clean for f in members]),
-                              valid, sm_scale)
-
-
-# dense score elements per chunk of the plain version (2 GiB of fp32):
-# bounds its memory so it runs at the main path's full shapes on the card
+# elements of the gathered K/V tiles and scores per step of the plain
+# version (2 GiB of fp32): bounds its memory so it runs at the main path's
+# full shapes on the card
 _PLAIN_CHUNK_ELEMS = 1 << 29
 
 
-def _plain(q, k, v, indices, counts, clean, rowbits, text_len, *, group,
-           visual_len, text_start, block_m, block_n, sm_scale, packed_kv):
-    """Run ``_plain_lists`` over chunks of heads and index lists."""
+def _pad_slots(arrs, chunk_blocks: int):
+    """Pad the slot axis of (indices, ...) with zeros to a multiple of
+    ``chunk_blocks`` (JAX ``_pad_slots``: pad slots gather block 0)."""
+    pad = (-arrs[0].shape[-1]) % chunk_blocks
+    if not pad:
+        return arrs
+    return tuple(torch.nn.functional.pad(a, (0, pad)) for a in arrs)
+
+
+def _quantize_q_rows(q, sm_scale):
+    """mxu8: q per row -> (int8 values as float64, row scale fp32
+    qmax * sm_scale / 127), as the JAX kernel quantizes it."""
+    qf = q.float()
+    qmax = qf.abs().amax(dim=-1, keepdim=True)
+    q8 = torch.round(qf * (127.0 / torch.clamp(qmax, min=1e-30)))
+    return q8.double(), qmax * (sm_scale / 127.0)
+
+
+def _simulate(q, k, v, bh, idx, counts, rowbits, tlen, ksc, vsc, *, group,
+              visual_len, text_start, block_m, block_n, chunk_blocks,
+              sm_scale, quant):
+    """The JAX kernel's chunk loop on a set of index lists.
+
+    q [L, rows, D] (rows = group * block_m); k, v [BH, S, D]; bh [L] each
+    list's (batch*head); idx [L, NBp] (NBp a multiple of chunk_blocks),
+    counts [L], rowbits [L, NBp] (K2) or None, tlen [L] (the list's batch
+    text length), ksc / vsc [L, NBp] (K1q) or None.  Returns [L, rows, D]
+    fp32."""
+    n, rows, d = q.shape
+    g, bn = chunk_blocks, block_n
+    dev = q.device
+    if quant == "mxu8":
+        qs, row_scale = _quantize_q_rows(q, sm_scale)
+    else:
+        qs = (q.float() * sm_scale).to(
+            torch.bfloat16 if quant else k.dtype).float()
+    m = torch.full((n, rows), -math.inf, device=dev)
+    l = torch.zeros((n, rows), device=dev)
+    acc = torch.zeros((n, rows, d), device=dev)
+    nchunks = (counts.long() + g - 1) // g
+    lane = torch.arange(g * bn, device=dev)
+    mask_t = torch.tensor(MASK_VALUE, device=dev)
+    for c in range(int(nchunks.max()) if n else 0):
+        active = c < nchunks                                       # [L]
+        blocks = idx[:, c * g:(c + 1) * g].long()                  # [L, g]
+        cols = (blocks[:, :, None] * bn + torch.arange(bn, device=dev)
+                ).reshape(n, g * bn)
+        kc, vc = k[bh[:, None], cols], v[bh[:, None], cols]        # [L,gbn,D]
+        slot = c * g + lane // bn
+        valid = (slot[None, :] < counts[:, None]) & (cols < visual_len)
+        if text_start is not None:
+            valid = valid | ((slot[None, :] < counts[:, None])
+                             & (cols >= text_start)
+                             & (cols < text_start + tlen[:, None]))
+        valid = valid[:, None, :].expand(n, rows, g * bn)
+        if rowbits is not None:
+            bits = rowbits[:, c * g:(c + 1) * g].repeat_interleave(bn, dim=1)
+            member = torch.stack([(bits >> r) & 1 == 1 for r in range(group)],
+                                 dim=1)                            # [L,G,gbn]
+            valid = valid & member.repeat_interleave(block_m, dim=1)
+        if quant == "mxu8":
+            s = torch.einsum("lrd,lkd->lrk", qs, kc.double()).float()
+        else:
+            s = torch.einsum("lrd,lkd->lrk", qs, kc.float())
+        if quant:
+            ks = ksc[:, c * g:(c + 1) * g].repeat_interleave(bn, dim=1)
+            if quant == "mxu8":
+                s = s * row_scale
+            s = s * ks[:, None, :]
+        s = torch.where(valid, s, mask_t)
+        m_next = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_next)
+        p = torch.exp(s - m_next[..., None])
+        l_next = alpha * l + p.sum(dim=-1)
+        if quant:
+            vs = vsc[:, c * g:(c + 1) * g].repeat_interleave(bn, dim=1)
+            pq = p * vs[:, None, :]
+        if quant == "mxu8":
+            pm = pq.amax(dim=-1, keepdim=True)
+            p8 = torch.round(pq * (127.0 / torch.clamp(pm, min=1e-30)))
+            pv = torch.einsum("lrk,lkd->lrd", p8.double(), vc.double())
+            acc_next = acc * alpha[..., None] + pv.float() * (pm / 127.0)
+        else:
+            pv = (pq.to(torch.bfloat16) if quant else p.to(v.dtype)).float()
+            acc_next = acc * alpha[..., None] + torch.einsum(
+                "lrk,lkd->lrd", pv, vc.float())
+        m = torch.where(active[:, None], m_next, m)
+        l = torch.where(active[:, None], l_next, l)
+        acc = torch.where(active[:, None, None], acc_next, acc)
+    return acc * torch.where(l == 0, torch.ones_like(l), 1.0 / l)[..., None]
+
+
+def _plain(q, k, v, indices, counts, rowbits, text_len, *, group, visual_len,
+           text_start, block_m, block_n, chunk_blocks, sm_scale, packed_kv,
+           quant=None, ksc=None, vsc=None):
+    """Run ``_simulate`` over steps of index lists whose gathered tiles and
+    scores stay within _PLAIN_CHUNK_ELEMS."""
     b, h, sq, d = q.shape
     if packed_kv is not None:
         k, v = packed_kv[..., :d], packed_kv[..., d:]
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(d)
+    s = k.shape[2]
     rows = group * block_m
-    nl = indices.shape[2]
-    per_list_head = b * rows * k.shape[2]
-    hc = max(1, min(h, _PLAIN_CHUNK_ELEMS // per_list_head))
-    lc = max(1, min(nl, _PLAIN_CHUNK_ELEMS // (per_list_head * hc)))
-    kw = dict(group=group, visual_len=visual_len, text_start=text_start,
-              block_m=block_m, block_n=block_n, sm_scale=sm_scale)
-    if hc == h and lc == nl:
-        return _plain_lists(q, k, v, indices, counts, clean, rowbits,
-                            text_len, **kw)
-    out = torch.empty_like(q)
-    for h0 in range(0, h, hc):
-        hs = slice(h0, h0 + hc)
-        for l0 in range(0, nl, lc):
-            ls, qs = slice(l0, l0 + lc), slice(l0 * rows, (l0 + lc) * rows)
-            out[:, hs, qs] = _plain_lists(
-                q[:, hs, qs], k[:, hs], v[:, hs], indices[:, hs, ls],
-                counts[:, hs, ls], clean[:, hs, ls],
-                None if rowbits is None else rowbits[:, hs, ls], text_len,
-                **kw)
-    return out
+    n = b * h * indices.shape[2]
+    # per-list slot arrays, padded to whole chunks: [n, NBp] (or None)
+    slots = [None if a is None else a.reshape(n, -1)
+             for a in (indices, rowbits, ksc, vsc)]
+    slots = [None if a is None else _pad_slots((a,), chunk_blocks)[0]
+             for a in slots]
+    kf, vf = k.reshape(b * h, s, d), v.reshape(b * h, s, d)
+    qf = q.reshape(n, rows, d)
+    cnt = counts.reshape(-1).to(torch.int32)
+    bh_of = torch.arange(n, device=q.device) // indices.shape[2]
+    tl = text_len.to(q.device).to(torch.int32)[bh_of // h]
+    step = max(1, _PLAIN_CHUNK_ELEMS // (chunk_blocks * block_n
+                                         * (2 * d + rows)))
+    out = torch.empty((n, rows, d), dtype=q.dtype, device=q.device)
+    for l0 in range(0, n, step):
+        sl = slice(l0, l0 + step)
+        idx, rb, ks, vs = (None if a is None else a[sl] for a in slots)
+        out[sl] = _simulate(
+            qf[sl], kf, vf, bh_of[sl], idx, cnt[sl], rb, tl[sl], ks, vs,
+            group=group, visual_len=visual_len, text_start=text_start,
+            block_m=block_m, block_n=block_n, chunk_blocks=chunk_blocks,
+            sm_scale=sm_scale, quant=quant).to(q.dtype)
+    return out.reshape(b, h, sq, d)
+
+
+def _row_scales(scale, indices):
+    """Per-(batch, head) block scales [B,H,NBt] gathered to the slots of
+    each index list: [B,H,NQ,NB] fp32."""
+    b, h, nq, _ = indices.shape
+    return torch.take_along_dim(
+        scale.float()[:, :, None, :].expand(b, h, nq, scale.shape[-1]),
+        indices.long(), dim=-1)
 
 
 def block_sparse_flash_attention_torch(
         q, k, v, indices, counts, text_len, *, visual_len, text_start,
-        block_m=128, block_n=128, sm_scale=None, packed_kv=None, clean=None):
-    """Plain PyTorch version of K1 (dense scores, in chunks of heads and
-    index lists).  ``clean`` defaults to what the K1 wrapper computes."""
-    if clean is None:
-        clean = _clean_prefix(indices, counts, visual_len // block_n)
-    return _plain(q, k, v, indices, counts, clean, None, text_len, group=1,
-                  visual_len=visual_len, text_start=text_start,
-                  block_m=block_m, block_n=block_n, sm_scale=sm_scale,
-                  packed_kv=packed_kv)
+        block_m=128, block_n=128, chunk_blocks=16, sm_scale=None,
+        packed_kv=None, kv_quant=None, quant_mode=None):
+    """Plain PyTorch version of K1, and of K1q with ``kv_quant`` (the
+    quantized payload of sparse/ops.py::quantize_kv_blocks; ``k``/``v``
+    then only give shapes)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    kw = dict(group=1, visual_len=visual_len, text_start=text_start,
+              block_m=block_m, block_n=block_n, chunk_blocks=chunk_blocks,
+              sm_scale=sm_scale)
+    if kv_quant is None:
+        return _plain(q, k, v, indices, counts, None, text_len,
+                      packed_kv=packed_kv, **kw)
+    kv, scale_k, scale_v = kv_quant
+    b, h, _, d = q.shape
+    kv = kv.reshape(b, h, kv.shape[1], 2 * d)
+    return _plain(q, None, None, indices, counts, None, text_len,
+                  packed_kv=kv, quant=quant_mode or "int8",
+                  ksc=_row_scales(scale_k, indices),
+                  vsc=_row_scales(scale_v, indices), **kw)
 
 
 def block_sparse_flash_attention_grouped_torch(
         q, k, v, indices, counts, rowbits, clean, text_len, *, group,
-        visual_len, text_start, block_m=128, block_n=128, sm_scale=None,
-        packed_kv=None):
-    """Plain PyTorch version of K2 (``clean`` as given: the K2 wrapper
-    clamps it before calling either path)."""
-    return _plain(q, k, v, indices, counts, clean, rowbits, text_len,
-                  group=group, visual_len=visual_len, text_start=text_start,
-                  block_m=block_m, block_n=block_n, sm_scale=sm_scale,
-                  packed_kv=packed_kv)
+        visual_len, text_start, block_m=128, block_n=128, chunk_blocks=16,
+        sm_scale=None, packed_kv=None):
+    """Plain PyTorch version of K2.  ``clean`` (clamped by the K2 wrapper
+    to all-member, window-clean slots) only marks where the kernels may
+    skip the masks; it changes no value, so the plain version ignores it."""
+    del clean
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _plain(q, k, v, indices, counts, rowbits, text_len, group=group,
+                  visual_len=visual_len, text_start=text_start,
+                  block_m=block_m, block_n=block_n, chunk_blocks=chunk_blocks,
+                  sm_scale=sm_scale, packed_kv=packed_kv)
 
 
 def block_sparse_attention_reference(q, k, v, block_mask, kv_valid, *,
@@ -230,13 +292,19 @@ def _clean_prefix(indices, counts, clean_blocks, rowbits=None, group=1):
         dim=-1).to(torch.int32)
 
 
-def _check_unported(return_stats=False, kv_quant=None, quant_mode=None):
-    if return_stats:
-        raise NotImplementedError(
-            "return_stats (K1s, ring attention) is not ported yet")
-    if kv_quant is not None or quant_mode is not None:
-        raise NotImplementedError(
-            "kv_quant / quant_mode (K1q, int8 KV) is not ported yet")
+def _quant_args(kv_quant, quant_mode, packed_kv):
+    """The JAX wrapper's rules: a payload without a mode means "int8", a
+    mode needs a payload, and the payload excludes ``packed_kv``."""
+    if kv_quant is not None and packed_kv is not None:
+        raise ValueError("kv_quant already carries a packed payload")
+    if kv_quant is not None and quant_mode is None:
+        quant_mode = "int8"
+    if (kv_quant is None) != (quant_mode is None):
+        raise ValueError("kv_quant payload and quant_mode must be given "
+                         "together")
+    if quant_mode is not None and quant_mode not in _QUANT_CODE:
+        raise ValueError(f"quant_mode must be int8|mxu8, got {quant_mode!r}")
+    return quant_mode
 
 
 def _operands(q, k, v, packed_kv):
@@ -265,7 +333,8 @@ def _cuda_checks(q, k, v, packed_kv, block_m, block_n, *ints):
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"the CUDA kernels take bf16 or fp16, got {q.dtype} "
                         "(fp32 inputs are not supported yet)")
-    if kvt.dtype != q.dtype or (packed_kv is None and v.dtype != q.dtype):
+    if kvt is not None and (kvt.dtype != q.dtype or (
+            packed_kv is None and v.dtype != q.dtype)):
         raise TypeError("q, k and v must share one dtype")
     if q.shape[-1] != 128:
         raise ValueError(f"the CUDA kernels take head_dim 128, got "
@@ -296,34 +365,89 @@ def _int32(x):
     return x.to(torch.int32).contiguous()
 
 
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_k1q(q, kv_quant, quant_mode, indices, counts, clean, text_len, *,
+                visual_len, text_start, block_m, block_n, chunk_blocks,
+                sm_scale):
+    """K1q on the card: the wrapper gathers the per-slot scales to row
+    order and pads the slots to a multiple of ``chunk_blocks`` (index 0,
+    scale 0), as the JAX wrapper does."""
+    kv, scale_k, scale_v = kv_quant
+    b, h, sq, d = q.shape
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"K1q takes bf16 q (its dots run in bf16 or int8), "
+                        f"got {q.dtype}")
+    _cuda_checks(q, None, None, None, block_m, block_n, kv, scale_k, scale_v,
+                 indices, counts, text_len)
+    s = kv.shape[1]
+    if kv.dtype != torch.int8 or tuple(kv.shape) != (b * h, s, 2 * d):
+        raise ValueError(f"kv_quant payload must be int8 [B*H, S, 2D], got "
+                         f"{kv.dtype} {tuple(kv.shape)}")
+    idx, ksc, vsc = _pad_slots((indices, _row_scales(scale_k, indices),
+                                _row_scales(scale_v, indices)), chunk_blocks)
+    lib = _load()
+    q = q.contiguous()
+    out = torch.empty_like(q)
+    kv = kv.contiguous()
+    idx, cnt, cln, tl = _int32(idx), _int32(counts), _int32(clean), \
+        _int32(text_len)
+    ksc, vsc = ksc.contiguous(), vsc.contiguous()
+    rc = lib.rsa_k1q_launch(
+        q.data_ptr(), kv.data_ptr(), out.data_ptr(), idx.data_ptr(),
+        cnt.data_ptr(), cln.data_ptr(), ksc.data_ptr(), vsc.data_ptr(),
+        tl.data_ptr(), s * 2 * d, b * h, h, sq, idx.shape[2], idx.shape[3],
+        s // block_n, block_m, chunk_blocks, visual_len,
+        -1 if text_start is None else text_start, int(text_start is not None),
+        float(sm_scale), float(sm_scale / 127.0), d, _QUANT_CODE[quant_mode],
+        _stream(q))
+    if rc:
+        raise RuntimeError(
+            f"K1q launch failed: {lib.rsa_error_string(rc).decode()}")
+    block_sparse_flash_attention.quant_launches[quant_mode] += 1
+    return out
+
+
 def block_sparse_flash_attention(
         q, k, v, indices, counts, text_len, *, visual_len, text_start,
         block_m=128, block_n=128, chunk_blocks=16, sm_scale=None,
         return_stats=False, kv_quant=None, quant_mode=None,
         prefetch_next=True, packed_kv=None):
     """K1: masked flash attention of each ``block_m`` query rows over the
-    key blocks in the first ``counts`` slots of their index list.
+    key blocks in the first ``counts`` slots of their index list; K1q with
+    ``kv_quant`` = (kv_int8 [B*H,S,2D], scale_k, scale_v [B,H,NBt]) and
+    ``quant_mode`` "int8" (the default with a payload) or "mxu8".
 
     q [B,H,Sq,D] (Sq % block_m == 0); k/v [B,H,S,D] (S % block_n == 0) or
     ``packed_kv`` [B,H,S,2D]; indices [B,H,NQ,NB] int32; counts [B,H,NQ];
     text_len [B].  Returns [B,H,Sq,D] in q.dtype."""
-    _check_unported(return_stats, kv_quant, quant_mode)
+    if return_stats:
+        raise NotImplementedError(
+            "return_stats (K1s, ring attention) is not ported yet")
+    quant_mode = _quant_args(kv_quant, quant_mode, packed_kv)
     b, h, sq, d = q.shape
-    s = (packed_kv if packed_kv is not None else k).shape[2]
+    s = (kv_quant[0].shape[1] if kv_quant is not None else
+         (packed_kv if packed_kv is not None else k).shape[2])
     if s % block_n or sq % block_m:
         raise ValueError(f"S={s} / Sq={sq} must be multiples of "
                          f"block_n={block_n} / block_m={block_m}")
     _check_lists(indices, counts, sq // block_m)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    clean = _clean_prefix(indices, counts, visual_len // block_n)
+    kw = dict(visual_len=visual_len, text_start=text_start, block_m=block_m,
+              block_n=block_n, chunk_blocks=chunk_blocks, sm_scale=sm_scale)
     if q.device.type == "cpu":
         return block_sparse_flash_attention_torch(
-            q, k, v, indices, counts, text_len, visual_len=visual_len,
-            text_start=text_start, block_m=block_m, block_n=block_n,
-            sm_scale=sm_scale, packed_kv=packed_kv, clean=clean)
+            q, k, v, indices, counts, text_len, packed_kv=packed_kv,
+            kv_quant=kv_quant, quant_mode=quant_mode, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    clean = _clean_prefix(indices, counts, visual_len // block_n)
+    if kv_quant is not None:
+        return _launch_k1q(q, kv_quant, quant_mode, indices, counts, clean,
+                           text_len, **kw)
     _cuda_checks(q, k, v, packed_kv, block_m, block_n, indices, counts,
                  text_len)
     lib = _load()
@@ -334,10 +458,10 @@ def block_sparse_flash_attention(
     rc = lib.rsa_k1_launch(
         q.data_ptr(), kp, vp, out.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
         cln.data_ptr(), tl.data_ptr(), bh_stride, row_stride, b * h, h, sq,
-        idx.shape[2], idx.shape[3], s // block_n, block_m, visual_len,
-        -1 if text_start is None else text_start, int(text_start is not None),
-        float(sm_scale), d, _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        idx.shape[2], idx.shape[3], s // block_n, block_m, chunk_blocks,
+        visual_len, -1 if text_start is None else text_start,
+        int(text_start is not None), float(sm_scale), d,
+        _DTYPE_CODE[q.dtype], _stream(q))
     if rc:
         raise RuntimeError(
             f"K1 launch failed: {lib.rsa_error_string(rc).decode()}")
@@ -346,6 +470,7 @@ def block_sparse_flash_attention(
 
 
 block_sparse_flash_attention.launches = 0
+block_sparse_flash_attention.quant_launches = {"int8": 0, "mxu8": 0}
 
 
 def block_sparse_flash_attention_grouped(
@@ -378,7 +503,8 @@ def block_sparse_flash_attention_grouped(
         return block_sparse_flash_attention_grouped_torch(
             q, k, v, indices, counts, rowbits, clean, text_len, group=group,
             visual_len=visual_len, text_start=text_start, block_m=block_m,
-            block_n=block_n, sm_scale=sm_scale, packed_kv=packed_kv)
+            block_n=block_n, chunk_blocks=chunk_blocks, sm_scale=sm_scale,
+            packed_kv=packed_kv)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _cuda_checks(q, k, v, packed_kv, block_m, block_n, indices, counts,
@@ -392,9 +518,9 @@ def block_sparse_flash_attention_grouped(
         q.data_ptr(), kp, vp, out.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
         cln.data_ptr(), bits.data_ptr(), tl.data_ptr(), bh_stride, row_stride,
         b * h, h, sq, ngrp, idx.shape[3], s // block_n, block_m, group,
-        visual_len, -1 if text_start is None else text_start,
+        chunk_blocks, visual_len, -1 if text_start is None else text_start,
         int(text_start is not None), float(sm_scale), d,
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        _DTYPE_CODE[q.dtype], _stream(q))
     if rc:
         raise RuntimeError(
             f"K2 launch failed: {lib.rsa_error_string(rc).decode()}")
@@ -403,4 +529,3 @@ def block_sparse_flash_attention_grouped(
 
 
 block_sparse_flash_attention_grouped.launches = 0
-

@@ -2,6 +2,12 @@
 nested dicts of numpy arrays, into the port's ``state_dict``.
 
   * Flax ``Dense`` kernels are [in, out]; ``nn.Linear`` weights [out, in].
+  * Quantized ``QDense`` nodes (models/quant.py::quantize_params) carry
+    across as the port's ``QLinear`` layouts: ``kernel_q`` [in, out] int8
+    becomes ``weight_q`` [out, in], ``kernel_q4`` [in // 2, out] uint8
+    becomes ``weight_q4`` [out, in // 2] (the nibble pairs run along the
+    input dim in both), ``kernel_scale`` becomes ``scale`` as it is ([out]
+    int8, [groups, out] int4).
   * Norm ``scale`` becomes ``weight``.
   * Flax names blocks ``dual_{i}`` / ``single_{i}`` (HunyuanVideo) and
     ``block_{i}`` (Wan); the port holds them in ``dual_blocks`` /
@@ -22,7 +28,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .quant import adopt_layout
+
 _BLOCK = re.compile(r"^(?:(dual|single)_|block_)(\d+)$")
+_LEAF = {"kernel": "weight", "scale": "weight", "kernel_q": "weight_q",
+         "kernel_q4": "weight_q4", "kernel_scale": "scale"}
+_TRANSPOSED = ("kernel", "kernel_q", "kernel_q4")
 
 
 def _flatten(tree, prefix=()):
@@ -42,7 +53,7 @@ def _torch_key(path) -> str:
                    else f"blocks.{m.group(2)}")
         parts.append(seg)
     leaf = path[-1]
-    parts.append({"kernel": "weight", "scale": "weight"}.get(leaf, leaf))
+    parts.append(_LEAF.get(leaf, leaf))
     return ".".join(parts)
 
 
@@ -64,14 +75,16 @@ def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
         key = _torch_key(path)
         if key in sd:
             raise KeyError(f"two Flax leaves map to {key!r}")
-        sd[key] = _tensor(leaf, transpose=path[-1] == "kernel")
+        sd[key] = _tensor(leaf, transpose=path[-1] in _TRANSPOSED)
     return sd
 
 
 def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
     """Strictly load a Flax tree into ``model`` (values are cast to the
-    model's parameter dtype and device)."""
+    model's parameter dtype and device; quantized nodes switch their
+    QLinear to the quantized layout first)."""
     sd = flax_to_state_dict(params)
+    adopt_layout(model, sd)
     target = model.state_dict()
     missing = sorted(set(target) - set(sd))
     extra = sorted(set(sd) - set(target))

@@ -20,7 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (AdaLayerNormContinuous, AttnFn, Dense, DualStreamBlock,
+from .layers import (AdaLayerNormContinuous, AttnFn, QLinear, DualStreamBlock,
                      LayerNorm, MLP, SingleStreamBlock, rope_axial_freqs,
                      timestep_embedding)
 
@@ -64,16 +64,16 @@ class TokenRefiner(nn.Module):
         super().__init__()
         c = self.cfg = cfg
         hd = c.hidden_dim
-        self.time_in = Dense(256, hd)
+        self.time_in = QLinear(256, hd)
         self.time_mlp = MLP(hd, 1.0, activation="silu")
-        self.pool_in = Dense(c.text_dim, hd)
+        self.pool_in = QLinear(c.text_dim, hd)
         self.pool_mlp = MLP(hd, 1.0, activation="silu")
-        self.proj_in = Dense(c.text_dim, hd)
+        self.proj_in = QLinear(c.text_dim, hd)
         for i in range(c.num_refiner_blocks):
-            setattr(self, f"blk{i}_ada", Dense(hd, 2 * hd))
+            setattr(self, f"blk{i}_ada", QLinear(hd, 2 * hd))
             setattr(self, f"blk{i}_norm1", LayerNorm(hd))
-            setattr(self, f"blk{i}_qkv", Dense(hd, 3 * hd))
-            setattr(self, f"blk{i}_proj", Dense(hd, hd))
+            setattr(self, f"blk{i}_qkv", QLinear(hd, 3 * hd))
+            setattr(self, f"blk{i}_proj", QLinear(hd, hd))
             setattr(self, f"blk{i}_norm2", LayerNorm(hd))
             setattr(self, f"blk{i}_mlp", MLP(hd, c.mlp_mult))
 
@@ -119,16 +119,16 @@ class HunyuanVideoDiT(nn.Module):
                 "HunyuanVideo I2V (image_condition_type) is not ported yet")
         c = self.cfg = cfg
         hd = c.hidden_dim
-        self.x_embedder = Dense(
+        self.x_embedder = QLinear(
             c.patch_size_t * c.patch_size * c.patch_size * c.in_channels, hd)
         self.context_embedder = TokenRefiner(c)
-        self.time_in = Dense(256, hd)
+        self.time_in = QLinear(256, hd)
         self.time_mlp = MLP(hd, 1.0, activation="silu")
-        self.pooled_in = Dense(c.pooled_dim, hd)
+        self.pooled_in = QLinear(c.pooled_dim, hd)
         self.pooled_mlp = MLP(hd, 1.0, activation="silu")
-        self.clip_pool_proj = Dense(c.text_dim, c.pooled_dim)
+        self.clip_pool_proj = QLinear(c.text_dim, c.pooled_dim)
         if c.guidance_embeds:
-            self.guide_in = Dense(256, hd)
+            self.guide_in = QLinear(256, hd)
             self.guide_mlp = MLP(hd, 1.0, activation="silu")
         self.dual_blocks = nn.ModuleList(
             DualStreamBlock(hd, c.heads, c.mlp_mult, mlp_chunk=c.mlp_chunk)
@@ -137,7 +137,7 @@ class HunyuanVideoDiT(nn.Module):
             SingleStreamBlock(hd, c.heads, c.mlp_mult, mlp_chunk=c.mlp_chunk)
             for _ in range(c.num_single_blocks))
         self.norm_out = AdaLayerNormContinuous(hd)
-        self.proj_out = Dense(
+        self.proj_out = QLinear(
             hd, c.patch_size_t * c.patch_size * c.patch_size * c.out_channels)
 
     def _patchify(self, latents):

@@ -5,10 +5,12 @@ All modules operate on [B, S, C] token streams; attention functions are
 injected as ``attn_fn(q, k, v)`` on [B, H, S, D].  Parameter names mirror
 the Flax modules so models/convert.py maps a Flax tree one to one.
 
-Dtype rules follow Flax's: ``Dense`` and ``LayerNorm`` promote input and
-parameters to their common type (an fp32 input meets bf16 weights in fp32,
-as ``promote_dtype`` does in the JAX ``QDense``); RMSNorm and RoPE compute
-in fp32 and return the input dtype.
+Every dense projection is a ``QLinear`` (models/quant.py), the JAX
+``QDense``: dense, int8 or int4 weights.  Dtype rules follow Flax's:
+``QLinear`` (dense) and ``LayerNorm`` promote input and parameters to their
+common type (an fp32 input meets bf16 weights in fp32, as ``promote_dtype``
+does in the JAX ``QDense``); RMSNorm and RoPE compute in fp32 and return the
+input dtype.
 """
 
 from __future__ import annotations
@@ -20,18 +22,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .quant import QLinear
+
 # An attention function: (q, k, v) [B,H,S,D] -> [B,H,S,D].
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
-
-
-class Dense(nn.Linear):
-    """nn.Linear with Flax's dtype promotion (the JAX package's dense
-    ``QDense`` path; its int8/int4 variants wait for models/quant.py)."""
-
-    def forward(self, x):
-        dt = torch.promote_types(x.dtype, self.weight.dtype)
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -88,7 +82,7 @@ class RMSNorm(nn.Module):
         return x.to(dtype)
 
 
-def _mods(lin: Dense, emb: torch.Tensor, n: int):
+def _mods(lin: QLinear, emb: torch.Tensor, n: int):
     parts = lin(F.silu(emb)).chunk(n, dim=-1)
     # emb may be [B, C] (broadcast over tokens) or [B, S, C]
     return tuple(v[:, None] if v.ndim == 2 else v for v in parts)
@@ -100,7 +94,7 @@ class AdaLayerNormZero(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.linear = Dense(dim, 6 * dim)
+        self.linear = QLinear(dim, 6 * dim)
 
     def forward(self, x, emb):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
@@ -114,7 +108,7 @@ class AdaLayerNormZeroSingle(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.linear = Dense(dim, 3 * dim)
+        self.linear = QLinear(dim, 3 * dim)
 
     def forward(self, x, emb):
         shift, scale, gate = _mods(self.linear, emb, 3)
@@ -126,7 +120,7 @@ class AdaLayerNormContinuous(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.linear = Dense(dim, 2 * dim)
+        self.linear = QLinear(dim, 2 * dim)
 
     def forward(self, x, emb):
         shift, scale = _mods(self.linear, emb, 2)
@@ -152,8 +146,8 @@ class MLP(nn.Module):
         hidden = int(dim * mult)
         # ``in_dim``: the input width where it is not ``dim`` (Flax infers
         # it; Wan's text and image embedders take text_dim / image_dim)
-        self.fc1 = Dense(in_dim or dim, hidden)
-        self.fc2 = Dense(hidden, dim)
+        self.fc1 = QLinear(in_dim or dim, hidden)
+        self.fc2 = QLinear(hidden, dim)
         if activation not in _ACTIVATIONS:
             raise ValueError(activation)
         self.act = _ACTIVATIONS[activation]
@@ -229,13 +223,13 @@ class JointAttention(nn.Module):
         hd = dim // heads
         for prefix in ("", "add_"):
             for n in ("to_q", "to_k", "to_v"):
-                setattr(self, prefix + n, Dense(dim, dim))
+                setattr(self, prefix + n, QLinear(dim, dim))
         self.qk_norm = qk_norm
         if qk_norm:
             for n in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
                 setattr(self, n, RMSNorm(hd))
-        self.to_out = Dense(dim, dim)
-        self.to_add_out = Dense(dim, dim)
+        self.to_out = QLinear(dim, dim)
+        self.to_add_out = QLinear(dim, dim)
 
     def forward(self, x, ctx, rope, attn_fn: AttnFn):
         sv = x.shape[1]
@@ -295,11 +289,11 @@ class SingleStreamBlock(nn.Module):
         self.mlp_chunk = mlp_chunk
         hd = dim // heads
         self.norm = AdaLayerNormZeroSingle(dim)
-        self.to_qkv = Dense(dim, 3 * dim)
+        self.to_qkv = QLinear(dim, 3 * dim)
         self.norm_q = RMSNorm(hd)
         self.norm_k = RMSNorm(hd)
-        self.proj_mlp = Dense(dim, int(dim * mlp_mult))
-        self.proj_out = Dense(dim + int(dim * mlp_mult), dim)
+        self.proj_mlp = QLinear(dim, int(dim * mlp_mult))
+        self.proj_out = QLinear(dim + int(dim * mlp_mult), dim)
 
     def _mlp_out(self, normed, attn):
         mlp_h = F.gelu(self.proj_mlp(normed), approximate="tanh")
@@ -349,7 +343,7 @@ class CrossAttnBlock(nn.Module):
         self.scale_shift_table = nn.Parameter(torch.zeros(1, 6, dim))
         for n in ("attn1_to_q", "attn1_to_k", "attn1_to_v", "attn1_to_out",
                   "attn2_to_q", "attn2_to_k", "attn2_to_v", "attn2_to_out"):
-            setattr(self, n, Dense(dim, dim))
+            setattr(self, n, QLinear(dim, dim))
         # Wan norms q/k over the FULL hidden dim before the head split
         # (rectified_wan21_attn.py:423-430), unlike Hunyuan's per-head norm
         for n in ("attn1_norm_q", "attn1_norm_k", "attn2_norm_q",
@@ -357,8 +351,8 @@ class CrossAttnBlock(nn.Module):
             setattr(self, n, RMSNorm(dim))
         self.norm2 = LayerNorm(dim)
         if image_cross:
-            self.attn2_add_k_proj = Dense(dim, dim)
-            self.attn2_add_v_proj = Dense(dim, dim)
+            self.attn2_add_k_proj = QLinear(dim, dim)
+            self.attn2_add_v_proj = QLinear(dim, dim)
             self.attn2_norm_added_k = RMSNorm(dim)
         self.ffn = MLP(dim, mlp_mult, chunk=mlp_chunk)
 
@@ -407,7 +401,7 @@ def init_random_weights(model: nn.Module, generator: torch.Generator):
     Wan's modulation tables ~ N(0, 0.02) (their Flax init).  Draws from
     ``generator`` on the parameters' device."""
     for mod in model.modules():
-        if isinstance(mod, nn.Linear):
+        if isinstance(mod, nn.Linear) and mod.weight is not None:
             w = torch.empty(mod.weight.shape, dtype=torch.float32,
                             device=mod.weight.device)
             w.normal_(0.0, mod.in_features ** -0.5, generator=generator)

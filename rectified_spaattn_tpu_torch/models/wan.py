@@ -21,7 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import (AttnFn, CrossAttnBlock, Dense, LayerNorm, MLP,
+from .layers import (AttnFn, CrossAttnBlock, QLinear, LayerNorm, MLP,
                      layer_norm, rope_axial_freqs, timestep_embedding)
 
 
@@ -64,15 +64,15 @@ class WanDiT(nn.Module):
         c = self.cfg = cfg
         hd = c.hidden_dim
         pt, ph, pw = c.patch_size
-        self.patch_embedding = Dense(pt * ph * pw * c.in_channels, hd)
+        self.patch_embedding = QLinear(pt * ph * pw * c.in_channels, hd)
         # linear(text_dim -> hidden), gelu, linear(hidden -> hidden): the
         # diffusers WanTextEmbedder layout
         self.text_embedder = MLP(hd, 1.0, activation="gelu",
                                  in_dim=c.text_dim)
-        self.time_in = Dense(c.freq_dim, hd)
+        self.time_in = QLinear(c.freq_dim, hd)
         self.time_embedder = MLP(hd, 1.0, activation="silu")
         # the shared 6-way modulation projection every block consumes
-        self.time_proj = Dense(hd, 6 * hd)
+        self.time_proj = QLinear(hd, 6 * hd)
         if c.image_cross:
             # diffusers WanImageEmbedding: norm1 -> ff(gelu) -> norm2 over
             # the CLIP-vision features
@@ -85,7 +85,7 @@ class WanDiT(nn.Module):
                            image_cross=c.image_cross, mlp_chunk=c.mlp_chunk)
             for _ in range(c.num_blocks))
         self.scale_shift_table_out = nn.Parameter(torch.zeros(1, 2, hd))
-        self.proj_out = Dense(hd, pt * ph * pw * c.out_channels)
+        self.proj_out = QLinear(hd, pt * ph * pw * c.out_channels)
 
     def _patchify(self, latents):
         pt, ph, pw = self.cfg.patch_size

@@ -40,7 +40,7 @@ def build_site(latent_t: int, latent_h: int, latent_w: int, *,
                curve_variant: str = "full", axis_order=("w", "h", "t"),
                plan_row_chunk: int = 0, plan_kv_tile: int = 0,
                group_rows: int = 1, kv_pack: bool = False,
-               head_chunk: int = 0, device="cpu"):
+               head_chunk: int = 0, kv_quant: str = "none", device="cpu"):
     """Curve + neighbour precompute and sparse config for one geometry
     (reference: build_multi_curve + sparse-param calc,
     scripts/main_hunyuan.py:23-42,249-254).  Returns (site,
@@ -61,7 +61,8 @@ def build_site(latent_t: int, latent_h: int, latent_w: int, *,
         text_len=text_len, first_frame_blocks=ffb,
         block_m=block_size, block_n=block_size,
         plan_row_chunk=plan_row_chunk, plan_kv_tile=plan_kv_tile,
-        group_rows=group_rows, kv_pack=kv_pack, head_chunk=head_chunk)
+        group_rows=group_rows, kv_pack=kv_pack, head_chunk=head_chunk,
+        kv_quant=kv_quant)
     site = SparseSite(cfg=cfg,
                       neighbor_mask=torch.as_tensor(neighbors, device=device),
                       visual_len=sv)

@@ -6,9 +6,8 @@ Latent geometry (f/4, h/16, w/16); flow-match Euler steps with embedded
 guidance (no CFG); the text tokens trail the visual tokens; TeaCache over
 the whole block stack with the block-0 norm1 signal.
 
-Left out of this slice: the TPU and multi-chip levers ``scan_blocks``,
-``dispatch_segments`` and ``mesh``; the I2V conditioning; the int8 and
-host-offloaded TeaCache residual.
+Left out so far: the TPU and multi-chip levers ``scan_blocks``,
+``dispatch_segments`` and ``mesh``; the I2V conditioning.
 """
 
 from __future__ import annotations
@@ -51,6 +50,14 @@ class HunyuanVideoPipeline:
     group_rows: int = 1                  # SparseConfig.group_rows (K2 if > 1)
     kv_pack: bool = False                # SparseConfig.kv_pack
     head_chunk: int = 0                  # SparseConfig.head_chunk
+    # int8 K|V gather, kernel K1q: "none" | "int8" | "mxu8"
+    # (SparseConfig.kv_quant; needs group_rows 1)
+    kv_quant: str = "none"
+    # TeaCache residual encode: "bf16" (the reference's format) or "int8"
+    # (per-row absmax, half the bytes; cache/teacache.py::residual_value)
+    teacache_residual: str = "bf16"
+    # keep the TeaCache residual in pinned host memory between steps
+    teacache_offload: bool = False
     # replay a recorded per-call compute/skip list instead of deciding
     teacache_schedule: Optional[list] = None
     # probe the executed mask density of block 0 once per step
@@ -72,7 +79,7 @@ class HunyuanVideoPipeline:
             text_len=self.text_len, plan_row_chunk=self.plan_row_chunk,
             plan_kv_tile=self.plan_kv_tile, group_rows=self.group_rows,
             kv_pack=self.kv_pack, head_chunk=self.head_chunk,
-            device=self.device)
+            kv_quant=self.kv_quant, device=self.device)
         # activations run in the parameter dtype; RoPE tables stay fp32
         self.compute_dtype = param_compute_dtype(self.model)
         self.density_samples = []
@@ -126,7 +133,8 @@ class HunyuanVideoPipeline:
         self.density_samples = []
         tea = TeaCache(self.rel_l1_thresh if self.enable_teacache else 0.0,
                        steps, coefficients="hunyuan-video",
-                       forced_schedule=self.teacache_schedule)
+                       forced_schedule=self.teacache_schedule,
+                       offload_residual=self.teacache_offload)
         self.teacache = tea
         b = latents.shape[0]
         tlen = text_mask.to(torch.int32).sum(dim=1).to(torch.int32)
@@ -152,7 +160,8 @@ class HunyuanVideoPipeline:
                 x_in = x
                 x, ctx = m.run_blocks(x, ctx, temb, rope, fn)
                 if tea.enabled:
-                    tea.record_residual_value(residual_value(x, x_in))
+                    tea.record_residual_value(
+                        residual_value(x, x_in, self.teacache_residual))
             v_pred = m.head(x, temb, self.l2h, *self.grid)
             latents = sched.step(v_pred, latents, i)
             device_sync(latents)

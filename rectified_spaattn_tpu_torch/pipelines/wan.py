@@ -16,10 +16,10 @@ The visual token stream is padded once in embed to a multiple of the mask
 block, so every layer's attention sees block-aligned shapes, and sliced
 back in head.
 
-Left out of this slice (raise NotImplementedError): ``scan_blocks``,
-``dispatch_segments``, ``mesh``, ``defer_device`` and the int8 or
-host-offloaded TeaCache residual; ``i2v_condition`` / ``ti2v_first_frame``
-(they need the VAE encoder) and ``Wan22A14BPipeline`` are later slices.
+Left out so far (raise NotImplementedError): ``scan_blocks``,
+``dispatch_segments``, ``mesh`` and ``defer_device``; ``i2v_condition`` /
+``ti2v_first_frame`` (they need the VAE encoder) and ``Wan22A14BPipeline``
+are later slices.
 """
 
 from __future__ import annotations
@@ -76,27 +76,31 @@ class WanPipeline:
     group_rows: int = 1                  # SparseConfig.group_rows (K2 if > 1)
     kv_pack: bool = False                # SparseConfig.kv_pack
     head_chunk: int = 0                  # SparseConfig.head_chunk
+    # int8 K|V gather, kernel K1q: "none" | "int8" | "mxu8"
+    # (SparseConfig.kv_quant; needs group_rows 1)
+    kv_quant: str = "none"
+    # TeaCache residual encode: "bf16" (the reference's format) or "int8"
+    # (per-row absmax, half the bytes; cache/teacache.py::residual_value)
+    teacache_residual: str = "bf16"
+    # keep the TeaCache residual in pinned host memory between calls
+    teacache_offload: bool = False
     # replay a recorded per-call compute/skip list instead of deciding
     teacache_schedule: Optional[list] = None
     # probe the executed mask density of the first sparse layer per call
     density_probe: bool = False
-    # TPU execution, multi-device and residual-memory levers of the JAX
-    # pipeline: not ported yet
+    # TPU execution and multi-device levers of the JAX pipeline: not
+    # ported yet
     scan_blocks: bool = False
     dispatch_segments: int = 1
     mesh: Optional[object] = None
     defer_device: bool = False
-    teacache_residual: str = "bf16"
-    teacache_offload: bool = False
     device: str = "cuda"
 
     def __post_init__(self):
         unported = {"scan_blocks": self.scan_blocks,
                     "dispatch_segments > 1": self.dispatch_segments > 1,
                     "mesh": self.mesh is not None,
-                    "defer_device": self.defer_device,
-                    "teacache_residual int8": self.teacache_residual != "bf16",
-                    "teacache_offload": self.teacache_offload}
+                    "defer_device": self.defer_device}
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
@@ -114,7 +118,7 @@ class WanPipeline:
             first_frame_retention=True, plan_row_chunk=self.plan_row_chunk,
             plan_kv_tile=self.plan_kv_tile, group_rows=self.group_rows,
             kv_pack=self.kv_pack, head_chunk=self.head_chunk,
-            device=self.device)
+            kv_quant=self.kv_quant, device=self.device)
         self.pad = (-self.site.visual_len) % self.site.cfg.block_m
         # activations run in the parameter dtype; RoPE tables stay fp32
         self.compute_dtype = param_compute_dtype(self.model)
@@ -236,7 +240,8 @@ class WanPipeline:
             cutoff_steps=(steps * 2 if self.use_ret_steps
                           else steps * 2 - 2),
             cfg_streams=2, signal_scale=self.teacache_signal_scale,
-            forced_schedule=self.teacache_schedule)
+            forced_schedule=self.teacache_schedule,
+            offload_residual=self.teacache_offload)
         self.teacache = tea
 
         b = latents.shape[0]
@@ -283,7 +288,8 @@ class WanPipeline:
                     x = self._run_blocks(x, ctx, ctx_img, temb6, rope,
                                          sparse_now)
                     if tea.enabled:
-                        tea.record_residual_value(residual_value(x, x_in))
+                        tea.record_residual_value(residual_value(
+                            x, x_in, self.teacache_residual))
                 outs.append(self._head(x, temb))
                 call += 1
             v = classifier_free_guidance(outs[0], outs[1],

@@ -47,12 +47,14 @@ class SparseConfig:
     # block_sparse_flash_attention_grouped, kernel K2); 1 disables
     # grouping and runs the single-row kernel K1.
     group_rows: int = 1
-    # The JAX kernel's KV blocks per online-softmax chunk (see
-    # ``kernel_chunk_blocks``); the CUDA kernels pick their own tile.
+    # KV blocks per online-softmax chunk of the JAX kernel (see
+    # ``kernel_chunk_blocks``): the CUDA kernels walk their own 64-key
+    # units, but the chunk decides what a degenerate row averages over and
+    # where K1q's mxu8 mode quantizes p.
     chunk_blocks: int = 0
-    # int8 KV gather ("int8" | "mxu8", sparse/ops.py::quantize_kv_blocks in
-    # the JAX package).  Validated here; the port's kernels raise
-    # NotImplementedError for it until the quantized kernel (K1q) is ported.
+    # int8 KV gather, kernel K1q ("int8" | "mxu8",
+    # sparse/ops.py::quantize_kv_blocks): per-(head, key block) absmax int8
+    # K and V; "mxu8" also runs both dots in int8.
     kv_quant: str = "none"
     # Build the plan in row tiles of this many query blocks (0 = one
     # shot).  Every plan stage is row-separable, so tiling only bounds
@@ -101,10 +103,10 @@ class SparseConfig:
     @property
     def kernel_chunk_blocks(self) -> int:
         """The JAX kernel's per-chunk block count (TPU VMEM-sized defaults
-        of 24 single-row / 16 grouped, RESULTS_r3.md).  Kept so the field
-        means the same in both packages; the CUDA kernels ignore it and
-        pick their own tile (64 query rows x one 128-key block per step,
-        kernels/block_sparse.py)."""
+        of 24 single-row / 16 grouped, RESULTS_r3.md), passed to the
+        kernels so both packages compute the same function: it sets the
+        lanes a degenerate row averages over and the span of K1q's mxu8 p
+        scale (kernels/block_sparse.py)."""
         if self.chunk_blocks:
             return self.chunk_blocks
         if self.group_rows == 1:

@@ -5,10 +5,9 @@ Plain torch ops on static shapes with no host synchronisation, replacing
 the reference's torch pipeline (rectified_hunyuan_attn.py:171-280) 1:1 in
 semantics.  The integer outputs (masks, index lists, counts, rowbits) match
 the JAX package bit for bit; the float ones agree to fp32 rounding (sums
-are taken in another order).
-
-``quantize_kv_blocks`` is not ported yet: it feeds the int8 kernel K1q,
-which belongs to a later slice.
+are taken in another order), except the top-p cumulative sums, which
+follow XLA's CPU summation order (``cumsum_xla_order``) so the sort paths
+select the same blocks even where a sum lands on ``p_remain`` itself.
 """
 
 from __future__ import annotations
@@ -76,6 +75,39 @@ def ipar_reallocate(probs: torch.Tensor, num_visual: int,
     return torch.cat([visual * block_n / denom, text_sum / denom], dim=-1)
 
 
+_SCAN_BASE = 16      # XLA's reduce-window rewriter block length
+
+
+def _sequential_cumsum(x: torch.Tensor) -> torch.Tensor:
+    out = torch.empty_like(x)
+    acc = torch.zeros_like(x[..., 0])
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+        out[..., j] = acc
+    return out
+
+
+def cumsum_xla_order(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum over the last dim in the order of
+    ``jnp.cumsum`` on the CPU: XLA rewrites the reduce-window into a
+    blocked scan of 16-element blocks (left-to-right within a block), adds
+    the exclusive scan of the block totals, and scans the totals the same
+    way recursively.  Bit-exact with JAX 0.9 for every length tested
+    (7 ... 70,000); ``torch.cumsum`` accumulates in another order (in
+    double on the CPU), which moves a sum that lands on ``p_remain``."""
+    n = x.shape[-1]
+    if n <= _SCAN_BASE:
+        return _sequential_cumsum(x)
+    nb = -(-n // _SCAN_BASE)
+    xb = torch.nn.functional.pad(x, (0, nb * _SCAN_BASE - n)).reshape(
+        *x.shape[:-1], nb, _SCAN_BASE)
+    inner = _sequential_cumsum(xb)
+    totals = cumsum_xla_order(inner[..., -1])
+    excl = torch.cat([torch.zeros_like(totals[..., :1]), totals[..., :-1]],
+                     dim=-1)
+    return (inner + excl[..., None]).reshape(*x.shape[:-1], -1)[..., :n]
+
+
 def topp_topk_counts(probs: torch.Tensor, p_remain: float, top_k_floor: int):
     """Per-row block budget: top-p with a top-k floor
     (reference: rectified_hunyuan_attn.py:226-235).  Returns (counts
@@ -83,7 +115,7 @@ def topp_topk_counts(probs: torch.Tensor, p_remain: float, top_k_floor: int):
     order, as jnp's stable argsort)."""
     order = torch.argsort(-probs, dim=-1, stable=True)
     sorted_probs = torch.gather(probs, -1, order)
-    csum = torch.cumsum(sorted_probs, dim=-1)
+    csum = cumsum_xla_order(sorted_probs)
     counts = (csum <= p_remain).sum(dim=-1).to(torch.int32) + 1
     counts = torch.clamp(counts, min=top_k_floor)
     return counts, order
@@ -95,7 +127,7 @@ def topp_threshold_onehot(probs: torch.Tensor, p_remain: float,
     cut are all kept) — the sort oracle of the bisection below."""
     nk = probs.shape[-1]
     sorted_desc = torch.sort(probs, dim=-1, descending=True).values
-    csum = torch.cumsum(sorted_desc, dim=-1)
+    csum = cumsum_xla_order(sorted_desc)
     counts = (csum <= p_remain).sum(dim=-1).to(torch.int64) + 1
     counts = torch.clamp(counts, max(top_k_floor, 1), nk)
     thresh = torch.gather(sorted_desc, -1, (counts - 1)[..., None])
@@ -208,6 +240,32 @@ def group_rows(mask: torch.Tensor, group: int, clean_blocks: int = 0):
 def pair_rows(mask: torch.Tensor, clean_blocks: int = 0):
     """group_rows with group=2 (the round-1 name)."""
     return group_rows(mask, 2, clean_blocks)
+
+
+def quantize_kv_blocks(k: torch.Tensor, v: torch.Tensor, block: int):
+    """Per-(batch, head, key-block) absmax int8 quantization of K and V
+    (the payload of the int8 gather K1q).
+
+    k/v [B, H, S, D] (invalid tokens already zeroed).  Returns (kv_int8
+    [B*H, S, 2D] with K in [..., :D] and V in [..., D:], scale_k [B,H,NB],
+    scale_v [B,H,NB] fp32) with x ~= int8 * scale: int8 = clip(round(x *
+    127 / absmax), -127, 127), an absmax of 0 divides by 1, and scale =
+    absmax / 127.  Bit-exact with the JAX package."""
+    b, h, s, d = k.shape
+    nb = s // block
+    assert s % block == 0, (s, block)
+
+    def quant(x):
+        xb = x.float().reshape(b, h, nb, block, d)
+        scale = xb.abs().amax(dim=(-2, -1))                  # [B,H,NB]
+        denom = torch.where(scale == 0.0, torch.ones_like(scale), scale)
+        q = torch.round(xb * (127.0 / denom[..., None, None]))
+        q = torch.clamp(q, -127, 127).to(torch.int8)
+        return q.reshape(b * h, s, d), scale / 127.0
+
+    kq, sk = quant(k)
+    vq, sv = quant(v)
+    return torch.cat([kq, vq], dim=2), sk, sv
 
 
 def rectification(probs: torch.Tensor, partial_mask: torch.Tensor,

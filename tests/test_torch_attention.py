@@ -142,10 +142,12 @@ def test_kv_validity_and_unported_options():
     want[:, :4] = True
     want[0, 6:8] = True
     np.testing.assert_array_equal(valid.numpy(), want)
+    # kv_quant (K1q) is ported; as in JAX it refuses a caller-packed stream
     cfg = SparseConfig(top_k_floor=1, layout="visual", kv_quant="int8")
     x = torch.zeros((1, 1, BM, 32))
-    with pytest.raises(NotImplementedError, match="K1q"):
-        rectified_sparse_attention(x, x, x, cfg, visual_len=BM)
+    with pytest.raises(ValueError, match="kv_packed does not compose"):
+        rectified_sparse_attention(x, x, x, cfg, visual_len=BM,
+                                   kv_packed=torch.zeros((1, 1, BM, 64)))
     joint = SparseConfig(top_k_floor=1, text_len=BM)
     y = torch.zeros((1, 1, 100 + BM, 32))          # 100 visual tokens
     with pytest.raises(ValueError, match="block-aligned"):

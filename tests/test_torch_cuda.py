@@ -1,5 +1,6 @@
-"""The port's CUDA kernels K1/K2/K3 against their plain PyTorch versions, on
-a CUDA GPU (bf16, 2e-2: the repo's bf16 tolerance, tests/test_kernels.py).
+"""The port's CUDA kernels K1/K2/K1q/K3 and the S1 probe against their plain
+PyTorch versions, on a CUDA GPU (bf16, 2e-2: the repo's bf16 tolerance,
+tests/test_kernels.py; S1's int8 result bit for bit).
 Marked ``cuda``; each test skips without a GPU.  This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
 
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from rectified_spaattn_tpu_torch import kernels as tk
+from rectified_spaattn_tpu_torch.kernels import int8_probe
 from rectified_spaattn_tpu_torch.sparse import ops
 
 torch.set_num_threads(1)
@@ -50,6 +52,110 @@ def test_cuda_kernels_match_plain(cuda, group):
             q, k, v, ui, uc, rb, cl, tl, group=group, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2])
+def test_cuda_degenerate_rows_match_plain(cuda, group):
+    """Rows whose every gathered key is masked while their count is above
+    0: K1 (a row whose only block is the text block of a batch with
+    text_len 0) averages V over its chunk's lanes, padding included; K2 at
+    G=2 (a row block with no block of its own) over its union's lanes."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(21 + group)
+    b, h, nq, nb, d = 2, 2, 4, 6, 128
+    q, k, v = (torch.randn((b, h, n * BM, d), generator=g, device=cuda
+                           ).to(torch.bfloat16) for n in (nq, nb, nb))
+    mask = torch.rand((b, h, nq, nb), generator=g, device=cuda) < 0.5
+    mask[..., 0] = True
+    mask[1, 0, 1] = False
+    mask[1, 0, 1, -1] = True                   # only the text block
+    mask[0, 1, 2] = False                      # no block of its own
+    tl = torch.tensor([60, 0], dtype=torch.int32, device=cuda)
+    kw = dict(visual_len=(nb - 1) * BN - 20, text_start=(nb - 1) * BN)
+    for cb in (2, 16):
+        if group == 1:
+            idx, cnt = ops.mask_to_indices(mask)
+            args = (idx, cnt, tl)
+            got = tk.block_sparse_flash_attention(q, k, v, *args,
+                                                  chunk_blocks=cb, **kw)
+            want = tk.block_sparse_flash_attention_torch(
+                q, k, v, *args, chunk_blocks=cb, **kw)
+        else:
+            ui, uc, rb, cl = ops.group_rows(
+                mask, group, clean_blocks=kw["visual_len"] // BN)
+            got = tk.block_sparse_flash_attention_grouped(
+                q, k, v, ui, uc, rb, cl, tl, group=group, chunk_blocks=cb,
+                **kw)
+            want = tk.block_sparse_flash_attention_grouped_torch(
+                q, k, v, ui, uc, rb, cl, tl, group=group, chunk_blocks=cb,
+                **kw)
+        torch.cuda.synchronize()
+        assert want[1, 0, BM:2 * BM].float().abs().max() > 0.01
+        torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "mxu8"])
+@pytest.mark.parametrize("chunk_blocks", [2, 16])
+def test_cuda_k1q_matches_plain(cuda, mode, chunk_blocks):
+    """K1q against its plain version: random masks, the text window at
+    B=2, a zero-count row and a row whose only block is masked."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(7 + chunk_blocks)
+    b, h, nq, nb, d = 2, 3, 6, 12, 128
+    q, k, v = (torch.randn((b, h, n * BM, d), generator=g, device=cuda
+                           ).to(torch.bfloat16) for n in (nq, nb, nb))
+    mask = torch.rand((b, h, nq, nb), generator=g, device=cuda) < 0.4
+    mask[..., 0] = mask[..., -1] = True
+    mask[0, 1, 3] = False                      # count 0
+    mask[1, 2, 4] = False
+    mask[1, 2, 4, -1] = True                   # only the text block
+    tl = torch.tensor([90, 0], dtype=torch.int32, device=cuda)
+    vis = (nb - 1) * BN - 50
+    kw = dict(visual_len=vis, text_start=(nb - 1) * BN,
+              chunk_blocks=chunk_blocks)
+    valid = torch.arange(nb * BN, device=cuda)[None, :] < vis
+    valid = valid | ((torch.arange(nb * BN, device=cuda)[None, :]
+                      >= (nb - 1) * BN)
+                     & (torch.arange(nb * BN, device=cuda)[None, :]
+                        < (nb - 1) * BN + tl[:, None]))
+    kz = torch.where(valid[:, None, :, None], k, torch.zeros_like(k))
+    vz = torch.where(valid[:, None, :, None], v, torch.zeros_like(v))
+    payload = ops.quantize_kv_blocks(kz, vz, BN)
+    idx, cnt = ops.mask_to_indices(mask)
+    got = tk.block_sparse_flash_attention(q, kz, vz, idx, cnt, tl,
+                                          kv_quant=payload, quant_mode=mode,
+                                          **kw)
+    want = tk.block_sparse_flash_attention_torch(
+        q, kz, vz, idx, cnt, tl, kv_quant=payload, quant_mode=mode, **kw)
+    torch.cuda.synchronize()
+    assert got[0, 1, 3 * BM:4 * BM].abs().max() == 0
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+    # and within int8 noise of bf16 K1 on the rows with a valid key
+    ref = tk.block_sparse_flash_attention(q, kz, vz, idx, cnt, tl, **kw)
+    keep = torch.ones((b, h, nq), dtype=torch.bool, device=cuda)
+    keep[1, 2, 4] = False
+    keep = keep.repeat_interleave(BM, dim=2)
+    err = (got.float() - ref.float())[keep].abs().max()
+    assert float(err) < 0.1, float(err)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_probe_matches_plain(cuda):
+    """S1 on four pairs: int8 bit for bit, bf16 within 1e-4 of its scale."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    for kind in ("int8", "bf16"):
+        a, b = int8_probe.random_pairs(kind, 4, g, cuda)
+        got = int8_probe.loop_dots(a, b)
+        want = int8_probe.loop_dots_torch(a, b)
+        torch.cuda.synchronize()
+        if kind == "int8":
+            assert torch.equal(got, want)
+        else:
+            err = (got - want).abs().max() / want.abs().max()
+            assert float(err) <= 1e-4
 
 
 @pytest.mark.cuda

@@ -145,12 +145,22 @@ def test_plain_k2_matches_reference(group):
         np.testing.assert_allclose(got, jout, **F32)
 
 
+def _lane_mean(v, idx, count, chunk_blocks=16):
+    """V averaged over every lane of a list's ceil(count / chunk_blocks)
+    chunks: slots past the list read their padding (block 0)."""
+    nslots = -(-int(count) // chunk_blocks) * chunk_blocks
+    blocks = [int(idx[s]) if s < idx.shape[0] else 0 for s in range(nslots)]
+    return torch.stack([v[b * BN:(b + 1) * BN] for b in blocks]).reshape(
+        -1, v.shape[-1]).mean(0)
+
+
 @pytest.mark.parametrize("group", [2, 4])
 def test_plain_k2_equals_k1_row_by_row(group):
-    """K2 gathers for each row block only the union slots it is a member
-    of, so it equals K1 on the same plan in every row — including a row
-    with no block of its own (exact 0) and a row whose only block is
-    masked by the text window (a uniform average)."""
+    """K2 equals K1 on the same plan in every row that has an unmasked key
+    of its own.  A row with no block of its own gets 0 from K1 (count 0)
+    and, from K2 as from the JAX kernel, V averaged over every lane of its
+    union list; a row whose only block is masked by the text window
+    averages over its own list's lanes (K1) or its union's (K2)."""
     q, k, v = (torch.from_numpy(x) for x in make_inputs(41, 2, 2, 8, 6, 32))
     mask = torch.from_numpy(random_mask(42, (2, 2, 8, 6), 0.4))
     mask[0, 0, 1] = False                          # no block of its own
@@ -163,11 +173,19 @@ def test_plain_k2_equals_k1_row_by_row(group):
     ui, uc, rb, cl = ops.group_rows(mask, group, clean_blocks=4)
     k2 = tk.block_sparse_flash_attention_grouped(q, k, v, ui, uc, rb, cl, tl,
                                                  group=group, **kw)
-    torch.testing.assert_close(k2, k1, **F32)
-    assert k2[0, 0, BM:2 * BM].abs().max() == 0
-    rows = k2[1, 1, 2 * BM:3 * BM]
-    torch.testing.assert_close(rows, v[1, 1, 5 * BN:6 * BN].mean(0).expand(
-        BM, -1), **F32)
+    rows = lambda r: slice(r * BM, (r + 1) * BM)
+    degenerate = {(0, 0, 1), (1, 1, 2)}
+    for b, h, r in np.ndindex(2, 2, 8):
+        if (b, h, r) not in degenerate:
+            torch.testing.assert_close(k2[b, h, rows(r)], k1[b, h, rows(r)],
+                                       **F32)
+    assert k1[0, 0, rows(1)].abs().max() == 0
+    torch.testing.assert_close(k1[1, 1, rows(2)], _lane_mean(
+        v[1, 1], idx[1, 1, 2], cnt[1, 1, 2]).expand(BM, -1), **F32)
+    for b, h, r in degenerate:
+        u = r // group
+        torch.testing.assert_close(k2[b, h, rows(r)], _lane_mean(
+            v[b, h], ui[b, h, u], uc[b, h, u]).expand(BM, -1), **F32)
 
 
 def test_dense_attention_vanilla_masks_invalid_keys():
@@ -187,25 +205,51 @@ def test_dense_attention_vanilla_masks_invalid_keys():
     np.testing.assert_array_equal(flash, got)
 
 
-def test_all_masked_row_differs_from_jax_only_there():
-    """A row block whose only listed block is the text block of a batch
-    with text_len 0: every gathered key is masked while its count is 1.
-    The port averages V over the listed block; the JAX kernel averages
-    over its whole chunk, chunk-padding slots included (ROADMAP Queue 3).
-    Every other row agrees at fp32; on that row the two differ by 0.236 at
-    most (these inputs)."""
+def test_degenerate_rows_match_jax():
+    """Rows whose every gathered key is masked while their count is above
+    0 agree with the JAX kernels at fp32 like every other row.  K1: a row
+    block whose only listed block is the text block of a batch with
+    text_len 0 (V averaged over its whole chunk, padding slots included),
+    at chunk_blocks 2 and 16.  K2 at G=2: a row block with no block of its
+    own in a union that has blocks (V averaged over the union's lanes)."""
     q, k, v = make_inputs(51, 1, 2, 3, 4, 64)
     mask = random_mask(52, (1, 2, 3, 4), 0.5)
     mask[0, 1, 1] = False
     mask[0, 1, 1, 3] = True
-    got, want = run_both(q, k, v, mask, [0], 3 * BN, 3 * BN)
-    row = (0, 1, slice(BM, 2 * BM))
-    keep = np.ones(got.shape, bool)
-    keep[row] = False
-    np.testing.assert_allclose(got[keep], want[keep], **F32)
-    np.testing.assert_allclose(got[row], np.broadcast_to(
-        v[0, 1, 3 * BN:].mean(0), (BM, 64)), **F32)
-    assert np.abs(got[row] - want[row]).max() > 0.1
+    tq = [torch.from_numpy(x) for x in (q, k, v)]
+    jq = [jnp.asarray(x) for x in (q, k, v)]
+    tl = torch.zeros(1, dtype=torch.int32)
+    idx, cnt = ops.mask_to_indices(torch.from_numpy(mask))
+    jidx, jcnt = jops.mask_to_indices(jnp.asarray(mask))
+    kw = dict(visual_len=3 * BN, text_start=3 * BN)
+    for cb in (2, 16):
+        got = tk.block_sparse_flash_attention(*tq, idx, cnt, tl,
+                                              chunk_blocks=cb, **kw)
+        want = jk.block_sparse_flash_attention(
+            *jq, jidx, jcnt, jnp.zeros((1,), jnp.int32), chunk_blocks=cb,
+            interpret=True, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+        # the degenerate row is V's mean over its chunk's lanes, not 0
+        assert np.abs(np.asarray(want)[0, 1, BM:2 * BM]).max() > 0.01
+
+    q, k, v = make_inputs(53, 1, 2, 4, 5, 64)
+    mask = random_mask(54, (1, 2, 4, 5), 0.5)
+    mask[0, 0, 2] = False                          # no block of its own
+    mask[0, 0, 3, 1] = True
+    visual_len = 5 * BN - 40
+    ui, uc, rb, cl = ops.group_rows(torch.from_numpy(mask), 2,
+                                    clean_blocks=visual_len // BN)
+    got = tk.block_sparse_flash_attention_grouped(
+        *map(torch.from_numpy, (q, k, v)), ui, uc, rb, cl, tl, group=2,
+        visual_len=visual_len, text_start=None).numpy()
+    ji, jc, jb, jcl = jops.group_rows(jnp.asarray(mask), 2,
+                                      clean_blocks=visual_len // BN)
+    want = np.asarray(jk.block_sparse_flash_attention_grouped(
+        *map(jnp.asarray, (q, k, v)), ji, jc, jb, jcl,
+        jnp.zeros((1,), jnp.int32), group=2, visual_len=visual_len,
+        text_start=None, interpret=True))
+    np.testing.assert_allclose(got, want, **F32)
+    assert np.abs(want[0, 0, 2 * BM:3 * BM]).max() > 0.01
 
 
 @pytest.mark.parametrize("case", ["fp32", "fp32_mask_b2", "fp32_scale",
@@ -320,7 +364,8 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="K1s"):
         tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl,
                                         return_stats=True, **kw)
-    with pytest.raises(NotImplementedError, match="K1q"):
+    # K1q is ported; a mode still needs its payload, as in JAX
+    with pytest.raises(ValueError, match="together"):
         tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl,
                                         quant_mode="mxu8", **kw)
     with pytest.raises(ValueError, match="device"):

@@ -77,11 +77,9 @@ def test_topp_selection_bit_exact(peaked, p_remain, floor):
     tp, jp = torch.from_numpy(probs), jnp.asarray(probs)
     same(ops.topp_threshold_onehot_bisect(tp, p_remain, floor),
          jops.topp_threshold_onehot_bisect(jp, p_remain, floor), exact=True)
-    if p_remain >= 1.0:
-        # the sort paths compare a cumulative sum with 1.0 itself, which
-        # rounds differently with the summation order: only the bisection
-        # (which keeps every block) is defined there
-        return
+    # the sort paths compare a cumulative sum with p_remain itself (at 1.0
+    # the last sums land on it): they sum in XLA's order, so they agree
+    # bit for bit there too
     same(ops.topp_threshold_onehot(tp, p_remain, floor),
          jops.topp_threshold_onehot(jp, p_remain, floor), exact=True)
     counts, order = ops.topp_topk_counts(tp, p_remain, floor)

@@ -270,8 +270,9 @@ def test_tiny_wan_pipeline_inputs_match_jax(variant):
 
 def test_wan_pipeline_unported_options_raise():
     _, _, tmod = tiny_pair()
+    # the int8 / offloaded TeaCache residual is ported (test_torch_quant.py)
     for kw in (dict(scan_blocks=True), dict(dispatch_segments=2),
-               dict(teacache_residual="int8"), dict(teacache_offload=True)):
+               dict(mesh=object()), dict(defer_device=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             WanPipeline(model=tmod, height=64, width=64, frames=5,
                         device="cpu", **kw)
