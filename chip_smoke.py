@@ -2,12 +2,13 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py          # from the repository root, one GPU
+                                   # (more cards add the multi_gpu phase)
 
 Builds the port's CUDA kernels from rectified_spaattn_tpu_torch/csrc with
 nvcc (sm_90a, one nvcc per source, all started together) and drives the
 HunyuanVideo sparse denoise path, its int8 serving levers (K1q, S1, int8 /
-int4 weights, the int8 offloaded TeaCache residual) and the Wan2.1-14B
-denoise path:
+int4 weights, the int8 offloaded TeaCache residual), the Wan2.1-14B
+denoise path and the multi-device path (K1s, the ring, tensor parallelism):
 
   1. device: the card's name and power limit; TF32 off.
   2. kernels: K1 (single-row gather), K2 (grouped-row gather) and K3
@@ -64,6 +65,31 @@ denoise path:
      seeded bf16 random weights — the launch counters and the sparse plans
      built are zeroed just before and read just after; then one sparse
      step under the profiler.
+  7. k1s_vs_plain: K1s (K1 with the row max m and sum l) in bf16 against
+     its plain version at small shapes — random masks, the text window at
+     B=2, count-0 rows (m == -inf and l == 0 exactly), degenerate rows at
+     chunk_blocks 2 and 16, packed_kv; o held as K1 is, m within M_TOL
+     absolute, l within L_REL relative.
+  8. ring_hunyuan: the ring at the Hunyuan site point (115,200 visual + 256
+     text tokens, 100 valid), sp = 4 through the in-process group on this
+     one card, on random and smooth inputs — K1s's launch counter zeroed
+     just before and read just after; the visual and text outputs against
+     the single-device site (K1, group_rows 1, the ring's sort-based
+     top-p) within the relative limits; the mask entries that differ from
+     the single-device plan; the composed plan_row_chunk + kv_packed ring
+     against the plain ring; one ring step's visual-row and text-row K1s
+     against the plain version on the full inputs, with bound, plain ms
+     and (text rows) the flash-attention call that returns the log-sum-exp
+     (held to m + log l); the ring's total ms beside the site's.
+  9. ring_wan: the Wan site at 75,648 tokens, sp = 3, visual layout with
+     first-frame retention, against the single-device site with the same
+     visual_len (the visual ring takes every token as valid).
+ 10. multi_gpu, with two or more cards: one process per card (up to 4) on
+     NCCL runs the Hunyuan ring of phase 8 (random inputs), held against
+     its in-process output; two run the full-width 2+2-block Hunyuan
+     pipeline at tp = 2, held against phase 4's output, with per-rank
+     weight bytes and peak memory.  With one card it prints a "skipped"
+     line and goes on.
 
 Each phase prints one JSON line with its seconds.  Then a {"kernels": ...}
 line, the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any
@@ -88,6 +114,7 @@ PEAK_INT8_OPS = 1979e12       # H100 SXM dense int8 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12      # H100 SXM HBM3
 TOL = 2e-2                    # the repo's bf16 tolerance (tests/test_kernels.py:101)
 REL_MAX, REL_RMS = 0.05, 0.02  # limits relative to the output's scale
+M_TOL, L_REL = 2e-2, 0.01     # K1s's row max (absolute) and row sum (relative)
 DEV = "cuda"
 # the operating point: latent grid (T', H', W') of 128x720x1280 video,
 # heads, text slot, valid text tokens
@@ -104,6 +131,9 @@ WAN_SITE = dict(grid=(21, 45, 80), heads=40, head_dim=128, text_len=512,
 # makes step 1 dense and steps 2-3 sparse (past the 2 warm layers)
 WAN_PIPE = dict(cfg=dict(num_blocks=4), height=720, width=1280, frames=81,
                 steps=3, warm_layers=2, warm_calls=2)
+# the ring's sequence-parallel ways: 900 Hunyuan blocks over 4 ranks, 591
+# Wan blocks over 3
+RING_SP = dict(hunyuan=4, wan=3)
 
 
 def emit(phase: str, t0: float, **fields):
@@ -759,7 +789,7 @@ def pipeline_phase(kernels):
     pipe(text, mask, generator=noise, num_steps=1)
     res["block0_density"] = pipe.density_samples
     res["step_seconds_with_probe"] = pipe.step_seconds
-    return res
+    return res, out.cpu()
 
 
 def profile_step(pipe, text, mask, top: int = 12):
@@ -883,7 +913,7 @@ def small_int4_check(kernels):
     return res
 
 
-def pipeline_int8_phase(kernels, bf16_peak_gb: float):
+def pipeline_int8_phase(kernels, bf16_peak_gb):
     """HunyuanVideoPipeline at full width, 2+2 blocks, 3 steps, with int8
     weights (quantize_model in place), K1q "mxu8" for the visual rows and
     the int8 TeaCache residual in pinned host memory; a replayed schedule
@@ -1210,6 +1240,496 @@ def small_wan_pipeline_check():
     return {"max_abs_err": err, "ref_max_abs": scale}
 
 
+# ------------------------------------------------------ multi-device ---
+
+def check_k1s(name, got, want, counts, block_m: int = 128) -> dict:
+    """K1s (o, m, l) against its plain version: o to the relative limits,
+    m within M_TOL and l within L_REL on rows with a listed block, and
+    m == -inf and l == 0 exactly on count-0 rows (``counts`` [B,H,NQ])."""
+    o, m, l = got
+    wo, wm, wl = want
+    r = {"case": name, **held_to_scale(name, o, wo)}
+    zero = (counts == 0).repeat_interleave(block_m, dim=2)
+    if zero.any() and not (bool((m[zero] == -torch.inf).all())
+                           and bool((l[zero] == 0).all())):
+        raise AssertionError(f"{name}: a count == 0 row has m != -inf or "
+                             "l != 0")
+    live = ~zero
+    r["count0_rows"] = int(zero.sum())
+    r["m_max_abs_err"] = float((m[live] - wm[live]).abs().max())
+    r["l_max_rel_err"] = float(((l[live] - wl[live]).abs()
+                                / wl[live]).max())
+    if not (r["m_max_abs_err"] <= M_TOL and r["l_max_rel_err"] <= L_REL):
+        raise AssertionError(f"{name}: stats beyond m {M_TOL} / l {L_REL}: "
+                             f"{r}")
+    return r
+
+
+def k1s_cases(kernels, ops):
+    """K1s against its plain version on small bf16 cases; returns the
+    largest errors and the cases."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2468)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    errs = {"o": 0.0, "m": 0.0, "l_rel": 0.0}
+    cases = []
+
+    def case(name, b, h, nq, nb, mask, visual_len, text_start, tlen,
+             chunk_blocks=16, packed=False):
+        q, k, v = rnd(b, h, nq * 128, 128), rnd(b, h, nb * 128, 128), \
+            rnd(b, h, nb * 128, 128)
+        tl = torch.tensor(tlen, dtype=torch.int32, device=dev)
+        idx, cnt = ops.mask_to_indices(mask)
+        kw = dict(visual_len=visual_len, text_start=text_start,
+                  chunk_blocks=chunk_blocks, return_stats=True,
+                  packed_kv=torch.cat([k, v], dim=-1) if packed else None)
+        got = kernels.block_sparse_flash_attention(q, k, v, idx, cnt, tl,
+                                                   **kw)
+        want = kernels.block_sparse_flash_attention_torch(q, k, v, idx, cnt,
+                                                          tl, **kw)
+        e = max_err(got[0], want[0])
+        if not (torch.isfinite(got[0].float()).all() and e <= TOL):
+            raise AssertionError(f"{name}: max abs err {e} > {TOL}")
+        r = check_k1s(name, got, want, cnt)
+        errs["o"] = max(errs["o"], e)
+        errs["m"] = max(errs["m"], r["m_max_abs_err"])
+        errs["l_rel"] = max(errs["l_rel"], r["l_max_rel_err"])
+        cases.append(r)
+
+    m = torch.rand((1, 4, 16, 16), generator=gen, device=dev) < 0.4
+    m[..., 0] = True
+    case("k1s_random_masks", 1, 4, 16, 16, m, 16 * 128, None, [0])
+    m = torch.rand((2, 4, 15, 16), generator=gen, device=dev) < 0.5
+    m[..., -1] = True
+    case("k1s_text_window_b2", 2, 4, 15, 16, m, 15 * 128 - 40, 15 * 128,
+         [100, 37])
+    # count-0 rows (rows 1 and 3) and, in batch 1, a degenerate row block
+    # (its only block the text block of a batch with text_len 0)
+    m = torch.zeros((2, 2, 4, 5), dtype=torch.bool, device=dev)
+    m[:, :, 0, :3] = True
+    m[:, :, 2, 4] = True
+    for cb in (2, 16):
+        case(f"k1s_count0_and_degenerate_chunk{cb}", 2, 2, 4, 5, m, 4 * 128,
+             4 * 128, [64, 0], chunk_blocks=cb)
+    m = torch.rand((1, 2, 8, 10), generator=gen, device=dev) < 0.4
+    m[0, 1, 5] = False
+    case("k1s_packed_kv", 1, 2, 8, 10, m, 10 * 128, None, [0], packed=True)
+    return errs, cases
+
+
+def measure_k1s(kern, name, regime, check, kern_fn, plain_fn, counts, flops,
+                nbytes, library=None):
+    """``measure`` for K1s: the plain check holds o to the relative limits
+    and m / l as check_k1s does."""
+    got = kern_fn()
+    r = {}
+    if check:
+        t_plain = time.perf_counter()
+        want = plain_fn()
+        torch.cuda.synchronize()
+        r["plain_ms"] = (time.perf_counter() - t_plain) * 1e3
+        r.update(check_k1s(name, got, want, counts))
+        del want
+    if not torch.isfinite(got[0].float()).all():
+        raise AssertionError(f"{name}: output is not finite")
+    del got
+    torch.cuda.empty_cache()
+    r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes)
+    r["ms"] = cuda_ms(kern_fn)
+    r["library_ms"] = cuda_ms(library, reps=2) if library else None
+    r["roofline_share"] = r["bound_ms"] / r["ms"]
+    kern[name] = r
+    print(json.dumps({"kernel_at_site": name, "regime": regime, **r}),
+          flush=True)
+
+
+def ring_launches(kernels):
+    k1 = kernels.block_sparse_flash_attention
+    return {"K1s": k1.stats_launches, "K1": k1.launches,
+            "K2": kernels.block_sparse_flash_attention_grouped.launches}
+
+
+def zero_ring_launches(kernels):
+    k1 = kernels.block_sparse_flash_attention
+    k1.stats_launches = k1.launches = 0
+    kernels.block_sparse_flash_attention_grouped.launches = 0
+
+
+def ring_masks(q_vis, k_vis, v_vis, n, nbr, cfg, text_keys=None,
+               text_valid=None):
+    """Every rank's plan mask of the ring, concatenated over the ranks
+    ([B,H,NB,NB]), from the pooled statistics the ring all-gathers."""
+    from rectified_spaattn_tpu_torch.attention.ring import (pooled_stats,
+                                                            rank_plan)
+    kp, vp, dk = pooled_stats(k_vis, v_vis, 128)
+    s_l = q_vis.shape[2] // n
+    return torch.cat([rank_plan(r, n, q_vis[:, :, r * s_l:(r + 1) * s_l],
+                                kp, vp, dk, nbr, cfg, text_keys,
+                                text_valid)[0] for r in range(n)], dim=2)
+
+
+def k1s_step_bytes(b, h, rows, d, kv_blocks, *lists):
+    """Bytes one K1s call must move: q read, o written, m and l written,
+    the K/V blocks its lists use read once, the lists read."""
+    return (2 * b * h * rows * d * 2 + 2 * b * h * rows * 4
+            + 2 * kv_blocks * 128 * d * 2 + sum(t.numel() * 4 for t in lists))
+
+
+def used_blocks(indices, counts) -> float:
+    """K/V blocks (per batch x head) some list of ``indices`` uses."""
+    bh = indices.shape[0] * indices.shape[1]
+    nb = int(indices.max()) + 1
+    used = torch.zeros((bh, nb), dtype=torch.int32, device=indices.device)
+    used.scatter_add_(1, indices.reshape(bh, -1).long(),
+                      (torch.arange(indices.shape[-1], device=indices.device)
+                       < counts[..., None]).reshape(bh, -1).int())
+    return float((used > 0).sum())
+
+
+def ring_step_k1s(kernels, ops, kern, prefix, regime, check, q_vis, k_vis,
+                  v_vis, mask0, n, q_text=None):
+    """K1s of rank 0's first ring step (its own shard) on the full inputs:
+    the visual rows and, with ``q_text``, the text rows with full lists
+    over the shard."""
+    b, h, sv, d = q_vis.shape
+    s_l = sv // n
+    nb_l = s_l // 128
+    q0 = q_vis[:, :, :s_l].contiguous()
+    k0, v0 = k_vis[:, :, :s_l].contiguous(), v_vis[:, :, :s_l].contiguous()
+    idx, cnt = ops.mask_to_indices(mask0[..., :nb_l])
+    tl0 = torch.zeros((b,), dtype=torch.int32, device=q0.device)
+    kw = dict(visual_len=s_l, text_start=None, return_stats=True)
+    pairs = float(cnt.sum())
+    measure_k1s(kern, f"{prefix}_visual", regime, check,
+                lambda: kernels.block_sparse_flash_attention(
+                    q0, k0, v0, idx, cnt, tl0, **kw),
+                lambda: kernels.block_sparse_flash_attention_torch(
+                    q0, k0, v0, idx, cnt, tl0, **kw), cnt,
+                flops=pairs * 4.0 * 128 * 128 * d,
+                nbytes=k1s_step_bytes(b, h, s_l, d, used_blocks(idx, cnt),
+                                      idx, cnt))
+    kern[f"{prefix}_visual"]["pairs"] = pairs
+    if q_text is None:
+        return
+    qt = q_text
+    nt = qt.shape[2] // 128
+    fidx = torch.arange(nb_l, dtype=torch.int32, device=q0.device).expand(
+        b, h, nt, nb_l)
+    fcnt = torch.full((b, h, nt), nb_l, dtype=torch.int32, device=q0.device)
+    flash = torch.ops.aten._scaled_dot_product_flash_attention
+    name = f"{prefix}_text"
+    measure_k1s(kern, name, regime, check,
+                lambda: kernels.block_sparse_flash_attention(
+                    qt, k0, v0, fidx, fcnt, tl0, **kw),
+                lambda: kernels.block_sparse_flash_attention_torch(
+                    qt, k0, v0, fidx, fcnt, tl0, **kw), fcnt,
+                flops=b * h * nt * nb_l * 4.0 * 128 * 128 * d,
+                nbytes=k1s_step_bytes(b, h, qt.shape[2], d, b * h * nb_l,
+                                      fidx, fcnt),
+                library=lambda: flash(qt, k0, v0))
+    # the flash call's log-sum-exp is m + log l of the same rows
+    _, m, l = kernels.block_sparse_flash_attention(qt, k0, v0, fidx, fcnt,
+                                                   tl0, **kw)
+    lse = flash(qt, k0, v0)[1]
+    kern[name]["library_lse_vs_m_log_l"] = float(
+        (lse.float() - (m + torch.log(l))).abs().max())
+
+
+def ring_hunyuan_phase(kernels, ops, regime: str):
+    """The ring at the Hunyuan site point, sp = 4 in-process on this card
+    (see the module docstring); returns (results, per-kernel results,
+    (visual out, text out) on the host where a second card can use it)."""
+    from rectified_spaattn_tpu_torch.attention import (
+        kv_validity, rectified_sparse_attention,
+        ring_rectified_sparse_attention)
+    from rectified_spaattn_tpu_torch.parallel import in_process_mesh
+    from rectified_spaattn_tpu_torch.pipelines import build_site
+    from rectified_spaattn_tpu_torch.sparse import build_sparse_plan
+
+    dev = torch.device(DEV)
+    full = regime == "random"
+    b, h, d, text_len = 1, SITE["heads"], SITE["head_dim"], SITE["text_len"]
+    n = RING_SP["hunyuan"]
+    site, _, h2l = build_site(*SITE["grid"], sa_drop_rate=0.8, p_remain=0.3,
+                              layout="joint", text_len=text_len, device=dev)
+    sv = site.visual_len
+    s = sv + text_len
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    if full:
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev
+                               ).to(torch.bfloat16) for _ in range(3))
+    else:
+        q, k, v = smooth_qkv(gen, h, sv, text_len, d, h2l, SITE["grid"])
+    tlen = torch.tensor([SITE["tlen"]], dtype=torch.int32, device=dev)
+    # the ring selects blocks by the sort-based top-p (the JAX ring's)
+    cfg = dataclasses.replace(site.cfg, topp_impl="sort")
+    nbr = site.neighbor_mask
+    mesh = in_process_mesh(sp=n)
+    qv, kvv, vv = q[:, :, :sv], k[:, :, :sv], v[:, :, :sv]
+    text = dict(q_text=q[:, :, sv:], k_text=k[:, :, sv:],
+                v_text=v[:, :, sv:], text_len_rt=tlen)
+
+    def ring(cfg_=cfg, **kw):
+        return ring_rectified_sparse_attention(mesh, qv, kvv, vv, cfg_, nbr,
+                                               **text, **kw)
+
+    res = {"regime": regime, "sp": n, "visual_tokens": sv}
+    zero_ring_launches(kernels)
+    out_v, out_t = ring()
+    launches = ring_launches(kernels)
+    torch.cuda.synchronize()
+    want = {"K1s": n * (2 * n + 2), "K1": 0, "K2": 0}
+    if launches != want:
+        raise AssertionError(f"ring launches {launches}, want {want}")
+    res["launches"] = launches
+    single = lambda: rectified_sparse_attention(q, k, v, cfg, nbr,
+                                                visual_len=sv,
+                                                text_len_rt=tlen)
+    ref = single()
+    res["vs_single_device"] = {
+        "visual": held_to_scale(f"ring visual ({regime}) vs the site",
+                                out_v, ref[:, :, :sv]),
+        "text": held_to_scale(f"ring text ({regime}) vs the site", out_t,
+                              ref[:, :, sv:])}
+    del ref
+    res["ring_ms"] = cuda_ms(ring, reps=1)
+    res["single_device_site_ms"] = cuda_ms(single, reps=1)
+    # the plans: every rank's mask against the single-device plan
+    valid = kv_validity(b, s, sv, sv, tlen, device=dev)
+    zero = torch.zeros((), dtype=k.dtype, device=dev)
+    kz = torch.where(valid[:, None, :, None], k, zero)
+    vz = torch.where(valid[:, None, :, None], v, zero)
+    text_valid = torch.arange(text_len, device=dev)[None, :] < tlen[:, None]
+    plan = build_sparse_plan(qv, kz, vz, cfg, neighbor_mask=nbr,
+                             text_valid=text_valid)
+    nb = sv // 128
+    masks = ring_masks(qv, kvv, vv, n, nbr, cfg, kz[:, :, sv:].float(),
+                       text_valid)
+    res["mask_entries"] = masks.numel()
+    res["mask_entries_differing"] = int(
+        (masks != plan.block_mask[..., :nb]).sum())
+    res["density"] = float(masks.float().mean())
+    del plan, kz, vz
+    # the composed levers: row-tiled plans, one packed K|V buffer
+    kvp = torch.cat([kvv, vv], dim=-1)
+    cv, ct = ring_rectified_sparse_attention(
+        mesh, qv, kvp[..., :d], kvp[..., d:],
+        dataclasses.replace(cfg, plan_row_chunk=64), nbr, kv_packed=kvp,
+        **text)
+    res["composed_vs_plain"] = {
+        "visual": held_to_scale("composed ring visual", cv, out_v),
+        "text": held_to_scale("composed ring text", ct, out_t),
+        "max_abs_diff": max(max_err(cv, out_v), max_err(ct, out_t))}
+    del cv, ct, kvp
+    # the multi_gpu phase holds the NCCL ring against this output
+    outs = ((out_v.cpu(), out_t.cpu()) if torch.cuda.device_count() >= 2
+            else None)
+    del out_v, out_t
+    torch.cuda.empty_cache()
+    kern = {}
+    ring_step_k1s(kernels, ops, kern, "K1s_ring", regime, full, qv, kvv, vv,
+                  masks[:, :, :sv // n // 128], n, q_text=q[:, :, sv:])
+    return res, kern, outs
+
+
+def ring_wan_phase(kernels, ops):
+    """The visual ring at the Wan site, 75,648 tokens over sp = 3, against
+    the single-device site with the same visual_len (random inputs)."""
+    from rectified_spaattn_tpu_torch.attention import (
+        rectified_sparse_attention, ring_rectified_sparse_attention)
+    from rectified_spaattn_tpu_torch.parallel import in_process_mesh
+    from rectified_spaattn_tpu_torch.pipelines import build_site
+    from rectified_spaattn_tpu_torch.sparse import build_sparse_plan
+
+    dev = torch.device(DEV)
+    b, h, d = 1, WAN_SITE["heads"], WAN_SITE["head_dim"]
+    n = RING_SP["wan"]
+    site, _, _ = build_site(*WAN_SITE["grid"], sa_drop_rate=0.75,
+                            p_remain=0.3, layout="visual",
+                            first_frame_retention=True, device=dev)
+    s = site.visual_len + (-site.visual_len) % 128          # 75,648
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev
+                           ).to(torch.bfloat16) for _ in range(3))
+    cfg = dataclasses.replace(site.cfg, topp_impl="sort")
+    nbr = site.neighbor_mask
+    mesh = in_process_mesh(sp=n)
+    ring = lambda: ring_rectified_sparse_attention(mesh, q, k, v, cfg, nbr)
+    res = {"regime": "random", "sp": n, "tokens": s,
+           "first_frame_blocks": cfg.first_frame_blocks}
+    zero_ring_launches(kernels)
+    out = ring()
+    launches = ring_launches(kernels)
+    torch.cuda.synchronize()
+    want = {"K1s": n * n, "K1": 0, "K2": 0}
+    if launches != want:
+        raise AssertionError(f"Wan ring launches {launches}, want {want}")
+    res["launches"] = launches
+    single = lambda: rectified_sparse_attention(q, k, v, cfg, nbr,
+                                                visual_len=s)
+    res["vs_single_device"] = held_to_scale("Wan ring vs the site", out,
+                                            single())
+    del out
+    res["ring_ms"] = cuda_ms(ring, reps=1)
+    res["single_device_site_ms"] = cuda_ms(single, reps=1)
+    plan = build_sparse_plan(q, k, v, cfg, neighbor_mask=nbr)
+    masks = ring_masks(q, k, v, n, nbr, cfg)
+    res["mask_entries"] = masks.numel()
+    res["mask_entries_differing"] = int((masks != plan.block_mask).sum())
+    res["density"] = float(masks.float().mean())
+    del plan
+    torch.cuda.empty_cache()
+    kern = {}
+    ring_step_k1s(kernels, ops, kern, "K1s_ring_wan", "random", True, q, k,
+                  v, masks[:, :, :s // n // 128], n)
+    return res, kern
+
+
+def _mg_init(rank: int, world: int, tmp: str, name: str):
+    sys.path.insert(0, ROOT)
+    from rectified_spaattn_tpu_torch.parallel import init_distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init_distributed(f"cuda:{rank}", init_method=f"file://{tmp}/{name}",
+                     world_size=world, rank=rank)
+    return torch.device("cuda", rank)
+
+
+def _mg_ring_worker(rank: int, world: int, tmp: str):
+    """One rank of the NCCL ring at the phase-8 point (random inputs, made
+    on this card from the phase's seed; every rank is given the global
+    tensors and returns the global output), held against the in-process
+    ring's output; writes mg_ring_<rank>.json."""
+    import torch.distributed as dist
+    dev = _mg_init(rank, world, tmp, "ring_rdv")
+    from rectified_spaattn_tpu_torch.attention import (
+        ring_rectified_sparse_attention)
+    from rectified_spaattn_tpu_torch.parallel import make_mesh
+    from rectified_spaattn_tpu_torch.pipelines import build_site
+    b, h, d, text_len = 1, SITE["heads"], SITE["head_dim"], SITE["text_len"]
+    site, _, _ = build_site(*SITE["grid"], sa_drop_rate=0.8, p_remain=0.3,
+                            layout="joint", text_len=text_len, device=dev)
+    sv = site.visual_len
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    q, k, v = (torch.randn((b, h, sv + text_len, d), generator=gen,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    text = dict(q_text=q[:, :, sv:], k_text=k[:, :, sv:],
+                v_text=v[:, :, sv:],
+                text_len_rt=torch.tensor([SITE["tlen"]], dtype=torch.int32,
+                                         device=dev))
+    cfg = dataclasses.replace(site.cfg, topp_impl="sort")
+    mesh = make_mesh(dp=1, tp=1, sp=world)
+    ring = lambda: ring_rectified_sparse_attention(
+        mesh, q[:, :, :sv], k[:, :, :sv], v[:, :, :sv], cfg,
+        site.neighbor_mask, **text)
+    out_v, out_t = ring()
+    ref_v, ref_t = torch.load(os.path.join(tmp, "ring_ref.pt"))
+    res = {"rank": rank, "world": world,
+           "visual": held_to_scale(f"NCCL ring rank {rank} visual", out_v,
+                                   ref_v.to(dev)),
+           "text": held_to_scale(f"NCCL ring rank {rank} text", out_t,
+                                 ref_t.to(dev))}
+    del out_v, out_t, ref_v, ref_t
+    dist.barrier()
+    res["ring_ms"] = cuda_ms(ring, reps=1)
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    with open(os.path.join(tmp, f"mg_ring_{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _mg_pipe_worker(rank: int, world: int, tmp: str):
+    """One rank of the full-width 2+2-block Hunyuan pipeline at tp =
+    ``world``, built and run as phase 4 builds and runs it; rank 0 holds
+    the latents against phase 4's; writes mg_pipe_<rank>.json."""
+    import torch.distributed as dist
+    dev = _mg_init(rank, world, tmp, "pipe_rdv")
+    from rectified_spaattn_tpu_torch import kernels
+    from rectified_spaattn_tpu_torch.cli.generate import _random_text
+    from rectified_spaattn_tpu_torch.models import (
+        HunyuanVideoConfig, HunyuanVideoDiT, init_random_weights, quant)
+    from rectified_spaattn_tpu_torch.parallel import make_mesh
+    from rectified_spaattn_tpu_torch.pipelines import HunyuanVideoPipeline
+    cfg = HunyuanVideoConfig(**PIPE["cfg"])
+    with torch.device(dev):
+        model = HunyuanVideoDiT(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = init_random_weights(model.to(torch.bfloat16), gen)
+    full_bytes = quant.quantized_nbytes(model)
+    pipe = HunyuanVideoPipeline(
+        model=model, height=PIPE["height"], width=PIPE["width"],
+        frames=PIPE["frames"], num_steps=PIPE["steps"],
+        sa_drop_rate=0.8, p_remain_rates=0.3, mode="sparse",
+        enable_teacache=True, rel_l1_thresh=0.15, group_rows=2, device=dev,
+        mesh=make_mesh(tp=world))
+    text, mask = _random_text("several hot air balloons flying over a city.",
+                              256, cfg.text_dim, device=dev)
+    noise = torch.Generator(device=dev)
+    noise.manual_seed(42)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    k1, k2 = (kernels.block_sparse_flash_attention,
+              kernels.block_sparse_flash_attention_grouped)
+    k1.launches = k2.launches = 0
+    out = pipe(text, mask, generator=noise)
+    torch.cuda.synchronize(dev)
+    res = {"rank": rank, "tp": world,
+           "launches": {"K1": k1.launches, "K2": k2.launches},
+           "step_seconds": pipe.step_seconds,
+           "teacache_decisions": pipe.teacache.decisions,
+           "weights_gb": quant.quantized_nbytes(pipe.model) / 2**30,
+           "full_model_weights_gb": full_bytes / 2**30,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 2**30}
+    if rank == 0:
+        ref = torch.load(os.path.join(tmp, "pipe_ref.pt"))
+        res["vs_single_gpu"] = held_to_scale("tp pipeline vs one GPU", out,
+                                             ref.to(dev))
+    with open(os.path.join(tmp, f"mg_pipe_{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _read_json(tmp: str, name: str) -> dict:
+    with open(os.path.join(tmp, name)) as f:
+        return json.load(f)
+
+
+def multi_gpu_phase(ring_ref, pipe_ref):
+    """Phase 10: the NCCL ring over up to 4 cards and the tp = 2 pipeline,
+    each in processes of its own (one per card, joined before return)."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    count = torch.cuda.device_count()
+    world = min(count, RING_SP["hunyuan"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mg_")
+    try:
+        torch.save(ring_ref, os.path.join(tmp, "ring_ref.pt"))
+        torch.save(pipe_ref, os.path.join(tmp, "pipe_ref.pt"))
+        torch.cuda.empty_cache()
+        res = {"devices": count}
+        mp.spawn(_mg_ring_worker, args=(world, tmp), nprocs=world)
+        res["ring"] = [_read_json(tmp, f"mg_ring_{r}.json")
+                       for r in range(world)]
+        mp.spawn(_mg_pipe_worker, args=(2, tmp), nprocs=2)
+        res["pipeline_tp2"] = [_read_json(tmp, f"mg_pipe_{r}.json")
+                               for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    decisions = {tuple(r["teacache_decisions"]) for r in res["pipeline_tp2"]}
+    if len(decisions) != 1 or min(r["launches"]["K2"]
+                                  for r in res["pipeline_tp2"]) == 0:
+        raise AssertionError(f"tp pipeline ranks: {res['pipeline_tp2']}")
+    return res
+
+
 # ------------------------------------------------------------------ main ---
 
 def main() -> int:
@@ -1231,7 +1751,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     emit("device", t0, name=torch.cuda.get_device_name(0), nvidia_smi=smi,
-         torch=torch.__version__, cuda=torch.version.cuda)
+         torch=torch.__version__, cuda=torch.version.cuda,
+         device_count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
     errs, cases = kernel_cases(kernels, ops)
@@ -1241,23 +1762,28 @@ def main() -> int:
     qerrs, qcases = k1q_cases(kernels, ops)
     emit("k1q_vs_plain", t0, tolerance=TOL, max_abs_err=qerrs, cases=qcases)
 
+    t0 = time.perf_counter()
+    serrs, scases = k1s_cases(kernels, ops)
+    emit("k1s_vs_plain", t0, tolerance={"o": TOL, "m": M_TOL, "l_rel": L_REL},
+         max_err=serrs, cases=scases)
+
     sites = {}
     for regime in ("random", "smooth"):
         t0 = time.perf_counter()
         res, sites[regime] = site_phase(kernels, ops, regime)
         emit(f"site_{regime}", t0, **res)
-        emit(f"site_k1q_{regime}", t0, chunk_blocks=res["k1q_chunk_blocks"],
+        emit(f"site_k1q_{regime}", t0,
+             chunk_blocks=res["k1q_chunk_blocks"],
              bf16_k1_ms=sites[regime]["K1_visual_g1"]["ms"],
              **{n: r for n, r in sites[regime].items()
                 if n.startswith("K1q")})
-    site, smooth = sites["random"], sites["smooth"]
 
     t0 = time.perf_counter()
     small = small_pipeline_check()
     emit("small_pipeline_gpu_vs_cpu", t0, **small)
 
     t0 = time.perf_counter()
-    pipe = pipeline_phase(kernels)
+    pipe, pipe_latents = pipeline_phase(kernels)
     emit("pipeline", t0, **pipe)
 
     t0 = time.perf_counter()
@@ -1277,7 +1803,6 @@ def main() -> int:
         t0 = time.perf_counter()
         res, wsites[regime] = wan_site_phase(kernels, regime)
         emit(f"wan_site_{regime}", t0, **res)
-    wsite = wsites["random"]
 
     t0 = time.perf_counter()
     small = small_wan_pipeline_check()
@@ -1287,12 +1812,37 @@ def main() -> int:
     wpipe = wan_pipeline_phase(kernels)
     emit("wan_pipeline", t0, **wpipe)
 
+    rings, ring_res, ring_ref = {}, {}, None
+    for regime in ("random", "smooth"):
+        t0 = time.perf_counter()
+        ring_res[regime], rings[regime], outs = ring_hunyuan_phase(
+            kernels, ops, regime)
+        if regime == "random":
+            ring_ref = outs
+        del outs
+        emit(f"ring_hunyuan_{regime}", t0, **ring_res[regime])
+
+    t0 = time.perf_counter()
+    wring, rings["wan"] = ring_wan_phase(kernels, ops)
+    emit("ring_wan", t0, **wring)
+
+    t0 = time.perf_counter()
+    if torch.cuda.device_count() < 2:
+        print(json.dumps({"phase": "multi_gpu", "skipped": "1 device"}),
+              flush=True)
+    else:
+        emit("multi_gpu", t0, **multi_gpu_phase(ring_ref, pipe_latents))
+
+    site, smooth = sites["random"], sites["smooth"]
+    wsite = wsites["random"]
     src = "rectified_spaattn_tpu_torch/csrc/block_sparse.cu"
     k1, k2, k1t = (site["K1_visual_g1"], site["K2_visual_g2"],
                    site["K1_text_rows"])
     k3, k3i = wsite["K3_t2v_text"], wsite["K3_i2v_image"]
     by_path = lambda n: {"hunyuan": pipe["launches"][n],
                          "wan": wpipe["launches"][n]}
+    ks_t, ks_v = rings["random"]["K1s_ring_text"], \
+        rings["random"]["K1s_ring_visual"]
     line = {"kernels": [
         {"name": "K1", "route": "cuda", "source": src,
          "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:89",
@@ -1365,6 +1915,28 @@ def main() -> int:
          "shape": f"int8, {probe['pairs']} pairs of {probe['shape']}",
          "other_jobs": {"bf16": {**probe["bf16"],
                                  **probe["check"]["bf16"]}}},
+        {"name": "K1s", "route": "cuda", "source": src,
+         "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:311",
+         "launches": (ring_res["random"]["launches"]["K1s"]
+                      + wring["launches"]["K1s"]),
+         "launches_by_path": {
+             "ring_hunyuan": ring_res["random"]["launches"]["K1s"],
+             "ring_wan": wring["launches"]["K1s"]},
+         "max_abs_err": max(serrs["o"], ks_t["max_abs_err"],
+                            ks_v["max_abs_err"]),
+         "ms": ks_t["ms"], "plain_ms": ks_t["plain_ms"],
+         "bound_ms": ks_t["bound_ms"], "bound_by": ks_t["bound_by"],
+         "library_ms": ks_t["library_ms"],
+         "library_lse_vs_m_log_l": ks_t["library_lse_vs_m_log_l"],
+         "shape": "one ring step, text rows: q [1,24,256,128] x full lists "
+                  "over one sp=4 shard (225 blocks)",
+         "other_jobs": {"ring_visual_rows": ks_v,
+                        "ring_visual_rows_smooth":
+                            rings["smooth"]["K1s_ring_visual"],
+                        "ring_text_rows_smooth":
+                            rings["smooth"]["K1s_ring_text"],
+                        "wan_ring_visual_rows":
+                            rings["wan"]["K1s_ring_wan_visual"]}},
     ]}
     t0 = time.perf_counter()
     emit("total", t0, total_seconds=time.perf_counter() - t_start)

@@ -9,14 +9,21 @@ and ``wan21-i2v``):
         --height 720 --width 1280 --frame 81 --enable_teacache
 
 The flags are the JAX CLI's, plus ``--device`` (default cuda; the run
-raises without a GPU unless ``--device cpu``).  Without ``--ckpt_dir`` the
-run uses seeded random weights at a ``--scale``d config, built as the JAX
+raises without a GPU unless ``--device cpu``).  ``--tp N`` runs the
+pipeline tensor-parallel over N processes, one per GPU, launched with
+torchrun (NCCL; with ``--device cpu``, gloo); only rank 0 writes the
+output and prints the JSON line:
+
+    torchrun --nproc_per_node 4 -m rectified_spaattn_tpu_torch.cli.generate \
+        --tp 4 --model hunyuan ...
+
+Without ``--ckpt_dir`` the run uses seeded random weights at a ``--scale``d config, built as the JAX
 CLI builds them; weights and activations are bf16 on the GPU (the CUDA
 kernels take bf16) and fp32 on the CPU.  ``--quant 8|4`` quantizes the
 weights in place, layer by layer (models/quant.py::quantize_model, the JAX
 CLI's ``quantize_params`` rules), so the device never holds a second full
 copy.  Flags of parts not ported yet (checkpoints, other model families,
-multi-GPU, scan execution, I2V images, schedule traces) raise
+scan execution, I2V images, schedule traces) raise
 NotImplementedError.  ``wan21-i2v`` without ``--image`` runs the JAX CLI's
 neutral conditioning: zero condition channels and a zero [1, 257,
 image_dim] CLIP context.
@@ -97,6 +104,8 @@ def parse_args(argv=None):
     p.add_argument("--host_swap", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
+    # the tp mesh, which main builds under --tp (not a flag)
+    p.set_defaults(mesh=None)
     return p.parse_args(argv)
 
 
@@ -109,7 +118,7 @@ def _check_ported(args):
     # are ignored there too
     unported = {
         "--ckpt_dir (checkpoint loading)": args.ckpt_dir,
-        "--tp": args.tp > 1, "--scan_blocks": args.scan_blocks,
+        "--scan_blocks": args.scan_blocks,
         "--dispatch_segments": args.dispatch_segments > 1,
         "--image": args.image, "--trace_out": args.trace_out,
     }
@@ -150,7 +159,7 @@ def _serving(args) -> dict:
                 teacache_residual=args.teacache_residual,
                 teacache_offload=args.teacache_offload,
                 teacache_schedule=_replay_schedule(args),
-                density_probe=args.density)
+                density_probe=args.density, mesh=args.mesh)
 
 
 def build_hunyuan(args):
@@ -240,6 +249,32 @@ def build_wan(args):
     return pipe, (text, neg), extra
 
 
+def _tp_mesh(args):
+    """--tp N: a 1 x N x 1 mesh over the torch.distributed world of N
+    processes (torchrun sets it up; a process group the caller already
+    initialised is used as it is).  Sets ``args.device`` to this rank's
+    device.  Returns (mesh, whether this call initialised the group), or
+    (None, False) for one device."""
+    if args.tp <= 1:
+        return None, False
+    import torch.distributed as dist
+    from ..parallel import init_distributed, local_device, make_mesh
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", 1)))
+    if world < args.tp:
+        raise SystemExit(f"--tp {args.tp} but only {world} devices")
+    if world != args.tp:
+        raise SystemExit(f"--tp {args.tp} runs one process per rank: launch "
+                         f"it with torchrun --nproc_per_node {args.tp} "
+                         f"(the world has {world})")
+    device = local_device(args.device)
+    args.device = str(device)
+    owned = not dist.is_initialized()
+    if owned:
+        init_distributed(device)
+    return make_mesh(dp=1, tp=args.tp, sp=1), owned
+
+
 @contextlib.contextmanager
 def _profiler(log_dir):
     if not log_dir:
@@ -264,14 +299,22 @@ def main(argv=None):
         args.teacache_thresh = tea
 
     from ..utils import set_seed
-    if args.model == "hunyuan":
-        pipe, inputs = build_hunyuan(args)
-        extra = {}
-    else:
-        pipe, inputs, extra = build_wan(args)
-    noise = set_seed(args.seed, pipe.device)
-    with _profiler(args.profile):
-        latents = pipe(*inputs, generator=noise, **extra)
+    args.mesh, owned = _tp_mesh(args)
+    try:
+        if args.model == "hunyuan":
+            pipe, inputs = build_hunyuan(args)
+            extra = {}
+        else:
+            pipe, inputs, extra = build_wan(args)
+        noise = set_seed(args.seed, pipe.device)
+        with _profiler(args.profile):
+            latents = pipe(*inputs, generator=noise, **extra)
+    finally:
+        if owned:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    if args.mesh is not None and args.mesh.group("tp").rank != 0:
+        return None
 
     os.makedirs(args.out_dir, exist_ok=True)
     stamp = datetime.fromtimestamp(time.time()).strftime("%m-%d-%H:%M:%S")

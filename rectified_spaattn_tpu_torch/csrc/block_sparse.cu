@@ -1,8 +1,12 @@
-// Block-sparse gather attention for NVIDIA Hopper (sm_90a): kernels K1, K2
-// and K1q.
+// Block-sparse gather attention for NVIDIA Hopper (sm_90a): kernels K1, K1s,
+// K2 and K1q.
 //
 // Replaces the Pallas TPU kernels of rectified_spaattn_tpu/kernels/block_sparse.py:
 //   K1  _sparse_attn_kernel          (launched at :746 by block_sparse_flash_attention)
+//   K1s _sparse_attn_kernel with return_stats=True (:311-314): K1 that also
+//       writes each row's online-softmax max m and sum l in fp32 (the ring
+//       merge of attention/ring.py); a template flag, so K1 compiles to the
+//       same code as without it
 //   K2  _sparse_attn_kernel_grouped  (launched at :560 by block_sparse_flash_attention_grouped)
 //   K1q _sparse_attn_kernel with quant="int8" / "mxu8" (:176-253), below
 //       sparse_attn_kernel: its own header comment gives its design
@@ -35,6 +39,10 @@
 //     key window, so all 64 rows of a thread block share it; such a block
 //     makes a second pass over the slots the first one skipped, with every
 //     score MASK_VALUE (p = 1).  Other blocks pay one comparison.
+//   * K1s stats, as the JAX kernel returns them: m in score units of
+//     q * sm_scale (natural exp, as __expf below), l the fp32 row sum; a
+//     count == 0 row gives m = -inf and l = 0, a degenerate row m =
+//     MASK_VALUE and l = the lanes it averaged.
 //
 // Design.  One thread block (4 warps, 128 threads) owns 64 query rows of one
 // (batch*head) — 64 divides every mask row height (block_m = 128..1024), so a
@@ -76,6 +84,8 @@ struct Params {
   const int* clean;       // [BH, n_list]
   const int* rowbits;     // [BH, n_list, nb_slots] (K2 only)
   const int* text_len;    // [B]
+  float* m_out;           // [BH, Sq] (K1s only)
+  float* l_out;           // [BH, Sq] (K1s only)
   long long kv_bh_stride; // elements
   long long kv_row_stride;
   int heads, sq, n_list, nb_slots, num_key_blocks, block_m, group;
@@ -84,7 +94,7 @@ struct Params {
   float sm_scale;
 };
 
-template <typename T, int D, bool GROUPED>
+template <typename T, int D, bool GROUPED, bool STATS>
 __global__ void __launch_bounds__(NTHREADS, 2)
 sparse_attn_kernel(const Params p) {
   constexpr int LD = D + 8;          // padded smem row (elements): no ldmatrix bank conflicts
@@ -338,6 +348,16 @@ sparse_attn_kernel(const Params p) {
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
     inv[i] = l_r[i] == 0.f ? 1.f : 1.f / l_r[i];
   }
+  if constexpr (STATS) {
+    // one lane of each row's quad writes its reduced stats
+    if (t4 == 0) {
+      const long long r0 = (long long)bh * p.sq + row0 + warp * 16 + g;
+      p.m_out[r0] = m_r[0];
+      p.l_out[r0] = l_r[0];
+      p.m_out[r0 + 8] = m_r[1];
+      p.l_out[r0 + 8] = l_r[1];
+    }
+  }
   T* o0 = og + (long long)(warp * 16 + g) * D + 2 * t4;
   T* o1 = o0 + 8 * D;
 #pragma unroll
@@ -349,10 +369,10 @@ sparse_attn_kernel(const Params p) {
   }
 }
 
-template <typename T, int D, bool GROUPED>
+template <typename T, int D, bool GROUPED, bool STATS>
 int launch(const Params& p, int bh, cudaStream_t stream) {
   constexpr int smem = (TILE_M + 4 * UNIT) * (D + 8) * (int)sizeof(T);
-  auto kern = sparse_attn_kernel<T, D, GROUPED>;
+  auto kern = sparse_attn_kernel<T, D, GROUPED, STATS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -361,19 +381,20 @@ int launch(const Params& p, int bh, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool GROUPED>
+template <bool GROUPED, bool STATS>
 int dispatch(const Params& p, int bh, int head_dim, int dtype, cudaStream_t s) {
   // head_dim 128 only: HunyuanVideo's; other widths come with their models
   if (head_dim != 128) return -1;
-  if (dtype == 0) return launch<__nv_bfloat16, 128, GROUPED>(p, bh, s);
-  if (dtype == 1) return launch<__half, 128, GROUPED>(p, bh, s);
+  if (dtype == 0) return launch<__nv_bfloat16, 128, GROUPED, STATS>(p, bh, s);
+  if (dtype == 1) return launch<__half, 128, GROUPED, STATS>(p, bh, s);
   return -1;
 }
 
 Params make_params(const void* q, const void* k, const void* v, void* o,
                    const int* indices, const int* counts, const int* clean,
-                   const int* rowbits, const int* text_len,
-                   long long kv_bh_stride, long long kv_row_stride, int heads,
+                   const int* rowbits, const int* text_len, float* m_out,
+                   float* l_out, long long kv_bh_stride,
+                   long long kv_row_stride, int heads,
                    int sq, int n_list, int nb_slots, int num_key_blocks,
                    int block_m, int group, int chunk_blocks, int visual_len,
                    int text_start, int has_text, float sm_scale) {
@@ -381,6 +402,7 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
   p.q = q; p.k = k; p.v = v; p.o = o;
   p.indices = indices; p.counts = counts; p.clean = clean;
   p.rowbits = rowbits; p.text_len = text_len;
+  p.m_out = m_out; p.l_out = l_out;
   p.kv_bh_stride = kv_bh_stride; p.kv_row_stride = kv_row_stride;
   p.heads = heads; p.sq = sq; p.n_list = n_list; p.nb_slots = nb_slots;
   p.num_key_blocks = num_key_blocks; p.block_m = block_m; p.group = group;
@@ -908,21 +930,25 @@ int launch_q(const QParams& p, int bh, cudaStream_t stream) {
 
 extern "C" {
 
-// K1: one index list per block_m query rows.  Returns a cudaError_t value
+// K1: one index list per block_m query rows; K1s when m_out and l_out are
+// given ([BH, Sq] fp32 each; both null for K1).  Returns a cudaError_t value
 // (0 on success) or -1 for an unsupported (dtype, head_dim).
 int rsa_k1_launch(const void* q, const void* k, const void* v, void* o,
                   const int* indices, const int* counts, const int* clean,
-                  const int* text_len, long long kv_bh_stride,
-                  long long kv_row_stride, int bh, int heads, int sq, int n_list,
-                  int nb_slots, int num_key_blocks, int block_m,
-                  int chunk_blocks, int visual_len, int text_start,
-                  int has_text, float sm_scale, int head_dim, int dtype,
-                  void* stream) {
+                  const int* text_len, float* m_out, float* l_out,
+                  long long kv_bh_stride, long long kv_row_stride, int bh,
+                  int heads, int sq, int n_list, int nb_slots,
+                  int num_key_blocks, int block_m, int chunk_blocks,
+                  int visual_len, int text_start, int has_text,
+                  float sm_scale, int head_dim, int dtype, void* stream) {
   Params p = make_params(q, k, v, o, indices, counts, clean, nullptr, text_len,
-                         kv_bh_stride, kv_row_stride, heads, sq, n_list,
-                         nb_slots, num_key_blocks, block_m, 1, chunk_blocks,
-                         visual_len, text_start, has_text, sm_scale);
-  return dispatch<false>(p, bh, head_dim, dtype, (cudaStream_t)stream);
+                         m_out, l_out, kv_bh_stride, kv_row_stride, heads, sq,
+                         n_list, nb_slots, num_key_blocks, block_m, 1,
+                         chunk_blocks, visual_len, text_start, has_text,
+                         sm_scale);
+  if ((m_out == nullptr) != (l_out == nullptr)) return -1;
+  if (m_out) return dispatch<false, true>(p, bh, head_dim, dtype, (cudaStream_t)stream);
+  return dispatch<false, false>(p, bh, head_dim, dtype, (cudaStream_t)stream);
 }
 
 // K2: one union list per group*block_m query rows, membership in rowbits.
@@ -936,11 +962,11 @@ int rsa_k2_launch(const void* q, const void* k, const void* v, void* o,
                   int has_text, float sm_scale, int head_dim, int dtype,
                   void* stream) {
   Params p = make_params(q, k, v, o, indices, counts, clean, rowbits, text_len,
-                         kv_bh_stride, kv_row_stride, heads, sq, n_list,
-                         nb_slots, num_key_blocks, block_m, group,
+                         nullptr, nullptr, kv_bh_stride, kv_row_stride, heads,
+                         sq, n_list, nb_slots, num_key_blocks, block_m, group,
                          chunk_blocks, visual_len, text_start, has_text,
                          sm_scale);
-  return dispatch<true>(p, bh, head_dim, dtype, (cudaStream_t)stream);
+  return dispatch<true, false>(p, bh, head_dim, dtype, (cudaStream_t)stream);
 }
 
 // K1q: K1 on an int8 K|V payload; mode 0 = "int8", 1 = "mxu8".

@@ -1,9 +1,13 @@
-"""Block-sparse gather attention: the CUDA kernels K1/K2/K1q and their plain
-PyTorch versions (port of rectified_spaattn_tpu/kernels/block_sparse.py).
+"""Block-sparse gather attention: the CUDA kernels K1/K1s/K2/K1q and their
+plain PyTorch versions (port of rectified_spaattn_tpu/kernels/block_sparse.py).
 
   K1   ``block_sparse_flash_attention``          replaces the Pallas kernel
        ``_sparse_attn_kernel`` (JAX kernels/block_sparse.py:89, launched at
        :746): one index list per ``block_m`` query rows.
+  K1s  the same entry point with ``return_stats`` (the same Pallas kernel
+       with ``return_stats=True``, :311-314): K1's output plus the online
+       softmax's row max m and row sum l, so partial attentions over
+       disjoint key sets merge exactly (attention/ring.py).
   K1q  the same entry point with ``kv_quant`` (the same Pallas kernel with
        ``quant="int8"`` / ``"mxu8"``, :176-253): an int8 K|V payload with
        per-(head, key block) scales (sparse/ops.py::quantize_kv_blocks).
@@ -24,7 +28,8 @@ Each wrapper keeps the JAX signature (minus ``interpret``).  A CPU tensor
 runs the plain PyTorch version in this module — the tests' path; a CUDA
 tensor launches the kernel or raises; nothing falls back.  Each wrapper
 counts its kernel launches in a plain attribute ``launches`` (K1q: a dict
-per mode, ``block_sparse_flash_attention.quant_launches``).
+per mode, ``block_sparse_flash_attention.quant_launches``; K1s:
+``block_sparse_flash_attention.stats_launches``).
 
 The plain version replays the JAX kernel's arithmetic chunk by chunk: the
 index list is padded to a multiple of ``chunk_blocks`` slots (pad slots
@@ -37,10 +42,13 @@ a K2 non-member tile scores MASK_VALUE (the JAX kernel adds MASK_VALUE,
 which absorbs any real score in fp32), so a row block with no unmasked own
 key gets the same average over its union's lanes, and a count of 0 gives
 exact zeros.  The CUDA kernels walk 64-key units instead and add the
-chunk-padding lanes in a second pass only for such degenerate rows.
+chunk-padding lanes in a second pass only for such degenerate rows.  The
+stats follow: a count-0 row has m = -inf and l = 0, a degenerate row m =
+MASK_VALUE and l = the number of lanes it averaged.
 
-Not ported yet (raises NotImplementedError): ``return_stats`` (K1s, ring
-attention).  ``prefetch_next`` is a TPU DMA knob: accepted and ignored.
+Not ported yet (raises NotImplementedError): ``return_stats`` with
+``kv_quant`` (K1q with stats; the ring never quantizes).  ``prefetch_next``
+is a TPU DMA knob: accepted and ignored.
 """
 
 from __future__ import annotations
@@ -61,8 +69,8 @@ _TILE_M = 64          # query rows per CUDA thread block (csrc TILE_M)
 
 def _declare(lib):
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.rsa_k1_launch.argtypes = [p, p, p, p, p, p, p, p, ll, ll, i, i, i, i,
-                                  i, i, i, i, i, i, i, f, i, i, p]
+    lib.rsa_k1_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, ll, ll, i,
+                                  i, i, i, i, i, i, i, i, i, i, f, i, i, p]
     lib.rsa_k1_launch.restype = i
     lib.rsa_k2_launch.argtypes = [p, p, p, p, p, p, p, p, p, ll, ll, i, i, i,
                                   i, i, i, i, i, i, i, i, i, f, i, i, p]
@@ -110,8 +118,9 @@ def _simulate(q, k, v, bh, idx, counts, rowbits, tlen, ksc, vsc, *, group,
     q [L, rows, D] (rows = group * block_m); k, v [BH, S, D]; bh [L] each
     list's (batch*head); idx [L, NBp] (NBp a multiple of chunk_blocks),
     counts [L], rowbits [L, NBp] (K2) or None, tlen [L] (the list's batch
-    text length), ksc / vsc [L, NBp] (K1q) or None.  Returns [L, rows, D]
-    fp32."""
+    text length), ksc / vsc [L, NBp] (K1q) or None.  Returns (out [L, rows,
+    D], m [L, rows], l [L, rows]) fp32: the normalised output and the
+    online softmax's row max (score units of q * sm_scale) and row sum."""
     n, rows, d = q.shape
     g, bn = chunk_blocks, block_n
     dev = q.device
@@ -173,14 +182,16 @@ def _simulate(q, k, v, bh, idx, counts, rowbits, tlen, ksc, vsc, *, group,
         m = torch.where(active[:, None], m_next, m)
         l = torch.where(active[:, None], l_next, l)
         acc = torch.where(active[:, None, None], acc_next, acc)
-    return acc * torch.where(l == 0, torch.ones_like(l), 1.0 / l)[..., None]
+    return (acc * torch.where(l == 0, torch.ones_like(l), 1.0 / l)[..., None],
+            m, l)
 
 
 def _plain(q, k, v, indices, counts, rowbits, text_len, *, group, visual_len,
            text_start, block_m, block_n, chunk_blocks, sm_scale, packed_kv,
-           quant=None, ksc=None, vsc=None):
+           quant=None, ksc=None, vsc=None, return_stats=False):
     """Run ``_simulate`` over steps of index lists whose gathered tiles and
-    scores stay within _PLAIN_CHUNK_ELEMS."""
+    scores stay within _PLAIN_CHUNK_ELEMS; with ``return_stats`` also the
+    row max m and row sum l, [B,H,Sq] fp32."""
     b, h, sq, d = q.shape
     if packed_kv is not None:
         k, v = packed_kv[..., :d], packed_kv[..., d:]
@@ -200,15 +211,21 @@ def _plain(q, k, v, indices, counts, rowbits, text_len, *, group, visual_len,
     step = max(1, _PLAIN_CHUNK_ELEMS // (chunk_blocks * block_n
                                          * (2 * d + rows)))
     out = torch.empty((n, rows, d), dtype=q.dtype, device=q.device)
+    m = torch.empty((n, rows), device=q.device)
+    l = torch.empty((n, rows), device=q.device)
     for l0 in range(0, n, step):
         sl = slice(l0, l0 + step)
         idx, rb, ks, vs = (None if a is None else a[sl] for a in slots)
-        out[sl] = _simulate(
+        o_s, m[sl], l[sl] = _simulate(
             qf[sl], kf, vf, bh_of[sl], idx, cnt[sl], rb, tl[sl], ks, vs,
             group=group, visual_len=visual_len, text_start=text_start,
             block_m=block_m, block_n=block_n, chunk_blocks=chunk_blocks,
-            sm_scale=sm_scale, quant=quant).to(q.dtype)
-    return out.reshape(b, h, sq, d)
+            sm_scale=sm_scale, quant=quant)
+        out[sl] = o_s.to(q.dtype)
+    out = out.reshape(b, h, sq, d)
+    if return_stats:
+        return out, m.reshape(b, h, sq), l.reshape(b, h, sq)
+    return out
 
 
 def _row_scales(scale, indices):
@@ -223,10 +240,11 @@ def _row_scales(scale, indices):
 def block_sparse_flash_attention_torch(
         q, k, v, indices, counts, text_len, *, visual_len, text_start,
         block_m=128, block_n=128, chunk_blocks=16, sm_scale=None,
-        packed_kv=None, kv_quant=None, quant_mode=None):
-    """Plain PyTorch version of K1, and of K1q with ``kv_quant`` (the
-    quantized payload of sparse/ops.py::quantize_kv_blocks; ``k``/``v``
-    then only give shapes)."""
+        packed_kv=None, kv_quant=None, quant_mode=None, return_stats=False):
+    """Plain PyTorch version of K1, of K1s with ``return_stats`` (returns
+    (o, m, l)), and of K1q with ``kv_quant`` (the quantized payload of
+    sparse/ops.py::quantize_kv_blocks; ``k``/``v`` then only give
+    shapes)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     kw = dict(group=1, visual_len=visual_len, text_start=text_start,
@@ -234,7 +252,10 @@ def block_sparse_flash_attention_torch(
               sm_scale=sm_scale)
     if kv_quant is None:
         return _plain(q, k, v, indices, counts, None, text_len,
-                      packed_kv=packed_kv, **kw)
+                      packed_kv=packed_kv, return_stats=return_stats, **kw)
+    if return_stats:
+        raise NotImplementedError("return_stats with kv_quant (K1q with "
+                                  "stats) is not ported yet")
     kv, scale_k, scale_v = kv_quant
     b, h, _, d = q.shape
     kv = kv.reshape(b, h, kv.shape[1], 2 * d)
@@ -422,10 +443,13 @@ def block_sparse_flash_attention(
 
     q [B,H,Sq,D] (Sq % block_m == 0); k/v [B,H,S,D] (S % block_n == 0) or
     ``packed_kv`` [B,H,S,2D]; indices [B,H,NQ,NB] int32; counts [B,H,NQ];
-    text_len [B].  Returns [B,H,Sq,D] in q.dtype."""
-    if return_stats:
-        raise NotImplementedError(
-            "return_stats (K1s, ring attention) is not ported yet")
+    text_len [B].  Returns [B,H,Sq,D] in q.dtype; K1s with
+    ``return_stats``: (o, m, l) with m and l [B,H,Sq] fp32 (m in score
+    units of q * sm_scale, natural exp; a count-0 row has m = -inf and
+    l = 0)."""
+    if return_stats and kv_quant is not None:
+        raise NotImplementedError("return_stats with kv_quant (K1q with "
+                                  "stats) is not ported yet")
     quant_mode = _quant_args(kv_quant, quant_mode, packed_kv)
     b, h, sq, d = q.shape
     s = (kv_quant[0].shape[1] if kv_quant is not None else
@@ -441,7 +465,8 @@ def block_sparse_flash_attention(
     if q.device.type == "cpu":
         return block_sparse_flash_attention_torch(
             q, k, v, indices, counts, text_len, packed_kv=packed_kv,
-            kv_quant=kv_quant, quant_mode=quant_mode, **kw)
+            kv_quant=kv_quant, quant_mode=quant_mode,
+            return_stats=return_stats, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     clean = _clean_prefix(indices, counts, visual_len // block_n)
@@ -455,21 +480,30 @@ def block_sparse_flash_attention(
                                                             packed_kv)
     idx, cnt, cln, tl = (_int32(indices), _int32(counts), _int32(clean),
                          _int32(text_len))
+    # K1s: the row stats in fp32 (null pointers select K1)
+    stats = [torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+             for _ in range(2)] if return_stats else []
+    m_ptr, l_ptr = (t.data_ptr() for t in stats) if stats else (None, None)
     rc = lib.rsa_k1_launch(
         q.data_ptr(), kp, vp, out.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
-        cln.data_ptr(), tl.data_ptr(), bh_stride, row_stride, b * h, h, sq,
-        idx.shape[2], idx.shape[3], s // block_n, block_m, chunk_blocks,
-        visual_len, -1 if text_start is None else text_start,
+        cln.data_ptr(), tl.data_ptr(), m_ptr, l_ptr, bh_stride, row_stride,
+        b * h, h, sq, idx.shape[2], idx.shape[3], s // block_n, block_m,
+        chunk_blocks, visual_len, -1 if text_start is None else text_start,
         int(text_start is not None), float(sm_scale), d,
         _DTYPE_CODE[q.dtype], _stream(q))
+    name = "K1s" if return_stats else "K1"
     if rc:
         raise RuntimeError(
-            f"K1 launch failed: {lib.rsa_error_string(rc).decode()}")
+            f"{name} launch failed: {lib.rsa_error_string(rc).decode()}")
+    if return_stats:
+        block_sparse_flash_attention.stats_launches += 1
+        return out, *stats
     block_sparse_flash_attention.launches += 1
     return out
 
 
 block_sparse_flash_attention.launches = 0
+block_sparse_flash_attention.stats_launches = 0
 block_sparse_flash_attention.quant_launches = {"int8": 0, "mxu8": 0}
 
 

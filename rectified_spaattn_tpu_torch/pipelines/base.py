@@ -1,6 +1,12 @@
 """Shared generation-pipeline machinery (port of
-rectified_spaattn_tpu/pipelines/base.py, single-device: the mesh branch is
-a multi-GPU slice of its own)."""
+rectified_spaattn_tpu/pipelines/base.py).
+
+With a ``mesh`` (parallel.make_mesh) the pipelines run tensor-parallel over
+its tp group: ``shard_tensor_parallel`` slices the model once at setup
+(JAX ``finalize_params``) and every attention module then holds its rank's
+heads.  The sparse mask is built per head, so the site function of
+``SparseSite.attn_fn`` runs head-parallel as it is, without a collective
+(attention/sharded.py is the same split with global inputs and output)."""
 
 from __future__ import annotations
 
@@ -88,3 +94,47 @@ def param_compute_dtype(module: torch.nn.Module) -> torch.dtype:
     (real checkpoints), else fp32."""
     bf16 = any(p.dtype == torch.bfloat16 for p in module.parameters())
     return torch.bfloat16 if bf16 else torch.float32
+
+
+def shard_tensor_parallel(model: torch.nn.Module, mesh):
+    """Slice ``model`` for this rank of ``mesh``'s tp group (once, at
+    pipeline setup) and return the group.  The pipelines run
+    tensor-parallel only: dp and sp must be 1, and the tp group must be a
+    torch.distributed one (an in-process group runs the ring alone)."""
+    from ..parallel.mesh import DistGroup
+    from ..parallel.sharding import shard_model
+    if mesh.shape["dp"] != 1 or mesh.shape["sp"] != 1:
+        raise ValueError(f"the pipelines shard over tp only, got the mesh "
+                         f"{mesh.shape}")
+    group = mesh.group("tp")
+    if not isinstance(group, DistGroup):
+        raise ValueError("tensor-parallel pipelines need a torch.distributed "
+                         "tp group")
+    shard_model(model, group)
+    return group
+
+
+def teacache_decision(tea, signal, group, device) -> bool:
+    """``tea.should_compute(signal)``; under a tp ``group`` checked to be
+    the same on every rank: the ranks compute the signal from replicated
+    activations, so a disagreement is a fault, raised on every rank
+    alike."""
+    compute = tea.should_compute(signal)
+    if group is None:
+        return compute
+    votes = torch.tensor([int(compute), 1 - int(compute)], dtype=torch.int32,
+                         device=device)
+    group.all_reduce(votes)
+    if int(votes.min()) != 0:
+        raise RuntimeError(f"TeaCache decisions differ across the "
+                           f"{group.size} tensor-parallel ranks")
+    return compute
+
+
+def rank_mean(group, value: float, device) -> float:
+    """The mean of a per-rank scalar over a tp ``group`` (the density
+    probe of a rank covers its own heads), or ``value`` without one."""
+    if group is None:
+        return value
+    t = torch.tensor([value], dtype=torch.float64, device=device)
+    return float(group.all_reduce(t)) / group.size

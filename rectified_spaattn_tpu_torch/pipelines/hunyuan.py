@@ -6,8 +6,13 @@ Latent geometry (f/4, h/16, w/16); flow-match Euler steps with embedded
 guidance (no CFG); the text tokens trail the visual tokens; TeaCache over
 the whole block stack with the block-0 norm1 signal.
 
-Left out so far: the TPU and multi-chip levers ``scan_blocks``,
-``dispatch_segments`` and ``mesh``; the I2V conditioning.
+With ``mesh`` (parallel.make_mesh, dp = sp = 1) the model is sliced once at
+setup for this rank of the tp group and the sparse site runs head-parallel;
+every rank runs the same loop on replicated activations and makes the same
+TeaCache decisions (checked each call).
+
+Left out so far: the TPU levers ``scan_blocks`` and ``dispatch_segments``;
+the I2V conditioning.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ from ..cache import TeaCache
 from ..cache.teacache import residual_value
 from ..utils.device import resolve_device
 from ..utils.timing import device_sync
-from .base import build_site, param_compute_dtype
+from .base import (build_site, param_compute_dtype, rank_mean,
+                   shard_tensor_parallel, teacache_decision)
 from .schedulers import FlowMatchEulerScheduler
 
 
@@ -62,10 +68,16 @@ class HunyuanVideoPipeline:
     teacache_schedule: Optional[list] = None
     # probe the executed mask density of block 0 once per step
     density_probe: bool = False
+    # tensor-parallel process groups (parallel.make_mesh; tp only)
+    mesh: Optional[object] = None
     device: str = "cuda"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        # shard before the move, so a model built on the host sends only
+        # this rank's slices to the device
+        self.tp = (shard_tensor_parallel(self.model, self.mesh)
+                   if self.mesh is not None else None)
         self.model = self.model.to(self.device).eval()
         cfg = self.model.cfg
         self.lt = self.frames // 4
@@ -110,7 +122,7 @@ class HunyuanVideoPipeline:
         m = self.model
         blk = m.dual_blocks[0] if len(m.dual_blocks) else m.single_blocks[0]
         blk(x, ctx, temb, rope, attn_probe)
-        return float(got["d"])
+        return rank_mean(self.tp, float(got["d"]), self.device)
 
     def _as_tensor(self, x, dtype=None):
         return None if x is None else torch.as_tensor(
@@ -154,7 +166,8 @@ class HunyuanVideoPipeline:
             if self.density_probe:
                 self.density_samples.append(
                     self._density(x, ctx, temb, rope, tlen))
-            if tea.enabled and not tea.should_compute(sig):
+            if tea.enabled and not teacache_decision(tea, sig, self.tp,
+                                                     self.device):
                 x = tea.apply_residual(x)
             else:
                 x_in = x

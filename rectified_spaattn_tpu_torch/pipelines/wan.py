@@ -16,8 +16,13 @@ The visual token stream is padded once in embed to a multiple of the mask
 block, so every layer's attention sees block-aligned shapes, and sliced
 back in head.
 
+With ``mesh`` (parallel.make_mesh, dp = sp = 1) the model is sliced once at
+setup for this rank of the tp group; the sparse site runs head-parallel,
+the dense warm layers and the cross-attention on the rank's heads, and the
+TeaCache decisions are checked to agree across ranks each call.
+
 Left out so far (raise NotImplementedError): ``scan_blocks``,
-``dispatch_segments``, ``mesh`` and ``defer_device``; ``i2v_condition`` /
+``dispatch_segments`` and ``defer_device``; ``i2v_condition`` /
 ``ti2v_first_frame`` (they need the VAE encoder) and ``Wan22A14BPipeline``
 are later slices.
 """
@@ -37,7 +42,9 @@ from ..cache import TeaCache
 from ..cache.teacache import residual_value
 from ..utils.device import resolve_device
 from ..utils.timing import device_sync
-from .base import build_site, classifier_free_guidance, param_compute_dtype
+from .base import (build_site, classifier_free_guidance,
+                   param_compute_dtype, rank_mean, shard_tensor_parallel,
+                   teacache_decision)
 from .schedulers import FlowMatchEulerScheduler, UniPCScheduler
 
 
@@ -88,23 +95,25 @@ class WanPipeline:
     teacache_schedule: Optional[list] = None
     # probe the executed mask density of the first sparse layer per call
     density_probe: bool = False
-    # TPU execution and multi-device levers of the JAX pipeline: not
-    # ported yet
+    # tensor-parallel process groups (parallel.make_mesh; tp only)
+    mesh: Optional[object] = None
+    # TPU execution levers of the JAX pipeline: not ported yet
     scan_blocks: bool = False
     dispatch_segments: int = 1
-    mesh: Optional[object] = None
     defer_device: bool = False
     device: str = "cuda"
 
     def __post_init__(self):
         unported = {"scan_blocks": self.scan_blocks,
                     "dispatch_segments > 1": self.dispatch_segments > 1,
-                    "mesh": self.mesh is not None,
                     "defer_device": self.defer_device}
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
         self.device = resolve_device(self.device)
+        # shard before the move (only this rank's slices reach the device)
+        self.tp = (shard_tensor_parallel(self.model, self.mesh)
+                   if self.mesh is not None else None)
         self.model = self.model.to(self.device).eval()
         cfg = self.model.cfg
         self.lt = (self.frames + 3) // self.vae_stride[0]
@@ -185,7 +194,7 @@ class WanPipeline:
 
         self.model.blocks[self.warm_layers](x, ctx, temb6, rope, attn_probe,
                                             self._cross, ctx_img=ctx_img)
-        return float(got["d"])
+        return rank_mean(self.tp, float(got["d"]), self.device)
 
     def _scheduler(self, steps):
         if self.scheduler == "unipc":
@@ -279,7 +288,8 @@ class WanPipeline:
                 # the reference's signal: timestep_proj under use_ret_steps,
                 # else temb (main_wan21t2v.py:103)
                 sig = temb6 if self.use_ret_steps else temb
-                if tea.enabled and not tea.should_compute(sig):
+                if tea.enabled and not teacache_decision(
+                        tea, sig, self.tp, self.device):
                     x = tea.apply_residual(x)
                 else:
                     sparse_now = use_sparse and (

@@ -1,0 +1,103 @@
+"""Per-rank bodies of the multi-process cases of tests/test_torch_parallel.py.
+
+Each is spawned with torch.multiprocessing, one process per rank, on gloo
+with a ``file://`` rendezvous under the test's tmp_path (no TCP port).
+This module imports no JAX: the test computes the JAX references itself and
+hands inputs over, and takes results back, as files in that directory."""
+
+import datetime
+import os
+
+import torch
+import torch.distributed as dist
+
+
+def _init(rank: int, world: int, tmp: str):
+    torch.set_num_threads(1)
+    from rectified_spaattn_tpu_torch.parallel import init_distributed
+    init_distributed("cpu", init_method=f"file://{tmp}/rendezvous",
+                     world_size=world, rank=rank,
+                     timeout=datetime.timedelta(seconds=180))
+
+
+def _load(tmp: str, name: str):
+    return torch.load(os.path.join(tmp, name), weights_only=False)
+
+
+def ring_worker(rank: int, world: int, tmp: str):
+    """Each case of ring_in.pt through the ring on gloo (global inputs, as
+    every rank is given them); writes ring_out_<rank>.pt."""
+    _init(rank, world, tmp)
+    from rectified_spaattn_tpu_torch.attention import (
+        ring_rectified_sparse_attention)
+    from rectified_spaattn_tpu_torch.parallel import make_mesh
+    from rectified_spaattn_tpu_torch.sparse import SparseConfig
+    mesh = make_mesh(dp=1, tp=1, sp=world)
+    out = {}
+    for name, c in _load(tmp, "ring_in.pt").items():
+        kw = {n: c[n] for n in ("q_text", "k_text", "v_text", "text_len_rt",
+                                "kv_packed") if n in c}
+        k, v = c["k"], c["v"]
+        if "kv_packed" in c:
+            d = c["q"].shape[-1]
+            k, v = c["kv_packed"][..., :d], c["kv_packed"][..., d:]
+        out[name] = ring_rectified_sparse_attention(
+            mesh, c["q"], k, v, SparseConfig(**c["cfg"]), c["nbr"], **kw)
+    torch.save(out, os.path.join(tmp, f"ring_out_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _model(kind: str, sd: dict):
+    from rectified_spaattn_tpu_torch.models import (
+        HunyuanVideoConfig, HunyuanVideoDiT, WanConfig, WanDiT, quant)
+    model = (HunyuanVideoDiT(HunyuanVideoConfig.tiny()) if kind == "hunyuan"
+             else WanDiT(WanConfig.tiny()))
+    quant.adopt_layout(model, sd)
+    model.load_state_dict(sd)
+    return model
+
+
+def tp_worker(rank: int, world: int, tmp: str):
+    """At tp = ``world``: head-parallel attention (global in / out) and its
+    refusal of a head count the group does not divide, each pipeline case
+    of tp_in.pt, and the CLI with ``--tp``; writes tp_out_<rank>.pt."""
+    _init(rank, world, tmp)
+    from rectified_spaattn_tpu_torch.attention import (
+        head_parallel_rectified_attention)
+    from rectified_spaattn_tpu_torch.cli.generate import main
+    from rectified_spaattn_tpu_torch.parallel import make_mesh
+    from rectified_spaattn_tpu_torch.pipelines import (HunyuanVideoPipeline,
+                                                       WanPipeline)
+    from rectified_spaattn_tpu_torch.sparse import SparseConfig
+    mesh = make_mesh(tp=world)
+    inp = _load(tmp, "tp_in.pt")
+    out = {}
+    hp = inp["head_parallel"]
+    out["head_parallel"] = head_parallel_rectified_attention(
+        mesh, hp["q"], hp["k"], hp["v"], SparseConfig(**hp["cfg"]), None,
+        visual_len=hp["q"].shape[2])
+    try:
+        head_parallel_rectified_attention(
+            mesh, hp["q"][:, :3], hp["k"][:, :3], hp["v"][:, :3],
+            SparseConfig(**hp["cfg"]), None, visual_len=hp["q"].shape[2])
+        out["head_count_error"] = None
+    except ValueError as e:
+        out["head_count_error"] = str(e)
+    for name, c in inp["pipelines"].items():
+        model = _model(c["kind"], c["state_dict"])
+        if c["kind"] == "hunyuan":
+            pipe = HunyuanVideoPipeline(model=model, device="cpu", mesh=mesh,
+                                        **c["kw"])
+            lat = pipe(c["text"], c["mask"], init_latents=c["init"])
+        else:
+            pipe = WanPipeline(model=model, device="cpu", mesh=mesh,
+                               **c["kw"])
+            lat = pipe.denoise(c["init"], c["text_c"], c["text_u"])
+        heads = [m.heads for m in model.modules() if hasattr(m, "heads")]
+        out[name] = {"latents": lat, "decisions": pipe.teacache.decisions,
+                     "heads": heads}
+    out["cli"] = main(inp["cli_argv"])
+    torch.save(out, os.path.join(tmp, f"tp_out_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()

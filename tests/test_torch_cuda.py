@@ -1,6 +1,7 @@
-"""The port's CUDA kernels K1/K2/K1q/K3 and the S1 probe against their plain
-PyTorch versions, on a CUDA GPU (bf16, 2e-2: the repo's bf16 tolerance,
-tests/test_kernels.py; S1's int8 result bit for bit).
+"""The port's CUDA kernels K1/K1s/K2/K1q/K3 and the S1 probe against their
+plain PyTorch versions, on a CUDA GPU (bf16, 2e-2: the repo's bf16
+tolerance, tests/test_kernels.py; K1s's l within 1 %; S1's int8 result bit
+for bit).
 Marked ``cuda``; each test skips without a GPU.  This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
 
@@ -93,6 +94,49 @@ def test_cuda_degenerate_rows_match_plain(cuda, group):
         torch.cuda.synchronize()
         assert want[1, 0, BM:2 * BM].float().abs().max() > 0.01
         torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_cuda_k1s_matches_plain(cuda, packed):
+    """K1s against its plain version: random masks, the text window at
+    B=2, a count-0 row (m == -inf and l == 0 exactly) and a degenerate row
+    (its only block the text block of a batch with no valid text) at
+    chunk_blocks 2 and 16; o equals K1's bit for bit."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(31 + packed)
+    b, h, nq, nb, d = 2, 3, 6, 12, 128
+    q, k, v = (torch.randn((b, h, n * BM, d), generator=g, device=cuda
+                           ).to(torch.bfloat16) for n in (nq, nb, nb))
+    mask = torch.rand((b, h, nq, nb), generator=g, device=cuda) < 0.4
+    mask[..., 0] = mask[..., -1] = True
+    mask[0, 1, 3] = False                      # count 0
+    mask[1, 2, 4] = False
+    mask[1, 2, 4, -1] = True                   # only the text block
+    tl = torch.tensor([90, 0], dtype=torch.int32, device=cuda)
+    kv = torch.cat([k, v], dim=-1) if packed else None
+    idx, cnt = ops.mask_to_indices(mask)
+    for cb in (2, 16):
+        kw = dict(visual_len=(nb - 1) * BN - 50, text_start=(nb - 1) * BN,
+                  chunk_blocks=cb, packed_kv=kv)
+        o, m, l = tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl,
+                                                  return_stats=True, **kw)
+        wo, wm, wl = tk.block_sparse_flash_attention_torch(
+            q, k, v, idx, cnt, tl, return_stats=True, **kw)
+        k1 = tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl, **kw)
+        torch.cuda.synchronize()
+        assert m.dtype == l.dtype == torch.float32 and m.shape == (b, h,
+                                                                   nq * BM)
+        assert torch.equal(o, k1)
+        zero = (cnt == 0).repeat_interleave(BM, dim=2)
+        assert zero.any() and bool((m[zero] == -torch.inf).all())
+        assert bool((l[zero] == 0).all()) and o[zero].abs().max() == 0
+        rows = slice(4 * BM, 5 * BM)           # the degenerate row block
+        assert bool((m[1, 2, rows] == wm[1, 2, rows]).all())
+        torch.testing.assert_close(o.float(), wo.float(), **BF16)
+        live = ~zero
+        torch.testing.assert_close(m[live], wm[live], rtol=0, atol=2e-2)
+        torch.testing.assert_close(l[live], wl[live], rtol=1e-2, atol=0)
 
 
 @pytest.mark.cuda

@@ -361,9 +361,12 @@ def test_unported_options_raise():
     idx, cnt = ops.mask_to_indices(torch.ones((1, 1, 1, 1), dtype=torch.bool))
     tl = torch.zeros(1, dtype=torch.int32)
     kw = dict(visual_len=BN, text_start=None)
-    with pytest.raises(NotImplementedError, match="K1s"):
+    # K1s is ported (tests/test_torch_parallel.py); K1q with stats is not
+    payload = ops.quantize_kv_blocks(k, v, BN)
+    with pytest.raises(NotImplementedError, match="K1q with stats"):
         tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl,
-                                        return_stats=True, **kw)
+                                        return_stats=True, kv_quant=payload,
+                                        **kw)
     # K1q is ported; a mode still needs its payload, as in JAX
     with pytest.raises(ValueError, match="together"):
         tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl,

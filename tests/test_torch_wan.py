@@ -272,10 +272,18 @@ def test_wan_pipeline_unported_options_raise():
     _, _, tmod = tiny_pair()
     # the int8 / offloaded TeaCache residual is ported (test_torch_quant.py)
     for kw in (dict(scan_blocks=True), dict(dispatch_segments=2),
-               dict(mesh=object()), dict(defer_device=True)):
+               dict(defer_device=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             WanPipeline(model=tmod, height=64, width=64, frames=5,
                         device="cpu", **kw)
+    # ``mesh`` is ported (tests/test_torch_parallel.py); the pipelines shard
+    # over a torch.distributed tp group only
+    from rectified_spaattn_tpu_torch.parallel import in_process_mesh
+    for mesh, msg in ((in_process_mesh(sp=2), "tp only"),
+                      (in_process_mesh(sp=1), "torch.distributed")):
+        with pytest.raises(ValueError, match=msg):
+            WanPipeline(model=tmod, height=64, width=64, frames=5,
+                        device="cpu", mesh=mesh)
 
 
 def test_cli_wan21_t2v_runs_on_cpu(tmp_path, capsys):
