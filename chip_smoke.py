@@ -8,7 +8,9 @@ Builds the port's CUDA kernels from rectified_spaattn_tpu_torch/csrc with
 nvcc (sm_90a, one nvcc per source, all started together) and drives the
 HunyuanVideo sparse denoise path, its int8 serving levers (K1q, S1, int8 /
 int4 weights, the int8 offloaded TeaCache residual), the Wan2.1-14B
-denoise path and the multi-device path (K1s, the ring, tensor parallelism):
+denoise path, the multi-device path (K1s, the ring, tensor parallelism)
+and the kernel-diagnostic path (K1q-s, the S3 / S2 ablations, the
+headline bench):
 
   1. device: the card's name and power limit; TF32 off.
   2. kernels: K1 (single-row gather), K2 (grouped-row gather) and K3
@@ -65,6 +67,11 @@ denoise path and the multi-device path (K1s, the ring, tensor parallelism):
      seeded bf16 random weights — the launch counters and the sparse plans
      built are zeroed just before and read just after; then one sparse
      step under the profiler.
+  6b. k1q_stats: K1q-s (K1q with m and l) in both modes against its plain
+     version at small shapes (o equal to K1q's bit for bit, m / l as
+     k1s_vs_plain holds them); at the Hunyuan site (both regimes) its time
+     beside K1q's and, random inputs, both modes against their plain
+     versions on the full inputs.
   7. k1s_vs_plain: K1s (K1 with the row max m and sum l) in bf16 against
      its plain version at small shapes — random masks, the text window at
      B=2, count-0 rows (m == -inf and l == 0 exactly), degenerate rows at
@@ -84,7 +91,24 @@ denoise path and the multi-device path (K1s, the ring, tensor parallelism):
   9. ring_wan: the Wan site at 75,648 tokens, sp = 3, visual layout with
      first-frame retention, against the single-device site with the same
      visual_len (the visual ring takes every token as valid).
- 10. multi_gpu, with two or more cards: one process per card (up to 4) on
+ 10. kernelvars: every S3 variant (S3a with 2 and 3 ring stages,
+     twophase, runs on TMA) against its plain version at the 8 x 24 x 32
+     grid; then bench.kernelvars at the Hunyuan point (the realistic_qkv
+     plan, chunk 16; launch counters zeroed just before and read just
+     after), base / twophase / runs held to K1 there; every variant but
+     the three-stage rings against its plain version on
+     that plan, the load-only variants bit for bit, noexp's NaN rows; per
+     variant its time against K1's, the bytes it gathers (GB/s) or its
+     TF/s.
+ 11. groupedvars: every S2 variant at G = 2 and 4 against its plain
+     version at the small grid; bench.groupedvars at the Hunyuan point
+     (counters as above; full and prefetch held to K1's single-row
+     output); full, nobias, compute and computeclean at G = 2 and full at
+     G = 4 against their plain versions on its plan, full and prefetch
+     equal to K2 bit for bit.
+ 12. headline: bench.headline's JSON line (the sparse site against the
+     windowed dense, bench.py's keys).
+ 13. multi_gpu, with two or more cards: one process per card (up to 4) on
      NCCL runs the Hunyuan ring of phase 8 (random inputs), held against
      its in-process output; two run the full-width 2+2-block Hunyuan
      pipeline at tp = 2, held against phase 4's output, with per-rank
@@ -404,32 +428,6 @@ def k1q_cases(kernels, ops):
 
 # --------------------------------------------------------------- phase 3 ---
 
-def smooth_qkv(gen, h, sv, tail, d, h2l, grid, alpha=4.0, sigma=1.0):
-    """Spatially smooth q/k/v (a shared low-frequency field over the
-    latent grid plus per-token noise, in curve order, then ``tail`` rows of
-    noise: the text slot or the padding): the regime real checkpoints run
-    in, where pooled attention concentrates (bench.py's smooth_inputs, in
-    torch)."""
-    dev = h2l.device
-    lt, lh, lw = grid
-    lin = h2l.long()
-    coords = torch.stack([lin // (lh * lw) / lt, lin // lw % lh / lh,
-                          lin % lw / lw], dim=-1).float()
-    nfreq = 16
-    w = torch.randn((3, nfreq), generator=gen, device=dev) * 3.0
-    phase = torch.rand((nfreq,), generator=gen, device=dev) * 2 * torch.pi
-    proj = coords @ w + phase
-    basis = torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)
-    mix = torch.randn((h, 2 * nfreq, d), generator=gen, device=dev) \
-        / (2 * nfreq) ** 0.5
-    field = torch.nn.functional.pad(
-        torch.einsum("sf,hfd->hsd", basis, mix), (0, 0, 0, tail))
-    return tuple(
-        (alpha * field + sigma * torch.randn(field.shape, generator=gen,
-                                             device=dev))[None].to(
-            torch.bfloat16) for _ in range(3))
-
-
 def measure(kern, name, regime, check: bool, kern_fn, plain_fn, flops,
             nbytes, library=None, peak=PEAK_BF16_FLOPS):
     """One kernel at the main path's shapes: with ``check``, its plain
@@ -459,18 +457,18 @@ def measure(kern, name, regime, check: bool, kern_fn, plain_fn, flops,
           flush=True)
 
 
-def site_phase(kernels, ops, regime: str):
-    """The attention site at the operating point on "random" (iid) or
-    "smooth" inputs; returns timings and, per kernel at these (the main
-    path's) shapes, its time and bound — on random inputs also its plain
-    version on the full inputs, the dense baseline and the SDPA yardstick."""
-    from rectified_spaattn_tpu_torch.attention import (
-        attention, kv_validity, rectified_sparse_attention)
+def site_inputs(regime: str) -> dict:
+    """The site's inputs at the operating point on "random" (iid, seed 7)
+    or "smooth" q/k/v: the site, its text length, the key validity, K and
+    V zeroed off it as rectified_sparse_attention zeroes them, and the
+    single-row plan (``gen`` goes on drawing text-weighted inputs).  Uses
+    only entry points every slice of the port has, so kernel_ab.py builds
+    the same inputs for an older tree's package."""
+    from rectified_spaattn_tpu_torch.attention import kv_validity
     from rectified_spaattn_tpu_torch.pipelines import build_site
     from rectified_spaattn_tpu_torch.sparse import build_sparse_plan
 
     dev = torch.device(DEV)
-    full = regime == "random"
     b, h, d, text_len = 1, SITE["heads"], SITE["head_dim"], SITE["text_len"]
     site, _, h2l = build_site(*SITE["grid"], sa_drop_rate=0.8, p_remain=0.3,
                               layout="joint", text_len=text_len, device=dev)
@@ -478,12 +476,42 @@ def site_phase(kernels, ops, regime: str):
     s = sv + text_len
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
-    if full:
+    if regime == "random":
         q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev
                                ).to(torch.bfloat16) for _ in range(3))
     else:
-        q, k, v = smooth_qkv(gen, h, sv, text_len, d, h2l, SITE["grid"])
+        from rectified_spaattn_tpu_torch.bench.inputs import smooth_qkv
+        q, k, v = smooth_qkv(gen, h, text_len, d, h2l, SITE["grid"])
     tlen = torch.tensor([SITE["tlen"]], dtype=torch.int32, device=dev)
+    valid = kv_validity(b, s, sv, sv, tlen, device=dev)
+    zero = torch.zeros((), dtype=q.dtype, device=dev)
+    kz = torch.where(valid[:, None, :, None], k, zero)
+    vz = torch.where(valid[:, None, :, None], v, zero)
+    text_valid = torch.arange(text_len, device=dev)[None, :] < tlen[:, None]
+    plan = build_sparse_plan(q[:, :, :sv], kz, vz, site.cfg,
+                             neighbor_mask=site.neighbor_mask,
+                             text_valid=text_valid)
+    return dict(site=site, gen=gen, q=q, k=k, v=v, tlen=tlen, valid=valid,
+                kz=kz, vz=vz, plan=plan)
+
+
+def site_phase(kernels, ops, regime: str):
+    """The attention site at the operating point on "random" (iid) or
+    "smooth" inputs; returns timings and, per kernel at these (the main
+    path's) shapes, its time and bound — on random inputs also its plain
+    version on the full inputs, the dense baseline and the SDPA yardstick."""
+    from rectified_spaattn_tpu_torch.attention import (
+        attention, rectified_sparse_attention)
+
+    dev = torch.device(DEV)
+    full = regime == "random"
+    b, h, d, text_len = 1, SITE["heads"], SITE["head_dim"], SITE["text_len"]
+    st = site_inputs(regime)
+    site, gen, q, k, v, tlen, valid, kz, vz, plan = (
+        st[n] for n in ("site", "gen", "q", "k", "v", "tlen", "valid", "kz",
+                        "vz", "plan"))
+    sv = site.visual_len
+    s = sv + text_len
     cfg1 = site.cfg
     cfg2 = dataclasses.replace(cfg1, group_rows=2)
     nbr = site.neighbor_mask
@@ -512,7 +540,6 @@ def site_phase(kernels, ops, regime: str):
     if out2.shape != q.shape or not torch.isfinite(out2.float()).all():
         raise AssertionError("site output is not finite of shape q.shape")
     del out2
-    valid = kv_validity(b, s, sv, sv, tlen, device=dev)
     amask = valid[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if full:
@@ -523,14 +550,8 @@ def site_phase(kernels, ops, regime: str):
         res["sdpa_dense_ms"] = cuda_ms(
             lambda: sdpa(q, k, v, attn_mask=amask), reps=2)
 
-    # the kernels' own inputs, as rectified_sparse_attention builds them
-    zero = torch.zeros((), dtype=q.dtype, device=dev)
-    kz = torch.where(valid[:, None, :, None], k, zero)
-    vz = torch.where(valid[:, None, :, None], v, zero)
-    text_valid = torch.arange(text_len, device=dev)[None, :] < tlen[:, None]
+    # the kernels' own inputs (site_inputs' kz, vz and plan)
     q_vis, q_txt = q[:, :, :sv], q[:, :, sv:]
-    plan = build_sparse_plan(q_vis, kz, vz, cfg1, neighbor_mask=nbr,
-                             text_valid=text_valid)
     nbt = s // 128
     pairs = float(plan.counts.sum())           # (row block, key block) pairs
     res["pairs"] = pairs
@@ -585,14 +606,20 @@ def site_phase(kernels, ops, regime: str):
         q_vis, kz, vz, plan.indices, plan.counts, tlen, **kw)
     qkw = dict(chunk_blocks=cfg1.kernel_chunk_blocks, **kw)
     res["k1q_chunk_blocks"] = qkw["chunk_blocks"]
+    k1q_bytes = (qo_bytes(sv) + kv_bytes(vis_kv_blocks) / 2
+                 + 2 * b * h * nbt * 4 + idx_bytes(plan.indices, plan.counts))
     for mode in ("int8", "mxu8"):
         k1q_at_site(kernels, ops, kern, mode, regime, full, ref,
                     (q_vis, kz, vz, plan.indices, plan.counts, tlen), qkw,
-                    flops=pairs * flops_pair(128),
-                    nbytes=qo_bytes(sv) + kv_bytes(vis_kv_blocks) / 2
-                    + 2 * b * h * nbt * 4
-                    + idx_bytes(plan.indices, plan.counts))
+                    flops=pairs * flops_pair(128), nbytes=k1q_bytes)
     del ref
+    # K1q-s (K1q with the row stats) on the same inputs, launches counted
+    # from here
+    for mode in ("int8", "mxu8"):
+        k1q_stats_at_site(kernels, ops, kern, mode, regime, full,
+                          (q_vis, kz, vz, plan.indices, plan.counts, tlen),
+                          qkw, flops=pairs * flops_pair(128),
+                          nbytes=k1q_bytes + 2 * b * h * sv * 4)
     torch.cuda.empty_cache()
     if not full:
         return res, kern
@@ -662,6 +689,50 @@ def k1q_at_site(kernels, ops, kern, mode, regime, check, ref, args, qkw,
                       **kern[name]["vs_bf16_k1"]}), flush=True)
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: output is not finite")
+
+
+def k1q_stats_at_site(kernels, ops, kern, mode, regime, check, args, qkw,
+                      flops, nbytes):
+    """K1q-s in one mode at the site: its o against K1q's bit for bit, m
+    and l finite where a list has blocks, and (``check``) o, m and l
+    against the plain version on the full inputs as check_k1s holds
+    them; its time beside K1q's, measured just before."""
+    k1 = kernels.block_sparse_flash_attention
+    kkw = dict(kv_quant=ops.quantize_kv_blocks(args[1], args[2], 128),
+               quant_mode=mode, **qkw)
+    name = f"K1q-s_{mode}_visual"
+    before = dict(k1.quant_stats_launches)
+    o, m, l = k1(*args, return_stats=True, **kkw)
+    if not torch.equal(o, k1(*args, **kkw)):
+        raise AssertionError(f"{name}: o differs from K1q's")
+    live = (args[4] > 0).repeat_interleave(128, dim=2)
+    if not (torch.isfinite(m[live]).all() and torch.isfinite(l[live]).all()
+            and bool((m[~live] == -torch.inf).all())
+            and bool((l[~live] == 0).all())):
+        raise AssertionError(f"{name}: m / l not finite on live rows, or "
+                             "a count-0 row with m != -inf or l != 0")
+    r = {}
+    if check:
+        t_plain = time.perf_counter()
+        want = kernels.block_sparse_flash_attention_torch(
+            *args, return_stats=True, **kkw)
+        torch.cuda.synchronize()
+        r["plain_ms"] = (time.perf_counter() - t_plain) * 1e3
+        r.update(check_k1s(name, (o, m, l), want, args[4]))
+        del want
+    del o, m, l
+    torch.cuda.empty_cache()
+    r["bound_ms"], r["bound_by"] = bound_ms(
+        flops, nbytes, PEAK_INT8_OPS if mode == "mxu8" else PEAK_BF16_FLOPS)
+    r["ms"] = cuda_ms(lambda: k1(*args, return_stats=True, **kkw))
+    r["k1q_ms"] = kern[f"K1q_{mode}_visual"]["ms"]
+    r["stats_cost"] = r["ms"] / r["k1q_ms"] - 1.0
+    r["library_ms"] = None
+    r["roofline_share"] = r["bound_ms"] / r["ms"]
+    r["launches"] = (k1.quant_stats_launches[mode] - before[mode])
+    kern[name] = r
+    print(json.dumps({"kernel_at_site": name, "regime": regime, **r}),
+          flush=True)
 
 
 def text_weighted_checks(kernels, ops, q, k, v, k1_lists, k2_lists,
@@ -1015,6 +1086,7 @@ def wan_site_phase(kernels, regime: str):
     cross shapes against SDPA."""
     from rectified_spaattn_tpu_torch.attention import (
         kv_validity, rectified_sparse_attention)
+    from rectified_spaattn_tpu_torch.bench.inputs import smooth_qkv
     from rectified_spaattn_tpu_torch.pipelines import build_site
     from rectified_spaattn_tpu_torch.sparse import build_sparse_plan
 
@@ -1032,7 +1104,7 @@ def wan_site_phase(kernels, regime: str):
         q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev
                                ).to(torch.bfloat16) for _ in range(3))
     else:
-        q, k, v = smooth_qkv(gen, h, sv, s - sv, d, h2l, WAN_SITE["grid"])
+        q, k, v = smooth_qkv(gen, h, s - sv, d, h2l, WAN_SITE["grid"])
     cfg, nbr = site.cfg, site.neighbor_mask
     res = {"regime": regime, "visual_len": sv, "tokens": s,
            "first_frame_blocks": cfg.first_frame_blocks}
@@ -1444,6 +1516,7 @@ def ring_hunyuan_phase(kernels, ops, regime: str):
     from rectified_spaattn_tpu_torch.attention import (
         kv_validity, rectified_sparse_attention,
         ring_rectified_sparse_attention)
+    from rectified_spaattn_tpu_torch.bench.inputs import smooth_qkv
     from rectified_spaattn_tpu_torch.parallel import in_process_mesh
     from rectified_spaattn_tpu_torch.pipelines import build_site
     from rectified_spaattn_tpu_torch.sparse import build_sparse_plan
@@ -1462,7 +1535,7 @@ def ring_hunyuan_phase(kernels, ops, regime: str):
         q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev
                                ).to(torch.bfloat16) for _ in range(3))
     else:
-        q, k, v = smooth_qkv(gen, h, sv, text_len, d, h2l, SITE["grid"])
+        q, k, v = smooth_qkv(gen, h, text_len, d, h2l, SITE["grid"])
     tlen = torch.tensor([SITE["tlen"]], dtype=torch.int32, device=dev)
     # the ring selects blocks by the sort-based top-p (the JAX ring's)
     cfg = dataclasses.replace(site.cfg, topp_impl="sort")
@@ -1730,6 +1803,389 @@ def multi_gpu_phase(ring_ref, pipe_ref):
     return res
 
 
+# ------------------------------------------------- kernel diagnostics ---
+
+def k1q_stats_cases(kernels, ops):
+    """K1q-s in both modes against its plain version on small bf16 cases
+    (K1q's masks: random, the text window at B=2, count-0 and all-masked
+    rows, a clean prefix), chunk_blocks 2 and 16: o held as K1 is and
+    equal to K1q's bit for bit, m and l as check_k1s holds them."""
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5432)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    errs = {"o": 0.0, "m": 0.0, "l_rel": 0.0}
+    cases = []
+
+    def case(name, b, h, nq, nb, mask, visual_len, text_start, tlen):
+        q, k, v = rnd(b, h, nq * 128, 128), rnd(b, h, nb * 128, 128), \
+            rnd(b, h, nb * 128, 128)
+        tl = torch.tensor(tlen, dtype=torch.int32, device=dev)
+        payload = ops.quantize_kv_blocks(k, v, 128)
+        idx, cnt = ops.mask_to_indices(mask)
+        for cb in (2, 16):
+            for mode in ("int8", "mxu8"):
+                kw = dict(visual_len=visual_len, text_start=text_start,
+                          chunk_blocks=cb, kv_quant=payload, quant_mode=mode)
+                got = kernels.block_sparse_flash_attention(
+                    q, k, v, idx, cnt, tl, return_stats=True, **kw)
+                want = kernels.block_sparse_flash_attention_torch(
+                    q, k, v, idx, cnt, tl, return_stats=True, **kw)
+                full = f"{name}_chunk{cb}_{mode}"
+                if not torch.equal(got[0], kernels.block_sparse_flash_attention(
+                        q, k, v, idx, cnt, tl, **kw)):
+                    raise AssertionError(f"{full}: o differs from K1q's")
+                e = max_err(got[0], want[0])
+                if e > TOL:
+                    raise AssertionError(f"{full}: max abs err {e} > {TOL}")
+                r = check_k1s(full, got, want, cnt)
+                errs["o"] = max(errs["o"], e)
+                errs["m"] = max(errs["m"], r["m_max_abs_err"])
+                errs["l_rel"] = max(errs["l_rel"], r["l_max_rel_err"])
+                cases.append(r)
+
+    m = torch.rand((1, 4, 16, 16), generator=gen, device=dev) < 0.4
+    m[..., 0] = True
+    case("k1qs_random_masks", 1, 4, 16, 16, m, 16 * 128, None, [0])
+    m = torch.rand((2, 4, 15, 16), generator=gen, device=dev) < 0.5
+    m[..., -1] = True
+    case("k1qs_text_window_b2", 2, 4, 15, 16, m, 15 * 128 - 40, 15 * 128,
+         [100, 37])
+    m = torch.zeros((2, 2, 4, 5), dtype=torch.bool, device=dev)
+    m[:, :, 0, :3] = True
+    m[:, :, 2, 4] = True
+    case("k1qs_count0_and_all_masked", 2, 2, 4, 5, m, 4 * 128, 4 * 128,
+         [64, 0])
+    m = torch.zeros((1, 2, 4, 14), dtype=torch.bool, device=dev)
+    m[..., :11] = True
+    m[..., 12:] = True
+    case("k1qs_clean_prefix", 1, 2, 4, 14, m, 11 * 128 - 60, 12 * 128, [150])
+    return errs, cases
+
+
+# the S3 variants chip_smoke drives (every S3a name, the three-stage ring
+# for the load, compute and whole kernels, twophase, runs at two caps) and
+# the S2 groups
+S3_DRIVEN = ("base", "base3", "dma", "dma3", "dmahalf", "dmabig", "compute",
+             "compute3", "computeclean", "computenomask", "computenoexp",
+             "nomask", "noexp", "twophase", "runs2", "runs4")
+S2_GROUPS = (2, 4)
+
+
+def s3_call(kv, name, args, kw, plain=False):
+    """The wrapper (or, ``plain``, its plain version) of S3 ``name``."""
+    if name == "twophase":
+        fn = kv.twophase_torch if plain else kv.twophase
+        return lambda: fn(*args, **kw)
+    if name.startswith("runs"):
+        fn = kv.runs_torch if plain else kv.runs
+        return lambda: fn(*args, max_run=int(name[4:]), **kw)
+    fn = kv.kernel_variant_torch if plain else kv.kernel_variant
+    return lambda: fn(name, *args, **kw)
+
+
+def variant_vs_plain(name, got, want, exact: bool) -> dict:
+    """A variant against its plain version: bit for bit (the load-only
+    variants' fp32 sums), NaN where the plain version has NaN (noexp), or
+    the bf16 tolerance and the relative limits."""
+    nan = torch.isnan(want.float())
+    if not torch.equal(nan, torch.isnan(got.float())):
+        raise AssertionError(f"{name}: NaN positions differ from the plain "
+                             "version")
+    if exact:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: not bit for bit its plain version")
+        return {"case": name, "bit_exact": True}
+    if nan.all():
+        return {"case": name, "all_nan": True}
+    keep = ~nan
+    g, w = got[keep].float(), want[keep].float()
+    # the repo's bf16 tolerance, rtol = atol = TOL (tests/test_kernels.py)
+    if not bool(((g - w).abs() <= TOL + TOL * w.abs()).all()):
+        raise AssertionError(f"{name}: beyond rtol = atol = {TOL}: max abs "
+                             f"err {max_err(g, w)}")
+    if want[keep].float().abs().max() == 0:
+        if got[keep].float().abs().max() != 0:
+            raise AssertionError(f"{name}: not 0 where its plain version is")
+        return {"case": name, "zero": True}
+    return {"case": name, **held_to_scale(name, got[keep], want[keep])}
+
+
+def kernelvars_phase(kernels):
+    """S3: each variant against its plain version at the small grid; then
+    the kernelvars bench at the HunyuanVideo point (its main path, the
+    launch counters zeroed just before and read just after), base,
+    twophase and runs held to K1 there; then every variant but the
+    three-stage rings on the bench's full plan against its plain version
+    (the load-only variants bit for bit, noexp's NaN rows), the three-stage
+    rings equal to the two-stage ones; per variant its time against K1's,
+    the bytes it gathers (GB/s) or the operations it does (TF/s)."""
+    from rectified_spaattn_tpu_torch.bench import kernelvars
+    kv = kernels.variants
+    res = {"small_vs_plain": []}
+    st = kernelvars.setup(small=True)
+    args = (st["q"], st["k"], st["v"], st["indices"], st["counts"], st["tlen"])
+    kw = dict(visual_len=st["visual_len"], text_start=st["visual_len"],
+              chunk_blocks=16)
+    for name in S3_DRIVEN:
+        res["small_vs_plain"].append(variant_vs_plain(
+            f"s3_small_{name}", s3_call(kv, name, args, kw)(),
+            s3_call(kv, name, args, kw, plain=True)(),
+            exact=name.rstrip("3") in kv.LOAD_ONLY))
+    del st, args
+    torch.cuda.empty_cache()
+
+    for f in (kv.kernel_variant, kv.twophase, kv.runs):
+        f.launches.clear()
+    # K1 timed right before twophase and runs, the variants held to it
+    order = [n for n in S3_DRIVEN if n != "twophase" and not
+             n.startswith("runs")]
+    order += ["k1", *(n for n in S3_DRIVEN if n not in order)]
+    bench = kernelvars.main(["--variants", ",".join(order), "--check"])
+    res["launches"] = {**kv.kernel_variant.launches, **kv.twophase.launches,
+                       **kv.runs.launches}
+    missing = [n for n in S3_DRIVEN if not res["launches"].get(n)]
+    if missing:
+        raise AssertionError(f"S3 variants never launched: {missing}")
+    for name, r in bench["check"].items():
+        if not (r["max_abs_err"] <= REL_MAX * r["ref_max_abs"]
+                and r["rms_err"] <= REL_RMS * r["ref_std"]):
+            raise AssertionError(f"{name} vs K1 beyond the relative limits: "
+                                 f"{r}")
+    res["bench"] = bench
+
+    st = kernelvars.setup()
+    args = (st["q"], st["k"], st["v"], st["indices"], st["counts"], st["tlen"])
+    kw = dict(visual_len=st["visual_len"], text_start=st["visual_len"],
+              chunk_blocks=16)
+    res["full_vs_plain"] = {}
+    for name in ("base", "twophase", "runs4", "dma", "dmahalf", "dmabig",
+                 "compute", "computeclean", "computenomask", "computenoexp",
+                 "nomask", "noexp"):
+        got = s3_call(kv, name, args, kw)()
+        t0 = time.perf_counter()
+        want = s3_call(kv, name, args, kw, plain=True)()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        res["full_vs_plain"][name] = {
+            **variant_vs_plain(f"s3_full_{name}", got, want,
+                               exact=name in kv.LOAD_ONLY),
+            "plain_ms": plain_ms}
+        del got, want
+    for name in ("base", "dma", "compute"):
+        if not torch.equal(s3_call(kv, name + "3", args, kw)(),
+                           s3_call(kv, name, args, kw)()):
+            raise AssertionError(f"{name}3 differs from {name}")
+    torch.cuda.empty_cache()
+
+    # the work of each variant on this plan
+    b, h = st["q"].shape[:2]
+    g = 16
+    counts = st["counts"].long()
+    pairs = float(counts.sum())
+    ext = float(((counts + g - 1) // g * g).sum())     # the chunk extent
+    unit_bytes = 64 * 2 * 128 * 2                       # 64 keys of K and V
+    per_pair = 2 * 2 * unit_bytes                       # 2 blocks x 2 units
+    gathered = {"dmahalf": pairs * per_pair / 2, "dmabig": ext * per_pair,
+                "nomask": ext * per_pair, "computenomask": 0.0,
+                **{n: 0.0 for n in ("compute", "compute3", "computeclean",
+                                    "computenoexp")}}
+    flops_pair = 4.0 * 128 * 128 * 128
+    used = used_blocks(st["indices"], st["counts"])
+    k1_bytes = (2 * b * h * st["visual_len"] * 128 * 2 + used * 128 * 256 * 2
+                + st["indices"].numel() * 4 + counts.numel() * 4)
+    k1_ms = bench["ms"]["k1"]
+    res["variants"] = {}
+    for name in S3_DRIVEN:
+        ms = bench["ms"][name]
+        nbytes = gathered.get(name, pairs * per_pair)
+        flops = 0.0 if name.rstrip("3") in kv.LOAD_ONLY else flops_pair * (
+            ext if name in ("nomask", "computenomask") else pairs)
+        r = {"ms": ms, "vs_k1": ms / k1_ms, "gathered_gb": nbytes / 1e9,
+             "gathered_gb_per_s": nbytes / ms / 1e6,
+             "tflops_per_s": flops / ms / 1e9}
+        print(json.dumps({"s3_variant": name, **r}), flush=True)
+        res["variants"][name] = r
+    res["k1_ms"] = k1_ms
+    res["pairs"], res["chunk_extent_pairs"] = pairs, ext
+    res["bound_ms"], res["bound_by"] = bound_ms(pairs * flops_pair, k1_bytes)
+    return res
+
+
+def groupedvars_phase(kernels):
+    """S2: each variant at G = 2 and 4 against its plain version at the
+    small grid; then the groupedvars bench at the HunyuanVideo point (its
+    main path, the launch counters zeroed just before and read just after;
+    full and prefetch held to K1's single-row output); then on the bench's
+    plan full, nobias, compute and computeclean at G = 2 and full at G = 4
+    against their plain versions, dma bit for bit, full and prefetch equal
+    to K2 bit for bit."""
+    from rectified_spaattn_tpu_torch.bench import groupedvars
+    kv = kernels.variants
+    res = {"small_vs_plain": []}
+
+    def run_all(st, g, grouped, plain=False):
+        fn = kv.grouped_variant_torch if plain else kv.grouped_variant
+        return lambda name: fn(name, st["q"], st["k"], st["k"], *grouped,
+                               st["tlen"], group=g,
+                               visual_len=st["visual_len"],
+                               text_start=st["visual_len"])
+
+    st = groupedvars.setup(small=True)
+    for g in S2_GROUPS:
+        grouped = groupedvars.lists(st, g)
+        for name in kv.S2:
+            res["small_vs_plain"].append(variant_vs_plain(
+                f"s2_small_g{g}_{name}", run_all(st, g, grouped)(name),
+                run_all(st, g, grouped, plain=True)(name),
+                exact=name == "dma"))
+    del st
+    torch.cuda.empty_cache()
+
+    kv.grouped_variant.launches.clear()
+    bench = groupedvars.main(["--groups", ",".join(map(str, S2_GROUPS)),
+                              "--check"])
+    res["launches"] = dict(kv.grouped_variant.launches)
+    missing = [f"g{g}_{n}" for g in S2_GROUPS for n in kv.S2
+               if not res["launches"].get(f"g{g}_{n}")]
+    if missing:
+        raise AssertionError(f"S2 variants never launched: {missing}")
+    for name, r in bench["check"].items():
+        if not (r["max_abs_err"] <= REL_MAX * r["ref_max_abs"]
+                and r["rms_err"] <= REL_RMS * r["ref_std"]):
+            raise AssertionError(f"{name} vs K1 beyond the relative limits: "
+                                 f"{r}")
+    res["bench"] = bench
+
+    st = groupedvars.setup()
+    res["full_vs_plain"] = {}
+    for g, name in ((2, "full"), (2, "nobias"), (2, "compute"),
+                    (2, "computeclean"), (4, "full")):
+        grouped = groupedvars.lists(st, g)
+        got = run_all(st, g, grouped)(name)
+        t0 = time.perf_counter()
+        want = run_all(st, g, grouped, plain=True)(name)
+        torch.cuda.synchronize()
+        res["full_vs_plain"][f"g{g}_{name}"] = {
+            **variant_vs_plain(f"s2 {name} g{g}", got, want, exact=False),
+            "plain_ms": (time.perf_counter() - t0) * 1e3}
+        del got, want
+    grouped = groupedvars.lists(st, 2)
+    run2 = run_all(st, 2, grouped)
+    full = run2("full")
+    k2 = kernels.block_sparse_flash_attention_grouped(
+        st["q"], st["k"], st["k"], *grouped, st["tlen"], group=2,
+        visual_len=st["visual_len"], text_start=st["visual_len"])
+    if not (torch.equal(full, k2) and torch.equal(run2("prefetch"), k2)):
+        raise AssertionError("S2 full / prefetch differ from K2")
+    del full, k2
+    res["dma_vs_plain"] = variant_vs_plain(
+        "s2 dma g2", run2("dma"), run_all(st, 2, grouped, plain=True)("dma"),
+        exact=True)
+    b, h = st["q"].shape[:2]
+    pairs = float(st["mask"].sum())
+    used = float(st["mask"].any(dim=2).sum())
+    k2_bytes = (2 * b * h * st["visual_len"] * 128 * 2 + used * 128 * 256 * 2
+                + sum(t.numel() * 4 for t in grouped))
+    res["pairs"] = pairs
+    res["bound_ms"], res["bound_by"] = bound_ms(pairs * 4.0 * 128 ** 3,
+                                                k2_bytes)
+    return res
+
+
+def headline_phase():
+    """The headline bench at the HunyuanVideo point: its one JSON line."""
+    from rectified_spaattn_tpu_torch.bench import headline
+    line = headline.main([])
+    d = line["detail"]
+    if not all(map(lambda x: x == x and 0 < x < float("inf"),
+                   (line["value"], d["sparse_ms"], d["dense_ours_ms"],
+                    d["dense_stock_flash_ms_oneshot"],
+                    d["random_inputs"]["sparse_ms"]))):
+        raise AssertionError(f"headline times not finite and positive: "
+                             f"{line}")
+    return line
+
+
+def k1q_stats_entry(src, site, smooth, small_errs) -> dict:
+    """The kernels line's K1q-s entry: mxu8 at the Hunyuan site (random
+    inputs) against its plain version on the full inputs."""
+    r = site["K1q-s_mxu8_visual"]
+    launches = {f"{m}_{reg}": kern[f"K1q-s_{m}_visual"]["launches"]
+                for reg, kern in (("random", site), ("smooth", smooth))
+                for m in ("int8", "mxu8")}
+    return {"name": "K1q-s", "route": "cuda", "source": src,
+            "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:176",
+            "launches": sum(launches.values()),
+            "launches_by_path": {"k1q_stats_at_site": launches},
+            "max_abs_err": max(small_errs["o"], r["max_abs_err"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,
+            "shape": "mxu8, visual rows: q [1,24,115200,128], int8 K|V "
+                     "[24,115456,256], chunk_blocks 24, with m and l",
+            "other_jobs": {"int8_visual": site["K1q-s_int8_visual"],
+                           "mxu8_visual_smooth": smooth["K1q-s_mxu8_visual"],
+                           "int8_visual_smooth": smooth["K1q-s_int8_visual"]}}
+
+
+def variant_entries(s3, s2) -> list:
+    """The kernels line's S3a, S3b, S3c and S2 entries: each at the
+    benches' HunyuanVideo plans, its launches in the bench's run, its
+    plain version on the full plan, and the bound of the attention it
+    computes (S3a: base, S3c: runs4, S2: full at G = 2)."""
+    src = "rectified_spaattn_tpu_torch/csrc/variants.cu"
+    bench, launches = s3["bench"], s3["launches"]
+    small_err = lambda prefix: max(
+        [c.get("max_abs_err", 0.0) for c in s3["small_vs_plain"]
+         if c["case"].startswith(prefix)] or [0.0])
+
+    def s3_entry(name, key, replaces, names, shape):
+        full = s3["full_vs_plain"][key]
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces,
+                "launches": sum(launches.get(n, 0) for n in names),
+                "launches_by_path": {"bench.kernelvars": {
+                    n: launches.get(n, 0) for n in names}},
+                "max_abs_err": max(full["max_abs_err"],
+                                   small_err(f"s3_small_{key}")),
+                "ms": bench["ms"][key], "plain_ms": full["plain_ms"],
+                "bound_ms": s3["bound_ms"], "bound_by": s3["bound_by"],
+                "library_ms": None, "shape": shape,
+                "k1_ms_same_plan": s3["k1_ms"],
+                "other_jobs": {n: s3["variants"][n] for n in names}}
+
+    plan = ("kernelvars plan: q [1,24,115200,128] x 902 key blocks, "
+            "realistic_qkv, chunk_blocks 16")
+    s3a = [n for n in S3_DRIVEN if n != "twophase" and not
+           n.startswith("runs")]
+    runs = [n for n in S3_DRIVEN if n.startswith("runs")]
+    s2_full = s2["full_vs_plain"]["g2_full"]
+    s2_small = max(c.get("max_abs_err", 0.0) for c in s2["small_vs_plain"])
+    return [
+        s3_entry("S3a", "base", "scripts/bench_kernelvars.py:56", s3a,
+                 f"base (every unit masked), {plan}"),
+        s3_entry("S3b", "twophase", "scripts/bench_kernelvars.py:205",
+                 ["twophase"], f"twophase, {plan}"),
+        s3_entry("S3c", "runs4", "scripts/bench_kernelvars.py:316", runs,
+                 f"runs4 (TMA copies), {plan}"),
+        {"name": "S2", "route": "cuda", "source": src,
+         "replaces": "scripts/bench_groupedvars.py:39",
+         "launches": sum(s2["launches"].values()),
+         "launches_by_path": {"bench.groupedvars": s2["launches"]},
+         "max_abs_err": max(s2_full["max_abs_err"], s2_small),
+         "ms": s2["bench"]["ms"]["g2_full"], "plain_ms": s2_full["plain_ms"],
+         "bound_ms": s2["bound_ms"], "bound_by": s2["bound_by"],
+         "library_ms": None,
+         "shape": "full at G=2, groupedvars plan: q [1,24,115200,128], "
+                  "smooth q/k (v = k), chunk_blocks 16",
+         "g1_ms_same_plan": s2["bench"]["ms"]["g1"],
+         "other_jobs": {k: v for k, v in s2["bench"]["ms"].items()
+                        if k != "g2_full"}},
+    ]
+
+
 # ------------------------------------------------------------------ main ---
 
 def main() -> int:
@@ -1767,6 +2223,12 @@ def main() -> int:
     emit("k1s_vs_plain", t0, tolerance={"o": TOL, "m": M_TOL, "l_rel": L_REL},
          max_err=serrs, cases=scases)
 
+    t0 = time.perf_counter()
+    qserrs, qscases = k1q_stats_cases(kernels, ops)
+    emit("k1q_stats_vs_plain", t0,
+         tolerance={"o": TOL, "m": M_TOL, "l_rel": L_REL}, max_err=qserrs,
+         cases=qscases)
+
     sites = {}
     for regime in ("random", "smooth"):
         t0 = time.perf_counter()
@@ -1777,6 +2239,12 @@ def main() -> int:
              bf16_k1_ms=sites[regime]["K1_visual_g1"]["ms"],
              **{n: r for n, r in sites[regime].items()
                 if n.startswith("K1q")})
+    # K1q-s: the small cases above and, at the site, its time with and
+    # without the stats (both regimes)
+    t0 = time.perf_counter()
+    k1qs = {f"{n}_{regime}": r for regime, kern in sites.items()
+            for n, r in kern.items() if n.startswith("K1q-s")}
+    emit("k1q_stats", t0, max_err_small=qserrs, **k1qs)
 
     t0 = time.perf_counter()
     small = small_pipeline_check()
@@ -1825,6 +2293,18 @@ def main() -> int:
     t0 = time.perf_counter()
     wring, rings["wan"] = ring_wan_phase(kernels, ops)
     emit("ring_wan", t0, **wring)
+
+    t0 = time.perf_counter()
+    s3 = kernelvars_phase(kernels)
+    emit("kernelvars", t0, **s3)
+
+    t0 = time.perf_counter()
+    s2 = groupedvars_phase(kernels)
+    emit("groupedvars", t0, **s2)
+
+    t0 = time.perf_counter()
+    head = headline_phase()
+    emit("headline", t0, line=head)
 
     t0 = time.perf_counter()
     if torch.cuda.device_count() < 2:
@@ -1937,6 +2417,8 @@ def main() -> int:
                             rings["smooth"]["K1s_ring_text"],
                         "wan_ring_visual_rows":
                             rings["wan"]["K1s_ring_wan_visual"]}},
+        k1q_stats_entry(src, site, smooth, qserrs),
+        *variant_entries(s3, s2),
     ]}
     t0 = time.perf_counter()
     emit("total", t0, total_seconds=time.perf_counter() - t_start)

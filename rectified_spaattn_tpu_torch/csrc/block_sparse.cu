@@ -10,6 +10,8 @@
 //   K2  _sparse_attn_kernel_grouped  (launched at :560 by block_sparse_flash_attention_grouped)
 //   K1q _sparse_attn_kernel with quant="int8" / "mxu8" (:176-253), below
 //       sparse_attn_kernel: its own header comment gives its design
+//   K1q-s K1q with return_stats (the JAX wrapper takes both, :606-781):
+//       a STATS template flag of sparse_attn_q_kernel, as for K1s
 //
 // What K1 and K2 compute.  For each (batch*head, query row) the softmax attention
 // over the key blocks listed in the first `count` slots of the row's index list
@@ -59,11 +61,15 @@
 //
 // What bounds it on the H100.  At the HunyuanVideo operating point (115,456
 // keys, 24 heads x 128) the sparse visual rows do 4*128^3 flops per
-// (row block, key block) pair against ~64 KB of K/V per pair, most of it
-// re-read from L2: ~3e13 flops against ~1.4 GB of unique K/V, so the kernel is
-// bound by tensor-core operations (989 TF/s dense bf16), not by HBM bytes
-// (3.35 TB/s).  mma.sync reaches a fraction of that peak; wgmma, TMA and warp
-// specialisation are the levers of a later change.
+// (row block, key block) pair against ~64 KB of K/V per pair: ~3e13 flops
+// against ~1.4 GB of unique K/V, so by the roofline the operations bound it
+// (989 TF/s dense bf16), not HBM (3.35 TB/s).  Measured (the S3 ablations in
+// variants.cu, bench/kernelvars.py), the load skeleton sets the pace: each
+// 128-row list is walked by two 64-row blocks, so ~128 KB cross L2 per pair,
+// and the copies alone take two thirds of the kernel's time at ~5.2 TB/s;
+// the mma.sync and softmax work alone (no mask) takes three fifths; moving
+// the copies to the TMA engine (S3c) cuts the kernel by a sixth.  wgmma, TMA,
+// 128-row blocks and warp specialisation are the levers of a later change.
 
 #include "attn_common.cuh"
 
@@ -492,9 +498,11 @@ constexpr int q_smem_bytes(int d) {
                             : TILE_M * (d + 16) + d * (UNIT + 16) + TILE_M * 4);
 }
 
-template <int MODE, int D>
+// m_out / l_out ([BH, Sq] fp32) are K1q-s's: parameters of their own, so
+// that K1q's QParams is laid out as it was before the stats
+template <int MODE, int D, bool STATS>
 __global__ void __launch_bounds__(NTHREADS, 2)
-sparse_attn_q_kernel(const QParams p) {
+sparse_attn_q_kernel(const QParams p, float* m_out, float* l_out) {
   using T = __nv_bfloat16;
   constexpr int LB = D + 16;      // int8 smem row (bytes): no ldmatrix conflicts
   constexpr int LH = D + 8;       // bf16 smem row (elements)
@@ -903,6 +911,17 @@ sparse_attn_q_kernel(const QParams p) {
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
     inv[i] = l_r[i] == 0.f ? 1.f : 1.f / l_r[i];
   }
+  if constexpr (STATS) {
+    // K1q-s: m in score units after every scale is folded (the score the
+    // exp saw), l the sum of the unquantized p (the JAX kernel's :206)
+    if (t4 == 0) {
+      const long long r0 = (long long)bh * p.sq + row0 + warp * 16 + g;
+      m_out[r0] = m_r[0];
+      l_out[r0] = l_r[0];
+      m_out[r0 + 8] = m_r[1];
+      l_out[r0 + 8] = l_r[1];
+    }
+  }
   T* o0 = og + (long long)(warp * 16 + g) * D + 2 * t4;
   T* o1 = o0 + 8 * D;
 #pragma unroll
@@ -914,15 +933,16 @@ sparse_attn_q_kernel(const QParams p) {
   }
 }
 
-template <int MODE>
-int launch_q(const QParams& p, int bh, cudaStream_t stream) {
+template <int MODE, bool STATS>
+int launch_q(const QParams& p, float* m_out, float* l_out, int bh,
+             cudaStream_t stream) {
   constexpr int smem = q_smem_bytes<MODE>(128);
-  auto kern = sparse_attn_q_kernel<MODE, 128>;
+  auto kern = sparse_attn_q_kernel<MODE, 128, STATS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(p.sq / TILE_M, bh);
-  kern<<<grid, NTHREADS, smem, stream>>>(p);
+  kern<<<grid, NTHREADS, smem, stream>>>(p, m_out, l_out);
   return (int)cudaGetLastError();
 }
 
@@ -969,11 +989,13 @@ int rsa_k2_launch(const void* q, const void* k, const void* v, void* o,
   return dispatch<true, false>(p, bh, head_dim, dtype, (cudaStream_t)stream);
 }
 
-// K1q: K1 on an int8 K|V payload; mode 0 = "int8", 1 = "mxu8".
+// K1q: K1 on an int8 K|V payload; mode 0 = "int8", 1 = "mxu8"; K1q-s
+// when m_out and l_out are given ([BH, Sq] fp32 each; both null for K1q).
 int rsa_k1q_launch(const void* q, const void* kv, void* o, const int* indices,
                    const int* counts, const int* clean, const float* ksc,
-                   const float* vsc, const int* text_len,
-                   long long kv_bh_stride, int bh, int heads, int sq,
+                   const float* vsc, const int* text_len, float* m_out,
+                   float* l_out, long long kv_bh_stride, int bh, int heads,
+                   int sq,
                    int n_list, int nb_slots, int num_key_blocks, int block_m,
                    int chunk_blocks, int visual_len, int text_start,
                    int has_text, float sm_scale, float row_scale,
@@ -991,8 +1013,14 @@ int rsa_k1q_launch(const void* q, const void* kv, void* o, const int* indices,
   p.chunk_blocks = chunk_blocks;
   p.visual_len = visual_len; p.text_start = text_start; p.has_text = has_text;
   p.sm_scale = sm_scale; p.row_scale = row_scale;
-  if (mode == MODE_INT8) return launch_q<MODE_INT8>(p, bh, (cudaStream_t)stream);
-  if (mode == MODE_MXU8) return launch_q<MODE_MXU8>(p, bh, (cudaStream_t)stream);
+  if ((m_out == nullptr) != (l_out == nullptr)) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (mode == MODE_INT8)
+    return m_out ? launch_q<MODE_INT8, true>(p, m_out, l_out, bh, s)
+                 : launch_q<MODE_INT8, false>(p, m_out, l_out, bh, s);
+  if (mode == MODE_MXU8)
+    return m_out ? launch_q<MODE_MXU8, true>(p, m_out, l_out, bh, s)
+                 : launch_q<MODE_MXU8, false>(p, m_out, l_out, bh, s);
   return -1;
 }
 

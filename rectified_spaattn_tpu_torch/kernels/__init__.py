@@ -7,7 +7,7 @@ from .block_sparse import (
 )
 from .cuda_build import build_kernels
 from .flash import dense_attention, dense_flash_attention
-from . import int8_probe
+from . import int8_probe, variants
 
 __all__ = [
     "block_sparse_flash_attention",
@@ -19,4 +19,5 @@ __all__ = [
     "dense_attention",
     "dense_flash_attention",
     "int8_probe",
+    "variants",
 ]

@@ -14,6 +14,9 @@ plain PyTorch versions (port of rectified_spaattn_tpu/kernels/block_sparse.py).
        "int8" dequantizes K and V to bf16 before bf16 dots; "mxu8"
        quantizes q per row and p per row and chunk, and runs both dots as
        int8 x int8 -> int32.
+  K1q-s ``kv_quant`` with ``return_stats`` (the JAX wrapper takes both,
+       :606-781): K1q's output plus m (score units after every scale is
+       folded) and l (the sum of the unquantized p).
   K2   ``block_sparse_flash_attention_grouped``  replaces
        ``_sparse_attn_kernel_grouped`` (:317, launched at :560): one UNION
        index list per ``group * block_m`` rows, membership in ``rowbits``.
@@ -29,7 +32,8 @@ runs the plain PyTorch version in this module — the tests' path; a CUDA
 tensor launches the kernel or raises; nothing falls back.  Each wrapper
 counts its kernel launches in a plain attribute ``launches`` (K1q: a dict
 per mode, ``block_sparse_flash_attention.quant_launches``; K1s:
-``block_sparse_flash_attention.stats_launches``).
+``block_sparse_flash_attention.stats_launches``; K1q-s: a dict per mode,
+``block_sparse_flash_attention.quant_stats_launches``).
 
 The plain version replays the JAX kernel's arithmetic chunk by chunk: the
 index list is padded to a multiple of ``chunk_blocks`` slots (pad slots
@@ -46,9 +50,7 @@ chunk-padding lanes in a second pass only for such degenerate rows.  The
 stats follow: a count-0 row has m = -inf and l = 0, a degenerate row m =
 MASK_VALUE and l = the number of lanes it averaged.
 
-Not ported yet (raises NotImplementedError): ``return_stats`` with
-``kv_quant`` (K1q with stats; the ring never quantizes).  ``prefetch_next``
-is a TPU DMA knob: accepted and ignored.
+``prefetch_next`` is a TPU DMA knob: accepted and ignored.
 """
 
 from __future__ import annotations
@@ -75,8 +77,9 @@ def _declare(lib):
     lib.rsa_k2_launch.argtypes = [p, p, p, p, p, p, p, p, p, ll, ll, i, i, i,
                                   i, i, i, i, i, i, i, i, i, f, i, i, p]
     lib.rsa_k2_launch.restype = i
-    lib.rsa_k1q_launch.argtypes = [p, p, p, p, p, p, p, p, p, ll, i, i, i,
-                                   i, i, i, i, i, i, i, i, f, f, i, i, p]
+    lib.rsa_k1q_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, ll, i,
+                                   i, i, i, i, i, i, i, i, i, i, f, f, i, i,
+                                   p]
     lib.rsa_k1q_launch.restype = i
 
 
@@ -101,12 +104,20 @@ def _pad_slots(arrs, chunk_blocks: int):
     return tuple(torch.nn.functional.pad(a, (0, pad)) for a in arrs)
 
 
+def _inv127(x):
+    """127 / max(x, 1e-30), divided element by element (a Python number
+    over a tensor is the tensor's reciprocal times the number in PyTorch,
+    one rounding more than the JAX kernel's and the CUDA kernel's
+    division, which moves int8 rounding ties)."""
+    return torch.full_like(x, 127.0) / torch.clamp(x, min=1e-30)
+
+
 def _quantize_q_rows(q, sm_scale):
     """mxu8: q per row -> (int8 values as float64, row scale fp32
     qmax * sm_scale / 127), as the JAX kernel quantizes it."""
     qf = q.float()
     qmax = qf.abs().amax(dim=-1, keepdim=True)
-    q8 = torch.round(qf * (127.0 / torch.clamp(qmax, min=1e-30)))
+    q8 = torch.round(qf * _inv127(qmax))
     return q8.double(), qmax * (sm_scale / 127.0)
 
 
@@ -172,7 +183,7 @@ def _simulate(q, k, v, bh, idx, counts, rowbits, tlen, ksc, vsc, *, group,
             pq = p * vs[:, None, :]
         if quant == "mxu8":
             pm = pq.amax(dim=-1, keepdim=True)
-            p8 = torch.round(pq * (127.0 / torch.clamp(pm, min=1e-30)))
+            p8 = torch.round(pq * _inv127(pm))
             pv = torch.einsum("lrk,lkd->lrd", p8.double(), vc.double())
             acc_next = acc * alpha[..., None] + pv.float() * (pm / 127.0)
         else:
@@ -244,7 +255,7 @@ def block_sparse_flash_attention_torch(
     """Plain PyTorch version of K1, of K1s with ``return_stats`` (returns
     (o, m, l)), and of K1q with ``kv_quant`` (the quantized payload of
     sparse/ops.py::quantize_kv_blocks; ``k``/``v`` then only give
-    shapes)."""
+    shapes), K1q-s with both."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     kw = dict(group=1, visual_len=visual_len, text_start=text_start,
@@ -253,16 +264,14 @@ def block_sparse_flash_attention_torch(
     if kv_quant is None:
         return _plain(q, k, v, indices, counts, None, text_len,
                       packed_kv=packed_kv, return_stats=return_stats, **kw)
-    if return_stats:
-        raise NotImplementedError("return_stats with kv_quant (K1q with "
-                                  "stats) is not ported yet")
     kv, scale_k, scale_v = kv_quant
     b, h, _, d = q.shape
     kv = kv.reshape(b, h, kv.shape[1], 2 * d)
     return _plain(q, None, None, indices, counts, None, text_len,
                   packed_kv=kv, quant=quant_mode or "int8",
                   ksc=_row_scales(scale_k, indices),
-                  vsc=_row_scales(scale_v, indices), **kw)
+                  vsc=_row_scales(scale_v, indices),
+                  return_stats=return_stats, **kw)
 
 
 def block_sparse_flash_attention_grouped_torch(
@@ -392,10 +401,10 @@ def _stream(t):
 
 def _launch_k1q(q, kv_quant, quant_mode, indices, counts, clean, text_len, *,
                 visual_len, text_start, block_m, block_n, chunk_blocks,
-                sm_scale):
-    """K1q on the card: the wrapper gathers the per-slot scales to row
-    order and pads the slots to a multiple of ``chunk_blocks`` (index 0,
-    scale 0), as the JAX wrapper does."""
+                sm_scale, return_stats):
+    """K1q (K1q-s with ``return_stats``) on the card: the wrapper gathers
+    the per-slot scales to row order and pads the slots to a multiple of
+    ``chunk_blocks`` (index 0, scale 0), as the JAX wrapper does."""
     kv, scale_k, scale_v = kv_quant
     b, h, sq, d = q.shape
     if q.dtype != torch.bfloat16:
@@ -416,17 +425,25 @@ def _launch_k1q(q, kv_quant, quant_mode, indices, counts, clean, text_len, *,
     idx, cnt, cln, tl = _int32(idx), _int32(counts), _int32(clean), \
         _int32(text_len)
     ksc, vsc = ksc.contiguous(), vsc.contiguous()
+    # K1q-s: the row stats in fp32 (null pointers select K1q)
+    stats = [torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+             for _ in range(2)] if return_stats else []
+    m_ptr, l_ptr = (t.data_ptr() for t in stats) if stats else (None, None)
     rc = lib.rsa_k1q_launch(
         q.data_ptr(), kv.data_ptr(), out.data_ptr(), idx.data_ptr(),
         cnt.data_ptr(), cln.data_ptr(), ksc.data_ptr(), vsc.data_ptr(),
-        tl.data_ptr(), s * 2 * d, b * h, h, sq, idx.shape[2], idx.shape[3],
-        s // block_n, block_m, chunk_blocks, visual_len,
+        tl.data_ptr(), m_ptr, l_ptr, s * 2 * d, b * h, h, sq, idx.shape[2],
+        idx.shape[3], s // block_n, block_m, chunk_blocks, visual_len,
         -1 if text_start is None else text_start, int(text_start is not None),
         float(sm_scale), float(sm_scale / 127.0), d, _QUANT_CODE[quant_mode],
         _stream(q))
+    name = "K1q-s" if return_stats else "K1q"
     if rc:
         raise RuntimeError(
-            f"K1q launch failed: {lib.rsa_error_string(rc).decode()}")
+            f"{name} launch failed: {lib.rsa_error_string(rc).decode()}")
+    if return_stats:
+        block_sparse_flash_attention.quant_stats_launches[quant_mode] += 1
+        return out, *stats
     block_sparse_flash_attention.quant_launches[quant_mode] += 1
     return out
 
@@ -446,10 +463,7 @@ def block_sparse_flash_attention(
     text_len [B].  Returns [B,H,Sq,D] in q.dtype; K1s with
     ``return_stats``: (o, m, l) with m and l [B,H,Sq] fp32 (m in score
     units of q * sm_scale, natural exp; a count-0 row has m = -inf and
-    l = 0)."""
-    if return_stats and kv_quant is not None:
-        raise NotImplementedError("return_stats with kv_quant (K1q with "
-                                  "stats) is not ported yet")
+    l = 0); K1q-s with both ``kv_quant`` and ``return_stats``."""
     quant_mode = _quant_args(kv_quant, quant_mode, packed_kv)
     b, h, sq, d = q.shape
     s = (kv_quant[0].shape[1] if kv_quant is not None else
@@ -472,7 +486,7 @@ def block_sparse_flash_attention(
     clean = _clean_prefix(indices, counts, visual_len // block_n)
     if kv_quant is not None:
         return _launch_k1q(q, kv_quant, quant_mode, indices, counts, clean,
-                           text_len, **kw)
+                           text_len, return_stats=return_stats, **kw)
     _cuda_checks(q, k, v, packed_kv, block_m, block_n, indices, counts,
                  text_len)
     lib = _load()
@@ -505,6 +519,7 @@ def block_sparse_flash_attention(
 block_sparse_flash_attention.launches = 0
 block_sparse_flash_attention.stats_launches = 0
 block_sparse_flash_attention.quant_launches = {"int8": 0, "mxu8": 0}
+block_sparse_flash_attention.quant_stats_launches = {"int8": 0, "mxu8": 0}
 
 
 def block_sparse_flash_attention_grouped(

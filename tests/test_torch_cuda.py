@@ -1,6 +1,7 @@
-"""The port's CUDA kernels K1/K1s/K2/K1q/K3 and the S1 probe against their
-plain PyTorch versions, on a CUDA GPU (bf16, 2e-2: the repo's bf16
-tolerance, tests/test_kernels.py; K1s's l within 1 %; S1's int8 result bit
+"""The port's CUDA kernels K1/K1s/K2/K1q/K1q-s/K3, the S1 probe and the
+S3/S2 ablation variants against their plain PyTorch versions, on a CUDA
+GPU (bf16, 2e-2: the repo's bf16 tolerance, tests/test_kernels.py; K1s's
+and K1q-s's l within 1 %; S1's int8 result and the load-only variants bit
 for bit).
 Marked ``cuda``; each test skips without a GPU.  This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from rectified_spaattn_tpu_torch import kernels as tk
-from rectified_spaattn_tpu_torch.kernels import int8_probe
+from rectified_spaattn_tpu_torch.kernels import int8_probe, variants
 from rectified_spaattn_tpu_torch.sparse import ops
 
 torch.set_num_threads(1)
@@ -246,3 +247,124 @@ def test_cuda_rejects_fp32(cuda):
             visual_len=BN, text_start=None)
     with pytest.raises(TypeError, match="bf16"):
         tk.dense_attention(q, q, q, mode="flash")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "mxu8"])
+def test_cuda_k1q_stats_matches_plain(cuda, mode):
+    """K1q-s against its plain version at chunk_blocks 2 and 16: o equals
+    K1q's bit for bit, m within 2e-2, l within 1 %, and a count-0 row has
+    m == -inf and l == 0 exactly."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(41)
+    b, h, nq, nb, d = 2, 3, 6, 12, 128
+    q, k, v = (torch.randn((b, h, n * BM, d), generator=g, device=cuda
+                           ).to(torch.bfloat16) for n in (nq, nb, nb))
+    mask = torch.rand((b, h, nq, nb), generator=g, device=cuda) < 0.4
+    mask[..., 0] = mask[..., -1] = True
+    mask[0, 1, 3] = False                      # count 0
+    tl = torch.tensor([90, 30], dtype=torch.int32, device=cuda)
+    payload = ops.quantize_kv_blocks(k, v, BN)
+    idx, cnt = ops.mask_to_indices(mask)
+    for cb in (2, 16):
+        kw = dict(visual_len=(nb - 1) * BN - 50, text_start=(nb - 1) * BN,
+                  chunk_blocks=cb, kv_quant=payload, quant_mode=mode)
+        o, m, l = tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl,
+                                                  return_stats=True, **kw)
+        wo, wm, wl = tk.block_sparse_flash_attention_torch(
+            q, k, v, idx, cnt, tl, return_stats=True, **kw)
+        k1q = tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o, k1q)
+        zero = (cnt == 0).repeat_interleave(BM, dim=2)
+        assert bool((m[zero] == -torch.inf).all()) and bool((l[zero] == 0).all())
+        torch.testing.assert_close(o.float(), wo.float(), **BF16)
+        torch.testing.assert_close(m[~zero], wm[~zero], rtol=0, atol=2e-2)
+        torch.testing.assert_close(l[~zero], wl[~zero], rtol=1e-2, atol=0)
+
+
+def variant_inputs(cuda, seed, nq=4, nb=12, group=1):
+    """bf16 q/k/v, a mask with text blocks, a count-0 row block and a
+    degenerate one (its only block the text block of a batch with
+    text_len 0), the text window at B=2."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    b, h, d = 2, 2, 128
+    q, k, v = (torch.randn((b, h, n * BM, d), generator=g, device=cuda
+                           ).to(torch.bfloat16) for n in (nq, nb, nb))
+    mask = torch.rand((b, h, nq, nb), generator=g, device=cuda) < 0.45
+    mask[..., 0] = mask[..., -1] = True
+    mask[0, 1, 1] = False                       # count 0
+    mask[1, 0, 2] = False
+    mask[1, 0, 2, -1] = True                    # only the masked text block
+    if group > 1:
+        mask[0, 0, 1] = False                   # no block of its own
+    tl = torch.tensor([70, 0], dtype=torch.int32, device=cuda)
+    kw = dict(visual_len=(nb - 1) * BN - 30, text_start=(nb - 1) * BN)
+    return q, k, v, mask, tl, kw
+
+
+def assert_variant_close(got, want, exact):
+    if exact:
+        assert torch.equal(got, want)             # the same fp32 sums
+    else:
+        torch.testing.assert_close(got.float(), want.float(), equal_nan=True,
+                                   **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [*variants.S3A, "base3", "dma3",
+                                     "compute3", "twophase", "runs1",
+                                     "runs2", "runs4"])
+@pytest.mark.parametrize("chunk_blocks", [2, 4])
+def test_cuda_s3_variants_match_plain(cuda, variant, chunk_blocks):
+    """Each S3 variant against its plain version: bf16 2e-2 (NaN where the
+    plain version has NaN), the load-only variants bit for bit."""
+    q, k, v, mask, tl, kw = variant_inputs(cuda, 51 + chunk_blocks)
+    idx, cnt = ops.mask_to_indices(mask)
+    kw["chunk_blocks"] = chunk_blocks
+    if variant == "twophase":
+        call = lambda x: variants.twophase(*x, **kw)
+    elif variant.startswith("runs"):
+        call = lambda x: variants.runs(*x, max_run=int(variant[4:]), **kw)
+    else:
+        call = lambda x: variants.kernel_variant(variant, *x, **kw)
+    args = (q, k, v, idx, cnt, tl)
+    got = call(args)
+    want = call(tuple(t.cpu() for t in args)).to(cuda)
+    torch.cuda.synchronize()
+    assert_variant_close(got, want, variant.rstrip("3") in variants.LOAD_ONLY)
+    if variant.startswith("runs") or variant in ("base", "twophase"):
+        # K1's output on these ascending lists
+        k1 = tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl, **kw)
+        live = (cnt > 0).repeat_interleave(BM, dim=2)
+        live[1, 0, 2 * BM:3 * BM] = False        # degenerate: pads differ
+        torch.testing.assert_close(got[live].float(), k1[live].float(),
+                                   **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", variants.S2)
+@pytest.mark.parametrize("group", [2, 4])
+def test_cuda_s2_variants_match_plain(cuda, variant, group):
+    """Each S2 variant against its plain version (dma bit for bit); full
+    and prefetch also equal K2's output bit for bit.  The list counts (3,
+    5, 6 and 10) are not multiples of the 4 lists a prefetch block walks,
+    and 3 is fewer."""
+    for nq in (12, 20):
+        q, k, v, mask, tl, kw = variant_inputs(cuda, 61 + group + nq, nq=nq,
+                                               group=group)
+        kw["chunk_blocks"] = 4
+        args = (*ops.group_rows(mask, group,
+                                clean_blocks=kw["visual_len"] // BN), tl)
+        got = variants.grouped_variant(variant, q, k, v, *args, group=group,
+                                       **kw)
+        want = variants.grouped_variant(variant, q.cpu(), k.cpu(), v.cpu(),
+                                        *(t.cpu() for t in args),
+                                        group=group, **kw).to(cuda)
+        torch.cuda.synchronize()
+        assert_variant_close(got, want, variant == "dma")
+        if variant in ("full", "prefetch"):
+            k2 = tk.block_sparse_flash_attention_grouped(
+                q, k, v, *args, group=group, **kw)
+            assert torch.equal(got, k2)

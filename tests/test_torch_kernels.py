@@ -361,13 +361,9 @@ def test_unported_options_raise():
     idx, cnt = ops.mask_to_indices(torch.ones((1, 1, 1, 1), dtype=torch.bool))
     tl = torch.zeros(1, dtype=torch.int32)
     kw = dict(visual_len=BN, text_start=None)
-    # K1s is ported (tests/test_torch_parallel.py); K1q with stats is not
-    payload = ops.quantize_kv_blocks(k, v, BN)
-    with pytest.raises(NotImplementedError, match="K1q with stats"):
-        tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl,
-                                        return_stats=True, kv_quant=payload,
-                                        **kw)
-    # K1q is ported; a mode still needs its payload, as in JAX
+    # K1s (tests/test_torch_parallel.py) and K1q with stats
+    # (tests/test_torch_variants.py) are ported; K1q is ported, and a mode
+    # still needs its payload, as in JAX
     with pytest.raises(ValueError, match="together"):
         tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl,
                                         quant_mode="mxu8", **kw)
