@@ -10,7 +10,9 @@ HunyuanVideo sparse denoise path, its int8 serving levers (K1q, S1, int8 /
 int4 weights, the int8 offloaded TeaCache residual), the Wan2.1-14B
 denoise path, the multi-device path (K1s, the ring, tensor parallelism)
 and the kernel-diagnostic path (K1q-s, the S3 / S2 ablations, the
-headline bench):
+headline bench).  K1/K1s and K3 run on the Hopper mainloop of
+csrc/hopper_attn.cuh; K1's launches of fewer row tiles than SMs split
+each index list into key ranges that the merge kernel folds:
 
   1. device: the card's name and power limit; TF32 off.
   2. kernels: K1 (single-row gather), K2 (grouped-row gather) and K3
@@ -18,8 +20,9 @@ headline bench):
      shapes — random masks, the text window at B=2, zero-count and
      all-masked rows, degenerate rows (every gathered key masked, count >
      0: V averaged over the chunk's lanes) at chunk_blocks 2 and 16 for K1
-     and K2, full index lists with block_m 1024, K2 at G=2 and G=4 (and K2
-     == K1 row by row); K3 with Sq and Sk off its tiles, 512
+     and K2, full index lists with block_m 1024, the key split at 16 row
+     tiles (a degenerate list and the text window among them), K2 at G=2
+     and G=4 (and K2 == K1 row by row); K3 with Sq and Sk off its tiles, 512
      and 257 keys, a kv_valid mask at B=2 with a row of no valid key, a
      given sm_scale; max abs error <= 2e-2 and, relative to the output's
      own scale, max abs error <= 5 % of max |output| and rms error <= 2 %
@@ -32,7 +35,8 @@ headline bench):
      build_site(32, 45, 80)): plan build, group_rows 1 and 2, the windowed
      dense baseline and scaled_dot_product_attention as a yardstick, each
      timed with CUDA events; each kernel at these shapes against its plain
-     version on the full inputs (the relative limits), with its bound; and
+     version on the full inputs (the relative limits), with its bound (the
+     merge kernel at the text rows' split on seeded partials); and
      each kernel again on inputs whose text keys carry most of the weight.
      K1q in both modes on the same plan at the site's chunk_blocks (24):
      quantize_kv_blocks ms, K1q ms against bf16 K1's, its error against
@@ -40,7 +44,8 @@ headline bench):
   4. pipeline: HunyuanVideoPipeline at full width (HunyuanVideoConfig()
      defaults) cut to 2 dual + 2 single blocks, 720x1280x128 frames, 3
      steps, TeaCache on, group_rows 2, seeded bf16 random weights — the
-     kernels' launch counters are zeroed just before and read just after;
+     kernels' launch counters (the merge kernel's too: the text rows
+     split) are zeroed just before and read just after;
      then one step with the density probe on (untimed in the above); plus
      a small pipeline on the GPU (bf16) against the same one on the CPU
      (fp32).
@@ -75,8 +80,9 @@ headline bench):
   7. k1s_vs_plain: K1s (K1 with the row max m and sum l) in bf16 against
      its plain version at small shapes — random masks, the text window at
      B=2, count-0 rows (m == -inf and l == 0 exactly), degenerate rows at
-     chunk_blocks 2 and 16, packed_kv; o held as K1 is, m within M_TOL
-     absolute, l within L_REL relative.
+     chunk_blocks 2 and 16, packed_kv, the key split; o held as K1 is and
+     equal to K1's bit for bit, m within M_TOL absolute, l within L_REL
+     relative.
   8. ring_hunyuan: the ring at the Hunyuan site point (115,200 visual + 256
      text tokens, 100 valid), sp = 4 through the in-process group on this
      one card, on random and smooth inputs — K1s's launch counter zeroed
@@ -108,6 +114,10 @@ headline bench):
      equal to K2 bit for bit.
  12. headline: bench.headline's JSON line (the sparse site against the
      windowed dense, bench.py's keys).
+ 12b. kernel_ab: kernel_ab.py on this tree: K1 (visual, text rows, the
+     Hunyuan and Wan windowed dense), K2, K1q, K1s (a ring step's text
+     rows) and K3 (both Wan cross shapes), each beside the SDPA call on
+     the same inputs.
  13. multi_gpu, with two or more cards: one process per card (up to 4) on
      NCCL runs the Hunyuan ring of phase 8 (random inputs), held against
      its in-process output; two run the full-width 2+2-block Hunyuan
@@ -123,6 +133,7 @@ failure exits non-zero; nothing falls back to the CPU.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -229,7 +240,37 @@ def build(kernels):
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, (_, log) in out["libs"].items()}
+    ptxas["sass"] = {name: sass_counts(out["libs"][name][0])
+                     for name in ("block_sparse", "dense_flash")}
     return out["walker"], ptxas
+
+
+def sass_counts(lib: str) -> dict:
+    """Per Hopper-mainloop kernel of a built library, its count of SASS
+    branches (BRA), selects (FSEL) and wgmma instructions (HGMMA), read
+    with cuobjdump: the mask is branch-free when its 64 scores a thread
+    show up as 64 FSEL and the kernel's branches do not grow with them."""
+    from rectified_spaattn_tpu_torch.kernels import cuda_build
+    tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True)
+    if proc.returncode:
+        return {"cuobjdump": proc.stderr.strip()[:200]}
+    counts, fn = {}, None
+    for ln in proc.stdout.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            fn = name if "hopper_attn_kernel" in name else None
+            if fn:
+                counts[fn] = {"BRA": 0, "FSEL": 0, "HGMMA": 0}
+        elif fn and "*/" in ln:
+            ops = ln.split("*/", 1)[1].split("/*")[0].split()
+            if ops and ops[0].startswith("@"):
+                ops = ops[1:]
+            op = ops[0].split(".")[0] if ops else ""
+            if op in counts[fn]:
+                counts[fn][op] += 1
+    return counts
 
 
 def smi_line() -> str:
@@ -312,6 +353,17 @@ def kernel_cases(kernels, ops):
     m[..., 0] = True
     k1_case("k1_fp16", 1, 2, 4, 6, 128, m, 6 * 128 - 30, None, [0],
             dtype=torch.float16)
+    # the key split: 16 row tiles over lists of 10 chunks (merged by the
+    # merge kernel), the text window, a degenerate list (batch 1's text)
+    m = torch.rand((2, 4, 2, 40), generator=gen, device=dev) < 0.5
+    m[..., -1] = True
+    m[1, 2, 1] = False
+    m[1, 2, 1, -1] = True
+    merges = kernels.block_sparse.merge_splits.launches
+    k1_case("k1_split_short_rows", 2, 4, 2, 40, 128, m, 39 * 128 - 40,
+            39 * 128, [90, 0], chunk_blocks=4)
+    if kernels.block_sparse.merge_splits.launches != merges + 1:
+        raise AssertionError("k1_split_short_rows did not split")
 
     # K2 at G = 2 and 4, against its plain version and row by row vs K1
     b, h, nq, nb, d = 1, 4, 8, 12, 128
@@ -637,6 +689,7 @@ def site_phase(kernels, ops, regime: str):
             nbytes=qo_bytes(text_len) + kv_bytes(b * h * nbt)
             + idx_bytes(fidx, fcnt),
             library=lambda: sdpa(q_txt, k, v, attn_mask=amask))
+    merge_at_site(kernels, kern, regime, b * h * nt, fidx.shape[-1])
     # K1, the windowed dense baseline (full lists, block_m 1024)
     nqd = -(-s // 1024)
     qd = torch.nn.functional.pad(q, (0, 0, 0, nqd * 1024 - s))
@@ -657,6 +710,44 @@ def site_phase(kernels, ops, regime: str):
         kernels, ops, q, k, v, (plan.indices, plan.counts), (ui, uc, rb, cl),
         (fidx, fcnt), tlen, gen, kw, cfg1.kernel_chunk_blocks)
     return res, kern
+
+
+def merge_at_site(kernels, kern, regime, tiles, nb_slots):
+    """The key split's merge kernel at the shape of the text rows' split
+    (the ranges _split_plan gives their launch on this card), on seeded
+    partials, against its plain version (``_merge_splits``); bound: the
+    partials read once, o and the stats written once."""
+    bs = kernels.block_sparse
+    n, _ = bs._split_plan(tiles, nb_slots, 16, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    rows, d = tiles * 128, SITE["head_dim"]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(99)
+    o_p = torch.randn((n, rows, d), generator=gen, device=DEV)
+    m_p = torch.randn((n, rows), generator=gen, device=DEV)
+    l_p = torch.rand((n, rows), generator=gen, device=DEV) * 100 + 1
+    m_p[0, :64], l_p[0, :64] = -torch.inf, 0.0       # an empty range
+    args = (o_p, m_p, l_p, torch.bfloat16)
+    got = bs.merge_splits(*args, return_stats=True)
+    t0 = time.perf_counter()
+    want = bs._merge_splits(list(o_p), list(m_p), list(l_p))
+    torch.cuda.synchronize()
+    r = {"plain_ms": (time.perf_counter() - t0) * 1e3, "n_split": n,
+         **held_to_scale("K1 split merge", got[0], want[0].to(torch.bfloat16))}
+    r["m_max_abs_err"] = max_err(got[1], want[1])
+    r["l_max_rel_err"] = float(((got[2] - want[2]).abs() / want[2]).max())
+    if not (r["max_abs_err"] <= TOL and r["m_max_abs_err"] == 0
+            and r["l_max_rel_err"] <= 1e-4):
+        raise AssertionError(f"K1 split merge vs its plain version: {r}")
+    r["bound_ms"], r["bound_by"] = bound_ms(
+        0.0, n * rows * (d + 2) * 4 + rows * (d * 2 + 8))
+    r["ms"] = cuda_ms(lambda: bs.merge_splits(*args, return_stats=True),
+                      reps=20)
+    r["library_ms"] = None
+    r["roofline_share"] = r["bound_ms"] / r["ms"]
+    kern["K1_merge"] = r
+    print(json.dumps({"kernel_at_site": "K1_merge", "regime": regime, **r}),
+          flush=True)
 
 
 def k1q_at_site(kernels, ops, kern, mode, regime, check, ref, args, qkw,
@@ -830,7 +921,8 @@ def pipeline_phase(kernels):
     torch.cuda.reset_peak_memory_stats()
     kerns = {"K1": kernels.block_sparse_flash_attention,
              "K2": kernels.block_sparse_flash_attention_grouped,
-             "K3": kernels.dense_flash_attention}
+             "K3": kernels.dense_flash_attention,
+             "K1_merge": kernels.block_sparse.merge_splits}
     for f in kerns.values():
         f.launches = 0
     out = pipe(text, mask, generator=noise)
@@ -840,8 +932,10 @@ def pipeline_phase(kernels):
         raise AssertionError(f"pipeline output shape {tuple(out.shape)}")
     if not torch.isfinite(out).all():
         raise AssertionError("pipeline output is not finite")
-    # K1 and K2 are this path's kernels; K3 is not on it
-    if min(launches["K1"], launches["K2"]) == 0 or launches["K3"]:
+    # K1 and K2 are this path's kernels, K1's text rows split and merged;
+    # K3 is not on it
+    if min(launches["K1"], launches["K2"], launches["K1_merge"]) == 0 \
+            or launches["K3"]:
         raise AssertionError(f"unexpected launches on the HunyuanVideo "
                              f"path: {launches}")
     computed = pipe.teacache_stats["computed"]
@@ -959,7 +1053,8 @@ def quant_launches(kernels):
     return {"K1": k1.launches, "K1q_int8": k1.quant_launches["int8"],
             "K1q_mxu8": k1.quant_launches["mxu8"],
             "K2": kernels.block_sparse_flash_attention_grouped.launches,
-            "K3": kernels.dense_flash_attention.launches}
+            "K3": kernels.dense_flash_attention.launches,
+            "K1_merge": kernels.block_sparse.merge_splits.launches}
 
 
 def zero_launches(kernels):
@@ -968,6 +1063,7 @@ def zero_launches(kernels):
     k1.quant_launches.update(int8=0, mxu8=0)
     kernels.block_sparse_flash_attention_grouped.launches = 0
     kernels.dense_flash_attention.launches = 0
+    kernels.block_sparse.merge_splits.launches = 0
 
 
 def small_int4_check(kernels):
@@ -1034,10 +1130,10 @@ def pipeline_int8_phase(kernels, bf16_peak_gb):
     if out.shape != (1, cfg.in_channels, *pipe.grid) \
             or not torch.isfinite(out).all():
         raise AssertionError("int8 pipeline output is not finite of its shape")
-    # K1q (mxu8) runs the visual rows, bf16 K1 the text rows; no K2 at
-    # group_rows 1, no K3 on this path
-    if min(launches["K1"], launches["K1q_mxu8"]) == 0 or launches["K2"] \
-            or launches["K3"] or launches["K1q_int8"]:
+    # K1q (mxu8) runs the visual rows, bf16 K1 the text rows (split and
+    # merged); no K2 at group_rows 1, no K3 on this path
+    if min(launches["K1"], launches["K1q_mxu8"], launches["K1_merge"]) == 0 \
+            or launches["K2"] or launches["K3"] or launches["K1q_int8"]:
         raise AssertionError(f"unexpected launches on the int8 path: "
                              f"{launches}")
     if not (isinstance(held, tuple) and held[0].dtype == torch.int8
@@ -1238,7 +1334,8 @@ def wan_pipeline_phase(kernels):
     torch.cuda.reset_peak_memory_stats()
     kerns = {"K1": kernels.block_sparse_flash_attention,
              "K2": kernels.block_sparse_flash_attention_grouped,
-             "K3": kernels.dense_flash_attention}
+             "K3": kernels.dense_flash_attention,
+             "K1_merge": kernels.block_sparse.merge_splits}
     plans, restore = count_sparse_plans()
     try:
         for f in kerns.values():
@@ -1258,9 +1355,10 @@ def wan_pipeline_phase(kernels):
                        if c and i >= WAN_PIPE["warm_calls"])
     want_plans = sparse_calls * (cfg.num_blocks - WAN_PIPE["warm_layers"])
     # K3 once per block per computed call (T2V: the text cross only); K1
-    # once per block per computed call (windowed dense or sparse)
+    # once per block per computed call (windowed dense or sparse), never
+    # split: Wan has no text rows, and its visual rows fill the card
     want = {"K1": cfg.num_blocks * computed, "K2": 0,
-            "K3": cfg.num_blocks * computed}
+            "K3": cfg.num_blocks * computed, "K1_merge": 0}
     if launches != want or plans[0] != want_plans or want_plans == 0:
         raise AssertionError(f"Wan launches {launches} (want {want}), "
                              f"sparse plans {plans[0]} (want {want_plans} "
@@ -1361,6 +1459,11 @@ def k1s_cases(kernels, ops):
                                                    **kw)
         want = kernels.block_sparse_flash_attention_torch(q, k, v, idx, cnt,
                                                           tl, **kw)
+        k1 = kernels.block_sparse_flash_attention(
+            q, k, v, idx, cnt, tl,
+            **{n: a for n, a in kw.items() if n != "return_stats"})
+        if not torch.equal(got[0], k1):
+            raise AssertionError(f"{name}: K1s o differs from K1's")
         e = max_err(got[0], want[0])
         if not (torch.isfinite(got[0].float()).all() and e <= TOL):
             raise AssertionError(f"{name}: max abs err {e} > {TOL}")
@@ -1388,6 +1491,20 @@ def k1s_cases(kernels, ops):
     m = torch.rand((1, 2, 8, 10), generator=gen, device=dev) < 0.4
     m[0, 1, 5] = False
     case("k1s_packed_kv", 1, 2, 8, 10, m, 10 * 128, None, [0], packed=True)
+    # the key split (16 row tiles, 10 chunks a list), count-0 rows, a
+    # degenerate list and the text window at B = 2, packed and not
+    m = torch.rand((2, 4, 2, 40), generator=gen, device=dev) < 0.5
+    m[..., -1] = True
+    m[0, 1, 0] = False
+    m[1, 2, 1] = False
+    m[1, 2, 1, -1] = True
+    merges = kernels.block_sparse.merge_splits.launches
+    for packed in (False, True):
+        case(f"k1s_split_short_rows{'_packed' if packed else ''}", 2, 4, 2,
+             40, m, 39 * 128 - 40, 39 * 128, [90, 0], chunk_blocks=4,
+             packed=packed)
+    if kernels.block_sparse.merge_splits.launches != merges + 4:
+        raise AssertionError("k1s_split_short_rows did not split")
     return errs, cases
 
 
@@ -1420,13 +1537,15 @@ def measure_k1s(kern, name, regime, check, kern_fn, plain_fn, counts, flops,
 def ring_launches(kernels):
     k1 = kernels.block_sparse_flash_attention
     return {"K1s": k1.stats_launches, "K1": k1.launches,
-            "K2": kernels.block_sparse_flash_attention_grouped.launches}
+            "K2": kernels.block_sparse_flash_attention_grouped.launches,
+            "K1_merge": kernels.block_sparse.merge_splits.launches}
 
 
 def zero_ring_launches(kernels):
     k1 = kernels.block_sparse_flash_attention
     k1.stats_launches = k1.launches = 0
     kernels.block_sparse_flash_attention_grouped.launches = 0
+    kernels.block_sparse.merge_splits.launches = 0
 
 
 def ring_masks(q_vis, k_vis, v_vis, n, nbr, cfg, text_keys=None,
@@ -1554,7 +1673,10 @@ def ring_hunyuan_phase(kernels, ops, regime: str):
     out_v, out_t = ring()
     launches = ring_launches(kernels)
     torch.cuda.synchronize()
-    want = {"K1s": n * (2 * n + 2), "K1": 0, "K2": 0}
+    # per rank: n visual steps, a visual-text pass, n text-row passes over
+    # the visual shards (48 row tiles: split and merged) and a text-text
+    # pass
+    want = {"K1s": n * (2 * n + 2), "K1": 0, "K2": 0, "K1_merge": n * n}
     if launches != want:
         raise AssertionError(f"ring launches {launches}, want {want}")
     res["launches"] = launches
@@ -1638,7 +1760,7 @@ def ring_wan_phase(kernels, ops):
     out = ring()
     launches = ring_launches(kernels)
     torch.cuda.synchronize()
-    want = {"K1s": n * n, "K1": 0, "K2": 0}
+    want = {"K1s": n * n, "K1": 0, "K2": 0, "K1_merge": 0}
     if launches != want:
         raise AssertionError(f"Wan ring launches {launches}, want {want}")
     res["launches"] = launches
@@ -2094,6 +2216,18 @@ def groupedvars_phase(kernels):
     return res
 
 
+def kernel_ab_phase():
+    """kernel_ab.py (beside this file) on this tree: the attention kernels
+    at the main path's shapes, each beside the SDPA call on the same
+    inputs, 3 calls each; its one JSON line's numbers."""
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ab", os.path.join(ROOT, "kernel_ab.py"))
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    res = ab.main(["--reps", "3", "--label", "chip_smoke"])
+    return {n: v for n, v in res.items() if n not in ("label", "root")}
+
+
 def headline_phase():
     """The headline bench at the HunyuanVideo point: its one JSON line."""
     from rectified_spaattn_tpu_torch.bench import headline
@@ -2307,6 +2441,10 @@ def main() -> int:
     emit("headline", t0, line=head)
 
     t0 = time.perf_counter()
+    ab = kernel_ab_phase()
+    emit("kernel_ab", t0, **ab)
+
+    t0 = time.perf_counter()
     if torch.cuda.device_count() < 2:
         print(json.dumps({"phase": "multi_gpu", "skipped": "1 device"}),
               flush=True)
@@ -2323,6 +2461,13 @@ def main() -> int:
                          "wan": wpipe["launches"][n]}
     ks_t, ks_v = rings["random"]["K1s_ring_text"], \
         rings["random"]["K1s_ring_visual"]
+    mainloop = "rectified_spaattn_tpu_torch/csrc/hopper_attn.cuh"
+    design = ("the Hopper mainloop of " + mainloop + " (128-row CTAs, TMA "
+              "into an mbarrier ring, wgmma, branch-free mask)")
+    # kernel_ab's times beside SDPA's at the main path's shapes
+    ab_of = lambda *names: {n: {"ms": ab[n], "sdpa_ms": ab.get(f"{n}_sdpa")}
+                            for n in names}
+    merge = site["K1_merge"]
     line = {"kernels": [
         {"name": "K1", "route": "cuda", "source": src,
          "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:89",
@@ -2333,6 +2478,9 @@ def main() -> int:
          "bound_ms": k1t["bound_ms"], "bound_by": k1t["bound_by"],
          "library_ms": k1t["library_ms"],
          "shape": "text rows: q [1,24,256,128] x full lists over 902 blocks",
+         "design": design + ", key split for short-row launches",
+         "kernel_ab": ab_of("K1_text_rows", "K1_dense_bm1024",
+                            "K1_wan_dense_bm1024", "K1_visual_g1"),
          "other_jobs": {"visual_rows_g1": k1,
                         "visual_rows_g1_smooth": smooth["K1_visual_g1"],
                         "dense_bm1024": site["K1_dense_bm1024"],
@@ -2361,6 +2509,8 @@ def main() -> int:
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": k3["library_ms"],
          "shape": "Wan T2V text cross: q [1,40,75648,128] x 512 keys",
+         "design": design + ", persistent CTAs",
+         "kernel_ab": ab_of("K3_t2v_text", "K3_i2v_image"),
          "other_jobs": {"i2v_image_cross_257": k3i}},
         {"name": "K1q", "route": "cuda", "source": src,
          "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:176",
@@ -2410,6 +2560,8 @@ def main() -> int:
          "library_lse_vs_m_log_l": ks_t["library_lse_vs_m_log_l"],
          "shape": "one ring step, text rows: q [1,24,256,128] x full lists "
                   "over one sp=4 shard (225 blocks)",
+         "design": design + ", key split for short-row launches",
+         "kernel_ab": ab_of("K1s_ring_text"),
          "other_jobs": {"ring_visual_rows": ks_v,
                         "ring_visual_rows_smooth":
                             rings["smooth"]["K1s_ring_visual"],
@@ -2417,6 +2569,19 @@ def main() -> int:
                             rings["smooth"]["K1s_ring_text"],
                         "wan_ring_visual_rows":
                             rings["wan"]["K1s_ring_wan_visual"]}},
+        {"name": "K1_merge", "route": "cuda", "source": src,
+         "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:89 "
+                     "(K1/K1s's key split; the merge of "
+                     "rectified_spaattn_tpu/attention/ring.py:48)",
+         "launches": pipe["launches"]["K1_merge"]
+                     + wpipe["launches"]["K1_merge"],
+         "launches_by_path": by_path("K1_merge"),
+         "max_abs_err": merge["max_abs_err"], "ms": merge["ms"],
+         "plain_ms": merge["plain_ms"], "bound_ms": merge["bound_ms"],
+         "bound_by": merge["bound_by"], "library_ms": None,
+         "shape": f"{merge['n_split']} ranges x 6,144 rows x 128 (the "
+                  "Hunyuan text rows' split)",
+         "design": "one warp a row"},
         k1q_stats_entry(src, site, smooth, qserrs),
         *variant_entries(s3, s2),
     ]}

@@ -1,16 +1,34 @@
 #!/usr/bin/env python3
-"""Times the gather kernels K1, K2 and K1q (both modes) at the HunyuanVideo
-site on one card, for the port's package of a given source tree.
+"""Times the attention kernels at the shapes of the port's main path on one
+card, for the port's package of a given source tree, beside the one PyTorch
+call that computes the same function (SDPA) where there is one.
 
     python3 kernel_ab.py [--root DIR] [--reps 5] [--label NAME]
 
 The package comes from ``--root`` (default: this checkout), so one call
 can time two trees in turns (parent, change, change, parent) with the same
-script.  The inputs are chip_smoke.py's random site (``site_inputs``: iid
-q/k/v, seed 7, 100 valid text tokens), loaded from the file beside this
-one: K1 over the visual rows at group_rows 1, K2 at group_rows 2, K1q at
-chunk_blocks 24.  Each time is chip_smoke.py's ``cuda_ms`` over ``--reps``
-calls.  Prints one JSON line {"label", "root", "nvidia_smi", kernel: ms}.
+script.  The HunyuanVideo inputs are chip_smoke.py's random site
+(``site_inputs``: iid q/k/v, seed 7, 100 valid text tokens), loaded from
+the file beside this one:
+
+  K1_visual_g1, K2_visual_g2, K1q_{int8,mxu8}_visual  the visual rows at
+      group_rows 1 / 2, K1q at chunk_blocks 24;
+  K1_text_rows     the 256 text rows over full lists of all 902 blocks;
+  K1_dense_bm1024  the windowed dense K1 (full lists, block_m 1024);
+  K1s_ring_text    one sp = 4 ring step's text rows: full lists over the
+                   first shard's 225 blocks, with the row stats.
+
+The Wan2.1-14B inputs are iid (seed 8) at chip_smoke.py's Wan site,
+75,648 tokens x 40 heads:
+
+  K1_wan_dense_bm1024  the windowed dense K1 of the warm layers;
+  K3_t2v_text, K3_i2v_image  K3 over 512 / 257 keys, q and k/v head-split
+                   views of [B, S, H, D] projections.
+
+Each time is chip_smoke.py's ``cuda_ms`` over ``--reps`` calls; each
+``<name>_sdpa`` is the SDPA call's time on the same inputs (the yardstick
+chip_smoke.py reports as ``library_ms``).  Prints one JSON line {"label",
+"root", "nvidia_smi", kernel: ms}.
 """
 
 from __future__ import annotations
@@ -18,8 +36,11 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import math
 import os
 import sys
+
+import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -40,27 +61,93 @@ def main(argv=None) -> dict:
     from rectified_spaattn_tpu_torch import kernels
     from rectified_spaattn_tpu_torch.sparse import ops
 
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    flash = torch.ops.aten._scaled_dot_product_flash_attention
+    res = {"label": a.label, "root": a.root, "nvidia_smi": smoke.smi_line()}
+
+    def time_all(calls):
+        for name, fn in calls.items():
+            res[name] = smoke.cuda_ms(fn, reps=a.reps)
+        print(json.dumps({n: res[n] for n in calls}), file=sys.stderr,
+              flush=True)
+
     st = smoke.site_inputs("random")
+    dev = st["q"].device
     sv = st["site"].visual_len
-    qv, kz, vz, tlen, plan = (st["q"][:, :, :sv], st["kz"], st["vz"],
-                              st["tlen"], st["plan"])
+    q, k, v, kz, vz, tlen, plan = (st[n] for n in ("q", "k", "v", "kz", "vz",
+                                                   "tlen", "plan"))
+    qv, qt = q[:, :, :sv], q[:, :, sv:]
+    b, h, s, d = q.shape
+    nbt = s // 128
     kw = dict(visual_len=sv, text_start=sv)
     grouped = ops.group_rows(plan.block_mask, 2, clean_blocks=sv // 128)
     payload = ops.quantize_kv_blocks(kz, vz, 128)
-    calls = {
-        "K1_visual_g1": lambda: kernels.block_sparse_flash_attention(
-            qv, kz, vz, plan.indices, plan.counts, tlen, **kw),
+    full = lambda rows, nb: (
+        torch.arange(nb, dtype=torch.int32, device=dev).expand(b, h, rows,
+                                                               nb),
+        torch.full((b, h, rows), nb, dtype=torch.int32, device=dev))
+    fidx, fcnt = full(qt.shape[2] // 128, nbt)
+    nqd = -(-s // 1024)
+    qd = torch.nn.functional.pad(q, (0, 0, 0, nqd * 1024 - s))
+    didx, dcnt = full(nqd, nbt)
+    # one ring step (sp = 4): the first shard's visual keys
+    s_l = sv // smoke.RING_SP["hunyuan"]
+    k0, v0 = k[:, :, :s_l].contiguous(), v[:, :, :s_l].contiguous()
+    ridx, rcnt = full(qt.shape[2] // 128, s_l // 128)
+    tl0 = torch.zeros((b,), dtype=torch.int32, device=dev)
+    amask = st["valid"][:, None, None, :]
+    k1 = kernels.block_sparse_flash_attention
+    time_all({
+        "K1_visual_g1": lambda: k1(qv, kz, vz, plan.indices, plan.counts,
+                                   tlen, **kw),
         "K2_visual_g2": lambda: kernels.block_sparse_flash_attention_grouped(
             qv, kz, vz, *grouped, tlen, group=2, **kw),
         **{f"K1q_{m}_visual": (
-            lambda m=m: kernels.block_sparse_flash_attention(
-                qv, kz, vz, plan.indices, plan.counts, tlen,
-                chunk_blocks=24, kv_quant=payload, quant_mode=m, **kw))
+            lambda m=m: k1(qv, kz, vz, plan.indices, plan.counts, tlen,
+                           chunk_blocks=24, kv_quant=payload, quant_mode=m,
+                           **kw))
            for m in ("int8", "mxu8")},
-    }
-    res = {"label": a.label, "root": a.root, "nvidia_smi": smoke.smi_line()}
-    for name, fn in calls.items():
-        res[name] = smoke.cuda_ms(fn, reps=a.reps)
+        "K1_text_rows": lambda: k1(qt, kz, vz, fidx, fcnt, tlen, **kw),
+        "K1_text_rows_sdpa": lambda: sdpa(qt, k, v, attn_mask=amask),
+        "K1_dense_bm1024": lambda: k1(qd, k, v, didx, dcnt, tlen,
+                                      block_m=1024, **kw),
+        "K1_dense_bm1024_sdpa": lambda: sdpa(q, k, v, attn_mask=amask),
+        "K1s_ring_text": lambda: k1(qt, k0, v0, ridx, rcnt, tl0,
+                                    visual_len=s_l, text_start=None,
+                                    return_stats=True),
+        "K1s_ring_text_sdpa": lambda: flash(qt, k0, v0),
+    })
+    del st, q, k, v, kz, vz, plan, grouped, payload, qd, k0, v0
+    torch.cuda.empty_cache()
+
+    # the Wan2.1-14B site
+    wh = smoke.WAN_SITE["heads"]
+    wsv = math.prod(smoke.WAN_SITE["grid"])       # 75,600 visual tokens
+    ws = wsv + (-wsv) % 128
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, k, v = rnd(1, wh, ws, d), rnd(1, wh, ws, d), rnd(1, wh, ws, d)
+    nqd = -(-ws // 1024)
+    qd = torch.nn.functional.pad(q, (0, 0, 0, nqd * 1024 - ws))
+    b, h = 1, wh
+    didx, dcnt = full(nqd, ws // 128)
+    wvalid = (torch.arange(ws, device=dev) < wsv)[None, None, None, :]
+    qx = rnd(1, ws, wh, d).transpose(1, 2)
+    cross = {n: [rnd(1, sk, wh, d).transpose(1, 2) for _ in range(2)]
+             for n, sk in (("K3_t2v_text", smoke.WAN_SITE["text_len"]),
+                           ("K3_i2v_image", smoke.WAN_SITE["image_len"]))}
+    time_all({
+        "K1_wan_dense_bm1024": lambda: k1(qd, k, v, didx, dcnt, tl0,
+                                          block_m=1024, visual_len=wsv,
+                                          text_start=None),
+        "K1_wan_dense_bm1024_sdpa": lambda: sdpa(q, k, v, attn_mask=wvalid),
+        **{n: (lambda kv=kv: kernels.dense_attention(qx, *kv, mode="flash"))
+           for n, kv in cross.items()},
+        **{f"{n}_sdpa": (lambda kv=kv: sdpa(qx, *kv))
+           for n, kv in cross.items()},
+    })
     print(json.dumps(res), flush=True)
     return res
 

@@ -38,40 +38,53 @@
 //     own slot) while count > 0 therefore averages V over every lane of its
 //     ceil(count / chunk_blocks) chunks: its own slots, K2's non-member
 //     slots and the padding.  Degeneracy depends only on the list and the
-//     key window, so all 64 rows of a thread block share it; such a block
-//     makes a second pass over the slots the first one skipped, with every
-//     score MASK_VALUE (p = 1).  Other blocks pay one comparison.
+//     key window, so all rows of a thread block share it; K2's block makes
+//     a second pass over the slots the first one skipped, with every score
+//     MASK_VALUE (p = 1); K1's adds the column sums of V over the padding
+//     blocks.  Other blocks pay one comparison.
 //   * K1s stats, as the JAX kernel returns them: m in score units of
 //     q * sm_scale (natural exp, as __expf below), l the fp32 row sum; a
 //     count == 0 row gives m = -inf and l = 0, a degenerate row m =
 //     MASK_VALUE and l = the lanes it averaged.
 //
-// Design.  One thread block (4 warps, 128 threads) owns 64 query rows of one
-// (batch*head) — 64 divides every mask row height (block_m = 128..1024), so a
-// block reads exactly one index list (K1) or one union list (K2) and loads it
-// itself.  It walks the listed key blocks (K2: those of its row block) in
-// units of 64 keys: cp.async stages the unit's K and V rows (gathered by block
-// index, 16 bytes per copy) into a two-stage ring in shared memory while the
-// previous unit computes.
-// Each warp holds its 16 query rows of q*sm_scale as mma.sync A fragments in
-// registers, computes S = Q K^T and O += P V with mma.sync.m16n8k16 (bf16 or
-// fp16 inputs, fp32 accumulation; operands from ldmatrix, V transposed by
-// ldmatrix.trans), and keeps m, l and O in registers.  87 KB of shared memory
-// per block lets two blocks share an SM.
+// K1 and K1s: the Hopper mainloop (hopper_attn.cuh; the section "K1 and
+// K1s" below).  One CTA of 384 threads owns 128 query rows, so it walks its
+// index list once: a producer warp issues TMA box loads of each listed
+// block's K and V (128 keys, 64 KB) into a two-stage mbarrier ring, two
+// consumer warpgroups run S = Q K^T and O += P V on wgmma.m64n128k16 under
+// an online softmax in fp32 registers, the mask is applied branch-free by
+// selects, and a launch of fewer row tiles than SMs splits each list into
+// key ranges whose fp32 partials a second kernel merges.
 //
-// What bounds it on the H100.  At the HunyuanVideo operating point (115,456
-// keys, 24 heads x 128) the sparse visual rows do 4*128^3 flops per
-// (row block, key block) pair against ~64 KB of K/V per pair: ~3e13 flops
-// against ~1.4 GB of unique K/V, so by the roofline the operations bound it
-// (989 TF/s dense bf16), not HBM (3.35 TB/s).  Measured (the S3 ablations in
-// variants.cu, bench/kernelvars.py), the load skeleton sets the pace: each
-// 128-row list is walked by two 64-row blocks, so ~128 KB cross L2 per pair,
-// and the copies alone take two thirds of the kernel's time at ~5.2 TB/s;
-// the mma.sync and softmax work alone (no mask) takes three fifths; moving
-// the copies to the TMA engine (S3c) cuts the kernel by a sixth.  wgmma, TMA,
-// 128-row blocks and warp specialisation are the levers of a later change.
+// What bounds K1 on the H100.  At the HunyuanVideo operating point
+// (115,456 keys, 24 heads x 128) the sparse visual rows do 4*128^3 flops
+// per (row block, key block) pair against ~64 KB of K/V per pair: ~3e13
+// flops against ~1.4 GB of unique K/V, so by the roofline the operations
+// bound it (989 TF/s dense bf16), not HBM (3.35 TB/s).  The previous
+// design (64-row blocks of 4 warps, cp.async 16 bytes at a time, mma.sync,
+// a per-element mask that compiled to a branch per score) was held by its
+// loads: each 128-row list was walked by two 64-row blocks, so ~128 KB
+// crossed L2 per pair, and the copies alone took 0.68 of the kernel at
+// ~5.2 TB/s, the mma.sync work alone 0.61 (the S3 ablations in
+// variants.cu, bench/kernelvars.py).  The redesign halves the L2 bytes per
+// pair (one walk per list), moves the copies to the TMA engine and the
+// products to wgmma, and makes the mask a select.  Short-row launches
+// (256 text rows: 2 x 24 CTAs) underfilled the 132 SMs; the key split
+// fills them.
+//
+// K2 and K1q keep the previous design: sparse_attn_kernel (GROUPED, with
+// the design described next) and sparse_attn_q_kernel.  K2: one thread
+// block (4 warps, 128 threads) owns 64 query rows of one (batch*head) and
+// its union list; it walks the member key blocks in units of 64 keys:
+// cp.async stages a unit's K and V rows (gathered by block index, 16 bytes
+// per copy) into a two-stage ring in shared memory while the previous unit
+// computes.  Each warp holds its 16 query rows of q*sm_scale as mma.sync A
+// fragments in registers, computes S = Q K^T and O += P V with
+// mma.sync.m16n8k16 (bf16 or fp16 inputs, fp32 accumulation; operands from
+// ldmatrix, V transposed by ldmatrix.trans), and keeps m, l and O in
+// registers.  87 KB of shared memory per block lets two blocks share an SM.
 
-#include "attn_common.cuh"
+#include "hopper_attn.cuh"
 
 namespace {
 
@@ -416,6 +429,256 @@ Params make_params(const void* q, const void* k, const void* v, void* o,
   p.visual_len = visual_len; p.text_start = text_start; p.has_text = has_text;
   p.sm_scale = sm_scale;
   return p;
+}
+
+// ------------------------------------------------------------ K1 and K1s ---
+//
+// K1 (and K1s, STATS) on the Hopper mainloop of hopper_attn.cuh.  A CTA
+// owns 128 query rows, so with block_m in {128, ..., 1024} it reads exactly
+// one index list, once.  Its producer loads the list and issues one TMA
+// box pair per listed block (gathering is the block's row coordinate); the
+// consumers mask each unit branch-free: the clean prefix keeps every key,
+// a later slot keeps col < visual_len or text_start <= col < text_start +
+// text_len[b], by selects.
+//
+// Key split.  A launch of fewer 128-row tiles than the card has SMs (text
+// rows, a ring step's text rows) splits each list's slots into n_split
+// contiguous ranges of split_slots slots, a multiple of chunk_blocks; CTA
+// (tile, split) walks its range and writes its normalised output and its
+// m and l in fp32 (o_part, m_out, l_out [n_split, BH, Sq(, D)]), which
+// merge_splits_kernel folds as attention/ring.py::_merge does.  Ranges
+// start on chunk boundaries, so the range that holds a list's last slot
+// also holds its chunk padding: a degenerate list (every gathered key
+// masked, count > 0) adds the padding lanes there, and the merge of
+// ranges that all scored MASK_VALUE is the JAX chunk average.  Where
+// another range has a real key, a range's MASK_VALUE partial weighs
+// exp(MASK_VALUE - m) = 0.
+
+struct K1Params {
+  CUtensorMap tmq, tmk, tmv;   // (D, row, bh, 1) maps of q, K and V
+  void* o;                     // [BH, Sq, D] (n_split == 1)
+  float* o_part;               // [n_split, BH, Sq, D] (n_split > 1)
+  float* m_out;                // K1s [BH, Sq], or the split's [n_split, BH, Sq]
+  float* l_out;
+  const void* v;               // V (the degenerate pass reads it directly)
+  const int* indices;          // [BH, n_list, nb_slots]
+  const int* counts;           // [BH, n_list]
+  const int* clean;            // [BH, n_list]
+  const int* text_len;         // [B]
+  long long kv_bh_stride, kv_row_stride;   // elements
+  int heads, sq, n_list, nb_slots, num_key_blocks, block_m, chunk_blocks;
+  int visual_len, text_start, has_text;
+  int n_split, split_slots;
+  float sm_scale;
+};
+
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+
+template <typename T, bool STATS>
+struct SparseTiles {
+  using Params = K1Params;
+  static constexpr bool SCALE_Q = true;   // q * sm_scale rounded to T
+  struct Tile {
+    int q_row, q_head, q_batch, kv_head, kv_batch, u0, u1;
+    int bh, split, count, clean, tlen;
+    const int* idx;
+  };
+  // one tile per CTA: blockIdx.x = row tile * n_split + split, y = bh
+  static __device__ int first(const Params&) { return 0; }
+  static __device__ int count(const Params&) { return 1; }
+  static __device__ int stride(const Params&) { return 1; }
+  static __device__ Tile tile(const Params& p, int) {
+    Tile c;
+    const int rt = blockIdx.x / p.n_split;
+    c.split = blockIdx.x % p.n_split;
+    c.bh = blockIdx.y;
+    const long long lr = (long long)c.bh * p.n_list + rt * HA_ROWS / p.block_m;
+    c.count = p.counts[lr];
+    c.clean = p.clean[lr];
+    c.idx = p.indices + lr * p.nb_slots;
+    c.tlen = p.text_len[c.bh / p.heads];
+    c.q_row = rt * HA_ROWS;
+    c.q_head = c.kv_head = c.bh;
+    c.q_batch = c.kv_batch = 0;
+    c.u0 = c.split * p.split_slots;
+    c.u1 = min(c.count, c.u0 + p.split_slots);
+    return c;
+  }
+  static __device__ int block_of(const Params& p, const Tile& c, int slot) {
+    const int blk = c.idx[slot];
+    return blk < 0 ? 0 : (blk >= p.num_key_blocks ? p.num_key_blocks - 1 : blk);
+  }
+  static __device__ int key_row(const Params& p, const Tile& c, int u) {
+    return block_of(p, c, u) * HA_KEYS;
+  }
+  // the unit's key window, once: offsets (from this thread's first
+  // column) below `vis` or in [t_lo, t_lo + t_n); the rest score
+  // MASK_VALUE.  A unit in the clean prefix or wholly inside the visual
+  // window (`all`, the same for every thread) keeps every score.
+  struct Window {
+    int vis, t_lo;
+    unsigned t_n;
+    bool all;
+  };
+  static __device__ Window window(const Params& p, const Tile& c, int u,
+                                  const Frag& f) {
+    const int blk0 = block_of(p, c, u) * HA_KEYS;
+    Window w;
+    w.all = (u < c.clean) | (blk0 + HA_KEYS <= p.visual_len);
+    w.vis = p.visual_len - blk0 - 2 * f.t4;
+    w.t_lo = p.text_start - blk0 - 2 * f.t4;
+    w.t_n = p.has_text ? (unsigned)c.tlen : 0u;
+    return w;
+  }
+  static __device__ void mask(const Params&, const Window& w,
+                              float (&s)[64]) {
+    if (w.all) return;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int off = 8 * (i >> 2) + (i & 1);
+      const bool ok = (off < w.vis) | ((unsigned)(off - w.t_lo) < w.t_n);
+      s[i] = ok ? s[i] : MASK_VALUE;
+    }
+  }
+  static __device__ void finish(const Params& p, const Tile& c,
+                                float (&o)[64], float (&m)[2], float (&l)[2],
+                                const Frag& f, float* sums) {
+    // degenerate rows (the header of this file): this warpgroup's rows
+    // share the list and the window, so all of them or none are; the
+    // range holding the list's last slot adds every lane of the chunk
+    // padding, p = 1, from the column sums of V over the padding blocks
+    if (c.count > c.u0 && c.count <= c.u0 + p.split_slots &&
+        m[0] <= MASK_VALUE) {
+      const int g = p.chunk_blocks;
+      const int npad = (c.count + g - 1) / g * g;
+      const T* vb = reinterpret_cast<const T*>(p.v) +
+                    (long long)c.bh * p.kv_bh_stride + f.wtid;
+      float acc = 0.f;
+      for (int ps = c.count; ps < npad; ++ps) {
+        // past the list: the JAX wrapper's padding, block 0
+        const int blk = ps < p.nb_slots ? block_of(p, c, ps) : 0;
+        const T* vr = vb + (long long)blk * HA_KEYS * p.kv_row_stride;
+        for (int r = 0; r < HA_KEYS; ++r)
+          acc += to_float(vr[(long long)r * p.kv_row_stride]);
+      }
+      sums[f.wtid] = acc;
+      wg_sync(f.wg);
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        o[i] += sums[8 * (i >> 2) + 2 * f.t4 + (i & 1)];
+      l[0] += 32.f * (npad - c.count);   // this thread's 32 of 128 lanes
+      l[1] += 32.f * (npad - c.count);
+      m[0] = m[1] = MASK_VALUE;
+    }
+    float inv[2];
+    quad_sum(l, inv);
+    const long long row = (long long)c.bh * p.sq + c.q_row + f.row;
+    if (p.n_split == 1) {
+      T* o0 = reinterpret_cast<T*>(p.o) + row * HA_D + 2 * f.t4;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<uint32_t*>(o0 + r * 8 * HA_D + 8 * j) =
+              Type<T>::pack(o[4 * j + 2 * r] * inv[r],
+                            o[4 * j + 2 * r + 1] * inv[r]);
+      }
+      if constexpr (STATS) {
+        if (f.t4 == 0) {
+          p.m_out[row] = m[0];
+          p.l_out[row] = l[0];
+          p.m_out[row + 8] = m[1];
+          p.l_out[row + 8] = l[1];
+        }
+      }
+    } else {
+      const long long prow = (long long)c.split * gridDim.y * p.sq + row;
+      float* o0 = p.o_part + prow * HA_D + 2 * f.t4;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(o0 + r * 8 * HA_D + 8 * j) =
+              make_float2(o[4 * j + 2 * r] * inv[r],
+                          o[4 * j + 2 * r + 1] * inv[r]);
+      }
+      if (f.t4 == 0) {
+        p.m_out[prow] = m[0];
+        p.l_out[prow] = l[0];
+        p.m_out[prow + 8] = m[1];
+        p.l_out[prow + 8] = l[1];
+      }
+    }
+  }
+};
+
+// The key split's merge: row r's n_split partials (o normalised, m, l) into
+// o in T (and, K1s, the merged m and l), the closed form of folding
+// attention/ring.py::_merge over the ranges.  One warp per row, 4 columns
+// a lane.
+template <typename T, bool STATS>
+__global__ void __launch_bounds__(256)
+merge_splits_kernel(const float* o_part, const float* m_part,
+                    const float* l_part, T* o, float* m_out, float* l_out,
+                    long long rows, int n_split) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int col = (threadIdx.x & 31) * 4;
+  float mx = neg_inf();
+  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, m_part[s * rows + row]);
+  const float m_safe = isfinite(mx) ? mx : 0.f;
+  float lsum = 0.f;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int s = 0; s < n_split; ++s) {
+    const long long pr = s * rows + row;
+    const float ls = l_part[pr];
+    const float w = ls > 0.f ? __expf(m_part[pr] - m_safe) * ls : 0.f;
+    const float4 x = *reinterpret_cast<const float4*>(o_part + pr * HA_D + col);
+    lsum += w;
+    acc[0] += x.x * w;
+    acc[1] += x.y * w;
+    acc[2] += x.z * w;
+    acc[3] += x.w * w;
+  }
+  const float den = lsum > 0.f ? lsum : 1.f;
+  T* out = o + row * HA_D + col;
+  *reinterpret_cast<uint32_t*>(out) = Type<T>::pack(acc[0] / den, acc[1] / den);
+  *reinterpret_cast<uint32_t*>(out + 2) =
+      Type<T>::pack(acc[2] / den, acc[3] / den);
+  if constexpr (STATS) {
+    if (col == 0) {
+      m_out[row] = mx;
+      l_out[row] = lsum;
+    }
+  }
+}
+
+template <typename T>
+int launch_k1(const K1Params& p, int bh, bool stats, cudaStream_t s) {
+  const dim3 grid(p.sq / HA_ROWS * p.n_split, bh);
+  // a split launch writes partials, whose merge gives K1s its stats: one
+  // kernel for K1 and K1s, so that their outputs agree bit for bit
+  if (stats && p.n_split == 1)
+    return launch_hopper_attn<T, SparseTiles<T, true>>(p, grid, s);
+  return launch_hopper_attn<T, SparseTiles<T, false>>(p, grid, s);
+}
+
+template <typename T>
+int launch_merge(const float* o_part, const float* m_part, const float* l_part,
+                 void* o, float* m_out, float* l_out, long long rows,
+                 int n_split, cudaStream_t s) {
+  const dim3 grid((unsigned)((rows + 7) / 8));
+  T* out = static_cast<T*>(o);
+  if (m_out)
+    merge_splits_kernel<T, true><<<grid, 256, 0, s>>>(
+        o_part, m_part, l_part, out, m_out, l_out, rows, n_split);
+  else
+    merge_splits_kernel<T, false><<<grid, 256, 0, s>>>(
+        o_part, m_part, l_part, out, m_out, l_out, rows, n_split);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ K1q ---
@@ -950,25 +1213,62 @@ int launch_q(const QParams& p, float* m_out, float* l_out, int bh,
 
 extern "C" {
 
-// K1: one index list per block_m query rows; K1s when m_out and l_out are
-// given ([BH, Sq] fp32 each; both null for K1).  Returns a cudaError_t value
-// (0 on success) or -1 for an unsupported (dtype, head_dim).
+// K1: one index list per block_m query rows (block_m a multiple of 128);
+// K1s when `stats`.  n_split == 1: o [BH, Sq, D] in the K/V type, and K1s's
+// m_out / l_out [BH, Sq].  n_split > 1: the ranges' partials into o_part
+// [n_split, BH, Sq, D] and m_out / l_out [n_split, BH, Sq], all fp32, for
+// rsa_k1_merge_launch.  Returns a cudaError_t value (0 on success), -1 for
+// an unsupported (dtype, head_dim), -2 if a tensor map cannot be encoded.
 int rsa_k1_launch(const void* q, const void* k, const void* v, void* o,
+                  float* o_part, float* m_out, float* l_out,
                   const int* indices, const int* counts, const int* clean,
-                  const int* text_len, float* m_out, float* l_out,
-                  long long kv_bh_stride, long long kv_row_stride, int bh,
-                  int heads, int sq, int n_list, int nb_slots,
-                  int num_key_blocks, int block_m, int chunk_blocks,
-                  int visual_len, int text_start, int has_text,
-                  float sm_scale, int head_dim, int dtype, void* stream) {
-  Params p = make_params(q, k, v, o, indices, counts, clean, nullptr, text_len,
-                         m_out, l_out, kv_bh_stride, kv_row_stride, heads, sq,
-                         n_list, nb_slots, num_key_blocks, block_m, 1,
-                         chunk_blocks, visual_len, text_start, has_text,
-                         sm_scale);
+                  const int* text_len, long long kv_bh_stride,
+                  long long kv_row_stride, int bh, int heads, int sq,
+                  int n_list, int nb_slots, int num_key_blocks, int block_m,
+                  int chunk_blocks, int visual_len, int text_start,
+                  int has_text, int n_split, int split_slots, float sm_scale,
+                  int head_dim, int dtype, int stats, void* stream) {
+  if (head_dim != HA_D || (dtype != 0 && dtype != 1)) return -1;
+  K1Params p{};
+  const long long s = (long long)num_key_blocks * HA_KEYS;
+  if (encode_rows_map(&p.tmq, dtype, q, sq, bh, 1, HA_D, (long long)sq * HA_D,
+                      (long long)bh * sq * HA_D) ||
+      encode_rows_map(&p.tmk, dtype, k, s, bh, 1, kv_row_stride, kv_bh_stride,
+                      bh * kv_bh_stride) ||
+      encode_rows_map(&p.tmv, dtype, v, s, bh, 1, kv_row_stride, kv_bh_stride,
+                      bh * kv_bh_stride))
+    return -2;
+  p.o = o; p.o_part = o_part; p.m_out = m_out; p.l_out = l_out; p.v = v;
+  p.indices = indices; p.counts = counts; p.clean = clean;
+  p.text_len = text_len;
+  p.kv_bh_stride = kv_bh_stride; p.kv_row_stride = kv_row_stride;
+  p.heads = heads; p.sq = sq; p.n_list = n_list; p.nb_slots = nb_slots;
+  p.num_key_blocks = num_key_blocks; p.block_m = block_m;
+  p.chunk_blocks = chunk_blocks;
+  p.visual_len = visual_len; p.text_start = text_start; p.has_text = has_text;
+  p.n_split = n_split; p.split_slots = split_slots;
+  p.sm_scale = sm_scale;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return launch_k1<__nv_bfloat16>(p, bh, stats != 0, st);
+  return launch_k1<__half>(p, bh, stats != 0, st);
+}
+
+// The key split's merge: `rows` = BH * Sq rows of n_split partials into o
+// [rows, D] in the K/V type; K1s when m_out and l_out ([rows] fp32) are
+// given.
+int rsa_k1_merge_launch(const float* o_part, const float* m_part,
+                        const float* l_part, void* o, float* m_out,
+                        float* l_out, long long rows, int n_split, int dtype,
+                        void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   if ((m_out == nullptr) != (l_out == nullptr)) return -1;
-  if (m_out) return dispatch<false, true>(p, bh, head_dim, dtype, (cudaStream_t)stream);
-  return dispatch<false, false>(p, bh, head_dim, dtype, (cudaStream_t)stream);
+  if (dtype == 0)
+    return launch_merge<__nv_bfloat16>(o_part, m_part, l_part, o, m_out,
+                                       l_out, rows, n_split, st);
+  if (dtype == 1)
+    return launch_merge<__half>(o_part, m_part, l_part, o, m_out, l_out,
+                                rows, n_split, st);
+  return -1;
 }
 
 // K2: one union list per group*block_m query rows, membership in rowbits.
@@ -1025,6 +1325,7 @@ int rsa_k1q_launch(const void* q, const void* kv, void* o, const int* indices,
 }
 
 const char* rsa_error_string(int code) {
+  if (code == -2) return "cuTensorMapEncodeTiled failed (K1's tensor maps)";
   return code < 0 ? "unsupported dtype, head_dim or mode"
                   : cudaGetErrorString((cudaError_t)code);
 }

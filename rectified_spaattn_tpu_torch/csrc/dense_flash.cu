@@ -9,289 +9,168 @@
 // scores (q . k) * sm_scale in fp32; keys with kv_valid[b, key] false score
 // the finite MASK_VALUE = -0.7 * FLT_MAX, so a row with no valid key averages
 // V uniformly over all Sk keys.  Sq and Sk are arbitrary: rows past Sq are
-// neither read nor written, keys past Sk are zero-filled in shared memory and
-// score -inf (they are not keys), so the caller's tensors are never padded.
-// P is rounded to the K/V type before PV; m, l and O stay in fp32.
+// neither read nor written, keys past Sk are zero-filled by the copy engine
+// and score -inf (they are not keys), so the caller's tensors are never
+// padded.  P is rounded to the K/V type before PV; m, l and O stay in fp32.
 //
-// Design.  One thread block (4 warps, 16 query rows each) owns 64 query rows
-// of one (batch, head), as in K1; 87 KB of shared memory per block lets two
-// blocks share an SM.  Each warp holds its rows of q as mma.sync A fragments
-// in registers for the whole key loop (q is read once).  The block walks the
-// keys in units of 64: cp.async stages a unit's K and V rows into a two-stage
-// ring in shared memory while the previous unit computes S = Q K^T and
-// O += P V with mma.sync.m16n8k16 (fp32 accumulation; operands by ldmatrix, V
-// transposed by ldmatrix.trans) under an online softmax.  blockIdx.x walks
-// the row tiles of one head, so the blocks resident at one time share that
-// head's K/V in L2.  q, k, v and out are addressed through (batch, head, row)
-// strides, so a [B, S, H, D] projection is read, and the output written, in
-// place without a transposing copy.
+// Design.  The Hopper mainloop of hopper_attn.cuh: a CTA of 384 threads
+// owns 128 query rows of one (batch, head); a producer warp copies the q
+// tile and each 128-key unit of K and V by TMA (4-D tensor maps over (D,
+// row, head, batch) with the caller's strides, so a [B, S, H, D]
+// projection is read in place; zero fill past Sk), two consumer warpgroups
+// run wgmma.m64n128k16 for S = Q K^T and O += P V.  The CTAs are
+// persistent, one per SM, and walk (head, row tile) pairs in head-major
+// order: the next tile's q load overlaps this tile's last unit and
+// epilogue, and the CTAs resident at one time share a head's K/V in L2.
+// The mask is branch-free: per unit, the key window (col < Sk) and the
+// kv_valid bits (packed 32 keys a word by the wrapper) are selected into
+// the scores.  The output is written from registers through its strides.
 //
 // What bounds it on the H100.  Wan2.1-14B text cross-attention: q
 // [1,40,75648,128] against 512 keys is 7.93e11 flops (0.80 ms at 989 TF/s
 // dense bf16) against 1.55 GB of q and out (0.46 ms at 3.35 TB/s): bound by
 // tensor-core operations.  With the 257-key CLIP image context the bytes bound
-// it (0.46 ms).  Every block re-reads its head's K/V (256 KB at 512 keys) from
-// L2.  mma.sync reaches a fraction of the peak; wgmma and TMA are the levers
-// of a later change.
+// it (0.46 ms).  A 512-key tile is four units between a q prologue and an
+// o epilogue, so the persistent walk matters there; each tile still reads
+// its head's K/V (256 KB at 512 keys) from L2, ~8x the q and o bytes.
 
-#include "attn_common.cuh"
+#include "hopper_attn.cuh"
 
 namespace {
 
-constexpr int UNIT = 64;        // keys per pipeline stage
-constexpr int TILE_M = 64;      // query rows per thread block (4 warps x 16)
-constexpr int NTHREADS = 128;
-
-struct DenseParams {
-  const void* q;                 // element (b, h, row, d) at
-  const void* k;                 //   b*s_b + h*s_h + row*s_r + d
-  const void* v;
-  void* o;
-  const unsigned char* kv_valid; // [B, sk] bool, or null (every key valid)
-  long long q_b, q_h, q_r;       // strides in elements
-  long long k_b, k_h, k_r;
-  long long v_b, v_h, v_r;
-  long long o_b, o_h, o_r;
-  int heads, sq, sk;
+struct K3Params {
+  CUtensorMap tmq, tmk, tmv;   // (D, row, head, batch) maps of q, k and v
+  void* o;                     // element (b, h, row, d) at
+  long long o_b, o_h, o_r;     //   b*o_b + h*o_h + row*o_r + d
+  const unsigned* kv_bits;     // [B, words]: bit k%32 of word k/32 = key k valid; or null
+  int heads, sq, sk, row_tiles, tiles, words;
   float sm_scale;
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-dense_attn_kernel(const DenseParams p) {
-  constexpr int LD = D + 8;          // padded smem row: no ldmatrix bank conflicts
-  constexpr int KT = D / 16;         // k-steps of QK^T over the head dim
-  constexpr int NT = D / 8;          // n-tiles of the output over the head dim
-  constexpr int CPR = D / 8;         // 16-byte copies per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);       // [TILE_M][LD]
-  T* sK = sQ + TILE_M * LD;                     // [2][UNIT][LD]
-  T* sV = sK + 2 * UNIT * LD;                   // [2][UNIT][LD]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
-  const int row0 = blockIdx.x * TILE_M;
-  const T* qg = reinterpret_cast<const T*>(p.q) + b * p.q_b + h * p.q_h;
-  const T* kg = reinterpret_cast<const T*>(p.k) + b * p.k_b + h * p.k_h;
-  const T* vg = reinterpret_cast<const T*>(p.v) + b * p.v_b + h * p.v_h;
-  T* og = reinterpret_cast<T*>(p.o) + b * p.o_b + h * p.o_h;
-  const unsigned char* valid =
-      p.kv_valid ? p.kv_valid + (long long)b * p.sk : nullptr;
-
-  // q rows of this tile (zeros past sq: their outputs are not stored)
-  for (int i = tid; i < TILE_M * CPR; i += NTHREADS) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < p.sq)
-      raw = *reinterpret_cast<const uint4*>(qg + (long long)(row0 + r) * p.q_r + c);
-    *reinterpret_cast<uint4*>(sQ + r * LD + c) = raw;
-  }
-
-  // one unit = keys [u*64, u*64+64) of K and V into ring stage st; rows past
-  // sk are zero-filled
-  auto load_unit = [&](int st, int u) {
-    T* kd = sK + st * UNIT * LD;
-    T* vd = sV + st * UNIT * LD;
-    for (int i = tid; i < UNIT * CPR; i += NTHREADS) {
-      const int r = i / CPR, c = (i % CPR) * 8;
-      const int t = u * UNIT + r;
-      const bool in = t < p.sk;
-      const long long tt = in ? t : 0;
-      cp_async16_zfill(kd + r * LD + c, kg + tt * p.k_r + c, in);
-      cp_async16_zfill(vd + r * LD + c, vg + tt * p.v_r + c, in);
-    }
+template <typename T>
+struct DenseTiles {
+  using Params = K3Params;
+  static constexpr bool SCALE_Q = false;   // the scores are scaled in fp32
+  struct Tile {
+    int q_row, q_head, q_batch, kv_head, kv_batch, u0, u1;
   };
-
-  const int n_units = (p.sk + UNIT - 1) / UNIT;
-  load_unit(0, 0);
-  cp_async_commit();
-  __syncthreads();   // sQ written
-
-  uint32_t qf[KT][4];
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk)
-    ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-
-  float o_acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    o_acc[n][0] = o_acc[n][1] = o_acc[n][2] = o_acc[n][3] = 0.f;
-  float m_r[2] = {neg_inf(), neg_inf()};   // rows g and g+8 of this warp
-  float l_r[2] = {0.f, 0.f};               // thread-partial row sums
-  const int g = lane >> 2, t4 = lane & 3;
-  const int mi = lane >> 3, r8 = lane & 7;  // ldmatrix: matrix id / row within it
-
-  for (int u = 0; u < n_units; ++u) {
-    const int st = u & 1;
-    // prefetch the next unit into the other stage while this one computes
-    if (u + 1 < n_units) {
-      load_unit(st ^ 1, u + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const T* kb = sK + st * UNIT * LD;
-    const T* vb = sV + st * UNIT * LD;
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, kb + (np * 16 + (mi >> 1) * 8 + r8) * LD + kk * 16 + (mi & 1) * 8);
-        Type<T>::mma(s[2 * np], qf[kk], kf[0], kf[1]);
-        Type<T>::mma(s[2 * np + 1], qf[kk], kf[2], kf[3]);
-      }
-    }
-
-    // scale in fp32; invalid keys MASK_VALUE; keys past sk are no keys
-    const int col0 = u * UNIT;
-    if (valid != nullptr || col0 + UNIT > p.sk) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = col0 + n * 8 + 2 * t4 + (e & 1);
-          float x = s[n][e] * p.sm_scale;
-          if (valid != nullptr && col < p.sk && !valid[col]) x = MASK_VALUE;
-          s[n][e] = col < p.sk ? x : neg_inf();
-        }
-      }
-    } else {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] *= p.sm_scale;
-      }
-    }
-
-    // online softmax (row max over the 4 threads that share a row); every
-    // unit holds at least one key, so the new max is finite
-    float mc[2] = {neg_inf(), neg_inf()};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      mc[0] = fmaxf(mc[0], fmaxf(s[n][0], s[n][1]));
-      mc[1] = fmaxf(mc[1], fmaxf(s[n][2], s[n][3]));
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 1));
-      mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 2));
-      const float m_new = fmaxf(m_r[i], mc[i]);
-      alpha[i] = __expf(m_r[i] - m_new);
-      m_r[i] = m_new;
-    }
-    float ls[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = __expf(s[n][e] - m_r[e >> 1]);
-        s[n][e] = pe;
-        ls[e >> 1] += pe;
-      }
-    }
-    l_r[0] = alpha[0] * l_r[0] + ls[0];
-    l_r[1] = alpha[1] * l_r[1] + ls[1];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o_acc[n][0] *= alpha[0];
-      o_acc[n][1] *= alpha[0];
-      o_acc[n][2] *= alpha[1];
-      o_acc[n][3] *= alpha[1];
-    }
-
-    // O += P V, P rounded to T (the C fragments of two key n-tiles are the
-    // A fragment of one 16-key k-step)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      a[0] = Type<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = Type<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = Type<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = Type<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vb + (kk * 16 + (mi & 1) * 8 + r8) * LD + dp * 16 + (mi >> 1) * 8);
-        Type<T>::mma(o_acc[2 * dp], a, vf[0], vf[1]);
-        Type<T>::mma(o_acc[2 * dp + 1], a, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();   // stage st is refilled by the next iteration's load
+  // persistent: tiles blockIdx.x, + gridDim.x, ... in head-major order
+  static __device__ int first(const Params&) { return blockIdx.x; }
+  static __device__ int count(const Params& p) { return p.tiles; }
+  static __device__ int stride(const Params&) { return gridDim.x; }
+  static __device__ Tile tile(const Params& p, int t) {
+    Tile c;
+    const int bh = t / p.row_tiles;
+    c.q_row = (t % p.row_tiles) * HA_ROWS;
+    c.q_head = c.kv_head = bh % p.heads;
+    c.q_batch = c.kv_batch = bh / p.heads;
+    c.u0 = 0;
+    c.u1 = (p.sk + HA_KEYS - 1) / HA_KEYS;
+    return c;
   }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
-    inv[i] = 1.f / l_r[i];   // l >= 1: the row max itself contributes exp(0)
+  static __device__ int key_row(const Params&, const Tile&, int u) {
+    return u * HA_KEYS;
   }
-  const int r0 = row0 + warp * 16 + g;
+  // the unit's key window, once: offsets (from this thread's first
+  // column) below `lim` are keys; a key whose kv_valid bit (bits >> 2 t4:
+  // this thread's columns at bit 8 j' + e of word j / 4) is clear scores
+  // MASK_VALUE, a non-key -inf.  Without kv_valid a unit of 128 keys
+  // (`all`, the same for every thread) is only scaled.
+  struct Window {
+    int lim;
+    uint32_t bits[4];
+    bool all;
+  };
+  static __device__ Window window(const Params& p, const Tile& c, int u,
+                                  const Frag& f) {
+    Window w;
+    w.all = (p.kv_bits == nullptr) & ((u + 1) * HA_KEYS <= p.sk);
+    w.lim = p.sk - u * HA_KEYS - 2 * f.t4;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r0 + 8 * half;
-    if (row >= p.sq) continue;
-    T* orow = og + (long long)row * p.o_r + 2 * t4;
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) = Type<T>::pack(
-          o_acc[n][2 * half] * inv[half], o_acc[n][2 * half + 1] * inv[half]);
+    for (int i = 0; i < 4; ++i)
+      w.bits[i] = (p.kv_bits ? p.kv_bits[(long long)c.q_batch * p.words +
+                                         4 * u + i]
+                             : 0xffffffffu) >> (2 * f.t4);
+    return w;
   }
-}
-
-template <typename T, int D>
-int launch(const DenseParams& p, int bh, cudaStream_t stream) {
-  constexpr int smem = (TILE_M + 4 * UNIT) * (D + 8) * (int)sizeof(T);
-  auto kern = dense_attn_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((p.sq + TILE_M - 1) / TILE_M, bh);
-  kern<<<grid, NTHREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
+  static __device__ void mask(const Params& p, const Window& w,
+                              float (&s)[64]) {
+    if (w.all) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[i] *= p.sm_scale;
+      return;
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int j = i >> 2, off = 8 * j + (i & 1);
+      const bool key = off < w.lim;
+      const bool ok = key & (((w.bits[j >> 2] >> (8 * (j & 3) + (i & 1))) & 1u) != 0u);
+      s[i] = ok ? s[i] * p.sm_scale : (key ? MASK_VALUE : neg_inf());
+    }
+  }
+  static __device__ void finish(const Params& p, const Tile& c,
+                                float (&o)[64], float (&)[2], float (&l)[2],
+                                const Frag& f, float*) {
+    float inv[2];
+    quad_sum(l, inv);   // l >= 1: the row max itself contributes exp(0)
+    T* og = reinterpret_cast<T*>(p.o) + c.q_batch * p.o_b + c.q_head * p.o_h +
+            2 * f.t4;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = c.q_row + f.row + 8 * r;
+      if (row >= p.sq) continue;
+      T* orow = og + (long long)row * p.o_r;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) = Type<T>::pack(
+            o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+};
 
 }  // namespace
 
 extern "C" {
 
 // K3.  Pointers to q/k/v/out (element (b, h, row, d) at b*s_b + h*s_h +
-// row*s_r + d, d contiguous), kv_valid [B, sk] bool or null.  Returns a
-// cudaError_t value (0 on success) or -1 for an unsupported (dtype, head_dim).
+// row*s_r + d, d contiguous; strides in elements, multiples of 8),
+// kv_bits [B, words] (words = 4 * ceil(sk / 128)) or null.  Returns a
+// cudaError_t value (0 on success), -1 for an unsupported (dtype,
+// head_dim), -2 if a tensor map cannot be encoded.
 int rsa_k3_launch(const void* q, const void* k, const void* v, void* o,
-                  const void* kv_valid, long long q_b, long long q_h,
+                  const void* kv_bits, long long q_b, long long q_h,
                   long long q_r, long long k_b, long long k_h, long long k_r,
                   long long v_b, long long v_h, long long v_r, long long o_b,
-                  long long o_h, long long o_r, int bh, int heads, int sq,
+                  long long o_h, long long o_r, int batch, int heads, int sq,
                   int sk, float sm_scale, int head_dim, int dtype,
                   void* stream) {
-  DenseParams p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
-  p.kv_valid = static_cast<const unsigned char*>(kv_valid);
-  p.q_b = q_b; p.q_h = q_h; p.q_r = q_r;
-  p.k_b = k_b; p.k_h = k_h; p.k_r = k_r;
-  p.v_b = v_b; p.v_h = v_h; p.v_r = v_r;
-  p.o_b = o_b; p.o_h = o_h; p.o_r = o_r;
-  p.heads = heads; p.sq = sq; p.sk = sk; p.sm_scale = sm_scale;
   // head_dim 128 only: the width of every model this port runs
-  if (head_dim != 128) return -1;
+  if (head_dim != HA_D || (dtype != 0 && dtype != 1)) return -1;
+  K3Params p{};
+  if (encode_rows_map(&p.tmq, dtype, q, sq, heads, batch, q_r, q_h, q_b) ||
+      encode_rows_map(&p.tmk, dtype, k, sk, heads, batch, k_r, k_h, k_b) ||
+      encode_rows_map(&p.tmv, dtype, v, sk, heads, batch, v_r, v_h, v_b))
+    return -2;
+  p.o = o; p.o_b = o_b; p.o_h = o_h; p.o_r = o_r;
+  p.kv_bits = static_cast<const unsigned*>(kv_bits);
+  p.heads = heads; p.sq = sq; p.sk = sk;
+  p.row_tiles = (sq + HA_ROWS - 1) / HA_ROWS;
+  p.tiles = batch * heads * p.row_tiles;
+  p.words = 4 * ((sk + HA_KEYS - 1) / HA_KEYS);
+  p.sm_scale = sm_scale;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(p.tiles < sms ? p.tiles : sms);
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<__nv_bfloat16, 128>(p, bh, s);
-  if (dtype == 1) return launch<__half, 128>(p, bh, s);
-  return -1;
+  if (dtype == 0) return launch_hopper_attn<__nv_bfloat16, DenseTiles<__nv_bfloat16>>(p, grid, s);
+  return launch_hopper_attn<__half, DenseTiles<__half>>(p, grid, s);
 }
 
 const char* rsa_error_string(int code) {
+  if (code == -2) return "cuTensorMapEncodeTiled failed (K3's tensor maps)";
   return code < 0 ? "unsupported dtype or head_dim"
                   : cudaGetErrorString((cudaError_t)code);
 }

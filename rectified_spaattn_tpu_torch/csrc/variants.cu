@@ -74,9 +74,9 @@
 // tensor-core and exp work (mma.sync); the rest as K1.  The variants exist
 // to measure that split.
 
-#include <cuda.h>   // CUtensorMap (the encoder is reached through the runtime)
-
-#include "attn_common.cuh"
+// the mbarrier and TMA helpers and the tensor-map encoder of S3c
+// (runs) live in hopper_attn.cuh, which the Hopper mainloop of K1/K3 shares
+#include "hopper_attn.cuh"
 
 namespace {
 
@@ -144,41 +144,6 @@ struct VParams {
   int visual_len, text_start, has_text, seq_rows;
   float sm_scale;
 };
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// the box at (column c0, row c1) of a 2-D tensor map into shared memory
-// by the copy engine, completion counted on `bar`
-__device__ __forceinline__ void tma_load(void* smem, const CUtensorMap* map,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(smem_addr(smem)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(c0), "r"(c1), "r"(smem_addr(bar))
-      : "memory");
-}
 
 // runs' ring stage: K then V, each two 64-column halves of [64 rows][128 B]
 // in the 128-byte swizzle (1024-byte aligned)
@@ -618,41 +583,6 @@ int launch(const VParams& p, int bh, cudaStream_t stream) {
   dim3 grid(nx, bh);
   kern<<<grid, NTHREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// K or V as a 2-D bf16 tensor [rows, D] with its row stride, in boxes of
-// 64 x 64 with the 128-byte swizzle; 0 on success
-int encode_map(CUtensorMap* map, const void* base, long long rows,
-               long long row_stride) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                cudaEnableDefault, &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return -2;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)row_stride * 2};
-  const cuuint32_t box[2] = {64, UNIT};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                            const_cast<void*>(base), dims, strides, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -2;
 }
 
 // stages 2, and 3 for the S3a variants (the scripts' trailing "3")

@@ -2,6 +2,7 @@ from .block_sparse import (
     block_sparse_flash_attention,
     block_sparse_flash_attention_grouped,
     block_sparse_flash_attention_torch,
+    block_sparse_flash_attention_split_torch,
     block_sparse_flash_attention_grouped_torch,
     block_sparse_attention_reference,
 )
@@ -13,6 +14,7 @@ __all__ = [
     "block_sparse_flash_attention",
     "block_sparse_flash_attention_grouped",
     "block_sparse_flash_attention_torch",
+    "block_sparse_flash_attention_split_torch",
     "block_sparse_flash_attention_grouped_torch",
     "block_sparse_attention_reference",
     "build_kernels",

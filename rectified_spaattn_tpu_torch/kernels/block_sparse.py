@@ -22,10 +22,21 @@ plain PyTorch versions (port of rectified_spaattn_tpu/kernels/block_sparse.py).
        index list per ``group * block_m`` rows, membership in ``rowbits``.
 
 The kernels are hand-written CUDA C++ for sm_90a in ``csrc/block_sparse.cu``
-(mma.sync with fp32 or int32 accumulation; its header gives the designs and
-what bounds them on the H100).  The library is built with nvcc at first use
-into the package's ``build/`` directory and loaded with ctypes
+(its header gives the designs and what bounds them on the H100).  K1 and
+K1s run on the Hopper mainloop of ``csrc/hopper_attn.cuh`` (128-row CTAs,
+TMA copies into an mbarrier ring, wgmma); K2 and K1q on mma.sync with fp32
+or int32 accumulation.  The library is built with nvcc at first use into
+the package's ``build/`` directory and loaded with ctypes
 (kernels/cuda_build.py).
+
+Key split.  A K1/K1s launch with fewer 128-row tiles than the card has
+SMs (``_split_plan``: Hunyuan's 256 text rows, a ring step's text rows)
+splits each index list's slots into ``n_split`` contiguous ranges that
+start on ``chunk_blocks`` boundaries; each range's fp32 partial (o, m, l)
+is merged by a second kernel as attention/ring.py::_merge merges
+(``merge_splits``; ``merge_splits.launches`` counts it).
+``block_sparse_flash_attention_split_torch`` is the plain version of the
+split: the same ranges through the plain K1s, then the same merge.
 
 Each wrapper keeps the JAX signature (minus ``interpret``).  A CPU tensor
 runs the plain PyTorch version in this module — the tests' path; a CUDA
@@ -45,10 +56,11 @@ while its count is above 0 averages V uniformly over every lane of its
 a K2 non-member tile scores MASK_VALUE (the JAX kernel adds MASK_VALUE,
 which absorbs any real score in fp32), so a row block with no unmasked own
 key gets the same average over its union's lanes, and a count of 0 gives
-exact zeros.  The CUDA kernels walk 64-key units instead and add the
-chunk-padding lanes in a second pass only for such degenerate rows.  The
-stats follow: a count-0 row has m = -inf and l = 0, a degenerate row m =
-MASK_VALUE and l = the number of lanes it averaged.
+exact zeros.  The CUDA kernels walk units of keys instead and add the
+chunk-padding lanes after the walk only for such degenerate rows (a split
+list: in the range that holds its last slot).  The stats follow: a
+count-0 row has m = -inf and l = 0, a degenerate row m = MASK_VALUE and
+l = the number of lanes it averaged.
 
 ``prefetch_next`` is a TPU DMA knob: accepted and ignored.
 """
@@ -66,14 +78,17 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
 _QUANT_CODE = {"int8": 0, "mxu8": 1}
-_TILE_M = 64          # query rows per CUDA thread block (csrc TILE_M)
+_TILE_M = 64          # query rows per K2 / K1q thread block (csrc TILE_M)
+_K1_ROWS = 128        # query rows per K1 / K1s CTA (csrc HA_ROWS)
 
 
 def _declare(lib):
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.rsa_k1_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, ll, ll, i,
-                                  i, i, i, i, i, i, i, i, i, i, f, i, i, p]
+    lib.rsa_k1_launch.argtypes = [p] * 11 + [ll, ll] + [i] * 13 + [f, i, i,
+                                                                   i, p]
     lib.rsa_k1_launch.restype = i
+    lib.rsa_k1_merge_launch.argtypes = [p] * 6 + [ll, i, i, p]
+    lib.rsa_k1_merge_launch.restype = i
     lib.rsa_k2_launch.argtypes = [p, p, p, p, p, p, p, p, p, ll, ll, i, i, i,
                                   i, i, i, i, i, i, i, i, i, f, i, i, p]
     lib.rsa_k2_launch.restype = i
@@ -199,10 +214,12 @@ def _simulate(q, k, v, bh, idx, counts, rowbits, tlen, ksc, vsc, *, group,
 
 def _plain(q, k, v, indices, counts, rowbits, text_len, *, group, visual_len,
            text_start, block_m, block_n, chunk_blocks, sm_scale, packed_kv,
-           quant=None, ksc=None, vsc=None, return_stats=False):
+           quant=None, ksc=None, vsc=None, return_stats=False,
+           out_dtype=None):
     """Run ``_simulate`` over steps of index lists whose gathered tiles and
     scores stay within _PLAIN_CHUNK_ELEMS; with ``return_stats`` also the
-    row max m and row sum l, [B,H,Sq] fp32."""
+    row max m and row sum l, [B,H,Sq] fp32.  The output is in
+    ``out_dtype`` (default q's)."""
     b, h, sq, d = q.shape
     if packed_kv is not None:
         k, v = packed_kv[..., :d], packed_kv[..., d:]
@@ -221,7 +238,8 @@ def _plain(q, k, v, indices, counts, rowbits, text_len, *, group, visual_len,
     tl = text_len.to(q.device).to(torch.int32)[bh_of // h]
     step = max(1, _PLAIN_CHUNK_ELEMS // (chunk_blocks * block_n
                                          * (2 * d + rows)))
-    out = torch.empty((n, rows, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((n, rows, d), dtype=out_dtype or q.dtype,
+                      device=q.device)
     m = torch.empty((n, rows), device=q.device)
     l = torch.empty((n, rows), device=q.device)
     for l0 in range(0, n, step):
@@ -232,7 +250,7 @@ def _plain(q, k, v, indices, counts, rowbits, text_len, *, group, visual_len,
             group=group, visual_len=visual_len, text_start=text_start,
             block_m=block_m, block_n=block_n, chunk_blocks=chunk_blocks,
             sm_scale=sm_scale, quant=quant)
-        out[sl] = o_s.to(q.dtype)
+        out[sl] = o_s.to(out.dtype)
     out = out.reshape(b, h, sq, d)
     if return_stats:
         return out, m.reshape(b, h, sq), l.reshape(b, h, sq)
@@ -272,6 +290,71 @@ def block_sparse_flash_attention_torch(
                   ksc=_row_scales(scale_k, indices),
                   vsc=_row_scales(scale_v, indices),
                   return_stats=return_stats, **kw)
+
+
+def _split_plan(tiles: int, nb_slots: int, chunk_blocks: int,
+                sms: int) -> tuple[int, int]:
+    """(n_split, split_slots) of a K1/K1s launch of ``tiles`` 128-row CTAs
+    on a card of ``sms`` SMs.  With at least as many tiles as SMs: (1,
+    nb_slots).  Otherwise each list's ceil(nb_slots / chunk_blocks) chunks
+    are split into n_split ranges of split_slots slots (whole chunks), the
+    fewest that fill the last wave of tiles * n_split CTAs to 90 % or more
+    (Hunyuan's 256 text rows, 48 tiles on 132 SMs: 5 ranges, 240 CTAs in
+    two waves of 132), never more ranges than chunks, and no empty range."""
+    chunks = -(-nb_slots // chunk_blocks)
+    if tiles >= sms or chunks < 2:
+        return 1, nb_slots
+    n = -(-sms // tiles)
+    while n < chunks and tiles * n < 0.9 * sms * -(-(tiles * n) // sms):
+        n += 1
+    per = -(-chunks // min(n, chunks))
+    return -(-chunks // per), per * chunk_blocks
+
+
+def _merge_splits(os, ms, ls):
+    """Fold n partial attentions over disjoint key ranges (o normalised,
+    row max m, row sum l) as attention/ring.py::_merge does, in its closed
+    form: (o fp32, m, l)."""
+    m = torch.stack(ms).amax(dim=0)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    o = torch.zeros_like(os[0], dtype=torch.float32)
+    l = torch.zeros_like(ls[0])
+    for o_p, m_p, l_p in zip(os, ms, ls):
+        w = torch.where(l_p > 0, torch.exp(m_p - m_safe), 0.0) * l_p
+        o = o + o_p.float() * w[..., None]
+        l = l + w
+    return o / torch.where(l > 0, l, 1.0)[..., None], m, l
+
+
+def block_sparse_flash_attention_split_torch(
+        q, k, v, indices, counts, text_len, *, n_split, visual_len,
+        text_start, block_m=128, block_n=128, chunk_blocks=16,
+        sm_scale=None, packed_kv=None, return_stats=False):
+    """Plain version of K1 (K1s with ``return_stats``) under the key split
+    of ``n_split`` ranges (``_split_plan``'s range length for that count):
+    each range's slots run through the plain K1s with the list's count
+    clipped to the range, fp32 partials, then ``_merge_splits``.  Ranges
+    start on chunk boundaries, so the one holding a list's last slot pads
+    its chunk as the whole list does."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    chunks = -(-indices.shape[-1] // chunk_blocks)
+    span = -(-chunks // n_split) * chunk_blocks
+    parts = []
+    for i in range(n_split):
+        s0 = i * span
+        idx = indices[..., s0:s0 + span]
+        if idx.shape[-1] == 0:                 # past the list: count 0
+            idx = indices[..., :1]
+        cnt = (counts - s0).clamp(0, span)
+        parts.append(_plain(
+            q, k, v, idx, cnt, None, text_len, group=1,
+            visual_len=visual_len, text_start=text_start, block_m=block_m,
+            block_n=block_n, chunk_blocks=chunk_blocks, sm_scale=sm_scale,
+            packed_kv=packed_kv, return_stats=True, out_dtype=torch.float32))
+    o, m, l = _merge_splits(*zip(*parts))
+    o = o.to(q.dtype)
+    return (o, m, l) if return_stats else o
 
 
 def block_sparse_flash_attention_grouped_torch(
@@ -358,7 +441,8 @@ def _operands(q, k, v, packed_kv):
     return q, out, kp, vp, *strides, keep
 
 
-def _cuda_checks(q, k, v, packed_kv, block_m, block_n, *ints):
+def _cuda_checks(q, k, v, packed_kv, block_m, block_n, *ints,
+                 tile_m=_TILE_M):
     kvt = packed_kv if packed_kv is not None else k
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"the CUDA kernels take bf16 or fp16, got {q.dtype} "
@@ -369,9 +453,9 @@ def _cuda_checks(q, k, v, packed_kv, block_m, block_n, *ints):
     if q.shape[-1] != 128:
         raise ValueError(f"the CUDA kernels take head_dim 128, got "
                          f"{q.shape[-1]}")
-    if block_n != 128 or block_m % _TILE_M:
+    if block_n != 128 or block_m % tile_m:
         raise ValueError(f"the CUDA kernels need block_n == 128 and block_m a "
-                         f"multiple of {_TILE_M} (got {block_m}, {block_n})")
+                         f"multiple of {tile_m} (got {block_m}, {block_n})")
     for t in (q, kvt, v, *ints):
         if t is not None and t.device != q.device:
             raise ValueError("all operands must be on one CUDA device")
@@ -488,32 +572,91 @@ def block_sparse_flash_attention(
         return _launch_k1q(q, kv_quant, quant_mode, indices, counts, clean,
                            text_len, return_stats=return_stats, **kw)
     _cuda_checks(q, k, v, packed_kv, block_m, block_n, indices, counts,
-                 text_len)
+                 text_len, tile_m=_K1_ROWS)
     lib = _load()
     q, out, kp, vp, bh_stride, row_stride, keep = _operands(q, k, v,
                                                             packed_kv)
     idx, cnt, cln, tl = (_int32(indices), _int32(counts), _int32(clean),
                          _int32(text_len))
-    # K1s: the row stats in fp32 (null pointers select K1)
-    stats = [torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-             for _ in range(2)] if return_stats else []
-    m_ptr, l_ptr = (t.data_ptr() for t in stats) if stats else (None, None)
-    rc = lib.rsa_k1_launch(
-        q.data_ptr(), kp, vp, out.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
-        cln.data_ptr(), tl.data_ptr(), m_ptr, l_ptr, bh_stride, row_stride,
-        b * h, h, sq, idx.shape[2], idx.shape[3], s // block_n, block_m,
-        chunk_blocks, visual_len, -1 if text_start is None else text_start,
-        int(text_start is not None), float(sm_scale), d,
-        _DTYPE_CODE[q.dtype], _stream(q))
+    rows = b * h * sq
+    n_split, split_slots = _split_plan(
+        rows // _K1_ROWS, idx.shape[3], chunk_blocks,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if n_split > 1:
+        # the ranges' partials (o, m, l), merged below
+        part = [torch.empty((n_split, rows, d), **f32),
+                torch.empty((n_split, rows), **f32),
+                torch.empty((n_split, rows), **f32)]
+        ptrs = [t.data_ptr() for t in part]
+    else:
+        # K1s: the row stats in fp32 (null pointers select K1)
+        stats = [torch.empty((b, h, sq), **f32)
+                 for _ in range(2)] if return_stats else []
+        ptrs = [None, *(t.data_ptr() for t in stats)] if stats else [None] * 3
     name = "K1s" if return_stats else "K1"
+    rc = lib.rsa_k1_launch(
+        q.data_ptr(), kp, vp, out.data_ptr(), *ptrs,
+        idx.data_ptr(), cnt.data_ptr(), cln.data_ptr(), tl.data_ptr(),
+        bh_stride, row_stride, b * h, h, sq, idx.shape[2], idx.shape[3],
+        s // block_n, block_m, chunk_blocks, visual_len,
+        -1 if text_start is None else text_start,
+        int(text_start is not None), n_split, split_slots, float(sm_scale),
+        d, _DTYPE_CODE[q.dtype], int(return_stats), _stream(q))
     if rc:
         raise RuntimeError(
             f"{name} launch failed: {lib.rsa_error_string(rc).decode()}")
     if return_stats:
         block_sparse_flash_attention.stats_launches += 1
-        return out, *stats
-    block_sparse_flash_attention.launches += 1
-    return out
+    else:
+        block_sparse_flash_attention.launches += 1
+    if n_split > 1:
+        merged = merge_splits(*part, q.dtype, return_stats=return_stats)
+        if not return_stats:
+            return merged.reshape(b, h, sq, d)
+        return (merged[0].reshape(b, h, sq, d),
+                *(t.reshape(b, h, sq) for t in merged[1:]))
+    return (out, *stats) if return_stats else out
+
+
+def merge_splits(o_part, m_part, l_part, out_dtype, *, return_stats=False):
+    """The key split's merge: n partial attentions of the same rows over
+    disjoint key ranges, o_part [n, rows, D] (normalised) and m_part /
+    l_part [n, rows], all fp32, folded as attention/ring.py::_merge folds
+    them; returns o [rows, D] in ``out_dtype`` (bf16 or fp16 on the card),
+    with ``return_stats`` (o, m, l).  On the card a CUDA kernel
+    (``merge_splits_kernel`` in csrc/block_sparse.cu, one warp a row;
+    ``merge_splits.launches`` counts it); on the CPU ``_merge_splits``."""
+    n, rows, d = o_part.shape
+    if o_part.device.type == "cpu":
+        o, m, l = _merge_splits(list(o_part), list(m_part), list(l_part))
+        o = o.to(out_dtype)
+        return (o, m, l) if return_stats else o
+    if out_dtype not in _DTYPE_CODE or d != 128:
+        raise TypeError(f"the merge kernel writes bf16 or fp16 rows of 128, "
+                        f"got {out_dtype} and {d}")
+    parts = (o_part, m_part, l_part)
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           or t.device != o_part.device for t in parts) \
+            or m_part.shape != (n, rows) or l_part.shape != (n, rows):
+        raise ValueError("o_part [n, rows, 128], m_part and l_part [n, rows] "
+                         "must be contiguous fp32 on one device")
+    out = torch.empty((rows, d), dtype=out_dtype, device=o_part.device)
+    stats = [torch.empty((rows,), dtype=torch.float32, device=out.device)
+             for _ in range(2)] if return_stats else []
+    m_ptr, l_ptr = (t.data_ptr() for t in stats) if stats else (None, None)
+    lib = _load()
+    rc = lib.rsa_k1_merge_launch(
+        *(t.data_ptr() for t in parts), out.data_ptr(), m_ptr, l_ptr, rows,
+        n, _DTYPE_CODE[out_dtype], _stream(out))
+    if rc:
+        raise RuntimeError(f"split merge launch failed: "
+                           f"{lib.rsa_error_string(rc).decode()}")
+    merge_splits.launches += 1
+    return (out, *stats) if return_stats else out
+
+
+merge_splits.launches = 0
 
 
 block_sparse_flash_attention.launches = 0

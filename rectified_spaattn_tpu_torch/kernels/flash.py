@@ -7,17 +7,20 @@
                      kernels/flash.py:49-102), used where there is no
                      visual/text window (``visual_len=None``: Wan's text and
                      CLIP-image cross-attention).  Hand-written CUDA C++ for
-                     sm_90a in ``csrc/dense_flash.cu`` (its header gives the
-                     design and what bounds it on the H100), built and
-                     loaded by kernels/cuda_build.py.
+                     sm_90a in ``csrc/dense_flash.cu`` on the Hopper
+                     mainloop of ``csrc/hopper_attn.cuh`` (TMA copies into
+                     an mbarrier ring, wgmma, persistent 128-row CTAs; the
+                     source's header gives the design and what bounds it on
+                     the H100), built and loaded by kernels/cuda_build.py.
 
 K3 takes arbitrary Sq and Sk without padding the caller's tensors, an
-optional ``kv_valid`` [B, S] bool and ``sm_scale`` (default 1/sqrt(D)),
-bf16 or fp16 with head_dim 128.  A CPU tensor runs the plain version,
-``_vanilla_attention`` (the tests' path); a CUDA tensor launches the
-kernel or raises; nothing falls back.  ``dense_flash_attention.launches``
-counts its launches.  Invalid keys score the finite MASK_VALUE in both, so
-a row with no valid key averages V uniformly over all keys.
+optional ``kv_valid`` [B, S] bool (packed here into 32 keys a word) and
+``sm_scale`` (default 1/sqrt(D)), bf16 or fp16 with head_dim 128.  A CPU
+tensor runs the plain version, ``_vanilla_attention`` (the tests' path); a
+CUDA tensor launches the kernel or raises; nothing falls back.
+``dense_flash_attention.launches`` counts its launches.  Invalid keys score
+the finite MASK_VALUE in both, so a row with no valid key averages V
+uniformly over all keys.
 """
 
 from __future__ import annotations
@@ -54,13 +57,26 @@ def _declare(lib):
 
 def _strided(x):
     """``x`` as the kernel reads it: [B, H, S, D] with D contiguous and
-    (batch, head, row) strides that keep 16-byte copies aligned; a view
-    that does not qualify is copied."""
+    (batch, head, row) strides that are multiples of 16 bytes, as the
+    copy engine's tensor maps need; a view that does not qualify is
+    copied."""
     if x.stride(-1) != 1 or any(st % 8 for st in x.stride()[:3]):
         x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("q/k/v/out must start on a 16-byte boundary")
     return x
+
+
+def _valid_bits(kv_valid):
+    """kv_valid [B, Sk] bool as the kernel reads it: [B, 4 * ceil(Sk / 128)]
+    int32 words, bit i of word w saying whether key 32 w + i is valid
+    (keys past Sk clear)."""
+    b, sk = kv_valid.shape
+    words = 4 * -(-sk // 128)
+    v = torch.nn.functional.pad(kv_valid.to(torch.int64), (0, 32 * words - sk))
+    shift = torch.arange(32, device=v.device, dtype=torch.int64)
+    x = (v.reshape(b, words, 32) << shift).sum(dim=-1)
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
 def dense_flash_attention(q, k, v, kv_valid=None, *, sm_scale=None):
@@ -97,14 +113,13 @@ def dense_flash_attention(q, k, v, kv_valid=None, *, sm_scale=None):
     out = _strided(torch.empty_like(q))
     if sq == 0:
         return out
-    valid = (kv_valid.to(torch.bool).contiguous()
-             if kv_valid is not None else None)
+    bits = _valid_bits(kv_valid) if kv_valid is not None else None
     lib = cuda_build.load("dense_flash", _declare)
     rc = lib.rsa_k3_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        valid.data_ptr() if valid is not None else None,
+        bits.data_ptr() if bits is not None else None,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], b * h, h, sq, sk, float(sm_scale), d,
+        *out.stride()[:3], b, h, sq, sk, float(sm_scale), d,
         _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc:

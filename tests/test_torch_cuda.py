@@ -29,22 +29,37 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("group", [1, 2, 4])
-def test_cuda_kernels_match_plain(cuda, group):
+@pytest.mark.parametrize("group,block_m,chunk_blocks", [
+    (1, 128, 2), (1, 128, 16), (1, 1024, 2), (1, 1024, 16), (2, 128, 16),
+    (4, 128, 16)])
+def test_cuda_kernels_match_plain(cuda, group, block_m, chunk_blocks):
+    """K1 and K1s (block_m 128 and 1024; at chunk_blocks 2 their lists
+    split into key ranges, at 16 they do not) and K2 (G = 2, 4) against
+    their plain versions; K1s's m within 2e-2, l within 1 %."""
     g = torch.Generator(device=cuda)
     g.manual_seed(group)
     b, h, nq, nb, d = 2, 4, 8, 12, 128
     q, k, v = (torch.randn((b, h, n * BM, d), generator=g, device=cuda
                            ).to(torch.bfloat16) for n in (nq, nb, nb))
-    mask = torch.rand((b, h, nq, nb), generator=g, device=cuda) < 0.35
+    mask = torch.rand((b, h, nq * BM // block_m, nb), generator=g,
+                      device=cuda) < 0.35
     mask[..., 0] = mask[..., -1] = True
     tl = torch.tensor([90, 17], dtype=torch.int32, device=cuda)
-    kw = dict(visual_len=(nb - 1) * BN - 50, text_start=(nb - 1) * BN)
+    kw = dict(visual_len=(nb - 1) * BN - 50, text_start=(nb - 1) * BN,
+              block_m=block_m, chunk_blocks=chunk_blocks)
     if group == 1:
         idx, cnt = ops.mask_to_indices(mask)
         got = tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl, **kw)
         want = tk.block_sparse_flash_attention_torch(q, k, v, idx, cnt, tl,
                                                      **kw)
+        o, m, l = tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl,
+                                                  return_stats=True, **kw)
+        _, wm, wl = tk.block_sparse_flash_attention_torch(
+            q, k, v, idx, cnt, tl, return_stats=True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o, got)
+        torch.testing.assert_close(m, wm, rtol=0, atol=2e-2)
+        torch.testing.assert_close(l, wl, rtol=1e-2, atol=0)
     else:
         ui, uc, rb, cl = ops.group_rows(mask, group,
                                         clean_blocks=kw["visual_len"] // BN)
@@ -205,16 +220,21 @@ def test_cuda_int8_probe_matches_plain(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["tails", "mask_b2", "scale_fp16",
-                                  "strided"])
+                                  "strided", "keys512", "persistent"])
 def test_cuda_dense_flash_matches_plain(cuda, case):
-    """K3 against its plain version: Sq and Sk off the 64-row/64-key tiles,
-    a kv_valid mask at B=2 with a row that has no valid key (V averaged
-    over all keys), a given sm_scale in fp16, and a head-split [B,S,H,D]
-    projection read and written in place."""
+    """K3 against its plain version: Sq and Sk off the 128-row/128-key
+    tiles (257 keys), 512 keys, a kv_valid mask at B=2 with a row that has
+    no valid key (V averaged over all keys), a given sm_scale in fp16, a
+    head-split [B,S,H,D] projection read and written in place, and more
+    row tiles than SMs (each persistent CTA walks several)."""
     g = torch.Generator(device=cuda)
     g.manual_seed(11)
     dt = torch.float16 if case == "scale_fp16" else torch.bfloat16
     b, h, sq, sk, d = (2 if case == "mask_b2" else 1), 3, 200, 257, 128
+    if case == "keys512":
+        sk = 512
+    if case == "persistent":
+        h, sq, sk = 8, 5000, 300
     rnd = lambda *s: torch.randn(s, generator=g, device=cuda).to(dt)
     q, k, v = rnd(b, h, sq, d), rnd(b, h, sk, d), rnd(b, h, sk, d)
     valid, kw = None, {}
@@ -234,6 +254,55 @@ def test_cuda_dense_flash_matches_plain(cuda, case):
         torch.testing.assert_close(
             got[1].float(), v[1].float().mean(1, keepdim=True).expand(
                 h, sq, d), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_cuda_k1_split_matches_plain(cuda, packed):
+    """The key split at a short-row shape (16 row tiles, lists of 40
+    blocks at chunk_blocks 4): K1 and K1s against the plain unsplit and
+    split versions, the text window at B=2, a count-0 row (m == -inf,
+    l == 0) and a degenerate list; K1s's o equals K1's bit for bit; each
+    call merges once."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(41 + packed)
+    b, h, nq, nb, d = 2, 4, 2, 40, 128
+    q, k, v = (torch.randn((b, h, n * BM, d), generator=g, device=cuda
+                           ).to(torch.bfloat16) for n in (nq, nb, nb))
+    mask = torch.rand((b, h, nq, nb), generator=g, device=cuda) < 0.5
+    mask[..., -1] = True
+    mask[0, 1, 0] = False                      # count 0
+    mask[1, 2, 1] = False
+    mask[1, 2, 1, -1] = True                   # only the text block
+    tl = torch.tensor([90, 0], dtype=torch.int32, device=cuda)
+    idx, cnt = ops.mask_to_indices(mask)
+    kw = dict(visual_len=(nb - 1) * BN - 40, text_start=(nb - 1) * BN,
+              chunk_blocks=4,
+              packed_kv=torch.cat([k, v], dim=-1) if packed else None)
+    merges = tk.block_sparse.merge_splits.launches
+    o, m, l = tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl,
+                                              return_stats=True, **kw)
+    k1 = tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl, **kw)
+    torch.cuda.synchronize()
+    assert tk.block_sparse.merge_splits.launches == merges + 2
+    assert torch.equal(o, k1)
+    n_split, _ = tk.block_sparse._split_plan(
+        b * h * nq, nb, 4,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    wo, wm, wl = tk.block_sparse_flash_attention_torch(
+        q, k, v, idx, cnt, tl, return_stats=True, **kw)
+    so, sm, sl = tk.block_sparse_flash_attention_split_torch(
+        q, k, v, idx, cnt, tl, n_split=n_split, return_stats=True, **kw)
+    zero = (cnt == 0).repeat_interleave(BM, dim=2)
+    assert zero.any() and bool((m[zero] == -torch.inf).all())
+    assert bool((l[zero] == 0).all()) and o[zero].abs().max() == 0
+    live = ~zero
+    for want_o, want_m, want_l in ((wo, wm, wl), (so, sm, sl)):
+        torch.testing.assert_close(o.float(), want_o.float(), **BF16)
+        torch.testing.assert_close(m[live], want_m[live], rtol=0, atol=2e-2)
+        torch.testing.assert_close(l[live], want_l[live], rtol=1e-2, atol=0)
+    rows = slice(BM, 2 * BM)                   # the degenerate list
+    assert bool((m[1, 2, rows] == tk.block_sparse.MASK_VALUE).all())
 
 
 @pytest.mark.cuda

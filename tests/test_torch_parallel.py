@@ -290,6 +290,34 @@ def test_ring_matches_jax(ring_refs, layout, ffb):
                                        **F32)
 
 
+@pytest.mark.slow
+@pytest.mark.parametrize("layout,ffb", [c for c in RING_CASES
+                                        if c != ("visual", 1)])
+def test_ring_matches_jax_ring_f32(layout, ffb):
+    """The in-process sp = 4 ring against the JAX ring at fp32 in the
+    cases test_ring_matches_jax holds only to the single-device site: the
+    joint ring (JAX ``_ring_joint``) and the visual ring without
+    first-frame blocks.  Slow: one JAX joint-ring call takes about a
+    minute here."""
+    from jax.sharding import Mesh
+    q, k, v, qt, kt, vt, nbr = ring_inputs()
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(1, 1, 4),
+                ("dp", "tp", "sp"))
+    kw = {}
+    if layout == "joint":
+        kw = dict(q_text=jnp.asarray(qt), k_text=jnp.asarray(kt),
+                  v_text=jnp.asarray(vt),
+                  text_len_rt=jnp.asarray([RING["tlen"]], jnp.int32))
+    want = j_ring(mesh, *map(jnp.asarray, (q, k, v)),
+                  JConfig(**ring_cfg(layout, ffb)), jnp.asarray(nbr),
+                  interpret=True, **kw)
+    got = port_ring(layout, ffb)
+    if layout == "visual":
+        got, want = [got], [want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32)
+
+
 @pytest.mark.parametrize("layout", ["visual", "joint"])
 def test_ring_composes_with_packed_kv_and_row_chunk(layout):
     """plan_row_chunk 1 with ONE packed [K|V] buffer rotating the ring
