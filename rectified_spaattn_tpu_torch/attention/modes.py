@@ -32,7 +32,7 @@ def _windowed_dense_flash(q, k, v, *, visual_len, text_start, tlen,
     the gather kernel K1 with full index lists.  Every row shares the full
     list, so the MASK row height ``block_m`` defaults to the widest of
     1024/512/256/128 that fits the sequence (q is padded to it
-    independently of KV, Sq != S); the CUDA tile is its own (64 rows)."""
+    independently of KV, Sq != S); the CUDA tile is its own (128 rows)."""
     b, h, s_orig, d = q.shape
     s = s_orig
     pad = (-s) % block

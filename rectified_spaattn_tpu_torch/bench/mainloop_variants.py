@@ -1,11 +1,14 @@
-"""Ablations of the Hopper attention mainloop that K1/K1s and K3 share
-(csrc/hopper_attn.cuh), timed at the main path's shapes by kernel_ab.py.
+"""Ablations of the Hopper attention mainloop that K1/K1s, K2 and K3 share
+(csrc/hopper_attn.cuh) and of K1q's kernel on its parts
+(hopper_attn_q_kernel, csrc/block_sparse.cu), timed at the main path's
+shapes by kernel_ab.py.
 
     python -m rectified_spaattn_tpu_torch.bench.mainloop_variants \\
-        [--variants stages3,pingpong,compute,load] [--reps 3]
+        [--variants stages3,pingpong,compute,load,convert] [--reps 3]
 
 Each variant is this package copied under ``outputs/mainloop_variants/``
-(git-ignored) with one edit to its copy of hopper_attn.cuh:
+(git-ignored) with its edits to its copies of those two files (compute
+and load edit both kernels, the others one):
 
   stages3   a third ring stage (224 KB of shared memory, still one CTA an
             SM);
@@ -16,7 +19,9 @@ Each variant is this package copied under ``outputs/mainloop_variants/``
             without a copy, so the consumers compute on whatever the ring
             holds (the output is garbage; only its time counts);
   load      no products and no softmax: the consumers wait for each unit
-            and hand its stage back (the output is zero).
+            and hand its stage back (the output is zero);
+  convert   K1q only: the converter threads hand each staged unit on
+            without converting it (the output is garbage).
 
 kernel_ab.py then times this package and each copy in turns (base, every
 variant, every variant again in reverse, base), one process each, and the
@@ -37,12 +42,13 @@ import sys
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(PKG)
 HEADER = os.path.join("csrc", "hopper_attn.cuh")
+K1Q = os.path.join("csrc", "block_sparse.cu")
 
 EDITS = {
-    "stages3": [("constexpr int HA_STAGES = 2;",
+    "stages3": [(HEADER, "constexpr int HA_STAGES = 2;",
                  "constexpr int HA_STAGES = 3;")],
     "pingpong": [
-        ("__device__ __forceinline__ void wg_sync(int wg) {",
+        (HEADER, "__device__ __forceinline__ void wg_sync(int wg) {",
          "__device__ __forceinline__ void turn_wait(int wg) {\n"
          "  asm volatile(\"bar.sync %0, 256;\\n\" :: \"r\"(3 + wg) : "
          "\"memory\");\n}\n"
@@ -50,7 +56,7 @@ EDITS = {
          "  asm volatile(\"bar.arrive %0, 256;\\n\" :: \"r\"(4 - wg) : "
          "\"memory\");\n}\n"
          "__device__ __forceinline__ void wg_sync(int wg) {"),
-        ("    int st = 0;\n    uint32_t ph = 0, qph = 0;\n"
+        (HEADER, "    int st = 0;\n    uint32_t ph = 0, qph = 0;\n"
          "    for (int t = P::first(p); t < P::count(p); t += P::stride(p)) {"
          "\n      const typename P::Tile c = P::tile(p, t);\n"
          "      mbar_wait_or_trap(q_full, qph);",
@@ -59,32 +65,56 @@ EDITS = {
          "    for (int t = P::first(p); t < P::count(p); t += P::stride(p)) {"
          "\n      const typename P::Tile c = P::tile(p, t);\n"
          "      mbar_wait_or_trap(q_full, qph);"),
-        ("        float s[64];\n        wgmma_fence();",
+        (HEADER, "        float s[64];\n        wgmma_fence();",
          "        float s[64];\n        turn_wait(f.wg);\n"
          "        wgmma_fence();"),
-        ("        wgmma_commit();\n        wgmma_wait_all();\n"
-         "        fence_regs(s);",
+        (HEADER, "        wgmma_commit();\n"
+         "        un = P::next(p, c, u + 1);   // its loads overlap the "
+         "products\n",
          "        wgmma_commit();\n        turn_pass(f.wg);\n"
-         "        wgmma_wait_all();\n        fence_regs(s);"),
+         "        un = P::next(p, c, u + 1);\n"),
     ],
-    "compute": [("          mbar_expect_tx(&full[st], HA_STAGE);\n"
+    "compute": [(HEADER, "          mbar_expect_tx(&full[st], HA_STAGE);\n"
                  "          unsigned char* dst = ring + st * HA_STAGE;\n"
                  "          tma_tile(dst, &p.tmk, row, c.kv_head, c.kv_batch, "
                  "&full[st]);\n"
                  "          tma_tile(dst + HA_TILE, &p.tmv, row, c.kv_head, "
                  "c.kv_batch,\n                   &full[st]);",
                  "          mbar_expect_tx(&full[st], 0);\n"
-                 "          (void)row;")],
-    "load": [("        mbar_wait_or_trap(&full[st], ph);\n"
+                 "          (void)row;"),
+                (K1Q, "        mbar_expect_tx(&sfull[ss_next], L::STAGE8);\n"
+                 "        stage_load<MODE>(stg + ss_next * L::STAGE8, "
+                 "&p.tmkv, row_next,\n                         "
+                 "&sfull[ss_next]);",
+                 "        mbar_expect_tx(&sfull[ss_next], 0);"),
+                (K1Q, "        mbar_expect_tx(&full[st], HA_TILE8);\n"
+                 "        tma_load(ring + st * L::RING, &p.tmkv, 0, row, "
+                 "&full[st]);",
+                 "        mbar_expect_tx(&full[st], 0);")],
+    "load": [(HEADER, "        mbar_wait_or_trap(&full[st], ph);\n"
               "        const unsigned char* ks = ring + st * HA_STAGE;",
               "        mbar_wait_or_trap(&full[st], ph);\n"
               "        if (u >= 0) {\n          (void)win;\n"
-              "          if (u == c.u1 - 1) mbar_arrive(q_empty);\n"
+              "          un = P::next(p, c, u + 1);\n"
+              "          if (un >= c.u1) mbar_arrive(q_empty);\n"
               "          mbar_arrive(&empty[st]);\n"
               "          if (++st == HA_STAGES) {\n            st = 0;\n"
               "            ph ^= 1;\n          }\n          continue;\n"
               "        }\n"
-              "        const unsigned char* ks = ring + st * HA_STAGE;")],
+              "        const unsigned char* ks = ring + st * HA_STAGE;"),
+             (K1Q, "      mbar_wait_or_trap(&full[st], ph);\n"
+              "      const unsigned char* kst = ring + st * L::RING;",
+              "      mbar_wait_or_trap(&full[st], ph);\n"
+              "      if (n >= 0) {\n        (void)win;\n        (void)ks;\n"
+              "        (void)vs;\n        mbar_arrive(&empty[st]);\n"
+              "        if (++st == HA_STAGES) {\n          st = 0;\n"
+              "          ph ^= 1;\n        }\n        continue;\n      }\n"
+              "      const unsigned char* kst = ring + st * L::RING;")],
+    "convert": [(K1Q, "        if (MODE == MODE_INT8) convert_tile<V16>(dst, "
+                 "src, ci);\n"
+                 "        convert_tile<V16>(dst + L::RING_K, src + L::STAGE8 "
+                 "- HA_TILE8, ci);",
+                 "        (void)dst;\n        (void)src;")],
 }
 
 
@@ -95,16 +125,15 @@ def make_copy(name: str, out_dir: str) -> str:
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(PKG, os.path.join(root, os.path.basename(PKG)),
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
-    path = os.path.join(root, os.path.basename(PKG), HEADER)
-    with open(path) as f:
-        src = f.read()
-    for old, new in EDITS[name]:
+    for rel, old, new in EDITS[name]:
+        path = os.path.join(root, os.path.basename(PKG), rel)
+        with open(path) as f:
+            src = f.read()
         if src.count(old) != 1:
             raise ValueError(f"variant {name}: its edit does not match "
-                             f"{HEADER} once")
-        src = src.replace(old, new)
-    with open(path, "w") as f:
-        f.write(src)
+                             f"{rel} once")
+        with open(path, "w") as f:
+            f.write(src.replace(old, new))
     return root
 
 

@@ -86,7 +86,11 @@ def parse_args(argv=None):
     p.add_argument("--quant", type=int, default=0, choices=(0, 4, 8))
     p.add_argument("--group_rows", type=int, default=1,
                    help="grouped-row kernel K2: G query blocks per union "
-                        "key list (SparseConfig.group_rows)")
+                        "key list (SparseConfig.group_rows).  On an H100 "
+                        "(80GB HBM3, 700 W) at the HunyuanVideo point, K2 "
+                        "at G = 2 takes 0.96-1.05x the attention time of "
+                        "G = 1 (K1) on the same plan: it saves no work on "
+                        "the card (PERF.md)")
     p.add_argument("--plan_row_chunk", type=int, default=0)
     p.add_argument("--head_chunk", type=int, default=0)
     p.add_argument("--kv_pack", action="store_true")

@@ -1,7 +1,9 @@
-// Device helpers shared by the port's kernels (block_sparse.cu: K1, K2 and
-// K1q; dense_flash.cu: K3; int8_probe.cu: S1): the masked-score constant,
-// mma.sync m16n8k16 for bf16 and fp16 with fp32 accumulation, mma.sync
-// m16n8k32 for int8 with int32 accumulation, ldmatrix and cp.async.
+// Device helpers shared by the port's kernels: the masked-score constant
+// and the 16-bit packing every kernel uses; mma.sync m16n8k16 for bf16 and
+// fp16 with fp32 accumulation, mma.sync m16n8k32 for int8 with int32
+// accumulation, ldmatrix and cp.async, which the probe and ablation
+// kernels on the earlier design use (int8_probe.cu: S1; variants.cu: S2,
+// S3).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -85,14 +87,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                :: "r"(smem_addr(smem)), "l"(gmem));
-}
-
-// 16 bytes from gmem, or 16 zero bytes when `in` is false (gmem is then not
-// read, but must still be a valid address)
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
-                                                 bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(smem)), "l"(gmem), "r"(in ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

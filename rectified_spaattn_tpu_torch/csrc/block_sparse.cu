@@ -8,10 +8,10 @@
 //       merge of attention/ring.py); a template flag, so K1 compiles to the
 //       same code as without it
 //   K2  _sparse_attn_kernel_grouped  (launched at :560 by block_sparse_flash_attention_grouped)
-//   K1q _sparse_attn_kernel with quant="int8" / "mxu8" (:176-253), below
-//       sparse_attn_kernel: its own header comment gives its design
+//   K1q _sparse_attn_kernel with quant="int8" / "mxu8" (:176-253): the
+//       section "K1q" below gives its design
 //   K1q-s K1q with return_stats (the JAX wrapper takes both, :606-781):
-//       a STATS template flag of sparse_attn_q_kernel, as for K1s
+//       a STATS template flag of hopper_attn_q_kernel, as for K1s
 //
 // What K1 and K2 compute.  For each (batch*head, query row) the softmax attention
 // over the key blocks listed in the first `count` slots of the row's index list
@@ -28,33 +28,36 @@
 //   * K2 (grouped): G adjacent row blocks share one union index list; bit r
 //     of rowbits says whether a slot's block is in row block r's plan.  The
 //     JAX kernel adds MASK_VALUE to the scores of a non-member tile (which
-//     absorbs any real score in fp32); here a thread block skips the tile
-//     (all its rows are in one row block), which changes nothing for a row
-//     with one unmasked key of its own;
+//     absorbs any real score in fp32); here a CTA skips the tile (all its
+//     rows are in one row block), which changes nothing for a row with one
+//     unmasked key of its own;
 //   * degenerate rows: the JAX kernel runs its online softmax over chunks of
 //     `chunk_blocks` slots and masks every lane of a chunk past `count`
 //     (pad slots past the list read block 0).  A row whose every gathered
 //     key is masked (m stays MASK_VALUE, or -inf for a K2 row block with no
 //     own slot) while count > 0 therefore averages V over every lane of its
 //     ceil(count / chunk_blocks) chunks: its own slots, K2's non-member
-//     slots and the padding.  Degeneracy depends only on the list and the
-//     key window, so all rows of a thread block share it; K2's block makes
-//     a second pass over the slots the first one skipped, with every score
-//     MASK_VALUE (p = 1); K1's adds the column sums of V over the padding
-//     blocks.  Other blocks pay one comparison.
+//     slots and the padding.  Degeneracy depends only on the list (and
+//     K2's bits) and the key window, so all rows of a CTA share it; K1's
+//     CTA adds the column sums of V over the padding blocks after its walk;
+//     K2's and K1q's decide it from the list before the walk and then walk
+//     every slot of those chunks with every score MASK_VALUE (p = 1).
 //   * K1s stats, as the JAX kernel returns them: m in score units of
 //     q * sm_scale (natural exp, as __expf below), l the fp32 row sum; a
 //     count == 0 row gives m = -inf and l = 0, a degenerate row m =
 //     MASK_VALUE and l = the lanes it averaged.
 //
-// K1 and K1s: the Hopper mainloop (hopper_attn.cuh; the section "K1 and
-// K1s" below).  One CTA of 384 threads owns 128 query rows, so it walks its
-// index list once: a producer warp issues TMA box loads of each listed
-// block's K and V (128 keys, 64 KB) into a two-stage mbarrier ring, two
-// consumer warpgroups run S = Q K^T and O += P V on wgmma.m64n128k16 under
-// an online softmax in fp32 registers, the mask is applied branch-free by
-// selects, and a launch of fewer row tiles than SMs splits each list into
-// key ranges whose fp32 partials a second kernel merges.
+// Every kernel here runs on the Hopper mainloop (hopper_attn.cuh).  One
+// CTA of 384 threads owns 128 query rows, so it walks its index list once:
+// a producer warp issues TMA box loads of each walked block's K and V (128
+// keys) into a two-stage mbarrier ring, two consumer warpgroups run S =
+// Q K^T and O += P V on wgmma.m64n128k16 under an online softmax in fp32
+// registers, and the mask is applied branch-free by selects.  K1/K1s and
+// K2 are policies of hopper_attn_kernel (sections "K1 and K1s" and "K2"
+// below); K1's launches of fewer row tiles than SMs split each list into
+// key ranges whose fp32 partials a second kernel merges.  K1q/K1q-s
+// (section "K1q") is hopper_attn_q_kernel: the same CTA, with the
+// producer warpgroup converting int8 tiles and, for "mxu8", the s8 wgmma.
 //
 // What bounds K1 on the H100.  At the HunyuanVideo operating point
 // (115,456 keys, 24 heads x 128) the sparse visual rows do 4*128^3 flops
@@ -70,366 +73,15 @@
 // pair (one walk per list), moves the copies to the TMA engine and the
 // products to wgmma, and makes the mask a select.  Short-row launches
 // (256 text rows: 2 x 24 CTAs) underfilled the 132 SMs; the key split
-// fills them.
-//
-// K2 and K1q keep the previous design: sparse_attn_kernel (GROUPED, with
-// the design described next) and sparse_attn_q_kernel.  K2: one thread
-// block (4 warps, 128 threads) owns 64 query rows of one (batch*head) and
-// its union list; it walks the member key blocks in units of 64 keys:
-// cp.async stages a unit's K and V rows (gathered by block index, 16 bytes
-// per copy) into a two-stage ring in shared memory while the previous unit
-// computes.  Each warp holds its 16 query rows of q*sm_scale as mma.sync A
-// fragments in registers, computes S = Q K^T and O += P V with
-// mma.sync.m16n8k16 (bf16 or fp16 inputs, fp32 accumulation; operands from
-// ldmatrix, V transposed by ldmatrix.trans), and keeps m, l and O in
-// registers.  87 KB of shared memory per block lets two blocks share an SM.
+// fills them.  K2 and K1q ran on that previous design until they moved to
+// the mainloop too; they launch at full row counts (900 row tiles x 24
+// heads at the HunyuanVideo point), so they take no key split.
+
+#include <type_traits>
 
 #include "hopper_attn.cuh"
 
 namespace {
-
-constexpr int BLOCK_N = 128;    // keys per index-list block (mask granularity)
-constexpr int UNIT = 64;        // keys per pipeline stage
-constexpr int TILE_M = 64;      // query rows per thread block (4 warps x 16)
-constexpr int NTHREADS = 128;
-
-struct Params {
-  const void* q;          // [BH, Sq, D]
-  const void* k;          // K row t of head bh at k + bh*kv_bh_stride + t*kv_row_stride
-  const void* v;          // V likewise
-  void* o;                // [BH, Sq, D]
-  const int* indices;     // [BH, n_list, nb_slots]
-  const int* counts;      // [BH, n_list]
-  const int* clean;       // [BH, n_list]
-  const int* rowbits;     // [BH, n_list, nb_slots] (K2 only)
-  const int* text_len;    // [B]
-  float* m_out;           // [BH, Sq] (K1s only)
-  float* l_out;           // [BH, Sq] (K1s only)
-  long long kv_bh_stride; // elements
-  long long kv_row_stride;
-  int heads, sq, n_list, nb_slots, num_key_blocks, block_m, group;
-  int chunk_blocks;       // the JAX kernel's slots per online-softmax chunk
-  int visual_len, text_start, has_text;
-  float sm_scale;
-};
-
-template <typename T, int D, bool GROUPED, bool STATS>
-__global__ void __launch_bounds__(NTHREADS, 2)
-sparse_attn_kernel(const Params p) {
-  constexpr int LD = D + 8;          // padded smem row (elements): no ldmatrix bank conflicts
-  constexpr int KT = D / 16;         // k-steps of QK^T over the head dim
-  constexpr int NT = D / 8;          // n-tiles of the output over the head dim
-  constexpr int CPR = D / 8;         // 16-byte copies per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);       // [TILE_M][LD]
-  T* sK = sQ + TILE_M * LD;                     // [2][UNIT][LD]
-  T* sV = sK + 2 * UNIT * LD;                   // [2][UNIT][LD]
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.y;
-  const int row0 = blockIdx.x * TILE_M;
-  const int b = bh / p.heads;
-
-  int list_row = row0 / p.block_m;
-  int member_bit = 0;
-  if (GROUPED) {
-    member_bit = list_row % p.group;
-    list_row /= p.group;
-  }
-  const long long lr = (long long)bh * p.n_list + list_row;
-  const int count = p.counts[lr];
-  const int clean = p.clean[lr];
-  const int* idx = p.indices + lr * p.nb_slots;
-  const int* bits = GROUPED ? p.rowbits + lr * p.nb_slots : nullptr;
-  const int tlen = p.text_len[b];
-
-  const T* qg = reinterpret_cast<const T*>(p.q) + ((long long)bh * p.sq + row0) * D;
-  T* og = reinterpret_cast<T*>(p.o) + ((long long)bh * p.sq + row0) * D;
-  const T* kg = reinterpret_cast<const T*>(p.k) + (long long)bh * p.kv_bh_stride;
-  const T* vg = reinterpret_cast<const T*>(p.v) + (long long)bh * p.kv_bh_stride;
-
-  // q * sm_scale in fp32, rounded to T (the JAX kernel's q handling)
-  for (int i = tid; i < TILE_M * CPR; i += NTHREADS) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const uint4 raw = *reinterpret_cast<const uint4*>(qg + (long long)r * D + c);
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
-    uint4 out;
-    uint32_t* wo = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = Type<T>::unpack(w[j]);
-      wo[j] = Type<T>::pack(f.x * p.sm_scale, f.y * p.sm_scale);
-    }
-    *reinterpret_cast<uint4*>(sQ + r * LD + c) = out;
-  }
-
-  auto block_of = [&](int slot) {
-    const int blk = idx[slot];
-    return blk < 0 ? 0 : (blk >= p.num_key_blocks ? p.num_key_blocks - 1 : blk);
-  };
-  // K2: this block's 64 rows lie in one row block r of the group; a union
-  // slot it is not a member of is skipped (its scores would all be masked)
-  auto member = [&](int slot) {
-    return !GROUPED || slot < clean || ((bits[slot] >> member_bit) & 1);
-  };
-  auto next_slot = [&](int slot) {
-    while (slot < count && !member(slot)) ++slot;
-    return slot;
-  };
-  // one unit = 64 keys (half h of the slot's block) of K and V into ring
-  // stage st
-  auto load_unit = [&](int st, int slot, int h) {
-    const long long tok0 = (long long)block_of(slot) * BLOCK_N + h * UNIT;
-    const T* ks = kg + tok0 * p.kv_row_stride;
-    const T* vs = vg + tok0 * p.kv_row_stride;
-    T* kd = sK + st * UNIT * LD;
-    T* vd = sV + st * UNIT * LD;
-    for (int i = tid; i < UNIT * CPR; i += NTHREADS) {
-      const int r = i / CPR, c = (i % CPR) * 8;
-      cp_async16(kd + r * LD + c, ks + r * p.kv_row_stride + c);
-      cp_async16(vd + r * LD + c, vs + r * p.kv_row_stride + c);
-    }
-  };
-
-  int slot = next_slot(0), half = 0, st = 0;
-  if (slot < count) {
-    load_unit(0, slot, 0);
-    cp_async_commit();
-  }
-  __syncthreads();   // sQ written
-
-  uint32_t qf[KT][4];
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk)
-    ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-
-  float o_acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    o_acc[n][0] = o_acc[n][1] = o_acc[n][2] = o_acc[n][3] = 0.f;
-  float m_r[2] = {neg_inf(), neg_inf()};   // rows g and g+8 of this warp
-  float l_r[2] = {0.f, 0.f};               // thread-partial row sums
-  const int g = lane >> 2, t4 = lane & 3;
-  const int mi = lane >> 3, r8 = lane & 7;  // ldmatrix: matrix id / row within it
-
-  while (slot < count) {
-    // prefetch the next unit into the other stage while this one computes
-    const int next = half ? next_slot(slot + 1) : slot;
-    if (next < count) {
-      load_unit(st ^ 1, next, half ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const T* kb = sK + st * UNIT * LD;
-    const T* vb = sV + st * UNIT * LD;
-
-    // S = (q*scale) K^T for this warp's 16 rows x 64 keys
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, kb + (np * 16 + (mi >> 1) * 8 + r8) * LD + kk * 16 + (mi & 1) * 8);
-        Type<T>::mma(s[2 * np], qf[kk], kf[0], kf[1]);
-        Type<T>::mma(s[2 * np + 1], qf[kk], kf[2], kf[3]);
-      }
-    }
-
-    // past the clean prefix the key window applies; a unit wholly inside
-    // the visual window is unaffected by it, so only the others pay for
-    // the per-element test (in K2 most member slots lie past the union's
-    // clean prefix)
-    const int col0 = block_of(slot) * BLOCK_N + half * UNIT;
-    if (slot >= clean && col0 + UNIT > p.visual_len) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = col0 + n * 8 + 2 * t4 + (e & 1);
-          const bool valid = col < p.visual_len ||
-              (p.has_text && col >= p.text_start && col < p.text_start + tlen);
-          s[n][e] = valid ? s[n][e] : MASK_VALUE;
-        }
-      }
-    }
-
-    // online softmax (row max over the 4 threads that share a row)
-    float mc[2] = {neg_inf(), neg_inf()};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      mc[0] = fmaxf(mc[0], fmaxf(s[n][0], s[n][1]));
-      mc[1] = fmaxf(mc[1], fmaxf(s[n][2], s[n][3]));
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 1));
-      mc[i] = fmaxf(mc[i], __shfl_xor_sync(0xffffffffu, mc[i], 2));
-      const float m_new = fmaxf(m_r[i], mc[i]);
-      alpha[i] = __expf(m_r[i] - m_new);
-      m_r[i] = m_new;
-    }
-    float ls[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = __expf(s[n][e] - m_r[e >> 1]);
-        s[n][e] = pe;
-        ls[e >> 1] += pe;
-      }
-    }
-    l_r[0] = alpha[0] * l_r[0] + ls[0];
-    l_r[1] = alpha[1] * l_r[1] + ls[1];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o_acc[n][0] *= alpha[0];
-      o_acc[n][1] *= alpha[0];
-      o_acc[n][2] *= alpha[1];
-      o_acc[n][3] *= alpha[1];
-    }
-
-    // O += P V, P rounded to T (the C fragments of two key n-tiles are the
-    // A fragment of one 16-key k-step)
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      a[0] = Type<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = Type<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = Type<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = Type<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vb + (kk * 16 + (mi & 1) * 8 + r8) * LD + dp * 16 + (mi >> 1) * 8);
-        Type<T>::mma(o_acc[2 * dp], a, vf[0], vf[1]);
-        Type<T>::mma(o_acc[2 * dp + 1], a, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();   // stage st is refilled by the next iteration's load
-    slot = next;
-    half ^= 1;
-    st ^= 1;
-  }
-
-  // degenerate rows (see the header): count > 0 and no unmasked own key, so
-  // m is still MASK_VALUE (or -inf where no own slot was walked, with o and
-  // l still 0).  Every other lane of the row's chunks then weighs p = 1;
-  // the branch is uniform over the block and other blocks skip it.
-  if (count > 0 && m_r[0] <= MASK_VALUE) {
-    const int npad = (count + p.chunk_blocks - 1) / p.chunk_blocks * p.chunk_blocks;
-    m_r[0] = m_r[1] = MASK_VALUE;
-    uint32_t ones[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) ones[i] = Type<T>::pack(1.f, 1.f);
-    for (int pslot = 0; pslot < npad; ++pslot) {
-      if (pslot < count && member(pslot)) continue;
-      for (int h = 0; h < 2; ++h) {
-        // a slot past the list is chunk padding: block 0, as the JAX
-        // wrapper pads; stage 0 is free (every reader passed a barrier)
-        const long long tok0 = (long long)(pslot < p.nb_slots ? block_of(pslot) : 0) * BLOCK_N + h * UNIT;
-        const T* vs = vg + tok0 * p.kv_row_stride;
-        for (int i = tid; i < UNIT * CPR; i += NTHREADS) {
-          const int r = i / CPR, c = (i % CPR) * 8;
-          cp_async16(sV + r * LD + c, vs + r * p.kv_row_stride + c);
-        }
-        cp_async_commit();
-        cp_async_wait<0>();
-        __syncthreads();
-        l_r[0] += 16.f;   // this thread's 16 of the unit's 64 lanes
-        l_r[1] += 16.f;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-          for (int dp = 0; dp < D / 16; ++dp) {
-            uint32_t vf[4];
-            ldmatrix_x4_trans(vf, sV + (kk * 16 + (mi & 1) * 8 + r8) * LD + dp * 16 + (mi >> 1) * 8);
-            Type<T>::mma(o_acc[2 * dp], ones, vf[0], vf[1]);
-            Type<T>::mma(o_acc[2 * dp + 1], ones, vf[2], vf[3]);
-          }
-        }
-        __syncthreads();
-      }
-    }
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
-    inv[i] = l_r[i] == 0.f ? 1.f : 1.f / l_r[i];
-  }
-  if constexpr (STATS) {
-    // one lane of each row's quad writes its reduced stats
-    if (t4 == 0) {
-      const long long r0 = (long long)bh * p.sq + row0 + warp * 16 + g;
-      p.m_out[r0] = m_r[0];
-      p.l_out[r0] = l_r[0];
-      p.m_out[r0 + 8] = m_r[1];
-      p.l_out[r0 + 8] = l_r[1];
-    }
-  }
-  T* o0 = og + (long long)(warp * 16 + g) * D + 2 * t4;
-  T* o1 = o0 + 8 * D;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    *reinterpret_cast<uint32_t*>(o0 + n * 8) =
-        Type<T>::pack(o_acc[n][0] * inv[0], o_acc[n][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(o1 + n * 8) =
-        Type<T>::pack(o_acc[n][2] * inv[1], o_acc[n][3] * inv[1]);
-  }
-}
-
-template <typename T, int D, bool GROUPED, bool STATS>
-int launch(const Params& p, int bh, cudaStream_t stream) {
-  constexpr int smem = (TILE_M + 4 * UNIT) * (D + 8) * (int)sizeof(T);
-  auto kern = sparse_attn_kernel<T, D, GROUPED, STATS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(p.sq / TILE_M, bh);
-  kern<<<grid, NTHREADS, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-template <bool GROUPED, bool STATS>
-int dispatch(const Params& p, int bh, int head_dim, int dtype, cudaStream_t s) {
-  // head_dim 128 only: HunyuanVideo's; other widths come with their models
-  if (head_dim != 128) return -1;
-  if (dtype == 0) return launch<__nv_bfloat16, 128, GROUPED, STATS>(p, bh, s);
-  if (dtype == 1) return launch<__half, 128, GROUPED, STATS>(p, bh, s);
-  return -1;
-}
-
-Params make_params(const void* q, const void* k, const void* v, void* o,
-                   const int* indices, const int* counts, const int* clean,
-                   const int* rowbits, const int* text_len, float* m_out,
-                   float* l_out, long long kv_bh_stride,
-                   long long kv_row_stride, int heads,
-                   int sq, int n_list, int nb_slots, int num_key_blocks,
-                   int block_m, int group, int chunk_blocks, int visual_len,
-                   int text_start, int has_text, float sm_scale) {
-  Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
-  p.indices = indices; p.counts = counts; p.clean = clean;
-  p.rowbits = rowbits; p.text_len = text_len;
-  p.m_out = m_out; p.l_out = l_out;
-  p.kv_bh_stride = kv_bh_stride; p.kv_row_stride = kv_row_stride;
-  p.heads = heads; p.sq = sq; p.n_list = n_list; p.nb_slots = nb_slots;
-  p.num_key_blocks = num_key_blocks; p.block_m = block_m; p.group = group;
-  p.chunk_blocks = chunk_blocks;
-  p.visual_len = visual_len; p.text_start = text_start; p.has_text = has_text;
-  p.sm_scale = sm_scale;
-  return p;
-}
 
 // ------------------------------------------------------------ K1 and K1s ---
 //
@@ -464,11 +116,13 @@ struct K1Params {
   const int* indices;          // [BH, n_list, nb_slots]
   const int* counts;           // [BH, n_list]
   const int* clean;            // [BH, n_list]
+  const int* rowbits;          // K2: [BH, n_list, nb_slots]
   const int* text_len;         // [B]
   long long kv_bh_stride, kv_row_stride;   // elements
   int heads, sq, n_list, nb_slots, num_key_blocks, block_m, chunk_blocks;
   int visual_len, text_start, has_text;
   int n_split, split_slots;
+  int group;                   // K2: row blocks per union list
   float sm_scale;
 };
 
@@ -476,6 +130,81 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+
+// A unit's key window, computed once: offsets (from this thread's first
+// column) below `vis` or in [t_lo, t_lo + t_n) are keys, the rest score
+// MASK_VALUE.  A unit in the clean prefix or wholly inside the visual
+// window (`all`, the same for every thread) keeps every score.
+struct KeyWindow {
+  int vis, t_lo;
+  unsigned t_n;
+  bool all;
+};
+
+// s's lanes outside the window set to their row's `masked` value
+// (MASK_VALUE for the fp32 scores; K1q mxu8 masks integer scores and
+// exponents too)
+template <typename V>
+__device__ __forceinline__ void mask_lanes(const KeyWindow& w, V (&s)[64],
+                                           const V (&masked)[2]) {
+  if (w.all) return;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int off = 8 * (i >> 2) + (i & 1);
+    const bool ok = (off < w.vis) | ((unsigned)(off - w.t_lo) < w.t_n);
+    s[i] = ok ? s[i] : masked[(i >> 1) & 1];
+  }
+}
+
+__device__ __forceinline__ void mask_window(const KeyWindow& w,
+                                            float (&s)[64]) {
+  const float masked[2] = {MASK_VALUE, MASK_VALUE};
+  mask_lanes(w, s, masked);
+}
+
+// a key block starting at key k0 holds a key of the window
+__device__ __forceinline__ bool block_has_key(int k0, int visual_len,
+                                              int text_start, int has_text,
+                                              int tlen) {
+  return k0 < visual_len || (has_text && tlen > 0 &&
+                             k0 < text_start + tlen &&
+                             k0 + HA_KEYS > text_start);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// o / l of a thread's rows (row: the r = 0 row's index in [BH * Sq]) in
+// T, and with STATS m and l, one lane of each row's quad
+template <typename T, bool STATS>
+__device__ __forceinline__ void store_rows(void* out, float* m_out,
+                                           float* l_out, long long row,
+                                           const float (&o)[64],
+                                           const float (&m)[2],
+                                           const float (&l)[2],
+                                           const float (&inv)[2],
+                                           const Frag& f) {
+  T* o0 = reinterpret_cast<T*>(out) + row * HA_D + 2 * f.t4;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(o0 + r * 8 * HA_D + 8 * j) =
+          Type<T>::pack(o[4 * j + 2 * r] * inv[r],
+                        o[4 * j + 2 * r + 1] * inv[r]);
+  }
+  if constexpr (STATS) {
+    if (f.t4 == 0) {
+      m_out[row] = m[0];
+      l_out[row] = l[0];
+      m_out[row + 8] = m[1];
+      l_out[row + 8] = l[1];
+    }
+  }
+}
 
 template <typename T, bool STATS>
 struct SparseTiles {
@@ -511,18 +240,11 @@ struct SparseTiles {
     const int blk = c.idx[slot];
     return blk < 0 ? 0 : (blk >= p.num_key_blocks ? p.num_key_blocks - 1 : blk);
   }
+  static __device__ int next(const Params&, const Tile&, int u) { return u; }
   static __device__ int key_row(const Params& p, const Tile& c, int u) {
     return block_of(p, c, u) * HA_KEYS;
   }
-  // the unit's key window, once: offsets (from this thread's first
-  // column) below `vis` or in [t_lo, t_lo + t_n); the rest score
-  // MASK_VALUE.  A unit in the clean prefix or wholly inside the visual
-  // window (`all`, the same for every thread) keeps every score.
-  struct Window {
-    int vis, t_lo;
-    unsigned t_n;
-    bool all;
-  };
+  using Window = KeyWindow;
   static __device__ Window window(const Params& p, const Tile& c, int u,
                                   const Frag& f) {
     const int blk0 = block_of(p, c, u) * HA_KEYS;
@@ -535,13 +257,7 @@ struct SparseTiles {
   }
   static __device__ void mask(const Params&, const Window& w,
                               float (&s)[64]) {
-    if (w.all) return;
-#pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      const int off = 8 * (i >> 2) + (i & 1);
-      const bool ok = (off < w.vis) | ((unsigned)(off - w.t_lo) < w.t_n);
-      s[i] = ok ? s[i] : MASK_VALUE;
-    }
+    mask_window(w, s);
   }
   static __device__ void finish(const Params& p, const Tile& c,
                                 float (&o)[64], float (&m)[2], float (&l)[2],
@@ -577,23 +293,7 @@ struct SparseTiles {
     quad_sum(l, inv);
     const long long row = (long long)c.bh * p.sq + c.q_row + f.row;
     if (p.n_split == 1) {
-      T* o0 = reinterpret_cast<T*>(p.o) + row * HA_D + 2 * f.t4;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          *reinterpret_cast<uint32_t*>(o0 + r * 8 * HA_D + 8 * j) =
-              Type<T>::pack(o[4 * j + 2 * r] * inv[r],
-                            o[4 * j + 2 * r + 1] * inv[r]);
-      }
-      if constexpr (STATS) {
-        if (f.t4 == 0) {
-          p.m_out[row] = m[0];
-          p.l_out[row] = l[0];
-          p.m_out[row + 8] = m[1];
-          p.l_out[row + 8] = l[1];
-        }
-      }
+      store_rows<T, STATS>(p.o, p.m_out, p.l_out, row, o, m, l, inv, f);
     } else {
       const long long prow = (long long)c.split * gridDim.y * p.sq + row;
       float* o0 = p.o_part + prow * HA_D + 2 * f.t4;
@@ -681,531 +381,626 @@ int launch_merge(const float* o_part, const float* m_part, const float* l_part,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------------- K2 ---
+//
+// K2 on the same mainloop.  A CTA owns 128 query rows, which lie in one
+// row block (block_m a multiple of 128) and so share one membership bit of
+// their union list.  Producer and consumers walk the same units, found by
+// next(): the member slots (slot < clean, or the bit set in rowbits).  A
+// non-member tile, whose scores the JAX kernel pushes to MASK_VALUE, is
+// neither copied nor computed, so a CTA does K1's work on its own pairs.
+// A degenerate CTA (count > 0 and no member slot holding a key of the
+// window; decided from the list before the walk, the same way in every
+// thread) walks instead every slot of ceil(count / chunk_blocks) chunks —
+// own, non-member and padding (block 0 past the list) — with every score
+// masked, so p = 1 on each lane: the JAX chunk average.
+
+template <typename T>
+struct GroupedTiles : SparseTiles<T, false> {
+  using Params = K1Params;
+  using Window = KeyWindow;
+  struct Tile {
+    int q_row, q_head, q_batch, kv_head, kv_batch, u0, u1;
+    int bh, count, clean, tlen, bit;
+    bool degenerate;
+    const int* idx;
+    const int* bits;
+  };
+  static __device__ int block_of(const Params& p, const Tile& c, int slot) {
+    if (slot >= p.nb_slots) return 0;   // chunk padding
+    const int blk = c.idx[slot];
+    return blk < 0 ? 0 : (blk >= p.num_key_blocks ? p.num_key_blocks - 1 : blk);
+  }
+  static __device__ bool member(const Tile& c, int slot) {
+    return slot < c.clean || ((c.bits[slot] >> c.bit) & 1);
+  }
+  // slot holds a key of the window
+  static __device__ bool live(const Params& p, const Tile& c, int slot) {
+    return slot < c.clean ||
+           block_has_key(block_of(p, c, slot) * HA_KEYS, p.visual_len,
+                         p.text_start, p.has_text, c.tlen);
+  }
+  static __device__ Tile tile(const Params& p, int) {
+    Tile c;
+    const int rt = blockIdx.x, rb = rt * HA_ROWS / p.block_m;
+    c.bh = blockIdx.y;
+    c.bit = rb % p.group;
+    const long long lr = (long long)c.bh * p.n_list + rb / p.group;
+    c.count = p.counts[lr];
+    c.clean = p.clean[lr];
+    c.idx = p.indices + lr * p.nb_slots;
+    c.bits = p.rowbits + lr * p.nb_slots;
+    c.tlen = p.text_len[c.bh / p.heads];
+    c.q_row = rt * HA_ROWS;
+    c.q_head = c.kv_head = c.bh;
+    c.q_batch = c.kv_batch = 0;
+    c.u0 = 0;
+    int s = 0;   // the first live member (slot 0 for almost every list)
+    while (s < c.count && !(member(c, s) && live(p, c, s))) ++s;
+    c.degenerate = c.count > 0 && s == c.count;
+    const int g = p.chunk_blocks;
+    c.u1 = c.degenerate ? (c.count + g - 1) / g * g : c.count;
+    return c;
+  }
+  static __device__ int next(const Params&, const Tile& c, int u) {
+    if (!c.degenerate)
+      while (u < c.count && !member(c, u)) ++u;
+    return u;
+  }
+  static __device__ int key_row(const Params& p, const Tile& c, int u) {
+    return block_of(p, c, u) * HA_KEYS;
+  }
+  // K1's window; a degenerate CTA's keeps no key
+  static __device__ Window window(const Params& p, const Tile& c, int u,
+                                  const Frag& f) {
+    const int blk0 = block_of(p, c, u) * HA_KEYS;
+    Window w;
+    w.all = !c.degenerate & ((u < c.clean) | (blk0 + HA_KEYS <= p.visual_len));
+    w.vis = c.degenerate ? -(1 << 30) : p.visual_len - blk0 - 2 * f.t4;
+    w.t_lo = p.text_start - blk0 - 2 * f.t4;
+    w.t_n = (p.has_text && !c.degenerate) ? (unsigned)c.tlen : 0u;
+    return w;
+  }
+  static __device__ void finish(const Params& p, const Tile& c,
+                                float (&o)[64], float (&m)[2], float (&l)[2],
+                                const Frag& f, float*) {
+    float inv[2];
+    quad_sum(l, inv);
+    store_rows<T, false>(p.o, nullptr, nullptr,
+                         (long long)c.bh * p.sq + c.q_row + f.row, o, m, l,
+                         inv, f);
+  }
+};
+
 // ------------------------------------------------------------------ K1q ---
 //
 // K1 on an int8 K|V payload (sparse/ops.py::quantize_kv_blocks): kv
 // [BH, S, 2D] int8, K in bytes [0, D) of a row and V in [D, 2D); fp32
-// per-slot scales ksc/vsc [BH, n_list, nb_slots], gathered to list order and
-// padded to a multiple of chunk_blocks (index 0, scale 0) by the wrapper.
-// Replaces the Pallas kernel _sparse_attn_kernel with quant="int8" / "mxu8"
-// (rectified_spaattn_tpu/kernels/block_sparse.py:176-253).
+// per-slot scales ksc / vsc [BH, n_list, nb_slots], gathered to list order
+// and padded to a multiple of chunk_blocks (index 0, scale 0) by the
+// wrapper.  Replaces the Pallas kernel _sparse_attn_kernel with
+// quant="int8" / "mxu8" (rectified_spaattn_tpu/kernels/block_sparse.py:
+// 176-253); K1q-s (STATS) writes m and l as K1s does.
 //
-// "int8": q*sm_scale rounded to bf16; a unit's int8 K and V become bf16 in
-// shared memory (exact) and run K1's bf16 dots; s = (q K^T) * ksc[slot]; l
-// sums p; P = bf16(p * vsc[slot]).  The online softmax walks 64-key units as
-// K1 does, and a degenerate row adds its chunk padding in a second pass.
-// It halves K1's K/V bytes, which buys nothing where K1 is bound by
-// tensor-core operations (the H100 at the operating point).
+// hopper_attn_q_kernel: the mainloop's CTA of 128 rows and 384 threads,
+// whose producer warpgroup also converts.  Its first thread issues every
+// TMA copy: q once, and per unit the int8 tiles (128 x 128-byte boxes of
+// one 2-D map of the payload) into a two-stage staging ring, one unit
+// ahead.  All 128 threads convert: they wait for a staged unit and a free
+// ring stage, turn the int8 tiles into 16-bit tiles in the ring's swizzled
+// layout (exact, in bf16x2 / f16x2 adds), and arrive on the ring stage's
+// full barrier; the dequantization stays off the consumers' path.
+//   "int8": the converter writes bf16 K and V, and the consumers run K1's
+// products: s = (q K^T) * ksc[slot] (q * sm_scale rounded to bf16), l sums
+// p, P = bf16(p * vsc[slot]).
+//   "mxu8": the consumers quantize their q rows to int8 at tile start (row
+// scale qmax * sm_scale / 127) and run S = q8 K8^T on the s8 wgmma
+// (m64n128k32, both operands K-major as the payload stands; K8 goes by TMA
+// straight into the ring).  p is quantized per row against the max of
+// exp(s - m) * vsc over a chunk of chunk_blocks slots, so each chunk takes
+// two passes: pass A runs S and keeps the row max and that max; pass B
+// runs S again, then p, p8 = round(p * vsc * 127 / pm) and P8 V8 on the
+// fp16 wgmma (p8 and V8, converted to fp16 by the converter, are exact
+// integers, and a unit's sum, at most 128 * 127 * 127 < 2^24, is exact in
+// fp32).  The two passes' QK^T run at the int8 rate.  O is rescaled once
+// per chunk instead of keeping a second accumulator: by alpha * 127 / pm at
+// the chunk's start and pm / 127 after it; a chunk with pm < 1e-20 adds
+// nothing (p8 = 0, its JAX contribution is below 1e-14 of O).
+//   Degenerate lists (count > 0, no listed key in the window; decided from
+// the list before the walk, the same way by every thread) walk every slot of
+// ceil(count / chunk_blocks) chunks, padding included, with every score
+// masked: p = 1 on each lane, the JAX chunk average.  Other lists walk
+// their count slots only (a padding lane weighs exp(MASK_VALUE - m) = 0).
 //
-// "mxu8": q per row to int8 against its absmax over D (row scale qmax *
-// sm_scale / 127); s = int32(q8 K8^T) * row_scale * ksc[slot].  p is
-// quantized per row against the max of p * vsc over one chunk of
-// chunk_blocks slots, so each chunk takes two passes over its units: pass A
-// runs the int8 QK^T and keeps the row max m and the max of exp(s - m) *
-// vsc, rescaled as m moves; pass B recomputes s, p = exp(s - m_next),
-// p8 = round(p * vsc * 127 / pm), and adds int32(p8 V8) * pm / 127 to the
-// fp32 accumulator.  That is 1.5x K1's tensor-core work at int8's
-// twice-bf16 rate (1,979 against 989 dense TOP/s on the H100).
-//   The int8 mma wants its B operand "col" (k contiguous).  For QK^T that is
-// K's rows as they stand; for P V it is V^T, and ldmatrix.trans moves 16-bit
-// elements only, so each unit's V tile is transposed in shared memory with
-// byte permutes.  The k order of P's A fragment is permuted so that it is
-// the score mma's C fragment as it stands (k position 16h + 4t + 2j + e
-// holds key 16h + 8j + 2t + e of a 32-key step), and V^T is stored in the
-// same order.
+// Shared memory: q (32 KB), the ring (per stage: K as bf16 32 KB, or int8
+// 16 KB for mxu8; V as 16 bits, 32 KB), the staging ring (per stage: K8 and
+// V8, or V8 alone for mxu8), mxu8's q8 (16 KB) and row scales: 225.6 KB
+// ("int8") and 177.6 KB ("mxu8").
 
 constexpr int MODE_INT8 = 0, MODE_MXU8 = 1;
-
-struct QParams {
-  const __nv_bfloat16* q;  // [BH, Sq, D]
-  const int8_t* kv;        // [BH, S, 2D]
-  __nv_bfloat16* o;        // [BH, Sq, D]
-  const int* indices;      // [BH, n_list, nb_slots]
-  const int* counts;       // [BH, n_list]
-  const int* clean;        // [BH, n_list]
-  const float* ksc;        // [BH, n_list, nb_slots]
-  const float* vsc;
-  const int* text_len;     // [B]
-  long long kv_bh_stride;  // bytes
-  int heads, sq, n_list, nb_slots, num_key_blocks, block_m, chunk_blocks;
-  int visual_len, text_start, has_text;
-  float sm_scale, row_scale;   // row_scale = sm_scale / 127 (mxu8)
-};
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
   return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) |
          ((uint32_t)(c & 0xff) << 16) | ((uint32_t)(d & 0xff) << 24);
 }
 
-// 16 int8 values -> 16 bf16 values (exact)
-__device__ __forceinline__ void int8_to_bf16_16(__nv_bfloat16* dst,
-                                                const int8_t* src) {
-  const int4 raw = *reinterpret_cast<const int4*>(src);
-  const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
-  uint4 o0, o1;
-  uint32_t* w0 = reinterpret_cast<uint32_t*>(&o0);
-  uint32_t* w1 = reinterpret_cast<uint32_t*>(&o1);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    w0[j] = Type<__nv_bfloat16>::pack((float)v[2 * j], (float)v[2 * j + 1]);
-    w1[j] = Type<__nv_bfloat16>::pack((float)v[8 + 2 * j], (float)v[9 + 2 * j]);
-  }
-  *reinterpret_cast<uint4*>(dst) = o0;
-  *reinterpret_cast<uint4*>(dst + 8) = o1;
+struct QParams {
+  CUtensorMap tmq;            // (D, row, bh, 1) map of q (bf16)
+  CUtensorMap tmkv;           // the payload as [BH * S, 2D] int8
+  __nv_bfloat16* o;           // [BH, Sq, D]
+  float* m_out;               // K1q-s [BH, Sq]
+  float* l_out;
+  const int* indices;         // [BH, n_list, nb_slots]
+  const int* counts;          // [BH, n_list]
+  const int* clean;           // [BH, n_list]
+  const float* ksc;           // [BH, n_list, nb_slots]
+  const float* vsc;
+  const int* text_len;        // [B]
+  int heads, sq, n_list, nb_slots, num_key_blocks, block_m, chunk_blocks;
+  int visual_len, text_start, has_text;
+  float sm_scale, row_scale;  // row_scale = sm_scale / 127 (mxu8)
+};
+
+template <int MODE>
+struct QLayout {
+  static constexpr int RING_K = MODE == MODE_INT8 ? HA_TILE : HA_TILE8;
+  static constexpr int RING = RING_K + HA_TILE;         // K, then V (16-bit)
+  static constexpr int STAGE8 = MODE == MODE_INT8 ? 2 * HA_TILE8 : HA_TILE8;
+  static constexpr int Q8 = MODE == MODE_MXU8 ? HA_TILE8 : 0;
+  static constexpr int BARS = 1 + 3 * HA_STAGES;        // q, full/empty, staged
+  static constexpr int BYTES = 1024 + HA_TILE + HA_STAGES * RING +
+                               HA_STAGES * STAGE8 + Q8 + 8 * BARS +
+                               HA_ROWS * 4;
+};
+
+// One CTA's list and walk, computed alike by every thread.  Unit n of the
+// walk: "int8" and degenerate lists, slot n; "mxu8", chunk n / (2 cb) with
+// its len slots, pass A (slots s0 ..) for the first len units, pass B
+// after.
+struct QTile {
+  int bh, q_row, count, clean, tlen, n_units;
+  bool degenerate;
+  const int* idx;
+  const float* ksc;
+  const float* vsc;
+};
+
+__device__ __forceinline__ int q_block(const QParams& p, const QTile& c,
+                                       int slot) {
+  const int blk = c.idx[slot];
+  return blk < 0 ? 0 : (blk >= p.num_key_blocks ? p.num_key_blocks - 1 : blk);
 }
 
 template <int MODE>
-constexpr int q_smem_bytes(int d) {
-  return 4 * UNIT * (d + 16) +
-         (MODE == MODE_INT8 ? (TILE_M + 2 * UNIT) * (d + 8) * 2
-                            : TILE_M * (d + 16) + d * (UNIT + 16) + TILE_M * 4);
+__device__ __forceinline__ QTile q_tile(const QParams& p) {
+  QTile c;
+  const int rt = blockIdx.x;
+  c.bh = blockIdx.y;
+  c.q_row = rt * HA_ROWS;
+  const long long lr = (long long)c.bh * p.n_list + c.q_row / p.block_m;
+  c.count = p.counts[lr];
+  c.clean = p.clean[lr];
+  c.idx = p.indices + lr * p.nb_slots;
+  c.ksc = p.ksc + lr * p.nb_slots;
+  c.vsc = p.vsc + lr * p.nb_slots;
+  c.tlen = p.text_len[c.bh / p.heads];
+  int s = 0;   // the first slot with a key of the window
+  while (s < c.count && s >= c.clean &&
+         !block_has_key(q_block(p, c, s) * HA_KEYS, p.visual_len,
+                        p.text_start, p.has_text, c.tlen))
+    ++s;
+  c.degenerate = c.count > 0 && s == c.count;
+  const int g = p.chunk_blocks;
+  c.n_units = c.degenerate ? (c.count + g - 1) / g * g
+                           : (MODE == MODE_MXU8 ? 2 * c.count : c.count);
+  return c;
 }
 
-// m_out / l_out ([BH, Sq] fp32) are K1q-s's: parameters of their own, so
-// that K1q's QParams is laid out as it was before the stats
-template <int MODE, int D, bool STATS>
-__global__ void __launch_bounds__(NTHREADS, 2)
-sparse_attn_q_kernel(const QParams p, float* m_out, float* l_out) {
-  using T = __nv_bfloat16;
-  constexpr int LB = D + 16;      // int8 smem row (bytes): no ldmatrix conflicts
-  constexpr int LH = D + 8;       // bf16 smem row (elements)
-  constexpr int LT = UNIT + 16;   // V^T smem row (bytes), UNIT keys
-  constexpr int CPR8 = D / 16;    // 16-byte copies per int8 row
-  constexpr int NT = D / 8;
-  constexpr int KQ = MODE == MODE_INT8 ? D / 16 : D / 32;   // QK^T k-steps
-  static_assert(2 * TILE_M == NTHREADS, "two threads per q row");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int8_t* sK8 = reinterpret_cast<int8_t*>(smem_raw);        // [2][UNIT][LB]
-  int8_t* sV8 = sK8 + 2 * UNIT * LB;                         // [2][UNIT][LB]
-  unsigned char* rest = smem_raw + 4 * UNIT * LB;
-  T* sQ = reinterpret_cast<T*>(rest);                        // int8: [TILE_M][LH]
-  T* sKb = sQ + TILE_M * LH;                                 //       [UNIT][LH]
-  T* sVb = sKb + UNIT * LH;                                  //       [UNIT][LH]
-  int8_t* sQ8 = reinterpret_cast<int8_t*>(rest);             // mxu8: [TILE_M][LB]
-  int8_t* sVt = sQ8 + TILE_M * LB;                           //       [D][LT]
-  float* sRow = reinterpret_cast<float*>(sVt + D * LT);      //       [TILE_M]
+// unit n's slot; pass_b: "int8" units, degenerate units and mxu8's pass B
+template <int MODE>
+__device__ __forceinline__ int q_unit(const QTile& c, int cb, int n,
+                                      bool& pass_b) {
+  if (MODE == MODE_INT8 || c.degenerate) {
+    pass_b = true;
+    return n;
+  }
+  const int ch = n / (2 * cb), s0 = ch * cb;
+  const int len = min(cb, c.count - s0), r = n - 2 * cb * ch;
+  pass_b = r >= len;
+  return s0 + (pass_b ? r - len : r);
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bh = blockIdx.y;
-  const int row0 = blockIdx.x * TILE_M;
-  const int b = bh / p.heads;
-  const long long lr = (long long)bh * p.n_list + row0 / p.block_m;
-  const int count = p.counts[lr];
-  const int clean = p.clean[lr];
-  const int* idx = p.indices + lr * p.nb_slots;
-  const float* ksc = p.ksc + lr * p.nb_slots;
-  const float* vsc = p.vsc + lr * p.nb_slots;
-  const int tlen = p.text_len[b];
-  const int cb = p.chunk_blocks;
-  const T* qg = p.q + ((long long)bh * p.sq + row0) * D;
-  T* og = p.o + ((long long)bh * p.sq + row0) * D;
-  const int8_t* kvg = p.kv + (long long)bh * p.kv_bh_stride;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int mi = lane >> 3, r8 = lane & 7;  // ldmatrix: matrix id / row within it
-
-  if constexpr (MODE == MODE_INT8) {
-    // q * sm_scale in fp32, rounded to bf16
-    for (int i = tid; i < TILE_M * (D / 8); i += NTHREADS) {
-      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-      const uint4 raw = *reinterpret_cast<const uint4*>(qg + (long long)r * D + c);
-      const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
-      uint4 out;
-      uint32_t* wo = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = Type<T>::unpack(w[j]);
-        wo[j] = Type<T>::pack(f.x * p.sm_scale, f.y * p.sm_scale);
-      }
-      *reinterpret_cast<uint4*>(sQ + r * LH + c) = out;
-    }
+// a unit's staged int8 tiles: K8 and V8 ("int8"), V8 ("mxu8")
+template <int MODE>
+__device__ __forceinline__ void stage_load(unsigned char* dst,
+                                           const CUtensorMap* map, int row,
+                                           uint64_t* bar) {
+  if (MODE == MODE_INT8) {
+    tma_load(dst, map, 0, row, bar);
+    tma_load(dst + HA_TILE8, map, HA_D, row, bar);
   } else {
-    // q to int8 per row: thread pairs (tid, tid ^ 1) hold the two halves
-    // of row tid / 2
-    const int r = tid >> 1, h0 = (tid & 1) * (D / 2);
-    const T* qr = qg + (long long)r * D + h0;
-    float amax = 0.f;
-    for (int c = 0; c < D / 2; c += 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(qr + c);
-      const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = Type<T>::unpack(w[j]);
-        amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
-      }
-    }
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
-    const float inv = 127.f / fmaxf(amax, 1e-30f);
-    for (int c = 0; c < D / 2; c += 8) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(qr + c);
-      const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
-      int v8[8];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = Type<T>::unpack(w[j]);
-        v8[2 * j] = __float2int_rn(f.x * inv);
-        v8[2 * j + 1] = __float2int_rn(f.y * inv);
-      }
-      *reinterpret_cast<uint2*>(sQ8 + r * LB + h0 + c) =
-          make_uint2(pack_s8(v8[0], v8[1], v8[2], v8[3]),
-                     pack_s8(v8[4], v8[5], v8[6], v8[7]));
-    }
-    if ((tid & 1) == 0) sRow[r] = amax * p.row_scale;
-  }
-  __syncthreads();
-
-  uint32_t qf[KQ][4];
-#pragma unroll
-  for (int kk = 0; kk < KQ; ++kk) {
-    if constexpr (MODE == MODE_INT8)
-      ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LH + kk * 16 + (lane >> 4) * 8);
-    else
-      ldmatrix_x4(qf[kk], sQ8 + (warp * 16 + (lane & 15)) * LB + kk * 32 + (lane >> 4) * 16);
-  }
-
-  float o_acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    o_acc[n][0] = o_acc[n][1] = o_acc[n][2] = o_acc[n][3] = 0.f;
-  float m_r[2] = {neg_inf(), neg_inf()};   // rows g and g+8 of this warp
-  float l_r[2] = {0.f, 0.f};               // thread-partial row sums
-
-  auto block_of = [&](int slot) {
-    const int blk = idx[slot];
-    return blk < 0 ? 0 : (blk >= p.num_key_blocks ? p.num_key_blocks - 1 : blk);
-  };
-  // one unit = 64 keys (half h of the slot's block): int8 K (and V) rows
-  // into ring stage st
-  auto load_unit = [&](int st, int slot, int h, bool with_v) {
-    const int8_t* src = kvg + ((long long)block_of(slot) * BLOCK_N + h * UNIT) * (2 * D);
-    int8_t* kd = sK8 + st * UNIT * LB;
-    int8_t* vd = sV8 + st * UNIT * LB;
-    for (int i = tid; i < UNIT * CPR8; i += NTHREADS) {
-      const int r = i / CPR8, c = (i % CPR8) * 16;
-      cp_async16(kd + r * LB + c, src + r * 2 * D + c);
-      if (with_v) cp_async16(vd + r * LB + c, src + r * 2 * D + D + c);
-    }
-  };
-  // run body(stage, slot, half) on every unit of slots [s0, s1), the next
-  // unit's copy in flight while one computes
-  int st = 0;
-  auto walk = [&](int s0, int s1, bool with_v, auto&& body) {
-    int slot = s0, half = 0;
-    if (slot < s1) {
-      load_unit(st, slot, 0, with_v);
-      cp_async_commit();
-    }
-    while (slot < s1) {
-      const int next = half ? slot + 1 : slot;
-      if (next < s1) {
-        load_unit(st ^ 1, next, half ^ 1, with_v);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      body(st, slot, half);
-      __syncthreads();   // stage st is refilled by the next unit's load
-      slot = next;
-      half ^= 1;
-      st ^= 1;
-    }
-  };
-  // slots past count (chunk padding) mask every key; past the clean prefix
-  // the key window applies
-  auto mask_unit = [&](float (&s)[8][4], int slot, int half) {
-    const int col0 = block_of(slot) * BLOCK_N + half * UNIT;
-    const bool pad = slot >= count;
-    if (pad || (slot >= clean && col0 + UNIT > p.visual_len)) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = col0 + n * 8 + 2 * t4 + (e & 1);
-          const bool valid = !pad && (col < p.visual_len ||
-              (p.has_text && col >= p.text_start && col < p.text_start + tlen));
-          s[n][e] = valid ? s[n][e] : MASK_VALUE;
-        }
-      }
-    }
-  };
-  auto quad_max = [&](const float (&s)[8][4], float (&mx)[2]) {
-    mx[0] = mx[1] = neg_inf();
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    }
-  };
-  auto rescale = [&](const float (&alpha)[2]) {
-    l_r[0] *= alpha[0];
-    l_r[1] *= alpha[1];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o_acc[n][0] *= alpha[0];
-      o_acc[n][1] *= alpha[0];
-      o_acc[n][2] *= alpha[1];
-      o_acc[n][3] *= alpha[1];
-    }
-  };
-
-  if constexpr (MODE == MODE_INT8) {
-    auto body = [&](int stage, int slot, int half) {
-      const bool live = slot < count;
-      const int8_t* k8 = sK8 + stage * UNIT * LB;
-      const int8_t* v8 = sV8 + stage * UNIT * LB;
-      for (int i = tid; i < UNIT * CPR8; i += NTHREADS) {
-        const int r = i / CPR8, c = (i % CPR8) * 16;
-        if (live) int8_to_bf16_16(sKb + r * LH + c, k8 + r * LB + c);
-        int8_to_bf16_16(sVb + r * LH + c, v8 + r * LB + c);
-      }
-      __syncthreads();
-      float s[8][4];
-      const float ks = live ? ksc[slot] : 0.f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      if (live) {
-#pragma unroll
-        for (int kk = 0; kk < KQ; ++kk) {
-#pragma unroll
-          for (int np = 0; np < 4; ++np) {
-            uint32_t kf[4];
-            ldmatrix_x4(kf, sKb + (np * 16 + (mi >> 1) * 8 + r8) * LH + kk * 16 + (mi & 1) * 8);
-            Type<T>::mma(s[2 * np], qf[kk], kf[0], kf[1]);
-            Type<T>::mma(s[2 * np + 1], qf[kk], kf[2], kf[3]);
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] *= ks;
-      }
-      mask_unit(s, slot, half);
-      float mc[2], alpha[2];
-      quad_max(s, mc);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float m_new = fmaxf(m_r[i], mc[i]);
-        alpha[i] = __expf(m_r[i] - m_new);
-        m_r[i] = m_new;
-      }
-      rescale(alpha);
-      const float vs = vsc[slot];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float pe = __expf(s[n][e] - m_r[e >> 1]);
-          l_r[e >> 1] += pe;
-          s[n][e] = pe * vs;
-        }
-      }
-      // O += bf16(p * vsc) V (as K1: two key n-tiles' C fragments are the
-      // A fragment of one 16-key k-step)
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t a[4];
-        a[0] = Type<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-        a[1] = Type<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-        a[2] = Type<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[3] = Type<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
-          uint32_t vf[4];
-          ldmatrix_x4_trans(vf, sVb + (kk * 16 + (mi & 1) * 8 + r8) * LH + dp * 16 + (mi >> 1) * 8);
-          Type<T>::mma(o_acc[2 * dp], a, vf[0], vf[1]);
-          Type<T>::mma(o_acc[2 * dp + 1], a, vf[2], vf[3]);
-        }
-      }
-    };
-    walk(0, count, true, body);
-    // degenerate rows (every own key masked, uniform over the block): the
-    // chunk padding lanes, p = 1
-    if (count > 0 && m_r[0] <= MASK_VALUE)
-      walk(count, (count + cb - 1) / cb * cb, true, body);
-  } else {
-    const float rs[2] = {sRow[warp * 16 + g], sRow[warp * 16 + g + 8]};
-    // S = int32(q8 K8^T) * row_scale * ksc for this warp's 16 rows x 64 keys
-    auto scores = [&](float (&s)[8][4], int stage, int slot) {
-      int sc[8][4] = {};
-      const int8_t* kb = sK8 + stage * UNIT * LB;
-#pragma unroll
-      for (int kk = 0; kk < KQ; ++kk) {
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t kf[4];
-          ldmatrix_x4(kf, kb + (np * 16 + (mi >> 1) * 8 + r8) * LB + kk * 32 + (mi & 1) * 16);
-          mma_s8(sc[2 * np], qf[kk], kf[0], kf[1]);
-          mma_s8(sc[2 * np + 1], qf[kk], kf[2], kf[3]);
-        }
-      }
-      const float ks = ksc[slot];
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[n][e] = (float)sc[n][e] * rs[e >> 1] * ks;
-    };
-    // V8 [UNIT][D] of a stage -> sVt [D][UNIT] in the permuted key order:
-    // 4 keys x 4 dims per item, 4x4 byte transposes with byte_perm
-    auto transpose_v = [&](int stage) {
-      const int8_t* v8 = sV8 + stage * UNIT * LB;
-      for (int i = tid; i < 2 * 2 * 4 * (D / 4); i += NTHREADS) {
-        const int t = i & 3, h = (i >> 2) & 1, kk = (i >> 3) & 1, dq = i >> 4;
-        const int key = 32 * kk + 16 * h + 2 * t;
-        const int8_t* src = v8 + key * LB + 4 * dq;
-        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(src);
-        const uint32_t w1 = *reinterpret_cast<const uint32_t*>(src + LB);
-        const uint32_t w2 = *reinterpret_cast<const uint32_t*>(src + 8 * LB);
-        const uint32_t w3 = *reinterpret_cast<const uint32_t*>(src + 9 * LB);
-        const uint32_t lo01 = __byte_perm(w0, w1, 0x5140);
-        const uint32_t lo23 = __byte_perm(w2, w3, 0x5140);
-        const uint32_t hi01 = __byte_perm(w0, w1, 0x7362);
-        const uint32_t hi23 = __byte_perm(w2, w3, 0x7362);
-        int8_t* dst = sVt + 4 * dq * LT + 32 * kk + 16 * h + 4 * t;
-        *reinterpret_cast<uint32_t*>(dst) = __byte_perm(lo01, lo23, 0x5410);
-        *reinterpret_cast<uint32_t*>(dst + LT) = __byte_perm(lo01, lo23, 0x7632);
-        *reinterpret_cast<uint32_t*>(dst + 2 * LT) = __byte_perm(hi01, hi23, 0x5410);
-        *reinterpret_cast<uint32_t*>(dst + 3 * LT) = __byte_perm(hi01, hi23, 0x7632);
-      }
-    };
-
-    const int nch = (count + cb - 1) / cb;
-    for (int c = 0; c < nch; ++c) {
-      const int s0 = c * cb, s1 = min(s0 + cb, count);
-      // pass A: the chunk's row max and max of exp(s - m) * vsc (the max of
-      // a unit's lanes is at its max score: vsc is constant over a slot)
-      float ma[2] = {neg_inf(), neg_inf()}, pa[2] = {0.f, 0.f};
-      walk(s0, s1, false, [&](int stage, int slot, int half) {
-        float s[8][4], mu[2];
-        scores(s, stage, slot);
-        mask_unit(s, slot, half);
-        quad_max(s, mu);
-        const float vs = vsc[slot];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float m_new = fmaxf(ma[i], mu[i]);
-          pa[i] = fmaxf(pa[i] * __expf(ma[i] - m_new), __expf(mu[i] - m_new) * vs);
-          ma[i] = m_new;
-        }
-      });
-      float alpha[2], pm[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float m_next = fmaxf(m_r[i], ma[i]);
-        pm[i] = pa[i] * __expf(ma[i] - m_next);
-        alpha[i] = __expf(m_r[i] - m_next);
-        m_r[i] = m_next;
-      }
-      rescale(alpha);
-      // a degenerate row (every key so far masked) also weighs the last
-      // chunk's padding lanes, p = 1
-      int s2 = s1;
-      if (m_r[0] <= MASK_VALUE && c == nch - 1) {
-        s2 = s0 + cb;
-        for (int slot = s1; slot < s2; ++slot) {
-          pm[0] = fmaxf(pm[0], vsc[slot]);
-          pm[1] = fmaxf(pm[1], vsc[slot]);
-        }
-      }
-      const float inv_pm[2] = {127.f / fmaxf(pm[0], 1e-30f),
-                               127.f / fmaxf(pm[1], 1e-30f)};
-      const float ps[2] = {pm[0] / 127.f, pm[1] / 127.f};
-      // pass B: p8 V8 in int8, scaled into the fp32 accumulator
-      walk(s0, s2, true, [&](int stage, int slot, int half) {
-        transpose_v(stage);
-        __syncthreads();
-        float s[8][4];
-        if (slot < count) {
-          scores(s, stage, slot);
-        } else {
-#pragma unroll
-          for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = MASK_VALUE;
-        }
-        mask_unit(s, slot, half);
-        const float vs = vsc[slot];
-        int p8[8][4];
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float pe = __expf(s[n][e] - m_r[e >> 1]);
-            l_r[e >> 1] += pe;
-            p8[n][e] = min(__float2int_rn(pe * vs * inv_pm[e >> 1]), 127);
-          }
-        }
-        uint32_t a[2][4];
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          a[kk][0] = pack_s8(p8[4 * kk][0], p8[4 * kk][1], p8[4 * kk + 1][0], p8[4 * kk + 1][1]);
-          a[kk][1] = pack_s8(p8[4 * kk][2], p8[4 * kk][3], p8[4 * kk + 1][2], p8[4 * kk + 1][3]);
-          a[kk][2] = pack_s8(p8[4 * kk + 2][0], p8[4 * kk + 2][1], p8[4 * kk + 3][0], p8[4 * kk + 3][1]);
-          a[kk][3] = pack_s8(p8[4 * kk + 2][2], p8[4 * kk + 2][3], p8[4 * kk + 3][2], p8[4 * kk + 3][3]);
-        }
-#pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
-          int c0[4] = {}, c1[4] = {};
-#pragma unroll
-          for (int kk = 0; kk < 2; ++kk) {
-            uint32_t vf[4];
-            ldmatrix_x4(vf, sVt + (dp * 16 + (mi >> 1) * 8 + r8) * LT + kk * 32 + (mi & 1) * 16);
-            mma_s8(c0, a[kk], vf[0], vf[1]);
-            mma_s8(c1, a[kk], vf[2], vf[3]);
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            o_acc[2 * dp][e] += (float)c0[e] * ps[e >> 1];
-            o_acc[2 * dp + 1][e] += (float)c1[e] * ps[e >> 1];
-          }
-        }
-      });
-    }
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
-    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
-    inv[i] = l_r[i] == 0.f ? 1.f : 1.f / l_r[i];
-  }
-  if constexpr (STATS) {
-    // K1q-s: m in score units after every scale is folded (the score the
-    // exp saw), l the sum of the unquantized p (the JAX kernel's :206)
-    if (t4 == 0) {
-      const long long r0 = (long long)bh * p.sq + row0 + warp * 16 + g;
-      m_out[r0] = m_r[0];
-      l_out[r0] = l_r[0];
-      m_out[r0 + 8] = m_r[1];
-      l_out[r0 + 8] = l_r[1];
-    }
-  }
-  T* o0 = og + (long long)(warp * 16 + g) * D + 2 * t4;
-  T* o1 = o0 + 8 * D;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    *reinterpret_cast<uint32_t*>(o0 + n * 8) =
-        Type<T>::pack(o_acc[n][0] * inv[0], o_acc[n][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(o1 + n * 8) =
-        Type<T>::pack(o_acc[n][2] * inv[1], o_acc[n][3] * inv[1]);
+    tma_load(dst, map, HA_D, row, bar);
   }
 }
 
 template <int MODE, bool STATS>
-int launch_q(const QParams& p, float* m_out, float* l_out, int bh,
-             cudaStream_t stream) {
-  constexpr int smem = q_smem_bytes<MODE>(128);
-  auto kern = sparse_attn_q_kernel<MODE, 128, STATS>;
+__global__ void __launch_bounds__(HA_THREADS, 1)
+hopper_attn_q_kernel(const __grid_constant__ QParams p) {
+  using L = QLayout<MODE>;
+  using V16 = typename std::conditional<MODE == MODE_INT8, __nv_bfloat16,
+                                        __half>::type;
+  extern __shared__ unsigned char ha_raw[];
+  unsigned char* sq = ha_raw + ((1024u - (smem_addr(ha_raw) & 1023u)) & 1023u);
+  unsigned char* ring = sq + HA_TILE;
+  unsigned char* stg = ring + HA_STAGES * L::RING;
+  unsigned char* sq8 = stg + HA_STAGES * L::STAGE8;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sq8 + L::Q8);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + HA_STAGES;
+  uint64_t* sfull = empty + HA_STAGES;
+  float* row_sc = reinterpret_cast<float*>(bars + L::BARS);
+  const int tid = threadIdx.x;
+  constexpr int CONVERTERS = HA_THREADS - HA_CONSUMERS;   // a warpgroup
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < HA_STAGES; ++s) {
+      // mxu8: the issuer's K8 copy arrives too
+      mbar_init(&full[s], CONVERTERS + (MODE == MODE_MXU8));
+      mbar_init(&empty[s], HA_CONSUMERS);
+      mbar_init(&sfull[s], 1);
+    }
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+  const QTile c = q_tile<MODE>(p);
+  const int cb = p.chunk_blocks;
+  const int key_base = c.bh * p.num_key_blocks * HA_KEYS;   // payload row
+
+  if (tid >= HA_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    // the producer warpgroup: all 128 threads convert, and thread 0 of it
+    // also issues the copies in its own program order, so that no warp
+    // diverges around a wait.  A unit's staging load is issued one unit
+    // ahead; the stage it fills was last converted two staged units
+    // earlier, by every thread (the barrier closing each unit).
+    const int ci = tid - HA_CONSUMERS;
+    const bool issuer = ci == 0;
+    auto staged = [&](int n, int& row) {
+      bool pass_b;
+      row = key_base + q_block(p, c, q_unit<MODE>(c, cb, n, pass_b)) * HA_KEYS;
+      return MODE == MODE_INT8 || pass_b;
+    };
+    int st = 0, ss = 0, ss_next = 0;
+    uint32_t ph = 0, sph = 0;
+    if (issuer) {
+      mbar_expect_tx(q_full, HA_TILE);
+      tma_tile(sq, &p.tmq, c.q_row, c.bh, 0, q_full);
+    }
+    for (int n = -1; n < c.n_units; ++n) {
+      int row, row_next;
+      if (issuer && n + 1 < c.n_units && staged(n + 1, row_next)) {
+        mbar_expect_tx(&sfull[ss_next], L::STAGE8);
+        stage_load<MODE>(stg + ss_next * L::STAGE8, &p.tmkv, row_next,
+                         &sfull[ss_next]);
+        ss_next ^= 1;
+      }
+      if (n < 0) continue;
+      const bool has_v = staged(n, row);
+      mbar_wait_or_trap(&empty[st], ph ^ 1);
+      if (MODE == MODE_MXU8 && issuer) {
+        mbar_expect_tx(&full[st], HA_TILE8);
+        tma_load(ring + st * L::RING, &p.tmkv, 0, row, &full[st]);
+      }
+      if (has_v) {
+        mbar_wait_or_trap(&sfull[ss], sph);
+        unsigned char* dst = ring + st * L::RING;
+        const unsigned char* src = stg + ss * L::STAGE8;
+        if (MODE == MODE_INT8) convert_tile<V16>(dst, src, ci);
+        convert_tile<V16>(dst + L::RING_K, src + L::STAGE8 - HA_TILE8, ci);
+        if (++ss == HA_STAGES) {
+          ss = 0;
+          sph ^= 1;
+        }
+      }
+      // the stage's generic writes, visible to wgmma (the async proxy)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&full[st]);
+      if (++st == HA_STAGES) {
+        st = 0;
+        ph ^= 1;
+      }
+      asm volatile("bar.sync 3, 128;\n" ::: "memory");
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    Frag f;
+    f.wg = tid >> 7;
+    f.wtid = tid & 127;
+    f.row = 64 * f.wg + 16 * (f.wtid >> 5) + ((tid & 31) >> 2);
+    f.t4 = tid & 3;
+    mbar_wait_or_trap(q_full, 0);
+    float rs[2] = {0.f, 0.f};   // mxu8: the rows' scales
+    // this thread's 16 bytes of q in row group r4 and column half h: chunk
+    // wtid % 8 of row r4 * 16 + wtid / 8 of the warpgroup's 64 rows
+    auto q_chunk = [&](int r4, int h) {
+      return reinterpret_cast<uint4*>(sq + h * HA_HALF + f.wg * HA_BOX) +
+             r4 * 128 + f.wtid;
+    };
+    if constexpr (MODE == MODE_INT8) {
+      // q * sm_scale in fp32, rounded to bf16, in place (as K1)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        uint4* v = q_chunk(i & 3, i >> 2);
+        uint4 x = *v;
+        uint32_t* w = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 a = Type<__nv_bfloat16>::unpack(w[j]);
+          w[j] = Type<__nv_bfloat16>::pack(a.x * p.sm_scale, a.y * p.sm_scale);
+        }
+        *v = x;
+      }
+    } else {
+      // q per row to int8 against its absmax over D (the JAX kernel's
+      // :184-189) into sq8: a row's 16 chunks lie in 8 adjacent lanes
+#pragma unroll
+      for (int r4 = 0; r4 < 4; ++r4) {
+        const uint4 x[2] = {*q_chunk(r4, 0), *q_chunk(r4, 1)};
+        float amax = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t* w = reinterpret_cast<const uint32_t*>(&x[h]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 a = Type<__nv_bfloat16>::unpack(w[j]);
+            amax = fmaxf(amax, fmaxf(fabsf(a.x), fabsf(a.y)));
+          }
+        }
+#pragma unroll
+        for (int k = 1; k < 8; k <<= 1)
+          amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, k));
+        const float inv = 127.f / fmaxf(amax, 1e-30f);
+        const int rr = r4 * 16 + (f.wtid >> 3), R = 64 * f.wg + rr;
+        const int lc = (f.wtid & 7) ^ (rr & 7);   // logical 16-bit chunk
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t* w = reinterpret_cast<const uint32_t*>(&x[h]);
+          int q8[8];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 a = Type<__nv_bfloat16>::unpack(w[j]);
+            q8[2 * j] = __float2int_rn(a.x * inv);
+            q8[2 * j + 1] = __float2int_rn(a.y * inv);
+          }
+          // dims 64 h + 8 lc .. + 7: bytes of int8 chunk 4 h + lc / 2
+          *reinterpret_cast<uint2*>(
+              sq8 + R * 128 + (((4 * h + (lc >> 1)) ^ (rr & 7)) << 4) +
+              ((lc & 1) << 3)) =
+              make_uint2(pack_s8(q8[0], q8[1], q8[2], q8[3]),
+                         pack_s8(q8[4], q8[5], q8[6], q8[7]));
+        }
+        if ((f.wtid & 7) == 0) row_sc[R] = amax * p.row_scale;
+      }
+    }
+    // q (or q8) written by this warpgroup, visible to its wgmma
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wg_sync(f.wg);
+    if constexpr (MODE == MODE_MXU8) {
+      rs[0] = row_sc[f.row];
+      rs[1] = row_sc[f.row + 8];
+    }
+    const unsigned char* qw = MODE == MODE_INT8 ? sq + f.wg * HA_BOX
+                                                : sq8 + f.wg * 64 * 128;
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m[2] = {neg_inf(), neg_inf()};
+    float l[2] = {0.f, 0.f};   // this thread's 32 columns of each row
+    // mxu8: pass A's running row max and max of exp(s - ma) * vsc; pass
+    // B's p quantization (127 / pm, or 0) and O's pending factor pm / 127
+    float ma[2] = {neg_inf(), neg_inf()}, pa[2] = {0.f, 0.f};
+    float pinv[2] = {0.f, 0.f}, post[2] = {1.f, 1.f};
+    float m2[2] = {0.f, 0.f};   // m in log2 units (MASK_VALUE kept as is)
+    int st = 0;
+    uint32_t ph = 0;
+    for (int n = 0; n < c.n_units; ++n) {
+      bool pass_b;
+      const int slot = q_unit<MODE>(c, cb, n, pass_b);
+      // the unit's window and scales, read before the wait hides the loads
+      const int blk0 = q_block(p, c, slot) * HA_KEYS;
+      KeyWindow win;
+      win.all = !c.degenerate &
+                ((slot < c.clean) | (blk0 + HA_KEYS <= p.visual_len));
+      win.vis = c.degenerate ? -(1 << 30) : p.visual_len - blk0 - 2 * f.t4;
+      win.t_lo = p.text_start - blk0 - 2 * f.t4;
+      win.t_n = (p.has_text && !c.degenerate) ? (unsigned)c.tlen : 0u;
+      const float ks = c.ksc[slot], vs = c.vsc[slot];
+      if (MODE == MODE_MXU8 && slot % cb == 0) {
+        if (!pass_b) {   // a chunk's pass A starts
+          ma[0] = ma[1] = neg_inf();
+          pa[0] = pa[1] = 0.f;
+        } else {         // its pass B starts: m moves to the chunk's max
+          float pm_d = 0.f;   // degenerate: every lane has p = 1
+          if (c.degenerate)
+            for (int s2 = slot; s2 < slot + cb; ++s2)
+              pm_d = fmaxf(pm_d, c.vsc[s2]);
+          float sc[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float m_next = c.degenerate ? MASK_VALUE : fmaxf(m[r], ma[r]);
+            const float pm = c.degenerate ? pm_d : pa[r] * __expf(ma[r] - m_next);
+            const float alpha = __expf(m[r] - m_next);
+            const bool on = pm >= 1e-20f;
+            m[r] = m_next;
+            m2[r] = m_next == MASK_VALUE ? MASK_VALUE : m_next * LOG2E;
+            l[r] *= alpha;
+            sc[r] = post[r] * alpha * (on ? 127.f / pm : 1.f);
+            pinv[r] = on ? 127.f / pm : 0.f;
+            post[r] = on ? pm / 127.f : 1.f;
+          }
+#pragma unroll
+          for (int i = 0; i < 64; ++i) o[i] *= sc[(i >> 1) & 1];
+        }
+      }
+      // mxu8 pass B: the scores' scale in log2 units, and p's scale to p8
+      const float rkl[2] = {rs[0] * ks * LOG2E, rs[1] * ks * LOG2E};
+      const float wq[2] = {vs * pinv[0], vs * pinv[1]};
+      mbar_wait_or_trap(&full[st], ph);
+      const unsigned char* kst = ring + st * L::RING;
+      const unsigned char* vst = kst + L::RING_K;
+      float s[64];
+      if constexpr (MODE == MODE_INT8) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          const int off = (kk >> 2) * HA_HALF + (kk & 3) * 32;
+          Wgmma<__nv_bfloat16>::ss(s, sw128_desc(qw + off, 16),
+                                   sw128_desc(kst + off, 16), kk);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(s);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) s[i] *= ks;
+      } else {
+        int si[64];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_s8(si, sw128_desc(qw + kk * 32, 16),
+                   sw128_desc(kst + kk * 32, 16), kk);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(si);
+        if (!pass_b) {
+          // pass A: the stage is read no more; the row max of the integer
+          // scores (s = (S * row scale) * ksc is monotone in S), then the
+          // chunk's running max and max of exp(s - ma) * vsc
+          mbar_arrive(&empty[st]);
+          if (++st == HA_STAGES) {
+            st = 0;
+            ph ^= 1;
+          }
+          const int least[2] = {-2147483647 - 1, -2147483647 - 1};
+          mask_lanes(win, si, least);
+          int mx[2] = {si[0], si[2]};   // masked lanes: least[]
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            mx[0] = max(mx[0], max(si[4 * j], si[4 * j + 1]));
+            mx[1] = max(mx[1], max(si[4 * j + 2], si[4 * j + 3]));
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            mx[r] = max(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = max(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            const float mu = mx[r] == least[r]
+                                 ? MASK_VALUE
+                                 : (float)mx[r] * rs[r] * ks;
+            const float m_new = fmaxf(ma[r], mu);
+            pa[r] = fmaxf(pa[r] * __expf(ma[r] - m_new),
+                          __expf(mu - m_new) * vs);
+            ma[r] = m_new;
+          }
+          continue;
+        }
+        // pass B: the exponent s - m in log2 units (int32 to fp32 by the
+        // magic number 1.5 * 2^23, |S| < 2^22); a masked lane's is
+        // MASK_VALUE - m (p = 1 where m is MASK_VALUE, else 0)
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          s[i] = fmaf(__int_as_float(si[i] + 0x4B400000) - 12582912.f,
+                      rkl[(i >> 1) & 1], -m2[(i >> 1) & 1]);
+        const float masked[2] = {MASK_VALUE - m2[0], MASK_VALUE - m2[1]};
+        mask_lanes(win, s, masked);
+      }
+      if constexpr (MODE == MODE_INT8) mask_window(win, s);
+      uint32_t pf[8][4];   // P as the A fragments of PV
+      float ls[2] = {0.f, 0.f};
+      if constexpr (MODE == MODE_INT8) {
+        // K1's online softmax over the unit
+        float mc[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          mc[0] = fmaxf(mc[0], fmaxf(s[4 * j], s[4 * j + 1]));
+          mc[1] = fmaxf(mc[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 1));
+          mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 2));
+          const float m_new = fmaxf(m[r], mc[r]);
+          alpha[r] = __expf(m[r] - m_new);
+          m[r] = m_new;
+        }
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const float e = __expf(s[i] - m[(i >> 1) & 1]);
+          ls[(i >> 1) & 1] += e;
+          s[i] = e * vs;
+        }
+        l[0] = alpha[0] * l[0] + ls[0];
+        l[1] = alpha[1] * l[1] + ls[1];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+      } else {
+        // pass B: m is the chunk's; p8 = round(p * vsc * 127 / pm): 1024 +
+        // p * vsc * 127 / pm (at most 1151.5) rounds to an integer as it
+        // becomes fp16, then 1024 goes (exact)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const float e = ex2(s[i]);
+          ls[(i >> 1) & 1] += e;
+          s[i] = fmaf(e, wq[(i >> 1) & 1], 1024.f);
+        }
+        l[0] += ls[0];
+        l[1] += ls[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          pf[kk][q] = Type<V16>::pack(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1]);
+          if constexpr (MODE == MODE_MXU8)
+            asm("sub.f16x2 %0, %0, %1;\n" : "+r"(pf[kk][q]) : "r"(0x64006400u));
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        Wgmma<V16>::rs(o, pf[kk], sw128_desc(vst + kk * 2048, HA_HALF));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_regs(pf);
+      mbar_arrive(&empty[st]);
+      if (++st == HA_STAGES) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
+    if constexpr (MODE == MODE_MXU8) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[i] *= post[(i >> 1) & 1];
+    }
+    float inv[2];
+    quad_sum(l, inv);
+    store_rows<__nv_bfloat16, STATS>(p.o, p.m_out, p.l_out,
+                                     (long long)c.bh * p.sq + c.q_row + f.row,
+                                     o, m, l, inv, f);
+  }
+}
+
+
+template <int MODE, bool STATS>
+int launch_q(const QParams& p, dim3 grid, cudaStream_t s) {
+  auto kern = hopper_attn_q_kernel<MODE, STATS>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, QLayout<MODE>::BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(p.sq / TILE_M, bh);
-  kern<<<grid, NTHREADS, smem, stream>>>(p, m_out, l_out);
+  kern<<<grid, HA_THREADS, QLayout<MODE>::BYTES, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1271,7 +1066,8 @@ int rsa_k1_merge_launch(const float* o_part, const float* m_part,
   return -1;
 }
 
-// K2: one union list per group*block_m query rows, membership in rowbits.
+// K2: one union list per group * block_m query rows (block_m a multiple
+// of 128), membership in rowbits.  Returns as rsa_k1_launch.
 int rsa_k2_launch(const void* q, const void* k, const void* v, void* o,
                   const int* indices, const int* counts, const int* clean,
                   const int* rowbits, const int* text_len,
@@ -1281,51 +1077,79 @@ int rsa_k2_launch(const void* q, const void* k, const void* v, void* o,
                   int chunk_blocks, int visual_len, int text_start,
                   int has_text, float sm_scale, int head_dim, int dtype,
                   void* stream) {
-  Params p = make_params(q, k, v, o, indices, counts, clean, rowbits, text_len,
-                         nullptr, nullptr, kv_bh_stride, kv_row_stride, heads,
-                         sq, n_list, nb_slots, num_key_blocks, block_m, group,
-                         chunk_blocks, visual_len, text_start, has_text,
-                         sm_scale);
-  return dispatch<true, false>(p, bh, head_dim, dtype, (cudaStream_t)stream);
+  if (head_dim != HA_D || (dtype != 0 && dtype != 1) || block_m % HA_ROWS ||
+      sq % HA_ROWS)
+    return -1;
+  K1Params p{};
+  const long long s = (long long)num_key_blocks * HA_KEYS;
+  if (encode_rows_map(&p.tmq, dtype, q, sq, bh, 1, HA_D, (long long)sq * HA_D,
+                      (long long)bh * sq * HA_D) ||
+      encode_rows_map(&p.tmk, dtype, k, s, bh, 1, kv_row_stride, kv_bh_stride,
+                      bh * kv_bh_stride) ||
+      encode_rows_map(&p.tmv, dtype, v, s, bh, 1, kv_row_stride, kv_bh_stride,
+                      bh * kv_bh_stride))
+    return -2;
+  p.o = o; p.v = v;
+  p.indices = indices; p.counts = counts; p.clean = clean;
+  p.rowbits = rowbits; p.text_len = text_len;
+  p.kv_bh_stride = kv_bh_stride; p.kv_row_stride = kv_row_stride;
+  p.heads = heads; p.sq = sq; p.n_list = n_list; p.nb_slots = nb_slots;
+  p.num_key_blocks = num_key_blocks; p.block_m = block_m;
+  p.chunk_blocks = chunk_blocks; p.group = group;
+  p.visual_len = visual_len; p.text_start = text_start; p.has_text = has_text;
+  p.n_split = 1; p.split_slots = nb_slots;
+  p.sm_scale = sm_scale;
+  const dim3 grid(sq / HA_ROWS, bh);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_hopper_attn<__nv_bfloat16, GroupedTiles<__nv_bfloat16>>(
+        p, grid, st);
+  return launch_hopper_attn<__half, GroupedTiles<__half>>(p, grid, st);
 }
 
-// K1q: K1 on an int8 K|V payload; mode 0 = "int8", 1 = "mxu8"; K1q-s
-// when m_out and l_out are given ([BH, Sq] fp32 each; both null for K1q).
+// K1q: K1 on an int8 K|V payload kv [BH, S, 2D] (kv_bh_stride = S * 2D
+// bytes); mode 0 = "int8", 1 = "mxu8"; K1q-s when m_out and l_out are
+// given ([BH, Sq] fp32 each; both null for K1q).  indices, ksc and vsc hold
+// nb_slots slots, a multiple of chunk_blocks.  Returns as rsa_k1_launch.
 int rsa_k1q_launch(const void* q, const void* kv, void* o, const int* indices,
                    const int* counts, const int* clean, const float* ksc,
                    const float* vsc, const int* text_len, float* m_out,
                    float* l_out, long long kv_bh_stride, int bh, int heads,
-                   int sq,
-                   int n_list, int nb_slots, int num_key_blocks, int block_m,
-                   int chunk_blocks, int visual_len, int text_start,
-                   int has_text, float sm_scale, float row_scale,
-                   int head_dim, int mode, void* stream) {
-  if (head_dim != 128) return -1;
-  QParams p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.kv = static_cast<const int8_t*>(kv);
+                   int sq, int n_list, int nb_slots, int num_key_blocks,
+                   int block_m, int chunk_blocks, int visual_len,
+                   int text_start, int has_text, float sm_scale,
+                   float row_scale, int head_dim, int mode, void* stream) {
+  if (head_dim != HA_D || block_m % HA_ROWS || sq % HA_ROWS ||
+      nb_slots % chunk_blocks ||
+      kv_bh_stride != (long long)num_key_blocks * HA_KEYS * 2 * HA_D ||
+      (m_out == nullptr) != (l_out == nullptr) ||
+      (mode != MODE_INT8 && mode != MODE_MXU8))
+    return -1;
+  QParams p{};
+  if (encode_rows_map(&p.tmq, 0, q, sq, bh, 1, HA_D, (long long)sq * HA_D,
+                      (long long)bh * sq * HA_D) ||
+      encode_kv8_map(&p.tmkv, kv, (long long)bh * num_key_blocks * HA_KEYS))
+    return -2;
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.m_out = m_out; p.l_out = l_out;
   p.indices = indices; p.counts = counts; p.clean = clean;
   p.ksc = ksc; p.vsc = vsc; p.text_len = text_len;
-  p.kv_bh_stride = kv_bh_stride;
   p.heads = heads; p.sq = sq; p.n_list = n_list; p.nb_slots = nb_slots;
   p.num_key_blocks = num_key_blocks; p.block_m = block_m;
   p.chunk_blocks = chunk_blocks;
   p.visual_len = visual_len; p.text_start = text_start; p.has_text = has_text;
   p.sm_scale = sm_scale; p.row_scale = row_scale;
-  if ((m_out == nullptr) != (l_out == nullptr)) return -1;
+  const dim3 grid(sq / HA_ROWS, bh);
   cudaStream_t s = (cudaStream_t)stream;
   if (mode == MODE_INT8)
-    return m_out ? launch_q<MODE_INT8, true>(p, m_out, l_out, bh, s)
-                 : launch_q<MODE_INT8, false>(p, m_out, l_out, bh, s);
-  if (mode == MODE_MXU8)
-    return m_out ? launch_q<MODE_MXU8, true>(p, m_out, l_out, bh, s)
-                 : launch_q<MODE_MXU8, false>(p, m_out, l_out, bh, s);
-  return -1;
+    return m_out ? launch_q<MODE_INT8, true>(p, grid, s)
+                 : launch_q<MODE_INT8, false>(p, grid, s);
+  return m_out ? launch_q<MODE_MXU8, true>(p, grid, s)
+               : launch_q<MODE_MXU8, false>(p, grid, s);
 }
 
 const char* rsa_error_string(int code) {
-  if (code == -2) return "cuTensorMapEncodeTiled failed (K1's tensor maps)";
+  if (code == -2) return "cuTensorMapEncodeTiled failed (the kernels' tensor maps)";
   return code < 0 ? "unsupported dtype, head_dim or mode"
                   : cudaGetErrorString((cudaError_t)code);
 }

@@ -68,6 +68,7 @@ struct DenseTiles {
     c.u1 = (p.sk + HA_KEYS - 1) / HA_KEYS;
     return c;
   }
+  static __device__ int next(const Params&, const Tile&, int u) { return u; }
   static __device__ int key_row(const Params&, const Tile&, int u) {
     return u * HA_KEYS;
   }

@@ -1,6 +1,8 @@
-// The Hopper attention mainloop shared by K1/K1s (block_sparse.cu) and K3
-// (dense_flash.cu), with the mbarrier and TMA helpers that S3c
-// (variants.cu) uses too.
+// The Hopper attention mainloop shared by K1/K1s and K2 (block_sparse.cu)
+// and K3 (dense_flash.cu), with the mbarrier and TMA helpers that S3c
+// (variants.cu) uses too, and the parts K1q's kernel adds to it
+// (block_sparse.cu, hopper_attn_q_kernel): int8 tiles by TMA, their exact
+// conversion to 16 bits, and the int8 wgmma.
 //
 // One CTA owns 128 query rows of one (batch, head): 384 threads, two
 // consumer warpgroups of 64 rows each (threads 0-255) and one producer
@@ -281,9 +283,110 @@ template <typename T> struct Wgmma;
 HA_WGMMA(__nv_bfloat16, "bf16")
 HA_WGMMA(__half, "f16")
 #undef HA_WGMMA
+#define HA_I8(i)                                                   \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),      \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+// d (64 x 128 int32 of a warpgroup) += A B for one 32-deep step of int8:
+// A (64 x 32) and B (128 x 32) K-major from shared memory (8-bit wgmma
+// takes no transposed operand), d overwritten where scale_d == 0; the s32
+// fragment has the f32 accumulator's layout
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " HA_R64
+               "%64, %65, p;\n}\n"
+               : HA_I8(0), HA_I8(8), HA_I8(16), HA_I8(24), HA_I8(32),
+                 HA_I8(40), HA_I8(48), HA_I8(56)
+               : "l"(a), "l"(b), "r"(scale_d));
+}
+__device__ __forceinline__ void fence_regs(int (&r)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+#undef HA_I8
 #undef HA_F64
 #undef HA_F8
 #undef HA_R64
+
+// ------------------------------------------- int8 tiles (K1q's payload) ---
+//
+// The payload kv [rows, 256] int8 (K in bytes [0, 128) of a row, V in
+// [128, 256)) is read by TMA in 128-row x 128-byte boxes with the 128-byte
+// swizzle: row r at byte 128 r, its 16-byte chunk c at position c ^ (r & 7).
+// That is the K-major layout the s8 wgmma reads as it stands (D = 128 is one
+// swizzle row); a converter turns such a tile into the ring's 16-bit tile
+// (two 64-column halves of 128 rows, the same swizzle), exactly.
+
+constexpr int HA_TILE8 = 128 * 128;   // one int8 box: 16 KB
+
+// 0 on success
+int encode_kv8_map(CUtensorMap* map, const void* base, long long rows) {
+  EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return -2;
+  const cuuint64_t dims[2] = {256, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {256};
+  const cuuint32_t box[2] = {128, 128};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+                            const_cast<void*>(base), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -2;
+}
+
+// 8 int8 values (two words, lowest byte first) as 8 16-bit values, exactly,
+// two at a time in bf16x2 / f16x2 arithmetic.  bf16: byte b (x = b as
+// int8) gives 128 + (b & 127) (bits 0x4300 | b & 127) and -128 or -256
+// (bits 0xC300 | b & 128), whose sum is x; fp16: bits 0x64uu hold 1024 + u
+// with u = x + 128, minus 1152.
+template <typename T> struct Cvt8;
+template <> struct Cvt8<__nv_bfloat16> {
+  static __device__ __forceinline__ uint4 run(uint2 w) {
+    const uint32_t x[2] = {w.x, w.y};
+    uint32_t o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t t = __byte_perm(x[i >> 1], 0u,
+                                     (i & 1) ? 0x4342u : 0x4140u);
+      const uint32_t a = (t & 0x007F007Fu) | 0x43004300u;
+      const uint32_t c = (t & 0x00800080u) | 0xC300C300u;
+      asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(o[i]) : "r"(a), "r"(c));
+    }
+    return make_uint4(o[0], o[1], o[2], o[3]);
+  }
+};
+template <> struct Cvt8<__half> {
+  static __device__ __forceinline__ uint4 run(uint2 w) {
+    const uint32_t x[2] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u};
+    uint32_t o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t h = __byte_perm(x[i >> 1], 0x64u,
+                                     (i & 1) ? 0x4342u : 0x4140u);
+      asm("sub.f16x2 %0, %1, %2;\n" : "=r"(o[i]) : "r"(h), "r"(0x64806480u));
+    }
+    return make_uint4(o[0], o[1], o[2], o[3]);
+  }
+};
+
+// one int8 tile (`src`, a swizzled box) into a 16-bit tile (`dst`) by a
+// warpgroup: thread i converts columns 8 (i % 16) .. + 7 of rows i / 16 + 8 t,
+// t = 0 .. 15.  Those rows share their swizzle, so the addresses step by
+// 1024 bytes, and a warp's loads and stores are conflict-free.
+template <typename T>
+__device__ __forceinline__ void convert_tile(unsigned char* dst,
+                                             const unsigned char* src,
+                                             int i) {
+  const int r = i >> 4, j = i & 15, x = r & 7;
+  const unsigned char* s = src + r * 128 + (((j >> 1) ^ x) << 4) + ((j & 1) << 3);
+  unsigned char* d = dst + (j >> 3) * HA_HALF + r * 128 + (((j & 7) ^ x) << 4);
+#pragma unroll 8
+  for (int t = 0; t < 16; ++t)
+    *reinterpret_cast<uint4*>(d + t * 1024) =
+        Cvt8<T>::run(*reinterpret_cast<const uint2*>(s + t * 1024));
+}
 
 // One consumer thread's view of its warpgroup's 64 rows: rows
 // 16 * warp + g (r = 0) and + 8 (r = 1) with g = lane / 4; column
@@ -299,6 +402,8 @@ struct Frag {
 //   Params (with CUtensorMap tmq, tmk, tmv), Tile, Window, SCALE_Q,
 //   first(p) / count(p) / stride(p): the tiles this CTA walks,
 //   tile(p, t): a tile's copies (q and kv coordinates, units u0 .. u1),
+//   next(p, tile, u): the first unit >= u that the tile walks (u itself
+//     for a policy that walks every unit),
 //   key_row(p, tile, u): the first key row of unit u,
 //   window(p, tile, u, frag) -> Window: unit u's key window, once,
 //   mask(p, window, s): the thread's 64 scores of the unit masked (and
@@ -341,7 +446,7 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
         mbar_expect_tx(q_full, HA_TILE);
         tma_tile(sq, &p.tmq, c.q_row, c.q_head, c.q_batch, q_full);
         qph ^= 1;
-        for (int u = c.u0; u < c.u1; ++u) {
+        for (int u = P::next(p, c, c.u0); u < c.u1; u = P::next(p, c, u + 1)) {
           const int row = P::key_row(p, c, u);   // its load overlaps the wait
           mbar_wait_or_trap(&empty[st], ph ^ 1);
           mbar_expect_tx(&full[st], HA_STAGE);
@@ -394,7 +499,7 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
       for (int i = 0; i < 64; ++i) o[i] = 0.f;
       float m[2] = {neg_inf(), neg_inf()};
       float l[2] = {0.f, 0.f};   // this thread's 32 columns of each row
-      for (int u = c.u0; u < c.u1; ++u) {
+      for (int u = P::next(p, c, c.u0), un; u < c.u1; u = un) {
         // the unit's key window, read before the waits hide its loads
         const typename P::Window win = P::window(p, c, u, f);
         mbar_wait_or_trap(&full[st], ph);
@@ -409,9 +514,10 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
                        kk);
         }
         wgmma_commit();
+        un = P::next(p, c, u + 1);   // its loads overlap the products
         wgmma_wait_all();
         fence_regs(s);
-        if (u == c.u1 - 1) mbar_arrive(q_empty);   // q is read no more
+        if (un >= c.u1) mbar_arrive(q_empty);   // q is read no more
         P::mask(p, win, s);
 
         // online softmax over the unit (a row's 128 scores sit in the
@@ -463,7 +569,8 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
           ph ^= 1;
         }
       }
-      if (c.u1 <= c.u0) mbar_arrive(q_empty);   // a tile without units
+      if (P::next(p, c, c.u0) >= c.u1)
+        mbar_arrive(q_empty);   // a tile without units
       P::finish(p, c, o, m, l, f, sums + 128 * f.wg);
     }
   }

@@ -1,6 +1,7 @@
 from .block_sparse import (
     block_sparse_flash_attention,
     block_sparse_flash_attention_grouped,
+    block_sparse_flash_attention_paired,
     block_sparse_flash_attention_torch,
     block_sparse_flash_attention_split_torch,
     block_sparse_flash_attention_grouped_torch,
@@ -13,6 +14,7 @@ from . import int8_probe, variants
 __all__ = [
     "block_sparse_flash_attention",
     "block_sparse_flash_attention_grouped",
+    "block_sparse_flash_attention_paired",
     "block_sparse_flash_attention_torch",
     "block_sparse_flash_attention_split_torch",
     "block_sparse_flash_attention_grouped_torch",

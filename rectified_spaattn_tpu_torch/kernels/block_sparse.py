@@ -19,14 +19,18 @@ plain PyTorch versions (port of rectified_spaattn_tpu/kernels/block_sparse.py).
        folded) and l (the sum of the unquantized p).
   K2   ``block_sparse_flash_attention_grouped``  replaces
        ``_sparse_attn_kernel_grouped`` (:317, launched at :560): one UNION
-       index list per ``group * block_m`` rows, membership in ``rowbits``.
+       index list per ``group * block_m`` rows, membership in ``rowbits``;
+       ``block_sparse_flash_attention_paired`` is its group-2 alias (the
+       JAX package's name, :593).
 
 The kernels are hand-written CUDA C++ for sm_90a in ``csrc/block_sparse.cu``
-(its header gives the designs and what bounds them on the H100).  K1 and
-K1s run on the Hopper mainloop of ``csrc/hopper_attn.cuh`` (128-row CTAs,
-TMA copies into an mbarrier ring, wgmma); K2 and K1q on mma.sync with fp32
-or int32 accumulation.  The library is built with nvcc at first use into
-the package's ``build/`` directory and loaded with ctypes
+(its header gives the designs and what bounds them on the H100).  All of
+them run on the Hopper mainloop of ``csrc/hopper_attn.cuh`` (128-row CTAs,
+TMA copies into an mbarrier ring, wgmma): K2 walks only its row block's
+member slots; K1q converts its int8 tiles in the producer warpgroup and,
+for "mxu8", runs QK^T on the int8 wgmma.  So ``block_m`` must be a
+multiple of 128 on the card.  The library is built with nvcc at first use
+into the package's ``build/`` directory and loaded with ctypes
 (kernels/cuda_build.py).
 
 Key split.  A K1/K1s launch with fewer 128-row tiles than the card has
@@ -56,9 +60,11 @@ while its count is above 0 averages V uniformly over every lane of its
 a K2 non-member tile scores MASK_VALUE (the JAX kernel adds MASK_VALUE,
 which absorbs any real score in fp32), so a row block with no unmasked own
 key gets the same average over its union's lanes, and a count of 0 gives
-exact zeros.  The CUDA kernels walk units of keys instead and add the
+exact zeros.  The CUDA kernels walk units of keys instead.  K1 adds the
 chunk-padding lanes after the walk only for such degenerate rows (a split
-list: in the range that holds its last slot).  The stats follow: a
+list: in the range that holds its last slot); K2 and K1q decide
+degeneracy from the list before the walk and then walk every lane of
+those chunks, every score masked.  The stats follow: a
 count-0 row has m = -inf and l = 0, a degenerate row m = MASK_VALUE and
 l = the number of lanes it averaged.
 
@@ -78,8 +84,7 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
 _QUANT_CODE = {"int8": 0, "mxu8": 1}
-_TILE_M = 64          # query rows per K2 / K1q thread block (csrc TILE_M)
-_K1_ROWS = 128        # query rows per K1 / K1s CTA (csrc HA_ROWS)
+_CTA_ROWS = 128       # query rows per CTA of every kernel here (csrc HA_ROWS)
 
 
 def _declare(lib):
@@ -441,8 +446,7 @@ def _operands(q, k, v, packed_kv):
     return q, out, kp, vp, *strides, keep
 
 
-def _cuda_checks(q, k, v, packed_kv, block_m, block_n, *ints,
-                 tile_m=_TILE_M):
+def _cuda_checks(q, k, v, packed_kv, block_m, block_n, *ints):
     kvt = packed_kv if packed_kv is not None else k
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"the CUDA kernels take bf16 or fp16, got {q.dtype} "
@@ -453,9 +457,9 @@ def _cuda_checks(q, k, v, packed_kv, block_m, block_n, *ints,
     if q.shape[-1] != 128:
         raise ValueError(f"the CUDA kernels take head_dim 128, got "
                          f"{q.shape[-1]}")
-    if block_n != 128 or block_m % tile_m:
+    if block_n != 128 or block_m % _CTA_ROWS:
         raise ValueError(f"the CUDA kernels need block_n == 128 and block_m a "
-                         f"multiple of {tile_m} (got {block_m}, {block_n})")
+                         f"multiple of {_CTA_ROWS} (got {block_m}, {block_n})")
     for t in (q, kvt, v, *ints):
         if t is not None and t.device != q.device:
             raise ValueError("all operands must be on one CUDA device")
@@ -506,6 +510,10 @@ def _launch_k1q(q, kv_quant, quant_mode, indices, counts, clean, text_len, *,
     q = q.contiguous()
     out = torch.empty_like(q)
     kv = kv.contiguous()
+    # the kernel's tensor maps read 16-byte-aligned bases
+    if q.data_ptr() % 16 or kv.data_ptr() % 16:
+        raise ValueError("q and the kv_quant payload must start on a "
+                         "16-byte boundary")
     idx, cnt, cln, tl = _int32(idx), _int32(counts), _int32(clean), \
         _int32(text_len)
     ksc, vsc = ksc.contiguous(), vsc.contiguous()
@@ -572,7 +580,7 @@ def block_sparse_flash_attention(
         return _launch_k1q(q, kv_quant, quant_mode, indices, counts, clean,
                            text_len, return_stats=return_stats, **kw)
     _cuda_checks(q, k, v, packed_kv, block_m, block_n, indices, counts,
-                 text_len, tile_m=_K1_ROWS)
+                 text_len)
     lib = _load()
     q, out, kp, vp, bh_stride, row_stride, keep = _operands(q, k, v,
                                                             packed_kv)
@@ -580,7 +588,7 @@ def block_sparse_flash_attention(
                          _int32(text_len))
     rows = b * h * sq
     n_split, split_slots = _split_plan(
-        rows // _K1_ROWS, idx.shape[3], chunk_blocks,
+        rows // _CTA_ROWS, idx.shape[3], chunk_blocks,
         torch.cuda.get_device_properties(q.device).multi_processor_count)
     f32 = dict(dtype=torch.float32, device=q.device)
     if n_split > 1:
@@ -721,3 +729,12 @@ def block_sparse_flash_attention_grouped(
 
 
 block_sparse_flash_attention_grouped.launches = 0
+
+
+def block_sparse_flash_attention_paired(q, k, v, indices, counts, rowbits,
+                                        clean, text_len, **kw):
+    """K2 with two row blocks per union list: the group = 2 case under the
+    name the JAX package exports (kernels/block_sparse.py:593); its
+    launches count as K2's."""
+    return block_sparse_flash_attention_grouped(
+        q, k, v, indices, counts, rowbits, clean, text_len, group=2, **kw)

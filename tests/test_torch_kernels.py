@@ -145,6 +145,33 @@ def test_plain_k2_matches_reference(group):
         np.testing.assert_allclose(got, jout, **F32)
 
 
+@pytest.mark.parametrize("text", [False, True])
+def test_paired_alias_matches_jax_paired(text):
+    """block_sparse_flash_attention_paired (K2 at G = 2 under the JAX
+    package's exported name) against JAX's paired kernel in interpret
+    mode, fp32, with and without the text window."""
+    q, k, v = make_inputs(81 + text, 1, 2, 4, 6, 64)
+    mask = random_mask(83 + text, (1, 2, 4, 6), 0.45)
+    visual_len = 5 * BN - 40 if text else 6 * BN - 50
+    text_start = 5 * BN if text else None
+    if text:
+        mask[..., -1] = True
+    tlen = [70 if text else 0]
+    idx, cnt, bits, clean = ops.group_rows(torch.from_numpy(mask), 2,
+                                           clean_blocks=visual_len // BN)
+    got = tk.block_sparse_flash_attention_paired(
+        *map(torch.from_numpy, (q, k, v)), idx, cnt, bits, clean,
+        torch.tensor(tlen, dtype=torch.int32), visual_len=visual_len,
+        text_start=text_start).numpy()
+    ji, jc, jb, jcl = jops.group_rows(jnp.asarray(mask), 2,
+                                      clean_blocks=visual_len // BN)
+    want = np.asarray(jk.block_sparse_flash_attention_paired(
+        *(jnp.asarray(x) for x in (q, k, v)), ji, jc, jb, jcl,
+        jnp.asarray(tlen, jnp.int32), visual_len=visual_len,
+        text_start=text_start, interpret=True))
+    np.testing.assert_allclose(got, want, **F32)
+
+
 def _lane_mean(v, idx, count, chunk_blocks=16):
     """V averaged over every lane of a list's ceil(count / chunk_blocks)
     chunks: slots past the list read their padding (block 0)."""

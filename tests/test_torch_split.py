@@ -168,15 +168,16 @@ def test_merge_splits_is_ring_merge():
 
 
 @pytest.mark.parametrize("variant", ["stages3", "pingpong", "compute",
-                                     "load"])
+                                     "load", "convert"])
 def test_mainloop_variant_edits_apply(tmp_path, variant):
-    """Each ablation of bench/mainloop_variants.py edits its copy of
-    csrc/hopper_attn.cuh where the mainloop has the text it replaces (the
-    variants are built and timed on the card only)."""
+    """Each ablation of bench/mainloop_variants.py edits its copies of
+    csrc/hopper_attn.cuh (the mainloop) and csrc/block_sparse.cu (K1q's
+    kernel) where they have the text it replaces (the variants are built
+    and timed on the card only)."""
     from rectified_spaattn_tpu_torch.bench import mainloop_variants as mv
     root = mv.make_copy(variant, str(tmp_path))
-    path = tmp_path / variant / "rectified_spaattn_tpu_torch" / mv.HEADER
-    src = path.read_text()
-    for old, new in mv.EDITS[variant]:
+    for rel, old, new in mv.EDITS[variant]:
+        src = (tmp_path / variant / "rectified_spaattn_tpu_torch" / rel
+               ).read_text()
         assert new in src and old not in src.replace(new, "")
     assert root == str(tmp_path / variant)
