@@ -11,11 +11,14 @@ int4 weights, the int8 offloaded TeaCache residual), the Wan2.1-14B
 denoise path, the multi-device path (K1s, the ring, tensor parallelism)
 and the kernel-diagnostic path (K1q-s, the S3 / S2 ablations, the
 headline bench).  Every attention kernel (K1/K1s, K2, K1q/K1q-s, K3)
-runs on the Hopper mainloop of csrc/hopper_attn.cuh (K1q with a
-converter warpgroup and, for "mxu8", the int8 wgmma); K1's launches of
-fewer row tiles than SMs split each index list into key ranges that the
-merge kernel folds:
+and the S3a / S2 ablations run on the Hopper mainloop of
+csrc/hopper_attn.cuh (K1q with a converter warpgroup and, for "mxu8",
+the int8 wgmma; S3a and S2 as K1's and K2's policies with one part taken
+out); K1's launches of fewer row tiles than SMs split each index list
+into key ranges that the merge kernel folds:
 
+  0. build: per library each kernel's ptxas registers and spill bytes,
+     and each mainloop kernel's SASS counts (HGMMA / IGMMA, FSEL, BRA).
   1. device: the card's name and power limit; TF32 off.
   2. kernels: K1 (single-row gather), K2 (grouped-row gather) and K3
      (dense flash) against their plain PyTorch versions in bf16 at small
@@ -54,7 +57,8 @@ merge kernel folds:
      (fp32).
   4b. int8: S1 (bf16 and int8 looped dots, int8 bit for bit against its
      plain version, rates against the peaks, torch.bmm / torch._int_mm as
-     yardsticks); a small pipeline on the GPU (bf16) against the CPU (fp32)
+     yardsticks for the same operations: 64 calls of one dot a pair); a
+     small pipeline on the GPU (bf16) against the CPU (fp32)
      with int4 weights, K1q "int8" and the int8 residual; then the
      full-width 2+2-block HunyuanVideo pipeline with int8 weights, K1q
      "mxu8" and the int8 TeaCache residual held in pinned host memory
@@ -106,15 +110,17 @@ merge kernel folds:
      plan, chunk 16; launch counters zeroed just before and read just
      after), base / twophase / runs held to K1 there; every variant but
      the three-stage rings against its plain version on
-     that plan, the load-only variants bit for bit, noexp's NaN rows; per
-     variant its time against K1's, the bytes it gathers (GB/s) or its
-     TF/s.
+     that plan, the load-only variants bit for bit, noexp's NaN rows, the
+     three-stage rings equal to the two-stage ones; per variant its time
+     against K1's on the same plan (K1 timed first and last), the bytes it
+     gathers (GB/s) or its TF/s.
  11. groupedvars: every S2 variant at G = 2 and 4 against its plain
      version at the small grid; bench.groupedvars at the Hunyuan point
-     (counters as above; full and prefetch held to K1's single-row
-     output); full, nobias, compute and computeclean at G = 2 and full at
-     G = 4 against their plain versions on its plan, full and prefetch
-     equal to K2 bit for bit.
+     (counters as above; K2 timed first and last on the same lists; full
+     and prefetch held to K1's single-row output); full, nobias, compute
+     and computeclean at G = 2 and full at G = 4 against their plain
+     versions on its plan, dma bit for bit, full and prefetch equal to K2
+     bit for bit.
  12. headline: bench.headline's JSON line (the sparse site against the
      windowed dense, bench.py's keys).
  12b. kernel_ab: kernel_ab.py on this tree: K1 (visual, text rows, the
@@ -136,9 +142,11 @@ failure exits non-zero; nothing falls back to the CPU.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -227,7 +235,9 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
 
 def build(kernels):
     """nvcc for each CUDA source (all started together) and g++ for the
-    curve walker, in parallel; returns the kernels' ptxas resource lines."""
+    curve walker, in parallel; returns the walker and, per library, each
+    kernel's ptxas registers and spill bytes and (the mainloop kernels)
+    its SASS counts."""
     from rectified_spaattn_tpu_torch.curves import native
     out = {}
 
@@ -240,41 +250,70 @@ def build(kernels):
     th.join()
     if "libs" not in out:
         raise RuntimeError("kernel build failed (see the error above)")
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name, (_, log) in out["libs"].items()}
+    ptxas = {name: ptxas_table(log) for name, (_, log) in out["libs"].items()}
     ptxas["sass"] = {name: sass_counts(out["libs"][name][0])
-                     for name in ("block_sparse", "dense_flash")}
+                     for name in ("block_sparse", "dense_flash", "variants")}
     return out["walker"], ptxas
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's mangled name without the anonymous namespace's prefix,
+    which carries a hash of its file: the same kernel keeps its name
+    across trees."""
+    return re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", mangled)
+
+
+def ptxas_table(log: str) -> dict:
+    """ptxas -v's lines as {kernel: {"registers", "spill_stores"}}."""
+    table, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = kernel_name(m.group(1))
+            table[fn] = {}
+        elif fn and "spill stores" in ln:
+            table[fn]["spill_stores"] = int(
+                re.search(r"(\d+) bytes spill stores", ln).group(1))
+        elif fn and "Used" in ln and "registers" in ln:
+            table[fn]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+    return table
 
 
 def sass_counts(lib: str) -> dict:
     """Per Hopper-mainloop kernel of a built library (hopper_attn_kernel:
-    K1/K1s, K2, K3; hopper_attn_q_kernel: K1q/K1q-s), its count of SASS
-    branches (BRA), selects (FSEL) and wgmma instructions (HGMMA: bf16 /
-    fp16, IGMMA: int8), read with cuobjdump: the mask is branch-free when
-    its 64 scores a thread show up as 64 FSEL and the kernel's branches do
-    not grow with them."""
+    K1/K1s, K2, K3, the S3a / S2 policies; hopper_attn_q_kernel:
+    K1q/K1q-s), its count of SASS branches (BRA), selects (FSEL) and
+    wgmma instructions (HGMMA: bf16 / fp16, IGMMA: int8), read with
+    cuobjdump: the mask is branch-free when its 64 scores a thread show up
+    as 64 FSEL and the kernel's branches do not grow with them.  "sha1":
+    a digest of the kernel's instruction text, equal for the same code in
+    two trees."""
     from rectified_spaattn_tpu_torch.kernels import cuda_build
     tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
     proc = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True)
     if proc.returncode:
         return {"cuobjdump": proc.stderr.strip()[:200]}
-    counts, fn = {}, None
+    counts, digests, fn = {}, {}, None
     for ln in proc.stdout.splitlines():
         if "Function :" in ln:
             name = ln.split("Function :")[1].strip()
-            fn = name if "hopper_attn" in name else None
+            fn = kernel_name(name) if "hopper_attn" in name else None
             if fn:
                 counts[fn] = {"BRA": 0, "FSEL": 0, "HGMMA": 0, "IGMMA": 0}
+                digests[fn] = hashlib.sha1()
         elif fn and "*/" in ln:
-            ops = ln.split("*/", 1)[1].split("/*")[0].split()
+            text = ln.split("*/", 1)[1].split("/*")[0].strip()
+            digests[fn].update(text.encode())
+            ops = text.split()
             if ops and ops[0].startswith("@"):
                 ops = ops[1:]
             op = ops[0].split(".")[0] if ops else ""
             if op in counts[fn]:
                 counts[fn][op] += 1
+    for fn, d in digests.items():
+        counts[fn]["sha1"] = d.hexdigest()[:12]
     return counts
 
 
@@ -2079,11 +2118,10 @@ def kernelvars_phase(kernels):
 
     for f in (kv.kernel_variant, kv.twophase, kv.runs):
         f.launches.clear()
-    # K1 timed right before twophase and runs, the variants held to it
-    order = [n for n in S3_DRIVEN if n != "twophase" and not
-             n.startswith("runs")]
-    order += ["k1", *(n for n in S3_DRIVEN if n not in order)]
-    bench = kernelvars.main(["--variants", ",".join(order), "--check"])
+    # K1 timed first and last (the variants against the mean), 5 calls each
+    bench = kernelvars.main(["--variants",
+                             ",".join(["k1", *S3_DRIVEN, "k1"]),
+                             "--check", "--iters", "5"])
     res["launches"] = {**kv.kernel_variant.launches, **kv.twophase.launches,
                        **kv.runs.launches}
     missing = [n for n in S3_DRIVEN if not res["launches"].get(n)]
@@ -2126,10 +2164,15 @@ def kernelvars_phase(kernels):
     counts = st["counts"].long()
     pairs = float(counts.sum())
     ext = float(((counts + g - 1) // g * g).sum())     # the chunk extent
-    unit_bytes = 64 * 2 * 128 * 2                       # 64 keys of K and V
-    per_pair = 2 * 2 * unit_bytes                       # 2 blocks x 2 units
+    # the bytes each pair's block copy moves: S3a's 128-row CTAs copy a
+    # block's K and V once (64 KB); twophase and runs walk each list with
+    # two 64-row blocks, each copying it
+    per_pair = 128 * 2 * 128 * 2
     gathered = {"dmahalf": pairs * per_pair / 2, "dmabig": ext * per_pair,
                 "nomask": ext * per_pair, "computenomask": 0.0,
+                "twophase": 2 * pairs * per_pair,
+                **{n: 2 * pairs * per_pair for n in S3_DRIVEN
+                   if n.startswith("runs")},
                 **{n: 0.0 for n in ("compute", "compute3", "computeclean",
                                     "computenoexp")}}
     flops_pair = 4.0 * 128 * 128 * 128
@@ -2161,8 +2204,8 @@ def groupedvars_phase(kernels):
     full and prefetch held to K1's single-row output); then on the bench's
     plan full, nobias, compute and computeclean at G = 2 and full at G = 4
     against their plain versions, dma bit for bit, full and prefetch equal
-    to each other bit for bit and held to K2's output (K2 runs on the
-    Hopper mainloop, S2 on the skeleton K2 had before it)."""
+    to K2's output bit for bit (full is K2's mainloop policy, prefetch the
+    same arithmetic per row tile)."""
     from rectified_spaattn_tpu_torch.bench import groupedvars
     kv = kernels.variants
     res = {"small_vs_plain": []}
@@ -2187,7 +2230,7 @@ def groupedvars_phase(kernels):
 
     kv.grouped_variant.launches.clear()
     bench = groupedvars.main(["--groups", ",".join(map(str, S2_GROUPS)),
-                              "--check"])
+                              "--check", "--iters", "5"])
     res["launches"] = dict(kv.grouped_variant.launches)
     missing = [f"g{g}_{n}" for g in S2_GROUPS for n in kv.S2
                if not res["launches"].get(f"g{g}_{n}")]
@@ -2215,14 +2258,14 @@ def groupedvars_phase(kernels):
         del got, want
     grouped = groupedvars.lists(st, 2)
     run2 = run_all(st, 2, grouped)
-    full = run2("full")
     k2 = kernels.block_sparse_flash_attention_grouped(
         st["q"], st["k"], st["k"], *grouped, st["tlen"], group=2,
         visual_len=st["visual_len"], text_start=st["visual_len"])
-    if not torch.equal(full, run2("prefetch")):
-        raise AssertionError("S2 full and prefetch differ")
-    res["full_vs_k2"] = held_to_scale("S2 full vs K2", full, k2)
-    del full, k2
+    for name in ("full", "prefetch"):
+        if not torch.equal(run2(name), k2):
+            raise AssertionError(f"S2 {name} is not K2's output bit for bit")
+    res["full_prefetch_vs_k2"] = {"bit_exact": True}
+    del k2
     res["dma_vs_plain"] = variant_vs_plain(
         "s2 dma g2", run2("dma"), run_all(st, 2, grouped, plain=True)("dma"),
         exact=True)
@@ -2290,18 +2333,19 @@ def k1q_stats_entry(src, site, smooth, small_errs) -> dict:
 def variant_entries(s3, s2) -> list:
     """The kernels line's S3a, S3b, S3c and S2 entries: each at the
     benches' HunyuanVideo plans, its launches in the bench's run, its
-    plain version on the full plan, and the bound of the attention it
-    computes (S3a: base, S3c: runs4, S2: full at G = 2)."""
+    plain version on the full plan, the bound of the attention it computes
+    (S3a: base, S3c: runs4, S2: full at G = 2), and its time against K1's
+    (S3) or K2's (S2) on the same plan."""
     src = "rectified_spaattn_tpu_torch/csrc/variants.cu"
     bench, launches = s3["bench"], s3["launches"]
     small_err = lambda prefix: max(
         [c.get("max_abs_err", 0.0) for c in s3["small_vs_plain"]
          if c["case"].startswith(prefix)] or [0.0])
 
-    def s3_entry(name, key, replaces, names, shape):
+    def s3_entry(name, key, replaces, names, shape, design):
         full = s3["full_vs_plain"][key]
         return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces,
+                "replaces": replaces, "design": design,
                 "launches": sum(launches.get(n, 0) for n in names),
                 "launches_by_path": {"bench.kernelvars": {
                     n: launches.get(n, 0) for n in names}},
@@ -2311,6 +2355,8 @@ def variant_entries(s3, s2) -> list:
                 "bound_ms": s3["bound_ms"], "bound_by": s3["bound_by"],
                 "library_ms": None, "shape": shape,
                 "k1_ms_same_plan": s3["k1_ms"],
+                "k1_ms_first_last": bench["ms_each"]["k1"],
+                "vs_k1": bench["ms"][key] / s3["k1_ms"],
                 "other_jobs": {n: s3["variants"][n] for n in names}}
 
     plan = ("kernelvars plan: q [1,24,115200,128] x 902 key blocks, "
@@ -2320,26 +2366,33 @@ def variant_entries(s3, s2) -> list:
     runs = [n for n in S3_DRIVEN if n.startswith("runs")]
     s2_full = s2["full_vs_plain"]["g2_full"]
     s2_small = max(c.get("max_abs_err", 0.0) for c in s2["small_vs_plain"])
+    s2_ms = s2["bench"]["ms"]
+    policy = "hopper mainloop policy"
+    previous = "previous design (64-row blocks, mma.sync)"
     return [
         s3_entry("S3a", "base", "scripts/bench_kernelvars.py:56", s3a,
-                 f"base (every unit masked), {plan}"),
+                 f"base (every unit masked), {plan}", policy),
         s3_entry("S3b", "twophase", "scripts/bench_kernelvars.py:205",
-                 ["twophase"], f"twophase, {plan}"),
+                 ["twophase"], f"twophase, {plan}", previous),
         s3_entry("S3c", "runs4", "scripts/bench_kernelvars.py:316", runs,
-                 f"runs4 (TMA copies), {plan}"),
+                 f"runs4 (TMA copies), {plan}", previous + ", TMA copies"),
         {"name": "S2", "route": "cuda", "source": src,
-         "replaces": "scripts/bench_groupedvars.py:39",
+         "replaces": "scripts/bench_groupedvars.py:39", "design": policy,
          "launches": sum(s2["launches"].values()),
          "launches_by_path": {"bench.groupedvars": s2["launches"]},
          "max_abs_err": max(s2_full["max_abs_err"], s2_small),
-         "ms": s2["bench"]["ms"]["g2_full"], "plain_ms": s2_full["plain_ms"],
+         "ms": s2_ms["g2_full"], "plain_ms": s2_full["plain_ms"],
          "bound_ms": s2["bound_ms"], "bound_by": s2["bound_by"],
          "library_ms": None,
          "shape": "full at G=2, groupedvars plan: q [1,24,115200,128], "
                   "smooth q/k (v = k), chunk_blocks 16",
-         "g1_ms_same_plan": s2["bench"]["ms"]["g1"],
-         "other_jobs": {k: v for k, v in s2["bench"]["ms"].items()
-                        if k != "g2_full"}},
+         "k2_ms_same_plan": s2_ms["g2_k2"],
+         "k2_ms_first_last": s2["bench"]["ms_each"]["g2_k2"],
+         "vs_k2": s2_ms["g2_full"] / s2_ms["g2_k2"],
+         "g1_ms_same_plan": s2_ms["g1"],
+         "other_jobs": {k: {"ms": v, "vs_k2": v / s2_ms[k[:3] + "k2"]}
+                        for k, v in s2_ms.items()
+                        if k != "g2_full" and k[:3] + "k2" in s2_ms}},
     ]
 
 
@@ -2575,6 +2628,7 @@ def main() -> int:
          "plain_ms": probe["check"]["int8"]["plain_ms"],
          "bound_ms": probe["int8"]["bound_ms"], "bound_by": "operations",
          "library_ms": probe["int8"]["library_ms"],
+         "library_call": probe["int8"]["library"],
          "shape": f"int8, {probe['pairs']} pairs of {probe['shape']}",
          "other_jobs": {"bf16": {**probe["bf16"],
                                  **probe["check"]["bf16"]}}},

@@ -3,7 +3,8 @@
 card, for the port's package of a given source tree, beside the one PyTorch
 call that computes the same function (SDPA) where there is one.
 
-    python3 kernel_ab.py [--root DIR] [--reps 5] [--label NAME]
+    python3 kernel_ab.py [--root DIR] [--reps 5] [--label NAME] [--build]
+        [--ablations]
 
 The package comes from ``--root`` (default: this checkout), so one call
 can time two trees in turns (parent, change, change, parent) with the same
@@ -25,10 +26,17 @@ The Wan2.1-14B inputs are iid (seed 8) at chip_smoke.py's Wan site,
   K3_t2v_text, K3_i2v_image  K3 over 512 / 257 keys, q and k/v head-split
                    views of [B, S, H, D] projections.
 
+With ``--ablations`` it also times K1's and K2's ablations on the visual
+rows' plan (S3a base / compute / dma beside K1_visual_g1, S2 full /
+compute / dma at G = 2 beside K2_visual_g2: kernels/variants.py), the
+plan that bench/mainloop_variants.py's edits of the mainloop run on.
+
 Each time is chip_smoke.py's ``cuda_ms`` over ``--reps`` calls; each
 ``<name>_sdpa`` is the SDPA call's time on the same inputs (the yardstick
 chip_smoke.py reports as ``library_ms``).  Prints one JSON line {"label",
-"root", "nvidia_smi", kernel: ms}.
+"root", "nvidia_smi", kernel: ms}; with ``--build`` it first builds the
+tree's kernels with ptxas -v and adds chip_smoke.py's build table (per
+kernel registers, spill bytes, SASS counts and digest) as "build".
 """
 
 from __future__ import annotations
@@ -50,6 +58,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--label", default="")
+    ap.add_argument("--build", action="store_true",
+                    help="report the tree's ptxas and SASS table")
+    ap.add_argument("--ablations", action="store_true",
+                    help="time S3a / S2 on the visual rows' plan too")
     a = ap.parse_args(argv)
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -64,6 +76,8 @@ def main(argv=None) -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     flash = torch.ops.aten._scaled_dot_product_flash_attention
     res = {"label": a.label, "root": a.root, "nvidia_smi": smoke.smi_line()}
+    if a.build:
+        res["build"] = smoke.build(kernels)[1]
 
     def time_all(calls):
         for name, fn in calls.items():
@@ -117,6 +131,18 @@ def main(argv=None) -> dict:
                                     return_stats=True),
         "K1s_ring_text_sdpa": lambda: flash(qt, k0, v0),
     })
+    if a.ablations:
+        kv = kernels.variants
+        time_all({
+            **{f"S3a_{n}_visual": (
+                lambda n=n: kv.kernel_variant(n, qv, kz, vz, plan.indices,
+                                              plan.counts, tlen, **kw))
+               for n in ("base", "compute", "dma")},
+            **{f"S2_{n}_visual_g2": (
+                lambda n=n: kv.grouped_variant(n, qv, kz, vz, *grouped, tlen,
+                                               group=2, **kw))
+               for n in ("full", "compute", "dma")},
+        })
     del st, q, k, v, kz, vz, plan, grouped, payload, qd, k0, v0
     torch.cuda.empty_cache()
 

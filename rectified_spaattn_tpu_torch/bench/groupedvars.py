@@ -2,7 +2,8 @@
 HunyuanVideo operating point (port of scripts/bench_groupedvars.py:281-366).
 
     python -m rectified_spaattn_tpu_torch.bench.groupedvars [--small] \\
-        [--groups 2,4] [--variants full,dma,compute,computeclean,nobias,prefetch] \\
+        [--groups 2,4] \\
+        [--variants k2,full,dma,compute,computeclean,nobias,prefetch] \\
         [--iters 3] [--drop 0.8] [--chunk_blocks 16] [--check] \\
         [--device cuda|cpu]
 
@@ -14,10 +15,13 @@ The script timed it twice, with ``prefetch_next`` on and off; that flag
 issues the next grid cell's first DMAs on the TPU, and the port's K1
 accepts and ignores it (a GPU thread block cannot fill another's buffer),
 so g1_prefetch0 and g1_prefetch1 are one kernel here, timed once.  S2's own
-``prefetch`` variant is the GPU's counterpart: a block walks 4
-consecutive lists and starts the next one's first copy before its
-epilogue.  Then each variant at each G, keyed g{G}_{variant}; last one
-JSON line with every time and the device.  ``--check`` holds full and
+``prefetch`` variant is the GPU's counterpart: a CTA walks 4 consecutive
+row tiles, its producer loading the next tile's q and units while the
+consumers finish the last.  Then at each G each variant, keyed
+g{G}_{variant}, among them (by default first) ``k2``, the production K2 on
+the same lists, which the ablations attribute (S2 is K2's mainloop policy
+with one part taken out); last one JSON line with every time and the
+device.  ``--check`` holds full and
 prefetch to K1's single-row output first.  On ``--device cpu`` every
 kernel runs its plain version (a rehearsal).
 """
@@ -29,13 +33,14 @@ import json
 
 import torch
 
-from ..kernels import (block_sparse_flash_attention, variants)
+from ..kernels import (block_sparse_flash_attention,
+                       block_sparse_flash_attention_grouped, variants)
 from ..pipelines import build_site
 from ..sparse import build_sparse_plan, ops
 from .common import device_info, point, rel_err, resolve, time_ms
 from .inputs import curve_coords, smooth_inputs
 
-DEFAULT = ",".join(variants.S2)
+DEFAULT = ",".join(["k2", *variants.S2, "k2"])   # K2 first and last
 
 
 def setup(small: bool = False, *, grid=None, heads=None, drop: float = 0.8,
@@ -67,8 +72,8 @@ def lists(st: dict, group: int):
 
 def call(variant: str, group: int, st: dict, grouped=None, chunk: int = 16):
     """The closure that runs S2 ``variant`` at ``group`` (``grouped``: its
-    group_rows lists) or, for variant "g1", K1 over the single-row
-    lists."""
+    group_rows lists), for variant "k2" the production K2 on those lists,
+    or, for variant "g1", K1 over the single-row lists."""
     kw = dict(visual_len=st["visual_len"], text_start=st["visual_len"],
               chunk_blocks=chunk)
     if variant == "g1":
@@ -76,6 +81,10 @@ def call(variant: str, group: int, st: dict, grouped=None, chunk: int = 16):
         return lambda: block_sparse_flash_attention(
             st["q"], st["k"], st["k"], idx, cnt, st["tlen"], **kw)
     grouped = grouped if grouped is not None else lists(st, group)
+    if variant == "k2":
+        return lambda: block_sparse_flash_attention_grouped(
+            st["q"], st["k"], st["k"], *grouped, st["tlen"], group=group,
+            **kw)
     return lambda: variants.grouped_variant(
         variant, st["q"], st["k"], st["k"], *grouped, st["tlen"],
         group=group, **kw)
@@ -84,9 +93,10 @@ def call(variant: str, group: int, st: dict, grouped=None, chunk: int = 16):
 def run(groups, names, *, small=False, grid=None, heads=None, drop=0.8,
         chunk_blocks=16, iters=3, check=False, device="cuda", seed=0,
         verbose=True) -> dict:
-    """Time g1 and each S2 variant at each G; returns {"ms": {key: ms},
-    "check": {key: errors vs K1}, the mask's density and pairs, the union
-    growth per G, the device}."""
+    """Time g1 and each of ``names`` (S2 variants, "k2") at each G;
+    returns {"ms": {key: ms}, "check": {key: errors vs K1}, the mask's
+    density and pairs, the union growth per G, the device}.  A name given
+    twice is timed twice: "ms" holds the mean, "ms_each" each time."""
     st = setup(small, grid=grid, heads=heads, drop=drop, device=device,
                seed=seed)
     counts = st["mask"].sum(-1)
@@ -103,6 +113,7 @@ def run(groups, names, *, small=False, grid=None, heads=None, drop=0.8,
                               st["dev"], reps=iters)
     if verbose:
         print(f"g1: {res['ms']['g1']:.1f} ms", flush=True)
+    each = {}
     for g in groups:
         grouped = lists(st, g)
         res["union_slots"][g] = float(grouped[1].sum())
@@ -114,9 +125,12 @@ def run(groups, names, *, small=False, grid=None, heads=None, drop=0.8,
                 if verbose:
                     print(f"{name} g={g} vs single-row:",
                           json.dumps(res["check"][key]), flush=True)
-            res["ms"][key] = time_ms(fn, st["dev"], reps=iters)
+            t = time_ms(fn, st["dev"], reps=iters)
+            each.setdefault(key, []).append(t)
+            res["ms"][key] = sum(each[key]) / len(each[key])
             if verbose:
-                print(f"g{g} {name}: {res['ms'][key]:.1f} ms", flush=True)
+                print(f"g{g} {name}: {t:.1f} ms", flush=True)
+    res["ms_each"] = each
     return res
 
 

@@ -80,7 +80,8 @@ def run(names, *, small=False, grid=None, heads=None, drop=0.8, chunk=16,
         check=False, iters=3, device="cuda", seed=0, verbose=True) -> dict:
     """Time each variant of ``names`` on one plan; returns {"ms":
     {variant: ms}, "check": {variant: errors vs K1}, the plan's mean
-    count and pairs, the device}."""
+    count and pairs, the device}.  A variant named twice (k1 first and
+    last, say) is timed twice: "ms" holds the mean, "ms_each" each time."""
     st = setup(small, grid=grid, heads=heads, drop=drop, device=device,
                seed=seed)
     counts = st["counts"]
@@ -100,11 +101,14 @@ def run(names, *, small=False, grid=None, heads=None, drop=0.8, chunk=16,
                     print(f"{name}-vs-k1:", json.dumps(res["check"][name]),
                           flush=True)
         del want
+    each = {}
     for name in names:
         t = time_ms(call(name, st, chunk), st["dev"], reps=iters)
-        res["ms"][name] = t
+        each.setdefault(name, []).append(t)
+        res["ms"][name] = sum(each[name]) / len(each[name])
         if verbose:
             print(f"{name}: {t:.1f} ms", flush=True)
+    res["ms_each"] = each
     return res
 
 

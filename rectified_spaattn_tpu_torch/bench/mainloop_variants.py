@@ -16,10 +16,13 @@ and load edit both kernels, the others one):
             (named barriers 3 and 4 around each unit's S = Q K^T issue),
             so that one's softmax can run beside the other's products;
   compute   no K/V copies: the producer completes each stage's barrier
-            without a copy, so the consumers compute on whatever the ring
-            holds (the output is garbage; only its time counts);
+            without a copy, so the consumers compute
+            on whatever the ring holds (the output is garbage; only its
+            time counts; kernels/variants.py's S3a and S2 ``compute``
+            measure the same with a defined tile);
   load      no products and no softmax: the consumers wait for each unit
-            and hand its stage back (the output is zero);
+            and hand its stage back (the output is zero; S3a / S2 ``dma``
+            measure the same, adding one K row per chunk);
   convert   K1q only: the converter threads hand each staged unit on
             without converting it (the output is garbage).
 
@@ -74,14 +77,11 @@ EDITS = {
          "        wgmma_commit();\n        turn_pass(f.wg);\n"
          "        un = P::next(p, c, u + 1);\n"),
     ],
-    "compute": [(HEADER, "          mbar_expect_tx(&full[st], HA_STAGE);\n"
-                 "          unsigned char* dst = ring + st * HA_STAGE;\n"
-                 "          tma_tile(dst, &p.tmk, row, c.kv_head, c.kv_batch, "
-                 "&full[st]);\n"
-                 "          tma_tile(dst + HA_TILE, &p.tmv, row, c.kv_head, "
-                 "c.kv_batch,\n                   &full[st]);",
-                 "          mbar_expect_tx(&full[st], 0);\n"
-                 "          (void)row;"),
+    "compute": [(HEADER, "            mbar_expect_tx(&full[st], P::COPY_BYTES);\n"
+                 "            unsigned char* dst = ring + st * HA_STAGE;\n"
+                 "            P::copy(p, c, row, dst, &full[st]);",
+                 "            mbar_expect_tx(&full[st], 0);\n"
+                 "            (void)row;"),
                 (K1Q, "        mbar_expect_tx(&sfull[ss_next], L::STAGE8);\n"
                  "        stage_load<MODE>(stg + ss_next * L::STAGE8, "
                  "&p.tmkv, row_next,\n                         "
@@ -98,7 +98,7 @@ EDITS = {
               "          un = P::next(p, c, u + 1);\n"
               "          if (un >= c.u1) mbar_arrive(q_empty);\n"
               "          mbar_arrive(&empty[st]);\n"
-              "          if (++st == HA_STAGES) {\n            st = 0;\n"
+              "          if (++st == NS) {\n            st = 0;\n"
               "            ph ^= 1;\n          }\n          continue;\n"
               "        }\n"
               "        const unsigned char* ks = ring + st * HA_STAGE;"),

@@ -48,7 +48,7 @@ struct K3Params {
 };
 
 template <typename T>
-struct DenseTiles {
+struct DenseTiles : MainloopDefaults {
   using Params = K3Params;
   static constexpr bool SCALE_Q = false;   // the scores are scaled in fp32
   struct Tile {

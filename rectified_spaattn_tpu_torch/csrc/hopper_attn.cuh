@@ -1,8 +1,9 @@
-// The Hopper attention mainloop shared by K1/K1s and K2 (block_sparse.cu)
-// and K3 (dense_flash.cu), with the mbarrier and TMA helpers that S3c
-// (variants.cu) uses too, and the parts K1q's kernel adds to it
-// (block_sparse.cu, hopper_attn_q_kernel): int8 tiles by TMA, their exact
-// conversion to 16 bits, and the int8 wgmma.
+// The Hopper attention mainloop shared by K1/K1s and K2 (block_sparse.cu),
+// K3 (dense_flash.cu) and the S3a / S2 ablations of K1 and K2
+// (variants.cu), with the mbarrier and TMA helpers that S3c (variants.cu)
+// uses too, and the parts K1q's kernel adds to it (block_sparse.cu,
+// hopper_attn_q_kernel): int8 tiles by TMA, their exact conversion to 16
+// bits, and the int8 wgmma.
 //
 // One CTA owns 128 query rows of one (batch, head): 384 threads, two
 // consumer warpgroups of 64 rows each (threads 0-255) and one producer
@@ -23,6 +24,10 @@
 //     tiles a CTA walks, the copies of each, the score mask of a unit, and
 //     the epilogue.  The mask is branch-free: each unit computes its key
 //     window once and applies it to the 64 scores of a thread by selects.
+//   * The ablations' hooks (MainloopDefaults below; with the defaults the
+//     mainloop computes what it computes without them): the ring depth,
+//     the unit's copy, no copies at all, a load-only consumer and the
+//     scripts' linear stand-in for exp.
 //
 // Shared memory (1024-byte aligned for the swizzle): q [2 column halves]
 // [128 rows][128 B], then the ring: per stage K then V in the same layout,
@@ -125,8 +130,31 @@ constexpr int HA_BOX = 64 * 128;      // a 64 x 64 box of 16-bit elements: 8 KB
 constexpr int HA_HALF = 2 * HA_BOX;   // 128 rows x 64 columns: 16 KB
 constexpr int HA_TILE = 2 * HA_HALF;  // 128 rows x 128 columns: 32 KB
 constexpr int HA_STAGE = 2 * HA_TILE; // K and V of one unit: 64 KB
-constexpr int HA_SMEM = 1024 + HA_TILE + HA_STAGES * HA_STAGE +
-                        8 * (2 + 2 * HA_STAGES) + 2 * 128 * 4;
+// the dynamic shared memory of a ring of `stages` stages: 165,936 bytes at
+// 2, 231,488 at 3 (of the 232,448 a CTA can have)
+constexpr int ha_smem(int stages) {
+  return 1024 + HA_TILE + stages * HA_STAGE + 8 * (2 + 2 * stages) +
+         2 * 128 * 4;
+}
+
+// rows row .. row + 63 of head `head`, batch `batch` (128 columns of
+// 16-bit elements) into the 64-row half of a tile at `dst`: two 64 x 64
+// boxes of a 4-D map (D, row, head, batch), one per column half
+__device__ __forceinline__ void tma_rows64(unsigned char* dst,
+                                           const CUtensorMap* map, int row,
+                                           int head, int batch,
+                                           uint64_t* bar) {
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+        :: "r"(smem_addr(dst + h * HA_HALF)), "l"(m), "r"(64 * h), "r"(row),
+           "r"(head), "r"(batch), "r"(smem_addr(bar))
+        : "memory");
+  }
+}
 
 // a 128-row x 128-column tile of 16-bit elements (rows from `row` of head
 // `head`, batch `batch`; rows past the tensor are zero-filled) as four 64 x 64
@@ -398,7 +426,34 @@ struct Frag {
   int t4;       // lane % 4
 };
 
-// The shared mainloop.  P (the policy) provides
+// The ablations' hooks, which a policy inherits and may hide:
+//   STAGES      the ring's depth;
+//   copy(p, tile, row, dst, full): the unit's copies into ring stage dst,
+//               counted on its full barrier: K and V, COPY_BYTES (64 KB);
+//   COPIES      false: the walk copies nothing; the producer fills each
+//               stage at its first use with keys 0-63 of the tile's K and
+//               V in both 64-row halves, and later only arrives on it;
+//   LOAD_ONLY   true: the consumers wait for each unit, call
+//               load_only(p, tile, u, k_stage, o, frag) and hand the stage
+//               back (no products, no softmax);
+//   LINEAR      true: exp replaced by the scripts' linear form, alpha =
+//               m_prev - m_next + 1 and p = s - m_next.
+struct MainloopDefaults {
+  static constexpr int STAGES = HA_STAGES;
+  static constexpr bool COPIES = true;
+  static constexpr int COPY_BYTES = HA_STAGE;
+  static constexpr bool LOAD_ONLY = false;
+  static constexpr bool LINEAR = false;
+  template <class Params, class Tile>
+  static __device__ __forceinline__ void copy(const Params& p, const Tile& c,
+                                              int row, unsigned char* dst,
+                                              uint64_t* full) {
+    tma_tile(dst, &p.tmk, row, c.kv_head, c.kv_batch, full);
+    tma_tile(dst + HA_TILE, &p.tmv, row, c.kv_head, c.kv_batch, full);
+  }
+};
+
+// The shared mainloop.  P (the policy, a MainloopDefaults) provides
 //   Params (with CUtensorMap tmq, tmk, tmv), Tile, Window, SCALE_Q,
 //   first(p) / count(p) / stride(p): the tiles this CTA walks,
 //   tile(p, t): a tile's copies (q and kv coordinates, units u0 .. u1),
@@ -412,20 +467,21 @@ struct Frag {
 template <typename T, class P>
 __global__ void __launch_bounds__(HA_THREADS, 1)
 hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
+  constexpr int NS = P::STAGES;
   extern __shared__ unsigned char ha_raw[];
   unsigned char* sq = ha_raw + ((1024u - (smem_addr(ha_raw) & 1023u)) & 1023u);
   unsigned char* ring = sq + HA_TILE;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + HA_STAGES * HA_STAGE);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + NS * HA_STAGE);
   uint64_t* q_full = bars;
   uint64_t* q_empty = bars + 1;
   uint64_t* full = bars + 2;
-  uint64_t* empty = bars + 2 + HA_STAGES;
-  float* sums = reinterpret_cast<float*>(bars + 2 + 2 * HA_STAGES);
+  uint64_t* empty = bars + 2 + NS;
+  float* sums = reinterpret_cast<float*>(bars + 2 + 2 * NS);
   const int tid = threadIdx.x;
   if (tid == 0) {
     mbar_init(q_full, 1);
     mbar_init(q_empty, HA_CONSUMERS);
-    for (int s = 0; s < HA_STAGES; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], HA_CONSUMERS);
     }
@@ -438,7 +494,7 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
     // flipped so that its first wait on each empty stage passes
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == HA_CONSUMERS) {
-      int st = 0;
+      int st = 0, filled = 0;
       uint32_t ph = 0, qph = 0;
       for (int t = P::first(p); t < P::count(p); t += P::stride(p)) {
         const typename P::Tile c = P::tile(p, t);
@@ -449,12 +505,27 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
         for (int u = P::next(p, c, c.u0); u < c.u1; u = P::next(p, c, u + 1)) {
           const int row = P::key_row(p, c, u);   // its load overlaps the wait
           mbar_wait_or_trap(&empty[st], ph ^ 1);
-          mbar_expect_tx(&full[st], HA_STAGE);
-          unsigned char* dst = ring + st * HA_STAGE;
-          tma_tile(dst, &p.tmk, row, c.kv_head, c.kv_batch, &full[st]);
-          tma_tile(dst + HA_TILE, &p.tmv, row, c.kv_head, c.kv_batch,
-                   &full[st]);
-          if (++st == HA_STAGES) {
+          if constexpr (P::COPIES) {
+            mbar_expect_tx(&full[st], P::COPY_BYTES);
+            unsigned char* dst = ring + st * HA_STAGE;
+            P::copy(p, c, row, dst, &full[st]);
+          } else if (filled < NS) {
+            // the stage's first use: keys 0-63 of K and V, in both halves
+            ++filled;
+            mbar_expect_tx(&full[st], HA_STAGE);
+            unsigned char* dst = ring + st * HA_STAGE;
+#pragma unroll
+            for (int kv = 0; kv < 2; ++kv) {
+              const CUtensorMap* map = kv ? &p.tmv : &p.tmk;
+              tma_rows64(dst + kv * HA_TILE, map, 0, c.kv_head, c.kv_batch,
+                         &full[st]);
+              tma_rows64(dst + kv * HA_TILE + HA_BOX, map, 0, c.kv_head,
+                         c.kv_batch, &full[st]);
+            }
+          } else {
+            mbar_arrive(&full[st]);   // the stage still holds that tile
+          }
+          if (++st == NS) {
             st = 0;
             ph ^= 1;
           }
@@ -504,6 +575,17 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
         const typename P::Window win = P::window(p, c, u, f);
         mbar_wait_or_trap(&full[st], ph);
         const unsigned char* ks = ring + st * HA_STAGE;
+        if constexpr (P::LOAD_ONLY) {
+          P::load_only(p, c, u, ks, o, f);
+          un = P::next(p, c, u + 1);
+          if (un >= c.u1) mbar_arrive(q_empty);
+          mbar_arrive(&empty[st]);
+          if (++st == NS) {
+            st = 0;
+            ph ^= 1;
+          }
+          continue;
+        }
         const unsigned char* vs = ks + HA_TILE;
         float s[64];
         wgmma_fence();
@@ -534,13 +616,20 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
           mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 1));
           mc[r] = fmaxf(mc[r], __shfl_xor_sync(0xffffffffu, mc[r], 2));
           const float m_new = fmaxf(m[r], mc[r]);
-          alpha[r] = __expf(m[r] - m_new);
+          if constexpr (P::LINEAR)
+            alpha[r] = m[r] - m_new + 1.f;
+          else
+            alpha[r] = __expf(m[r] - m_new);
           m[r] = m_new;
         }
         float ls[2] = {0.f, 0.f};
 #pragma unroll
         for (int i = 0; i < 64; ++i) {
-          const float e = __expf(s[i] - m[(i >> 1) & 1]);
+          float e;
+          if constexpr (P::LINEAR)
+            e = s[i] - m[(i >> 1) & 1];
+          else
+            e = __expf(s[i] - m[(i >> 1) & 1]);
           s[i] = e;
           ls[(i >> 1) & 1] += e;
         }
@@ -564,7 +653,7 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
         fence_regs(o);
         fence_regs(pa);
         mbar_arrive(&empty[st]);
-        if (++st == HA_STAGES) {
+        if (++st == NS) {
           st = 0;
           ph ^= 1;
         }
@@ -589,11 +678,12 @@ __device__ __forceinline__ void quad_sum(float (&l)[2], float (&inv)[2]) {
 template <typename T, class P>
 int launch_hopper_attn(const typename P::Params& p, dim3 grid,
                        cudaStream_t stream) {
+  constexpr int smem = ha_smem(P::STAGES);
   auto kern = hopper_attn_kernel<T, P>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, HA_SMEM);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid, HA_THREADS, HA_SMEM, stream>>>(p);
+  kern<<<grid, HA_THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 

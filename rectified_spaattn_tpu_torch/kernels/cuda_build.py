@@ -24,7 +24,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 SOURCES = ("block_sparse", "dense_flash", "int8_probe", "variants")
 # K1/K1s/K2/K1q/K1q-s, K3, S1, S3/S2
-HEADERS = ("attn_common.cuh", "hopper_attn.cuh")   # included by the sources
+# included by the sources
+HEADERS = ("attn_common.cuh", "hopper_attn.cuh", "sparse_tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 _libs: dict = {}

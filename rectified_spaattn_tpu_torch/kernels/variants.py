@@ -17,13 +17,16 @@ scripts/bench_kernelvars.py and scripts/bench_groupedvars.py).
   S2  ``grouped_variant``  replaces ``build_grouped_variant``
       (scripts/bench_groupedvars.py:39, launched at :224): ``full``,
       ``dma``, ``compute``, ``computeclean``, ``nobias``, ``prefetch``
-      (a thread block walks 4 consecutive lists, ``SPAN`` in the source).
+      (a CTA walks 4 consecutive row tiles, ``SPAN`` in the source).
 
 The kernels are in ``csrc/variants.cu`` (its header says what each variant
-is on Hopper).  Each wrapper takes the K1 (S3) or K2 (S2) arguments; a CPU
-tensor runs the plain version here, a CUDA tensor launches the kernel or
-raises.  Each wrapper counts its launches per variant in ``launches`` (a
-Counter).
+is on Hopper).  S3a and S2 are policies of the Hopper mainloop that K1 and
+K2 run (``csrc/hopper_attn.cuh``, K1's and K2's policies in
+``csrc/sparse_tiles.cuh``), each with one part taken out or changed; S3b
+and S3c still run on the previous design (64-row blocks, mma.sync).  Each
+wrapper takes the K1 (S3) or K2 (S2) arguments; a CPU tensor runs the plain
+version here, a CUDA tensor launches the kernel or raises.  Each wrapper
+counts its launches per variant in ``launches`` (a Counter).
 
 What the plain versions return (the scripts' semantics, which the TPU
 kernels computed on real data or, where noted, did not define):
@@ -75,7 +78,7 @@ LOAD_ONLY = ("dma", "dmahalf", "dmabig")
 _CODE = {**{n: i for i, n in enumerate(S3A)}, "twophase": 10, "runs": 11,
          **{f"g_{n}": 12 + i for i, n in enumerate(S2)}}
 BLOCK = 128           # the scripts' block_m and block_n
-UNIT = 64             # keys per ring stage of the kernels
+UNIT = 64             # the compute-only variants' tile: keys 0-63
 
 
 def _declare(lib):
@@ -331,7 +334,9 @@ def kernel_variant(variant, q, k, v, indices, counts, text_len, *,
                                     text_len, sm_scale=sm_scale, **kw)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    # S3a masks every unit: no clean prefix
     out = _launch(_CODE[name], stages, q, k, v, indices, counts, text_len,
+                  clean=torch.zeros_like(counts, dtype=torch.int32),
                   sm_scale=sm_scale, **kw)
     kernel_variant.launches[variant] += 1
     return out
