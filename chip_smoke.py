@@ -11,14 +11,15 @@ int4 weights, the int8 offloaded TeaCache residual), the Wan2.1-14B
 denoise path, the multi-device path (K1s, the ring, tensor parallelism)
 and the kernel-diagnostic path (K1q-s, the S3 / S2 ablations, the
 headline bench).  Every attention kernel (K1/K1s, K2, K1q/K1q-s, K3)
-and the S3a / S2 ablations run on the Hopper mainloop of
+and every S3 / S2 ablation run on the Hopper mainloop of
 csrc/hopper_attn.cuh (K1q with a converter warpgroup and, for "mxu8",
-the int8 wgmma; S3a and S2 as K1's and K2's policies with one part taken
-out); K1's launches of fewer row tiles than SMs split each index list
-into key ranges that the merge kernel folds:
+the int8 wgmma; S3 and S2 as K1's and K2's policies with one part taken
+out or changed); K1's launches of fewer row tiles than SMs split each
+index list into key ranges that the merge kernel folds:
 
   0. build: per library each kernel's ptxas registers and spill bytes,
-     and each mainloop kernel's SASS counts (HGMMA / IGMMA, FSEL, BRA).
+     and each mainloop kernel's SASS counts (HGMMA / IGMMA, FSEL, BRA,
+     UTMALDG).
   1. device: the card's name and power limit; TF32 off.
   2. kernels: K1 (single-row gather), K2 (grouped-row gather) and K3
      (dense flash) against their plain PyTorch versions in bf16 at small
@@ -105,10 +106,11 @@ into key ranges that the merge kernel folds:
      first-frame retention, against the single-device site with the same
      visual_len (the visual ring takes every token as valid).
  10. kernelvars: every S3 variant (S3a with 2 and 3 ring stages,
-     twophase, runs on TMA) against its plain version at the 8 x 24 x 32
+     twophase, runs1/2/4) against its plain version at the 8 x 24 x 32
      grid; then bench.kernelvars at the Hunyuan point (the realistic_qkv
      plan, chunk 16; launch counters zeroed just before and read just
-     after), base / twophase / runs held to K1 there; every variant but
+     after), base held to K1 there, twophase equal to base and runs* to
+     K1 bit for bit, S3c's pieces per list; every variant but
      the three-stage rings against its plain version on
      that plan, the load-only variants bit for bit, noexp's NaN rows, the
      three-stage rings equal to the two-stage ones; per variant its time
@@ -283,8 +285,9 @@ def ptxas_table(log: str) -> dict:
 def sass_counts(lib: str) -> dict:
     """Per Hopper-mainloop kernel of a built library (hopper_attn_kernel:
     K1/K1s, K2, K3, the S3a / S2 policies; hopper_attn_q_kernel:
-    K1q/K1q-s), its count of SASS branches (BRA), selects (FSEL) and
-    wgmma instructions (HGMMA: bf16 / fp16, IGMMA: int8), read with
+    K1q/K1q-s), its count of SASS branches (BRA), selects (FSEL), wgmma
+    instructions (HGMMA: bf16 / fp16, IGMMA: int8) and TMA tile loads
+    (UTMALDG: the boxes the code issues, q's among them), read with
     cuobjdump: the mask is branch-free when its 64 scores a thread show up
     as 64 FSEL and the kernel's branches do not grow with them.  "sha1":
     a digest of the kernel's instruction text, equal for the same code in
@@ -301,7 +304,8 @@ def sass_counts(lib: str) -> dict:
             name = ln.split("Function :")[1].strip()
             fn = kernel_name(name) if "hopper_attn" in name else None
             if fn:
-                counts[fn] = {"BRA": 0, "FSEL": 0, "HGMMA": 0, "IGMMA": 0}
+                counts[fn] = {"BRA": 0, "FSEL": 0, "HGMMA": 0, "IGMMA": 0,
+                              "UTMALDG": 0}
                 digests[fn] = hashlib.sha1()
         elif fn and "*/" in ln:
             text = ln.split("*/", 1)[1].split("/*")[0].strip()
@@ -315,6 +319,17 @@ def sass_counts(lib: str) -> dict:
     for fn, d in digests.items():
         counts[fn]["sha1"] = d.hexdigest()[:12]
     return counts
+
+
+def tma_loads(counts: dict, policy: str) -> int:
+    """UTMALDG instructions in the SASS of the bf16 hopper_attn_kernel
+    whose policy's mangled name holds ``policy`` (one of sass_counts'
+    tables), or None where cuobjdump failed."""
+    if "cuobjdump" in counts:
+        return None
+    [n] = [c["UTMALDG"] for k, c in counts.items()
+           if "hopper_attn_kernelI13__nv_bfloat16" in k and policy in k]
+    return n
 
 
 def smi_line() -> str:
@@ -2045,11 +2060,11 @@ def k1q_stats_cases(kernels, ops):
 
 
 # the S3 variants chip_smoke drives (every S3a name, the three-stage ring
-# for the load, compute and whole kernels, twophase, runs at two caps) and
-# the S2 groups
+# for the load, compute and whole kernels, twophase, runs at three caps)
+# and the S2 groups
 S3_DRIVEN = ("base", "base3", "dma", "dma3", "dmahalf", "dmabig", "compute",
              "compute3", "computeclean", "computenomask", "computenoexp",
-             "nomask", "noexp", "twophase", "runs2", "runs4")
+             "nomask", "noexp", "twophase", "runs1", "runs2", "runs4")
 S2_GROUPS = (2, 4)
 
 
@@ -2095,8 +2110,9 @@ def variant_vs_plain(name, got, want, exact: bool) -> dict:
 def kernelvars_phase(kernels):
     """S3: each variant against its plain version at the small grid; then
     the kernelvars bench at the HunyuanVideo point (its main path, the
-    launch counters zeroed just before and read just after), base,
-    twophase and runs held to K1 there; then every variant but the
+    launch counters zeroed just before and read just after), base held to
+    K1 there by the relative limits, twophase equal to base and runs* to
+    K1 bit for bit; S3c's pieces per list; then every variant but the
     three-stage rings on the bench's full plan against its plain version
     (the load-only variants bit for bit, noexp's NaN rows), the three-stage
     rings equal to the two-stage ones; per variant its time against K1's,
@@ -2127,17 +2143,33 @@ def kernelvars_phase(kernels):
     missing = [n for n in S3_DRIVEN if not res["launches"].get(n)]
     if missing:
         raise AssertionError(f"S3 variants never launched: {missing}")
+    checked = {n for n in S3_DRIVEN if kernelvars.reference(n)}
+    if set(bench["check"]) != checked:
+        raise AssertionError(f"kernelvars checked {sorted(bench['check'])}, "
+                             f"not {sorted(checked)}")
     for name, r in bench["check"].items():
-        if not (r["max_abs_err"] <= REL_MAX * r["ref_max_abs"]
-                and r["rms_err"] <= REL_RMS * r["ref_std"]):
-            raise AssertionError(f"{name} vs K1 beyond the relative limits: "
-                                 f"{r}")
+        if name == "base":
+            if not (r["max_abs_err"] <= REL_MAX * r["ref_max_abs"]
+                    and r["rms_err"] <= REL_RMS * r["ref_std"]):
+                raise AssertionError(f"base vs K1 beyond the relative "
+                                     f"limits: {r}")
+        elif not r["equal"]:
+            raise AssertionError(f"{name} not bit for bit {r['ref']} on the "
+                                 f"full plan: {r}")
     res["bench"] = bench
 
     st = kernelvars.setup()
     args = (st["q"], st["k"], st["v"], st["indices"], st["counts"], st["tlen"])
     kw = dict(visual_len=st["visual_len"], text_start=st["visual_len"],
               chunk_blocks=16)
+    # S3c's walk on this plan: per list, its units and each cap's pieces
+    # (the producer's index reads)
+    lists = st["counts"].numel()
+    res["units_per_row"] = float(st["counts"].sum()) / lists
+    res["pieces_per_row"] = {
+        n: float((kv.piece_lengths(st["indices"], st["counts"], 16,
+                                   int(n[4:])) > 0).sum()) / lists
+        for n in S3_DRIVEN if n.startswith("runs")}
     res["full_vs_plain"] = {}
     for name in ("base", "twophase", "runs4", "dma", "dmahalf", "dmabig",
                  "compute", "computeclean", "computenomask", "computenoexp",
@@ -2164,15 +2196,11 @@ def kernelvars_phase(kernels):
     counts = st["counts"].long()
     pairs = float(counts.sum())
     ext = float(((counts + g - 1) // g * g).sum())     # the chunk extent
-    # the bytes each pair's block copy moves: S3a's 128-row CTAs copy a
-    # block's K and V once (64 KB); twophase and runs walk each list with
-    # two 64-row blocks, each copying it
+    # the bytes each pair's block copy moves: every variant's 128-row CTA
+    # copies a block's K and V once (64 KB)
     per_pair = 128 * 2 * 128 * 2
     gathered = {"dmahalf": pairs * per_pair / 2, "dmabig": ext * per_pair,
                 "nomask": ext * per_pair, "computenomask": 0.0,
-                "twophase": 2 * pairs * per_pair,
-                **{n: 2 * pairs * per_pair for n in S3_DRIVEN
-                   if n.startswith("runs")},
                 **{n: 0.0 for n in ("compute", "compute3", "computeclean",
                                     "computenoexp")}}
     flops_pair = 4.0 * 128 * 128 * 128
@@ -2330,19 +2358,21 @@ def k1q_stats_entry(src, site, smooth, small_errs) -> dict:
                            "int8_visual_smooth": smooth["K1q-s_int8_visual"]}}
 
 
-def variant_entries(s3, s2) -> list:
+def variant_entries(s3, s2, sass) -> list:
     """The kernels line's S3a, S3b, S3c and S2 entries: each at the
     benches' HunyuanVideo plans, its launches in the bench's run, its
     plain version on the full plan, the bound of the attention it computes
     (S3a: base, S3c: runs4, S2: full at G = 2), and its time against K1's
-    (S3) or K2's (S2) on the same plan."""
+    (S3) or K2's (S2) on the same plan, each S3 kernel's device time
+    alone beside K1's (the bench's ``kernel_ms``); S3c's TMA loads in its
+    SASS against K1's (``sass``: the build's SASS counts)."""
     src = "rectified_spaattn_tpu_torch/csrc/variants.cu"
     bench, launches = s3["bench"], s3["launches"]
     small_err = lambda prefix: max(
         [c.get("max_abs_err", 0.0) for c in s3["small_vs_plain"]
          if c["case"].startswith(prefix)] or [0.0])
 
-    def s3_entry(name, key, replaces, names, shape, design):
+    def s3_entry(name, key, replaces, names, shape, design, **extra):
         full = s3["full_vs_plain"][key]
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "design": design,
@@ -2357,7 +2387,11 @@ def variant_entries(s3, s2) -> list:
                 "k1_ms_same_plan": s3["k1_ms"],
                 "k1_ms_first_last": bench["ms_each"]["k1"],
                 "vs_k1": bench["ms"][key] / s3["k1_ms"],
-                "other_jobs": {n: s3["variants"][n] for n in names}}
+                # the kernels alone, from the bench's profiler trace
+                "kernel_ms": bench["kernel_ms"][key],
+                "k1_kernel_ms": bench["kernel_ms"]["k1"],
+                "other_jobs": {n: s3["variants"][n] for n in names},
+                **extra}
 
     plan = ("kernelvars plan: q [1,24,115200,128] x 902 key blocks, "
             "realistic_qkv, chunk_blocks 16")
@@ -2368,14 +2402,20 @@ def variant_entries(s3, s2) -> list:
     s2_small = max(c.get("max_abs_err", 0.0) for c in s2["small_vs_plain"])
     s2_ms = s2["bench"]["ms"]
     policy = "hopper mainloop policy"
-    previous = "previous design (64-row blocks, mma.sync)"
     return [
         s3_entry("S3a", "base", "scripts/bench_kernelvars.py:56", s3a,
                  f"base (every unit masked), {plan}", policy),
         s3_entry("S3b", "twophase", "scripts/bench_kernelvars.py:205",
-                 ["twophase"], f"twophase, {plan}", previous),
+                 ["twophase"], f"twophase, {plan}", policy,
+                 base_ms_same_plan=bench["ms"]["base"],
+                 vs_base=bench["ms"]["twophase"] / bench["ms"]["base"]),
         s3_entry("S3c", "runs4", "scripts/bench_kernelvars.py:316", runs,
-                 f"runs4 (TMA copies), {plan}", previous + ", TMA copies"),
+                 f"runs4 (run pieces, 128-row boxes), {plan}", policy,
+                 utmaldg_sass=tma_loads(sass["variants"], "RunPieces"),
+                 k1_utmaldg_sass=tma_loads(sass["block_sparse"],
+                                           "SparseTilesIS1_Lb0E"),
+                 units_per_row=s3["units_per_row"],
+                 pieces_per_row=s3["pieces_per_row"]),
         {"name": "S2", "route": "cuda", "source": src,
          "replaces": "scripts/bench_groupedvars.py:39", "design": policy,
          "launches": sum(s2["launches"].values()),
@@ -2670,7 +2710,7 @@ def main() -> int:
                   "Hunyuan text rows' split)",
          "design": "one warp a row"},
         k1q_stats_entry(src, site, smooth, qserrs),
-        *variant_entries(s3, s2),
+        *variant_entries(s3, s2, ptxas["sass"]),
     ]}
     t0 = time.perf_counter()
     emit("total", t0, total_seconds=time.perf_counter() - t_start)

@@ -27,9 +27,14 @@ The Wan2.1-14B inputs are iid (seed 8) at chip_smoke.py's Wan site,
                    views of [B, S, H, D] projections.
 
 With ``--ablations`` it also times K1's and K2's ablations on the visual
-rows' plan (S3a base / compute / dma beside K1_visual_g1, S2 full /
-compute / dma at G = 2 beside K2_visual_g2: kernels/variants.py), the
-plan that bench/mainloop_variants.py's edits of the mainloop run on.
+rows' plan (S3a base / compute / dma, S3b twophase and S3c runs1 / runs4
+beside K1_visual_g1; S2 full / compute / dma at G = 2 beside
+K2_visual_g2: kernels/variants.py), the plan that
+bench/mainloop_variants.py's edits of the mainloop run on, and under
+"kernel_ms" the device time of K1's and each S3 ablation's
+hopper_attn_kernel alone, from torch.profiler traces of one wrapper call
+each, the calls taken in turns ``--reps`` times (bench/common.py's
+``kernel_ms_turns``).
 
 Each time is chip_smoke.py's ``cuda_ms`` over ``--reps`` calls; each
 ``<name>_sdpa`` is the SDPA call's time on the same inputs (the yardstick
@@ -111,9 +116,9 @@ def main(argv=None) -> dict:
     tl0 = torch.zeros((b,), dtype=torch.int32, device=dev)
     amask = st["valid"][:, None, None, :]
     k1 = kernels.block_sparse_flash_attention
+    k1_visual = lambda: k1(qv, kz, vz, plan.indices, plan.counts, tlen, **kw)
     time_all({
-        "K1_visual_g1": lambda: k1(qv, kz, vz, plan.indices, plan.counts,
-                                   tlen, **kw),
+        "K1_visual_g1": k1_visual,
         "K2_visual_g2": lambda: kernels.block_sparse_flash_attention_grouped(
             qv, kz, vz, *grouped, tlen, group=2, **kw),
         **{f"K1q_{m}_visual": (
@@ -132,17 +137,30 @@ def main(argv=None) -> dict:
         "K1s_ring_text_sdpa": lambda: flash(qt, k0, v0),
     })
     if a.ablations:
+        from rectified_spaattn_tpu_torch.bench.common import kernel_ms_turns
         kv = kernels.variants
-        time_all({
+        s3 = {
             **{f"S3a_{n}_visual": (
                 lambda n=n: kv.kernel_variant(n, qv, kz, vz, plan.indices,
                                               plan.counts, tlen, **kw))
                for n in ("base", "compute", "dma")},
+            "S3b_twophase_visual": lambda: kv.twophase(
+                qv, kz, vz, plan.indices, plan.counts, tlen, **kw),
+            **{f"S3c_runs{r}_visual": (
+                lambda r=r: kv.runs(qv, kz, vz, plan.indices, plan.counts,
+                                    tlen, max_run=r, **kw))
+               for r in (1, 4)},
+        }
+        time_all({
+            **s3,
             **{f"S2_{n}_visual_g2": (
                 lambda n=n: kv.grouped_variant(n, qv, kz, vz, *grouped, tlen,
                                                group=2, **kw))
                for n in ("full", "compute", "dma")},
         })
+        res["kernel_ms"] = kernel_ms_turns(
+            {"K1_visual_g1": k1_visual, **s3}, dev, a.reps)
+        print(json.dumps(res["kernel_ms"]), file=sys.stderr, flush=True)
     del st, q, k, v, kz, vz, plan, grouped, payload, qd, k0, v0
     torch.cuda.empty_cache()
 

@@ -2,13 +2,15 @@
 they run on, and how they time a call.
 
 On a CUDA device a time is CUDA-event time over back-to-back calls after a
-warm-up; on the CPU (a rehearsal at a tiny grid, the kernels' plain
-versions) it is the host clock, and the output names the device so that
-no CPU number passes for a card's.
+warm-up, or (``kernel_ms``) one attention kernel's device time from a
+profiler trace; on the CPU (a rehearsal at a tiny grid, the kernels'
+plain versions) it is the host clock, and the output names the device so
+that no CPU number passes for a card's.
 """
 
 from __future__ import annotations
 
+import statistics
 import subprocess
 import time
 
@@ -75,6 +77,46 @@ def time_ms(fn, dev: torch.device, reps: int = 3, warmup: int = 1) -> float:
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def kernel_ms(fn, dev: torch.device) -> float | None:
+    """Device ms of one call's hopper_attn_kernel, from a torch.profiler
+    trace of that call after one warm-up: the kernel alone, without the
+    work the wrapper launches around it.  None off the card, or where the
+    trace holds no such kernel."""
+    if dev.type != "cuda":
+        return None
+    fn()
+    sync(dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        sync(dev)
+    us = [getattr(e, "self_device_time_total",
+                  getattr(e, "self_cuda_time_total", 0))
+          for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "hopper_attn_kernel<" in e.key]
+    return sum(us) / 1e3 if us else None
+
+
+def kernel_ms_turns(calls: dict, dev: torch.device, rounds: int = 5) -> dict:
+    """{name: [ms, ...]}: each call's kernel alone (``kernel_ms``), the
+    calls taken in turns ``rounds`` times, so that a change of the card's
+    speed during the run reaches every call alike."""
+    each = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            each[name].append(kernel_ms(fn, dev))
+    return each
+
+
+def median(xs):
+    """The median of the values of ``xs`` that are not None (a trace
+    without the kernel), or None where there is none (off the card)."""
+    xs = [x for x in xs if x is not None]
+    return statistics.median(xs) if xs else None
 
 
 def oneshot_ms(fn, dev: torch.device, n: int = 4) -> float:

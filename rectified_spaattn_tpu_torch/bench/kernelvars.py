@@ -13,8 +13,14 @@ the ablations attribute.  The plan is build_sparse_plan's on
 all text valid; ``--small``: the 8 x 24 x 32 grid), the visual rows over
 all keys, chunk_blocks ``--chunk``.  Prints the mean count, one line per
 variant with its ms, and last one JSON line {variant: ms, ...} with the
-device.  ``--check`` first holds base, twophase and runs* to K1's output
-on the same plan (max abs and rms error beside the output's scale).
+device, and on the card each variant's kernel alone (``kernel_ms``: the
+median device time of its hopper_attn_kernel in torch.profiler traces of
+one call, the variants traced in turns ``--iters`` times; without the
+index work its wrapper launches before it).  ``--check``
+first holds the checked variants to their reference
+on the same plan (``CHECKED``: base to K1's output by max abs and rms
+error beside the output's scale; twophase to base's and runs* to K1's
+bit for bit, ``equal``).
 On ``--device cpu`` every kernel runs its plain version (a rehearsal).
 """
 
@@ -28,12 +34,23 @@ import torch
 from ..kernels import block_sparse_flash_attention, variants
 from ..pipelines import build_site
 from ..sparse import build_sparse_plan
-from .common import device_info, point, rel_err, resolve, time_ms
+from .common import (device_info, kernel_ms_turns, median, point, rel_err,
+                     resolve, time_ms)
 from .inputs import realistic_qkv
 
 DEFAULT = "base,dma,compute,nomask,noexp"
-ALL = ",".join([*variants.S3A, "base3", "twophase", "runs2", "runs4"])
-CHECKED = ("base", "twophase")       # and runs*: equal to K1 by definition
+ALL = ",".join([*variants.S3A, "base3", "twophase", "runs1", "runs2",
+                "runs4"])
+# the checked variants and their references ("runs": every runsN).
+# twophase is base without the selects that keep every key of its clean
+# chunks, runs* K1 with other copies of the same units: each equals its
+# reference bit for bit
+CHECKED = {"base": "k1", "twophase": "base", "runs": "k1"}
+
+
+def reference(name: str):
+    """The variant ``name`` is checked against, or None."""
+    return CHECKED.get("runs" if name.startswith("runs") else name)
 
 
 def setup(small: bool = False, *, grid=None, heads=None, drop: float = 0.8,
@@ -81,7 +98,10 @@ def run(names, *, small=False, grid=None, heads=None, drop=0.8, chunk=16,
     """Time each variant of ``names`` on one plan; returns {"ms":
     {variant: ms}, "check": {variant: errors vs K1}, the plan's mean
     count and pairs, the device}.  A variant named twice (k1 first and
-    last, say) is timed twice: "ms" holds the mean, "ms_each" each time."""
+    last, say) is timed twice: "ms" holds the mean, "ms_each" each time;
+    on the card "kernel_ms" holds each variant's kernel alone, the median
+    of "kernel_ms_each" (``common.kernel_ms_turns``: ``iters`` turns),
+    traced after the variants are timed."""
     st = setup(small, grid=grid, heads=heads, drop=drop, device=device,
                seed=seed)
     counts = st["counts"]
@@ -93,13 +113,21 @@ def run(names, *, small=False, grid=None, heads=None, drop=0.8, chunk=16,
     if verbose:
         print("mean count:", res["mean_count"], flush=True)
     if check:
-        want = call("k1", st, chunk)()
+        want = {}
         for name in names:
-            if name in CHECKED or name.startswith("runs"):
-                res["check"][name] = rel_err(call(name, st, chunk)(), want)
-                if verbose:
-                    print(f"{name}-vs-k1:", json.dumps(res["check"][name]),
-                          flush=True)
+            ref = reference(name)
+            if ref is None:
+                continue
+            if ref not in want:
+                want[ref] = call(ref, st, chunk)()
+            got = call(name, st, chunk)()
+            res["check"][name] = {"ref": ref,
+                                  "equal": bool(torch.equal(got, want[ref])),
+                                  **rel_err(got, want[ref])}
+            if verbose:
+                print(f"{name}-vs-{ref}:", json.dumps(res["check"][name]),
+                      flush=True)
+            del got
         del want
     each = {}
     for name in names:
@@ -109,6 +137,12 @@ def run(names, *, small=False, grid=None, heads=None, drop=0.8, chunk=16,
         if verbose:
             print(f"{name}: {t:.1f} ms", flush=True)
     res["ms_each"] = each
+    res["kernel_ms_each"] = kernel_ms_turns(
+        {name: call(name, st, chunk) for name in names}, st["dev"], iters)
+    res["kernel_ms"] = {name: median(v)
+                        for name, v in res["kernel_ms_each"].items()}
+    if verbose:
+        print("kernel_ms:", json.dumps(res["kernel_ms"]), flush=True)
     return res
 
 
@@ -119,7 +153,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--drop", type=float, default=0.8)
     ap.add_argument("--chunk", type=int, default=16)
     ap.add_argument("--check", action="store_true",
-                    help="hold base, twophase and runs* to K1 first")
+                    help="hold base and runs* to K1, twophase to base first")
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--small", action="store_true",
                     help="the 8 x 24 x 32 latent grid")
@@ -129,7 +163,8 @@ def main(argv=None) -> dict:
     res = run(a.variants.split(","), small=a.small, drop=a.drop,
               chunk=a.chunk, check=a.check, iters=a.iters, device=a.device,
               seed=a.seed)
-    print(json.dumps({**res["ms"], "device": res["device"],
+    print(json.dumps({**res["ms"], "kernel_ms": res["kernel_ms"],
+                      "device": res["device"],
                       "nvidia_smi": res.get("nvidia_smi")}), flush=True)
     return res
 

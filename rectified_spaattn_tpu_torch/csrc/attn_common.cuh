@@ -1,9 +1,9 @@
 // Device helpers shared by the port's kernels: the masked-score constant
 // and the 16-bit packing every kernel uses; mma.sync m16n8k16 for bf16 and
 // fp16 with fp32 accumulation, mma.sync m16n8k32 for int8 with int32
-// accumulation, ldmatrix and cp.async, which the probe and ablation
-// kernels on the earlier design use (int8_probe.cu: S1; variants.cu: S2,
-// S3).
+// accumulation, ldmatrix and cp.async, which the int8 probe S1 uses
+// (int8_probe.cu; the attention kernels run on hopper_attn.cuh's wgmma
+// and TMA).
 #pragma once
 
 #include <cuda_runtime.h>

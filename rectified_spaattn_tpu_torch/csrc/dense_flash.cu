@@ -69,7 +69,8 @@ struct DenseTiles : MainloopDefaults {
     return c;
   }
   static __device__ int next(const Params&, const Tile&, int u) { return u; }
-  static __device__ int key_row(const Params&, const Tile&, int u) {
+  static __device__ int key_row(const Params&, const Tile&, int u,
+                                Cursor&) {
     return u * HA_KEYS;
   }
   // the unit's key window, once: offsets (from this thread's first

@@ -1,9 +1,8 @@
 // The Hopper attention mainloop shared by K1/K1s and K2 (block_sparse.cu),
-// K3 (dense_flash.cu) and the S3a / S2 ablations of K1 and K2
-// (variants.cu), with the mbarrier and TMA helpers that S3c (variants.cu)
-// uses too, and the parts K1q's kernel adds to it (block_sparse.cu,
-// hopper_attn_q_kernel): int8 tiles by TMA, their exact conversion to 16
-// bits, and the int8 wgmma.
+// K3 (dense_flash.cu) and the S3 / S2 ablations of K1 and K2 (variants.cu),
+// with the mbarrier and TMA helpers, and the parts K1q's kernel adds to it
+// (block_sparse.cu, hopper_attn_q_kernel): int8 tiles by TMA, their exact
+// conversion to 16 bits, and the int8 wgmma.
 //
 // One CTA owns 128 query rows of one (batch, head): 384 threads, two
 // consumer warpgroups of 64 rows each (threads 0-255) and one producer
@@ -26,8 +25,9 @@
 //     window once and applies it to the 64 scores of a thread by selects.
 //   * The ablations' hooks (MainloopDefaults below; with the defaults the
 //     mainloop computes what it computes without them): the ring depth,
-//     the unit's copy, no copies at all, a load-only consumer and the
-//     scripts' linear stand-in for exp.
+//     the unit's copy, no copies at all, a load-only consumer, the
+//     scripts' linear stand-in for exp, and the producer's cursor over a
+//     tile's units.
 //
 // Shared memory (1024-byte aligned for the swizzle): q [2 column halves]
 // [128 rows][128 B], then the ring: per stage K then V in the same layout,
@@ -99,25 +99,6 @@ EncodeTiled tensor_map_encoder() {
   return encode;
 }
 
-// K or V as a 2-D bf16 tensor [rows, 128] with its row stride, in boxes of
-// 64 x 64 with the 128-byte swizzle; 0 on success
-int encode_map(CUtensorMap* map, const void* base, long long rows,
-               long long row_stride) {
-  EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return -2;
-  const cuuint64_t dims[2] = {128, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)row_stride * 2};
-  const cuuint32_t box[2] = {64, 64};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                            const_cast<void*>(base), dims, strides, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -2;
-}
-
 // ------------------------------------------------------ the mainloop's parts
 
 constexpr int HA_ROWS = 128;          // query rows per CTA
@@ -137,10 +118,13 @@ constexpr int ha_smem(int stages) {
          2 * 128 * 4;
 }
 
-// rows row .. row + 63 of head `head`, batch `batch` (128 columns of
-// 16-bit elements) into the 64-row half of a tile at `dst`: two 64 x 64
-// boxes of a 4-D map (D, row, head, batch), one per column half
-__device__ __forceinline__ void tma_rows64(unsigned char* dst,
+// one box of each 64-column half (128 columns of 16-bit elements) from
+// row `row` of head `head`, batch `batch`, of a 4-D map (D, row, head,
+// batch), into the halves of a tile at `dst`: with the 64-row boxes of
+// encode_rows_map's default, rows row .. row + 63 into a tile's first 64
+// rows; with box_rows 128 (S3c), rows row .. row + 127, the whole tile in
+// tma_tile's layout (the swizzle repeats every 8 rows)
+__device__ __forceinline__ void tma_halves(unsigned char* dst,
                                            const CUtensorMap* map, int row,
                                            int head, int batch,
                                            uint64_t* bar) {
@@ -179,13 +163,14 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst,
 }
 
 // A 4-D map (D = 128, rows, heads, batch) of bf16 (dtype 0) or fp16 (1)
-// elements with the given strides in elements, in 64 x 64 boxes with the
-// 128-byte swizzle; rows past `rows` read as zeros.  The stride of an axis
-// of extent 1 is never applied, so it is replaced by a valid one.
+// elements with the given strides in elements, in boxes of 64 columns x
+// `box_rows` rows (at most 256) with the 128-byte swizzle; rows past `rows`
+// read as zeros.  The stride of an axis of extent 1 is never applied, so
+// it is replaced by a valid one.
 int encode_rows_map(CUtensorMap* map, int dtype, const void* base,
                     long long rows, long long heads, long long batch,
                     long long row_stride, long long head_stride,
-                    long long batch_stride) {
+                    long long batch_stride, int box_rows = 64) {
   EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return -2;
   cuuint64_t dims[4] = {(cuuint64_t)HA_D, (cuuint64_t)rows,
@@ -195,7 +180,7 @@ int encode_rows_map(CUtensorMap* map, int dtype, const void* base,
     if (dims[i] == 1) st[i] = st[i - 1] * (long long)dims[i - 1];
   const cuuint64_t strides[3] = {(cuuint64_t)st[1] * 2, (cuuint64_t)st[2] * 2,
                                  (cuuint64_t)st[3] * 2};
-  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
       map, dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
@@ -437,7 +422,10 @@ struct Frag {
 //               load_only(p, tile, u, k_stage, o, frag) and hand the stage
 //               back (no products, no softmax);
 //   LINEAR      true: exp replaced by the scripts' linear form, alpha =
-//               m_prev - m_next + 1 and p = s - m_next.
+//               m_prev - m_next + 1 and p = s - m_next;
+//   Cursor      the producer's state across one tile's units, made anew
+//               (value-initialised) for each tile and handed to key_row;
+//               by default empty.
 struct MainloopDefaults {
   static constexpr int STAGES = HA_STAGES;
   static constexpr bool COPIES = true;
@@ -451,6 +439,7 @@ struct MainloopDefaults {
     tma_tile(dst, &p.tmk, row, c.kv_head, c.kv_batch, full);
     tma_tile(dst + HA_TILE, &p.tmv, row, c.kv_head, c.kv_batch, full);
   }
+  struct Cursor {};
 };
 
 // The shared mainloop.  P (the policy, a MainloopDefaults) provides
@@ -459,7 +448,8 @@ struct MainloopDefaults {
 //   tile(p, t): a tile's copies (q and kv coordinates, units u0 .. u1),
 //   next(p, tile, u): the first unit >= u that the tile walks (u itself
 //     for a policy that walks every unit),
-//   key_row(p, tile, u): the first key row of unit u,
+//   key_row(p, tile, u, cursor): the first key row of unit u, read by the
+//     producer with its Cursor (a hook above),
 //   window(p, tile, u, frag) -> Window: unit u's key window, once,
 //   mask(p, window, s): the thread's 64 scores of the unit masked (and
 //     scaled) by selects,
@@ -502,8 +492,9 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
         mbar_expect_tx(q_full, HA_TILE);
         tma_tile(sq, &p.tmq, c.q_row, c.q_head, c.q_batch, q_full);
         qph ^= 1;
+        typename P::Cursor cur{};
         for (int u = P::next(p, c, c.u0); u < c.u1; u = P::next(p, c, u + 1)) {
-          const int row = P::key_row(p, c, u);   // its load overlaps the wait
+          const int row = P::key_row(p, c, u, cur);   // loads overlap the wait
           mbar_wait_or_trap(&empty[st], ph ^ 1);
           if constexpr (P::COPIES) {
             mbar_expect_tx(&full[st], P::COPY_BYTES);
@@ -517,9 +508,9 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
 #pragma unroll
             for (int kv = 0; kv < 2; ++kv) {
               const CUtensorMap* map = kv ? &p.tmv : &p.tmk;
-              tma_rows64(dst + kv * HA_TILE, map, 0, c.kv_head, c.kv_batch,
+              tma_halves(dst + kv * HA_TILE, map, 0, c.kv_head, c.kv_batch,
                          &full[st]);
-              tma_rows64(dst + kv * HA_TILE + HA_BOX, map, 0, c.kv_head,
+              tma_halves(dst + kv * HA_TILE + HA_BOX, map, 0, c.kv_head,
                          c.kv_batch, &full[st]);
             }
           } else {

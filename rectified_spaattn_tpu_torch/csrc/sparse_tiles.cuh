@@ -161,7 +161,8 @@ struct SparseTiles : MainloopDefaults {
     return blk < 0 ? 0 : (blk >= p.num_key_blocks ? p.num_key_blocks - 1 : blk);
   }
   static __device__ int next(const Params&, const Tile&, int u) { return u; }
-  static __device__ int key_row(const Params& p, const Tile& c, int u) {
+  static __device__ int key_row(const Params& p, const Tile& c, int u,
+                                Cursor&) {
     return block_of(p, c, u) * HA_KEYS;
   }
   using Window = KeyWindow;
@@ -305,7 +306,8 @@ struct GroupedTiles : SparseTiles<T, false> {
       while (u < c.count && !member(c, u)) ++u;
     return u;
   }
-  static __device__ int key_row(const Params& p, const Tile& c, int u) {
+  static __device__ int key_row(const Params& p, const Tile& c, int u,
+                                MainloopDefaults::Cursor&) {
     return block_of(p, c, u) * HA_KEYS;
   }
   // K1's window; a degenerate CTA's keeps no key

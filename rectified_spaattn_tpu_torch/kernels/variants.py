@@ -12,29 +12,32 @@ scripts/bench_kernelvars.py and scripts/bench_groupedvars.py).
   S3b ``twophase``         replaces ``build_twophase_kernel`` (:205,
       launched at :442): whole clean chunks unmasked, then the masked tail.
   S3c ``runs``             replaces ``build_runs_kernel`` (:316, launched at
-      :517): K1 fed by the copy engine (TMA tensor copies) along the run
-      pieces of ``piece_lengths`` (:23-53, ported bit for bit).
+      :517): K1 whose producer walks the run pieces of ``piece_lengths``
+      (:23-53, ported bit for bit), one index read a piece, copying each
+      unit in two 128-row boxes a tensor.
   S2  ``grouped_variant``  replaces ``build_grouped_variant``
       (scripts/bench_groupedvars.py:39, launched at :224): ``full``,
       ``dma``, ``compute``, ``computeclean``, ``nobias``, ``prefetch``
       (a CTA walks 4 consecutive row tiles, ``SPAN`` in the source).
 
 The kernels are in ``csrc/variants.cu`` (its header says what each variant
-is on Hopper).  S3a and S2 are policies of the Hopper mainloop that K1 and
-K2 run (``csrc/hopper_attn.cuh``, K1's and K2's policies in
-``csrc/sparse_tiles.cuh``), each with one part taken out or changed; S3b
-and S3c still run on the previous design (64-row blocks, mma.sync).  Each
-wrapper takes the K1 (S3) or K2 (S2) arguments; a CPU tensor runs the plain
-version here, a CUDA tensor launches the kernel or raises.  Each wrapper
-counts its launches per variant in ``launches`` (a Counter).
+is on Hopper).  Every variant is a policy of the Hopper mainloop that K1
+and K2 run (``csrc/hopper_attn.cuh``, K1's and K2's policies in
+``csrc/sparse_tiles.cuh``), with one part taken out or changed: S3b is
+S3a ``base`` with its whole clean chunks unmasked, S3c K1 with the run
+pieces' producer.  Each wrapper takes the K1 (S3) or K2 (S2) arguments;
+a CPU tensor runs the plain version here, a CUDA tensor launches the
+kernel or raises.  Each wrapper counts its launches per variant in
+``launches`` (a Counter).
 
 What the plain versions return (the scripts' semantics, which the TPU
 kernels computed on real data or, where noted, did not define):
   base, base3             K1's chunk loop over lists whose slots past the
                           list read its last index (the scripts do not pad)
-  twophase                base's output: on ascending lists (as
-                          mask_to_indices and the plans give them) its
-                          unmasked chunks hold only keys base's mask keeps
+  twophase                base's output (the kernel's, bit for bit): on
+                          ascending lists (as mask_to_indices and the
+                          plans give them) its unmasked chunks hold only
+                          keys base's mask keeps
   nomask                  the same loop with no count or window mask: the
                           count raised to whole chunks, the window to all
                           keys
@@ -51,7 +54,8 @@ kernels computed on real data or, where noted, did not define):
                           S2 compute: full, computeclean: full without the
                           window) over K and V whose every 64-key unit is
                           that tile
-  runs                    K1's output
+  runs                    K1's output (the kernel's bit for bit where K1
+                          does not split its key range)
   S2 full, prefetch       K2's output; nobias: attention over the union
                           list with the count and window masks; dma as above
 """
@@ -393,9 +397,10 @@ def runs_torch(q, k, v, indices, counts, text_len, *, visual_len,
 
 def runs(q, k, v, indices, counts, text_len, *, visual_len, text_start,
          max_run=4, chunk_blocks=16, sm_scale=None, packed_kv=None):
-    """S3c: K1 fed by TMA tensor copies, walking the run pieces of
-    ``piece_lengths(indices, counts, chunk_blocks, max_run)``; its output
-    is K1's."""
+    """S3c: K1 whose producer walks the run pieces of
+    ``piece_lengths(indices, counts, chunk_blocks, max_run)`` (one index
+    read a piece) and copies each unit in two 128-row boxes a tensor; its
+    output is K1's."""
     _check_s3(q, k, packed_kv, indices, counts, chunk_blocks)
     if max_run < 1:
         raise ValueError("max_run must be positive")

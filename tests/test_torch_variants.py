@@ -41,6 +41,7 @@ from rectified_spaattn_tpu.sparse import ops as jops
 from rectified_spaattn_tpu_torch import kernels as tk
 from rectified_spaattn_tpu_torch.bench import (groupedvars, headline, inputs,
                                                kernelvars)
+from rectified_spaattn_tpu_torch.bench.common import median
 from rectified_spaattn_tpu_torch.kernels import variants
 from rectified_spaattn_tpu_torch.sparse import ops
 
@@ -314,6 +315,38 @@ def test_piece_lengths_bit_exact(chunk, max_run):
     np.testing.assert_array_equal(got, want)
     # the pieces partition each list's first count slots
     assert (got.sum(-1) == cnt.numpy()).all()
+
+
+@pytest.mark.parametrize("max_run", [1, 2, 4])
+@pytest.mark.parametrize("chunk", [2, 4, 16])
+def test_piece_lengths_walk_invariant(chunk, max_run):
+    """What S3c's producer relies on when it reads one block index a
+    piece: on ascending lists with runs, the pieces of piece_lengths cover
+    [0, count) exactly once, each is contiguous (idx[s + j] == idx[s] +
+    j), none crosses a chunk or is longer than max_run, and slots past
+    count start none."""
+    rng = np.random.default_rng(100 * chunk + max_run)
+    nb = 48
+    mask = np.zeros((2, 3, 6, nb), bool)
+    for i in np.ndindex(mask.shape[:3]):
+        for _ in range(rng.integers(0, 4)):
+            start = rng.integers(0, nb)
+            mask[i][start:start + rng.integers(1, 24)] = True
+        mask[i] |= rng.uniform(size=nb) < 0.15
+    mask[0, 0, 0] = False
+    mask[1, 2, 5] = True
+    idx, cnt = (x.numpy() for x in ops.mask_to_indices(t(mask)))
+    plen = variants.piece_lengths(t(idx), t(cnt), chunk, max_run).numpy()
+    for i in np.ndindex(cnt.shape):
+        covered = np.zeros(nb, int)
+        for s in np.flatnonzero(plen[i]):
+            n = plen[i][s]
+            assert s < cnt[i] and 1 <= n <= max_run
+            assert s // chunk == (s + n - 1) // chunk
+            np.testing.assert_array_equal(idx[i][s:s + n],
+                                          idx[i][s] + np.arange(n))
+            covered[s:s + n] += 1
+        np.testing.assert_array_equal(covered, np.arange(nb) < cnt[i])
 
 
 def test_unknown_variants_raise():
@@ -605,8 +638,22 @@ def test_variant_benches_on_cpu():
     assert set(res["ms"]) == {"base", "dma", "twophase", "runs2", "k1"}
     for name in ("base", "twophase", "runs2"):
         assert res["check"][name]["max_abs_err"] == 0.0
+    assert res["check"]["twophase"]["ref"] == "base"
+    assert res["check"]["twophase"]["equal"] and res["check"]["runs2"]["equal"]
+    # the profiler's kernel times exist only on the card
+    assert res["kernel_ms"] == dict.fromkeys(res["ms"])
+    assert res["kernel_ms_each"] == {n: [None] for n in res["ms"]}
     res = groupedvars.run([2], ["full", "prefetch", "dma"], grid=(2, 8, 16),
                           heads=2, device="cpu", check=True, iters=1,
                           verbose=False)
     assert set(res["ms"]) == {"g1", "g2_full", "g2_prefetch", "g2_dma"}
     assert res["check"]["g2_full"]["rms_err"] < 1e-3
+
+
+def test_bench_median_of_turns():
+    """The benches' kernel times: the median of the turns whose trace
+    holds the kernel, None off the card (no turn has a kernel time)."""
+    assert median([3.0, 1.0, 2.0]) == 2.0
+    assert median([4.0, 1.0, 3.0, 2.0]) == 2.5
+    assert median([4.0, None, 1.0]) == 2.5
+    assert median([None, None]) is None
