@@ -14,12 +14,14 @@ headline bench).  Every attention kernel (K1/K1s, K2, K1q/K1q-s, K3)
 and every S3 / S2 ablation run on the Hopper mainloop of
 csrc/hopper_attn.cuh (K1q with a converter warpgroup and, for "mxu8",
 the int8 wgmma; S3 and S2 as K1's and K2's policies with one part taken
-out or changed); K1's launches of fewer row tiles than SMs split each
-index list into key ranges that the merge kernel folds:
+out or changed), and S1 on its CTA, TMA copies and wgmma shapes; K1's
+launches of fewer row tiles than SMs split each index list into key
+ranges that the merge kernel folds:
 
   0. build: per library each kernel's ptxas registers and spill bytes,
-     and each mainloop kernel's SASS counts (HGMMA / IGMMA, FSEL, BRA,
-     UTMALDG).
+     and its SASS counts (HGMMA / IGMMA, HMMA / IMMA, FSEL, BRA, UTMALDG):
+     S1's int8 kernel on IGMMA and its bf16 kernel on HGMMA, both with
+     TMA loads, and no kernel with HMMA or IMMA.
   1. device: the card's name and power limit; TF32 off.
   2. kernels: K1 (single-row gather), K2 (grouped-row gather) and K3
      (dense flash) against their plain PyTorch versions in bf16 at small
@@ -56,8 +58,9 @@ index list into key ranges that the merge kernel folds:
      then one step with the density probe on (untimed in the above); plus
      a small pipeline on the GPU (bf16) against the same one on the CPU
      (fp32).
-  4b. int8: S1 (bf16 and int8 looped dots, int8 bit for bit against its
-     plain version, rates against the peaks, torch.bmm / torch._int_mm as
+  4b. int8: S1 (bf16 and int8 looped dots on the mainloop's TMA and
+     wgmma shapes, int8 bit for bit against its plain version, rates
+     against the peaks, at most 1.05 of them, torch.bmm / torch._int_mm as
      yardsticks for the same operations: 64 calls of one dot a pair); a
      small pipeline on the GPU (bf16) against the CPU (fp32)
      with int4 weights, K1q "int8" and the int8 residual; then the
@@ -253,8 +256,9 @@ def build(kernels):
     if "libs" not in out:
         raise RuntimeError("kernel build failed (see the error above)")
     ptxas = {name: ptxas_table(log) for name, (_, log) in out["libs"].items()}
-    ptxas["sass"] = {name: sass_counts(out["libs"][name][0])
-                     for name in ("block_sparse", "dense_flash", "variants")}
+    ptxas["sass"] = {name: sass_counts(lib)
+                     for name, (lib, _) in out["libs"].items()}
+    check_sass(ptxas["sass"])
     return out["walker"], ptxas
 
 
@@ -283,15 +287,15 @@ def ptxas_table(log: str) -> dict:
 
 
 def sass_counts(lib: str) -> dict:
-    """Per Hopper-mainloop kernel of a built library (hopper_attn_kernel:
-    K1/K1s, K2, K3, the S3a / S2 policies; hopper_attn_q_kernel:
-    K1q/K1q-s), its count of SASS branches (BRA), selects (FSEL), wgmma
-    instructions (HGMMA: bf16 / fp16, IGMMA: int8) and TMA tile loads
-    (UTMALDG: the boxes the code issues, q's among them), read with
-    cuobjdump: the mask is branch-free when its 64 scores a thread show up
-    as 64 FSEL and the kernel's branches do not grow with them.  "sha1":
-    a digest of the kernel's instruction text, equal for the same code in
-    two trees."""
+    """Per kernel of a built library (hopper_attn_kernel: K1/K1s, K2, K3,
+    the S3 / S2 policies; hopper_attn_q_kernel: K1q/K1q-s; loop_kernel:
+    S1; the merge kernel), its count of SASS branches (BRA), selects
+    (FSEL), wgmma instructions (HGMMA: bf16 / fp16, IGMMA: int8), warp-level
+    mma.sync (HMMA, IMMA) and TMA tile loads (UTMALDG: the boxes the code
+    issues, q's among them), read with cuobjdump: the mask is branch-free
+    when its 64 scores a thread show up as 64 FSEL and the kernel's
+    branches do not grow with them.  "sha1": a digest of the kernel's
+    instruction text, equal for the same code in two trees."""
     from rectified_spaattn_tpu_torch.kernels import cuda_build
     tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
     proc = subprocess.run([tool, "-sass", lib], capture_output=True,
@@ -301,12 +305,10 @@ def sass_counts(lib: str) -> dict:
     counts, digests, fn = {}, {}, None
     for ln in proc.stdout.splitlines():
         if "Function :" in ln:
-            name = ln.split("Function :")[1].strip()
-            fn = kernel_name(name) if "hopper_attn" in name else None
-            if fn:
-                counts[fn] = {"BRA": 0, "FSEL": 0, "HGMMA": 0, "IGMMA": 0,
-                              "UTMALDG": 0}
-                digests[fn] = hashlib.sha1()
+            fn = kernel_name(ln.split("Function :")[1].strip())
+            counts[fn] = {"BRA": 0, "FSEL": 0, "HGMMA": 0, "IGMMA": 0,
+                          "HMMA": 0, "IMMA": 0, "UTMALDG": 0}
+            digests[fn] = hashlib.sha1()
         elif fn and "*/" in ln:
             text = ln.split("*/", 1)[1].split("/*")[0].strip()
             digests[fn].update(text.encode())
@@ -319,6 +321,27 @@ def sass_counts(lib: str) -> dict:
     for fn, d in digests.items():
         counts[fn]["sha1"] = d.hexdigest()[:12]
     return counts
+
+
+def check_sass(sass: dict) -> None:
+    """S1's int8 kernel runs IGMMA and its bf16 kernel HGMMA, both fed by
+    TMA (UTMALDG), and no kernel of any library has a warp-level mma
+    (HMMA / IMMA)."""
+    failed = {lib: c["cuobjdump"] for lib, c in sass.items()
+              if "cuobjdump" in c}
+    if failed:
+        raise AssertionError(f"SASS not read: {failed}")
+    s1 = {k: c for k, c in sass["int8_probe"].items() if "loop_kernel" in k}
+    [i8] = [c for k, c in s1.items() if "ILb1E" in k]
+    [b16] = [c for k, c in s1.items() if "ILb0E" in k]
+    bad = [f"S1 {t}: {c}" for t, c, op in (("int8", i8, "IGMMA"),
+                                             ("bf16", b16, "HGMMA"))
+           if not (c[op] and c["UTMALDG"])]
+    bad += [f"{lib}: {k} has {c['HMMA']} HMMA, {c['IMMA']} IMMA"
+            for lib, table in sass.items() for k, c in table.items()
+            if c["HMMA"] or c["IMMA"]]
+    if bad:
+        raise AssertionError("SASS: " + "; ".join(bad))
 
 
 def tma_loads(counts: dict, policy: str) -> int:
@@ -2669,9 +2692,23 @@ def main() -> int:
          "bound_ms": probe["int8"]["bound_ms"], "bound_by": "operations",
          "library_ms": probe["int8"]["library_ms"],
          "library_call": probe["int8"]["library"],
+         "library_one_dot_ms": probe["int8"]["library_one_dot_ms"],
+         "peak_share": probe["int8"]["peak_share"],
+         "sm_clock_power": probe["int8"]["sm_clock_power"],
          "shape": f"int8, {probe['pairs']} pairs of {probe['shape']}",
-         "other_jobs": {"bf16": {**probe["bf16"],
-                                 **probe["check"]["bf16"]}}},
+         "design": "the mainloop's CTA: TMA into an mbarrier ring, "
+                   "m64n128k32 s8 / m64n128k16 bf16 wgmma, persistent",
+         "bf16": {"ms": probe["bf16"]["ms"],
+                  "plain_ms": probe["check"]["bf16"]["plain_ms"],
+                  "max_abs_err": probe["check"]["bf16"]["max_abs_err"],
+                  "bound_ms": probe["bf16"]["bound_ms"],
+                  "bound_by": "operations",
+                  "peak_share": probe["bf16"]["peak_share"],
+                  "sm_clock_power": probe["bf16"]["sm_clock_power"],
+                  "library_ms": probe["bf16"]["library_ms"],
+                  "library_call": probe["bf16"]["library"],
+                  "library_one_dot_ms": probe["bf16"]["library_one_dot_ms"]},
+         "int8_over_bf16": probe["int8_over_bf16"]},
         {"name": "K1s", "route": "cuda", "source": src,
          "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:311",
          "launches": (ring_res["random"]["launches"]["K1s"]

@@ -1,9 +1,6 @@
-// Device helpers shared by the port's kernels: the masked-score constant
-// and the 16-bit packing every kernel uses; mma.sync m16n8k16 for bf16 and
-// fp16 with fp32 accumulation, mma.sync m16n8k32 for int8 with int32
-// accumulation, ldmatrix and cp.async, which the int8 probe S1 uses
-// (int8_probe.cu; the attention kernels run on hopper_attn.cuh's wgmma
-// and TMA).
+// Device helpers shared by the port's kernels (hopper_attn.cuh and its
+// users): the masked-score constant, -inf, the 16-bit packing of bf16 and
+// fp16 pairs, and the shared-memory address of a pointer.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,14 +16,6 @@ __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u);
 template <typename T> struct Type;
 
 template <> struct Type<__nv_bfloat16> {
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
@@ -37,14 +26,6 @@ template <> struct Type<__nv_bfloat16> {
 };
 
 template <> struct Type<__half> {
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
@@ -54,48 +35,8 @@ template <> struct Type<__half> {
   }
 };
 
-// D += A * B for int8: A 16x32 row-major (4 registers of 4 bytes: rows g /
-// g+8, k 4*t..4*t+3 and 16+4*t..), B 32x8 "col" (2 registers: k 4*t.. and
-// 16+4*t.., column g), D 16x8 int32 (rows g / g+8, columns 2t, 2t+1) with
-// g = lane / 4, t = lane % 4; the lowest k sits in a register's low byte
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(smem)), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
 }  // namespace

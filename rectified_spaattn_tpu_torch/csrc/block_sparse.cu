@@ -815,7 +815,8 @@ int rsa_k1q_launch(const void* q, const void* kv, void* o, const int* indices,
   QParams p{};
   if (encode_rows_map(&p.tmq, 0, q, sq, bh, 1, HA_D, (long long)sq * HA_D,
                       (long long)bh * sq * HA_D) ||
-      encode_kv8_map(&p.tmkv, kv, (long long)bh * num_key_blocks * HA_KEYS))
+      encode_rows8_map(&p.tmkv, kv, (long long)bh * num_key_blocks * HA_KEYS,
+                       256))
     return -2;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.m_out = m_out; p.l_out = l_out;

@@ -2,7 +2,9 @@
 // K3 (dense_flash.cu) and the S3 / S2 ablations of K1 and K2 (variants.cu),
 // with the mbarrier and TMA helpers, and the parts K1q's kernel adds to it
 // (block_sparse.cu, hopper_attn_q_kernel): int8 tiles by TMA, their exact
-// conversion to 16 bits, and the int8 wgmma.
+// conversion to 16 bits, and the int8 wgmma.  The int8 probe S1
+// (int8_probe.cu) runs the mainloop's CTA shape, TMA copies and wgmma
+// instructions on its own loop.
 //
 // One CTA owns 128 query rows of one (batch, head): 384 threads, two
 // consumer warpgroups of 64 rows each (threads 0-255) and one producer
@@ -332,12 +334,16 @@ __device__ __forceinline__ void fence_regs(int (&r)[64]) {
 
 constexpr int HA_TILE8 = 128 * 128;   // one int8 box: 16 KB
 
-// 0 on success
-int encode_kv8_map(CUtensorMap* map, const void* base, long long rows) {
+// A 2-D map over `rows` rows of `row_bytes` bytes (uint8, rows packed) in
+// 128-row x 128-byte boxes with the 128-byte swizzle: a box is a K-major
+// tile that the s8 wgmma reads as it stands.  K1q's payload has rows of
+// 256 (K at column 0, V at 128), S1's a and b^T rows of 128.  0 on success.
+int encode_rows8_map(CUtensorMap* map, const void* base, long long rows,
+                     int row_bytes) {
   EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return -2;
-  const cuuint64_t dims[2] = {256, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {256};
+  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
   const cuuint32_t box[2] = {128, 128};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,

@@ -11,23 +11,30 @@ dots a @ b, each adding its first 128 columns times (i + 1) to an fp32
 [128, 128] accumulator; bf16 dots accumulate in fp32, int8 dots in int32.
 
 The kernel is hand-written CUDA C++ for sm_90a (``csrc/int8_probe.cu``:
-one thread block per pair, K1's operand arrangement).  A CPU tensor runs
-the plain version ``loop_dots_torch``; a CUDA tensor launches the kernel
-or raises.  ``loop_dots.launches`` counts launches.  With as many pairs as
-fill the card, ``check()`` holds both types against the plain version
-(int8 bit for bit) and ``measure()`` times them against the H100's dense
-peaks (989 TFLOP/s bf16, 1,979 TOP/s int8) and against two library calls
-at the same per-pair shapes, cuBLAS ``torch.bmm`` in bf16 and
-``torch._int_mm`` in int8 (yardsticks only: the port calls neither).  One
-such call does one dot per pair; the yardstick for the kernel's work is
-REPS of them back to back (``library_ms``), the single call's time beside
-it (``library_one_dot_ms``).
+the attention mainloop's CTA, TMA copies and wgmma shapes,
+m64n128k32 s8 and m64n128k16 bf16, on a persistent grid of at most one
+CTA an SM).  A CPU tensor runs the plain version ``loop_dots_torch``; a
+CUDA tensor launches the kernel or raises.  ``loop_dots.launches`` counts
+launches.  With as many pairs as fill the card, ``check()`` holds both
+types against the plain version (int8 bit for bit) and ``measure()``
+times them (back-to-back calls over 500 ms after a warm-up as long, with
+nvidia-smi's SM clock and power draw during the timed calls) against the
+H100's dense peaks (989 TFLOP/s bf16, 1,979 TOP/s int8; a share above
+1.05 raises: work was skipped) and against two
+library calls at the same per-pair shapes, cuBLAS ``torch.bmm`` in bf16
+and ``torch._int_mm`` in int8 (yardsticks only: the port calls neither).
+One such call does one dot per pair; the yardstick for the kernel's work
+is REPS of them back to back (``library_ms``), the single call's time
+beside it (``library_one_dot_ms``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import math
+import subprocess
+import time
 
 import torch
 
@@ -35,6 +42,8 @@ from . import cuda_build
 
 M, D, N, REPS = 128, 128, 2048, 64
 PEAK = {"bf16": 989e12, "int8": 1979e12}     # H100 SXM dense (data sheet)
+MAX_PEAK_SHARE = 1.05   # a reading above the peak means skipped work
+WINDOW_MS = 500.0       # each timed run of back-to-back calls
 
 
 def _declare(lib):
@@ -76,7 +85,8 @@ def loop_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(a, bt):
-    """The kernel on a and b^T [P, N, D] (k contiguous, the mma B layout)."""
+    """The kernel on a and b^T [P, N, D] (k contiguous: the K-major B
+    operand of wgmma, which takes no transposed 8-bit operand)."""
     lib = cuda_build.load("int8_probe", _declare)
     out = torch.empty((a.shape[0], M, 128), dtype=torch.float32,
                       device=a.device)
@@ -106,17 +116,36 @@ def random_pairs(kind: str, pairs: int, generator: torch.Generator,
     return draw(pairs, M, D), draw(pairs, D, N)
 
 
-def _cuda_ms(fn, reps: int) -> float:
+def _card_clocks() -> str:
+    """nvidia-smi's SM clock and power draw of the first card, now."""
+    proc = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True)
+    return (proc.stdout.strip().splitlines() or ["not read"])[0]
+
+
+def _cuda_ms(fn, window_ms: float = WINDOW_MS, clocks: bool = False):
+    """fn's mean time on the card over back-to-back calls that fill about
+    ``window_ms``, after a warm-up as long (the clocks and the power draw
+    settle); with ``clocks`` also nvidia-smi's reading while the timed
+    calls run."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    reps = max(3, math.ceil(window_ms / 1e3 / (time.perf_counter() - t0)))
+    for _ in range(reps):
+        fn()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
     for _ in range(reps):
         fn()
     e1.record()
+    smi = _card_clocks() if clocks else None
     e1.synchronize()
-    return e0.elapsed_time(e1) / reps
+    ms = e0.elapsed_time(e1) / reps
+    return (ms, smi) if clocks else ms
 
 
 def _pairs(pairs):
@@ -158,8 +187,9 @@ def check(pairs: int | None = None, seed: int = 0) -> dict:
     return res
 
 
-def measure(pairs: int | None = None, reps: int = 5, seed: int = 1) -> dict:
-    """Both types' kernel time and rate against the dense peak, and the
+def measure(pairs: int | None = None, seed: int = 1) -> dict:
+    """Both types' kernel time and rate against the dense peak (with the
+    card's SM clock and power draw during the timed calls), and the
     library yardsticks at the same per-pair shapes for the same operations
     (REPS calls of one dot per pair)."""
     dev = torch.device("cuda")
@@ -171,7 +201,7 @@ def measure(pairs: int | None = None, reps: int = 5, seed: int = 1) -> dict:
     for kind in ("bf16", "int8"):
         a, b = random_pairs(kind, pairs, gen, dev)
         bt = b.transpose(1, 2).contiguous()
-        ms = _cuda_ms(lambda: _launch(a, bt), reps)
+        ms, smi = _cuda_ms(lambda: _launch(a, bt), clocks=True)
         if kind == "bf16":
             dot = lambda: torch.bmm(a, b)
             lib = "torch.bmm (cuBLAS) bf16, [P,128,128]@[P,128,2048]"
@@ -185,13 +215,18 @@ def measure(pairs: int | None = None, reps: int = 5, seed: int = 1) -> dict:
             for _ in range(REPS):
                 dot()
 
-        lib_ms = _cuda_ms(dots, reps)
+        lib_ms = _cuda_ms(dots)
+        share = ops / ms * 1e3 / PEAK[kind]
+        if share > MAX_PEAK_SHARE:
+            raise AssertionError(
+                f"S1 {kind}: {share:.3f} of the dense peak in {ms} ms: more "
+                f"than the card can do, so work was skipped")
         res[kind] = {"ms": ms, "rate_t": ops / ms / 1e9,
-                     "peak_share": ops / ms * 1e3 / PEAK[kind],
+                     "peak_share": share, "sm_clock_power": smi,
                      "bound_ms": ops / PEAK[kind] * 1e3,
                      "library": f"{lib}, {REPS} calls",
                      "library_ms": lib_ms,
-                     "library_one_dot_ms": _cuda_ms(dot, reps),
+                     "library_one_dot_ms": _cuda_ms(dot),
                      "library_rate_t": ops / lib_ms / 1e9}
     res["int8_over_bf16"] = res["int8"]["rate_t"] / res["bf16"]["rate_t"]
     return res

@@ -38,7 +38,7 @@ struct float2 { float x, y; }; struct float4 { float x, y, z, w; };
 uint4 make_uint4(unsigned, unsigned, unsigned, unsigned); uint2 make_uint2(unsigned, unsigned);
 float2 make_float2(float, float);
 float __shfl_xor_sync(unsigned, float, int); int __shfl_xor_sync(unsigned, int, int);
-float __expf(float); float __int_as_float(int); float __fmul_rn(float, float); float __fadd_rn(float, float);
+float __expf(float); float __int_as_float(int); float __fmul_rn(float, float); float __fadd_rn(float, float); float __fmaf_rn(float, float, float);
 int __float2int_rn(float); unsigned __byte_perm(unsigned, unsigned, unsigned);
 void __syncthreads(); void __trap(); long long clock64();
 size_t __cvta_generic_to_shared(const void*);

@@ -260,12 +260,17 @@ def test_cuda_rejects_block_m_off_the_row_tile(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_int8_probe_matches_plain(cuda):
-    """S1 on four pairs: int8 bit for bit, bf16 within 1e-4 of its scale."""
+@pytest.mark.parametrize("pairs", ["1", "4", "2*SMs+1"])
+def test_cuda_int8_probe_matches_plain(cuda, pairs):
+    """S1 on 1, 4 and 2 * SMs + 1 pairs (the persistent grid's tail: one
+    CTA walks three pairs): int8 bit for bit, bf16 within 1e-4 of its
+    scale."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = 2 * sms + 1 if pairs == "2*SMs+1" else int(pairs)
     g = torch.Generator(device=cuda)
     g.manual_seed(5)
     for kind in ("int8", "bf16"):
-        a, b = int8_probe.random_pairs(kind, 4, g, cuda)
+        a, b = int8_probe.random_pairs(kind, n, g, cuda)
         got = int8_probe.loop_dots(a, b)
         want = int8_probe.loop_dots_torch(a, b)
         torch.cuda.synchronize()
