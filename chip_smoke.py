@@ -68,6 +68,20 @@ ranges that the merge kernel folds:
      "mxu8" and the int8 TeaCache residual held in pinned host memory
      (a replayed schedule computes, skips, computes) — weight bytes and
      peak memory against the bf16 pipeline.
+  4c. ckpt: the pixel end.  The port's safetensors codec on every dtype,
+     written and read back bit for bit; the HunyuanVideo VAE at its
+     published widths (a seeded bf16 vae/ snapshot, loaded in fp32) on the
+     GPU against the CPU at a [1,16,2,8,8] latent (fp32 rtol 2e-4 / atol
+     2e-5, TF32 off), the untiled and tiled (32 / 4) decode of a
+     [1,16,9,60,104] latent (480x832x33) timed with their peak memory, and
+     the encode of its frames back to the latent's shape; then a seeded
+     bf16 transformer/ snapshot (HunyuanVideoConfig() widths, 2 dual + 2
+     single blocks): load_transformer on the card (seconds, peak host RSS,
+     device bytes), every tensor equal bit for bit to a CPU load, and the
+     CLI with --ckpt_dir at 480x832, --frame 36 (9 latent frames, 33
+     decoded), 2 sparse steps at group_rows 2 -- K1's and K2's launch
+     counters zeroed just before and read just after, uint8 frames
+     [33,480,832,3] written.
   5. Wan site: the self-attention site at the Wan2.1-14B operating point
      (75,600 visual tokens padded once to 75,648, 40 heads x 128, visual
      layout with first-frame retention, sa_drop_rate 0.75, p_remain 0.3)
@@ -157,6 +171,7 @@ import sys
 import threading
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1253,6 +1268,400 @@ def pipeline_int8_phase(kernels, bf16_peak_gb):
     # one more computed step under the profiler (the schedule's first
     # call computes)
     res["profiled_step"] = profile_step(pipe, text, mask)
+    return res
+
+
+# ------------------------------------------------------------ ckpt phase ---
+
+# the checkpoint path: a synthetic diffusers snapshot (seeded random
+# weights, bf16 on disk) at published widths.  The VAE is the
+# vae/config.json of tencent/HunyuanVideo (diffusers format); the
+# transformer has HunyuanVideoConfig()'s widths, cut to 2 dual + 2 single
+# blocks as PIPE is.  --frame 36 gives 36 // 4 = 9 latent frames (the
+# pipeline's lt = frames // 4), which the causal VAE decodes to 33.
+CKPT = dict(
+    vae={"_class_name": "AutoencoderKLHunyuanVideo", "in_channels": 3,
+         "out_channels": 3, "latent_channels": 16,
+         "block_out_channels": [128, 256, 512, 512], "layers_per_block": 2,
+         "temporal_compression_ratio": 4, "spatial_compression_ratio": 8,
+         "scaling_factor": 0.476986, "mid_block_add_attention": True},
+    transformer={"_class_name": "HunyuanVideoTransformer3DModel",
+                 "in_channels": 16, "out_channels": 16,
+                 "num_attention_heads": 24, "attention_head_dim": 128,
+                 "num_layers": 2, "num_single_layers": 2,
+                 "num_refiner_layers": 2, "mlp_ratio": 4.0, "patch_size": 2,
+                 "patch_size_t": 1, "guidance_embeds": True,
+                 "text_embed_dim": 4096, "pooled_projection_dim": 768,
+                 "rope_axes_dim": [16, 56, 56]},
+    small_latent=(1, 16, 2, 8, 8), latent=(1, 16, 9, 60, 104), tile=32,
+    overlap=4, height=480, width=832, frame=36, frames_out=33, steps=2)
+VAE_TOL = dict(rtol=2e-4, atol=2e-5)   # fp32 (tests/test_kernels.py:44)
+
+
+def codec_check() -> dict:
+    """Every dtype of the port's safetensors codec, written and read back
+    bit for bit (the card's machine has no safetensors package)."""
+    import tempfile
+    from rectified_spaattn_tpu_torch.models import safetensors_io as sio
+    gen = torch.Generator().manual_seed(7)
+    tensors = {}
+    for name, dt in sio.DTYPES.items():
+        if dt.is_floating_point:
+            tensors[name] = torch.randn((3, 33), generator=gen).to(dt)
+        elif dt == torch.bool:
+            tensors[name] = torch.randint(0, 2, (17,), generator=gen).bool()
+        else:
+            lo = 0 if dt == torch.uint8 else -120
+            tensors[name] = torch.randint(lo, 120, (2, 5, 7),
+                                          generator=gen).to(dt)
+    tensors["empty"] = torch.zeros((0, 4), dtype=torch.bfloat16)
+    tensors["scalar"] = torch.tensor(2.5, dtype=torch.float64)
+    tensors["on_device"] = torch.randn((64, 64), generator=gen).to(
+        DEV, torch.bfloat16)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = sio.save_file(tensors, os.path.join(tmp, "c.safetensors"))
+        back = {m: sio.load_file(path, use_mmap=m) for m in (True, False)}
+        nbytes = os.path.getsize(path)
+    for mapped, got in back.items():
+        for k, t in tensors.items():
+            if not (got[k].dtype == t.dtype and got[k].shape == t.shape
+                    and torch.equal(got[k], t.cpu())):
+                raise AssertionError(f"codec: {k} differs (mmap={mapped})")
+    return {"tensors": sorted(tensors), "file_bytes": nbytes,
+            "bit_for_bit": True}
+
+
+def _synth(sd, gen, name, shape, kind):
+    """One seeded tensor of a synthetic snapshot on the card: weights
+    N(0, 1/fan_in), biases 0, norm scales 1 (Flax's initialisers)."""
+    if kind == "w":
+        fan_in = 1
+        for s in shape[1:]:
+            fan_in *= s
+        t = torch.randn(shape, generator=gen, device=DEV) * fan_in ** -0.5
+    elif kind == "ones":
+        t = torch.ones(shape, device=DEV)
+    else:
+        t = torch.zeros(shape, device=DEV)
+    sd[name] = t.to(torch.bfloat16)
+
+
+def synth_hunyuan_sd(cj: dict, gen) -> dict:
+    """A diffusers HunyuanVideoTransformer3DModel state dict for the config
+    json ``cj`` (the key set of tests/manifests/hunyuan_keys.json)."""
+    d = cj["num_attention_heads"] * cj["attention_head_dim"]
+    hd, mlp_h = cj["attention_head_dim"], int(d * cj["mlp_ratio"])
+    sd = {}
+    lin = lambda n, o, i: (_synth(sd, gen, n + ".weight", (o, i), "w"),
+                           _synth(sd, gen, n + ".bias", (o,), "0"))
+    ln = lambda n, c: (_synth(sd, gen, n + ".weight", (c,), "ones"),
+                       _synth(sd, gen, n + ".bias", (c,), "0"))
+    rms = lambda n, c: _synth(sd, gen, n + ".weight", (c,), "ones")
+    p, pt = cj["patch_size"], cj["patch_size_t"]
+    _synth(sd, gen, "x_embedder.proj.weight",
+           (d, cj["in_channels"], pt, p, p), "w")
+    _synth(sd, gen, "x_embedder.proj.bias", (d,), "0")
+    for emb, in_f in (("timestep_embedder", 256), ("guidance_embedder", 256),
+                      ("text_embedder", cj["pooled_projection_dim"])):
+        lin(f"time_text_embed.{emb}.linear_1", d, in_f)
+        lin(f"time_text_embed.{emb}.linear_2", d, d)
+    ce, text = "context_embedder", cj["text_embed_dim"]
+    lin(f"{ce}.proj_in", d, text)
+    lin(f"{ce}.time_text_embed.timestep_embedder.linear_1", d, 256)
+    lin(f"{ce}.time_text_embed.timestep_embedder.linear_2", d, d)
+    lin(f"{ce}.time_text_embed.text_embedder.linear_1", d, text)
+    lin(f"{ce}.time_text_embed.text_embedder.linear_2", d, d)
+    for i in range(cj["num_refiner_layers"]):
+        b = f"{ce}.token_refiner.refiner_blocks.{i}"
+        ln(f"{b}.norm1", d)
+        ln(f"{b}.norm2", d)
+        for nm in ("to_q", "to_k", "to_v", "to_out.0"):
+            lin(f"{b}.attn.{nm}", d, d)
+        lin(f"{b}.ff.net.0.proj", mlp_h, d)
+        lin(f"{b}.ff.net.2", d, mlp_h)
+        lin(f"{b}.norm_out.linear", 2 * d, d)
+    for i in range(cj["num_layers"]):
+        b = f"transformer_blocks.{i}"
+        lin(f"{b}.norm1.linear", 6 * d, d)
+        lin(f"{b}.norm1_context.linear", 6 * d, d)
+        for nm in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj",
+                   "add_v_proj", "to_out.0", "to_add_out"):
+            lin(f"{b}.attn.{nm}", d, d)
+        for nm in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            rms(f"{b}.attn.{nm}", hd)
+        for ff in ("ff", "ff_context"):
+            lin(f"{b}.{ff}.net.0.proj", mlp_h, d)
+            lin(f"{b}.{ff}.net.2", d, mlp_h)
+    for i in range(cj["num_single_layers"]):
+        b = f"single_transformer_blocks.{i}"
+        lin(f"{b}.norm.linear", 3 * d, d)
+        for nm in ("to_q", "to_k", "to_v"):
+            lin(f"{b}.attn.{nm}", d, d)
+        rms(f"{b}.attn.norm_q", hd)
+        rms(f"{b}.attn.norm_k", hd)
+        lin(f"{b}.proj_mlp", mlp_h, d)
+        lin(f"{b}.proj_out", d, d + mlp_h)
+    lin("norm_out.linear", 2 * d, d)
+    lin("proj_out", pt * p * p * cj["out_channels"], d)
+    return sd
+
+
+def synth_vae_sd(cfg, gen) -> dict:
+    """A diffusers VAE state dict (encoder and decoder) for the port's
+    VAEConfig ``cfg`` (the key set of tests/test_weights.py::synth_vae_sd)."""
+    sd = {}
+
+    def conv(name, o, i, k=3):
+        _synth(sd, gen, name + ".weight", (o, i, k, k, k), "w")
+        _synth(sd, gen, name + ".bias", (o,), "0")
+
+    def gn(name, c):
+        _synth(sd, gen, name + ".weight", (c,), "ones")
+        _synth(sd, gen, name + ".bias", (c,), "0")
+
+    def resnet(prefix, o, i):
+        gn(prefix + ".norm1", i)
+        conv(prefix + ".conv1", o, i)
+        gn(prefix + ".norm2", o)
+        conv(prefix + ".conv2", o, o)
+        if i != o:
+            conv(prefix + ".conv_shortcut", o, i, k=1)
+
+    def mid(prefix, c):
+        resnet(prefix + ".resnets.0", c, c)
+        resnet(prefix + ".resnets.1", c, c)
+        gn(prefix + ".attentions.0.group_norm", c)
+        for nm in ("to_q", "to_k", "to_v", "to_out.0"):
+            _synth(sd, gen, f"{prefix}.attentions.0.{nm}.weight", (c, c),
+                   "w")
+            _synth(sd, gen, f"{prefix}.attentions.0.{nm}.bias", (c,), "0")
+
+    ch = list(cfg.block_out_channels)
+    n, rch = len(ch), list(reversed(ch))
+    conv("decoder.conv_in", rch[0], cfg.latent_channels)
+    mid("decoder.mid_block", rch[0])
+    prev = rch[0]
+    for i, f in enumerate(rch):
+        for j in range(cfg.layers_per_block + 1):
+            resnet(f"decoder.up_blocks.{i}.resnets.{j}", f, prev)
+            prev = f
+        if cfg.spatial_upsample[i] or cfg.temporal_upsample[i]:
+            conv(f"decoder.up_blocks.{i}.upsamplers.0.conv", f, f)
+    gn("decoder.conv_norm_out", rch[-1])
+    conv("decoder.conv_out", cfg.out_channels, rch[-1])
+    conv("encoder.conv_in", ch[0], cfg.out_channels)
+    prev = ch[0]
+    for i, f in enumerate(ch):
+        for j in range(cfg.layers_per_block):
+            resnet(f"encoder.down_blocks.{i}.resnets.{j}", f, prev)
+            prev = f
+        if cfg.spatial_upsample[n - 1 - i] or cfg.temporal_upsample[n - 1 - i]:
+            conv(f"encoder.down_blocks.{i}.downsamplers.0.conv", f, f)
+    mid("encoder.mid_block", ch[-1])
+    gn("encoder.conv_norm_out", ch[-1])
+    conv("encoder.conv_out", 2 * cfg.latent_channels, ch[-1])
+    return sd
+
+
+def write_snapshot(root: str, sub: str, sd: dict, config: dict) -> int:
+    """<root>/<sub>/ with the state dict and its config.json; bytes."""
+    from rectified_spaattn_tpu_torch.models.safetensors_io import save_file
+    d = os.path.join(root, sub)
+    os.makedirs(d, exist_ok=True)
+    path = save_file(sd, os.path.join(d, "diffusion_pytorch_model"
+                                         ".safetensors"))
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(config, f)
+    return os.path.getsize(path)
+
+
+class HostPeak:
+    """Peak resident set size of this process over a ``with`` body,
+    sampled every 5 ms from /proc/self/statm, and the size before it."""
+
+    @staticmethod
+    def rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def __enter__(self):
+        self.before = self.peak = self.rss()
+        self._stop = threading.Event()
+
+        def poll():
+            while not self._stop.wait(0.005):
+                self.peak = max(self.peak, self.rss())
+        self._th = threading.Thread(target=poll, daemon=True)
+        self._th.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._th.join()
+        self.peak = max(self.peak, self.rss())
+
+    def gb(self) -> dict:
+        return {"before_gb": self.before / 2**30, "peak_gb": self.peak / 2**30}
+
+
+def vae_checks(root: str) -> dict:
+    """The full-width VAE: GPU against CPU on the small latent (fp32,
+    TF32 off), then the untiled and tiled decode of the 480x832x33 latent
+    timed with CUDA events, and the encode of its frames."""
+    from rectified_spaattn_tpu_torch.models.pretrained import (
+        load_vae, vae_config_from_json)
+    cfg = vae_config_from_json(CKPT["vae"], video=True)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(11)
+    res = {"snapshot_bytes": write_snapshot(root, "vae",
+                                            synth_vae_sd(cfg, gen),
+                                            CKPT["vae"]),
+           "config": dataclasses.asdict(cfg)}
+    t0 = time.perf_counter()
+    encode, decode = load_vae(root, dtype="float32", device=DEV)
+    torch.cuda.synchronize()
+    res["load_seconds"] = time.perf_counter() - t0
+    _, decode_cpu = load_vae(root, dtype="float32", device="cpu")
+    small = torch.randn(CKPT["small_latent"], generator=gen, device=DEV)
+    got = decode(small).cpu()
+    want = decode_cpu(small.cpu())
+    torch.testing.assert_close(got, want, **VAE_TOL)
+    diff = (got - want).abs()
+    res["small_gpu_vs_cpu"] = {
+        "shape": list(got.shape), "tolerance": VAE_TOL,
+        "max_abs_err": float(diff.max()),
+        "max_err_over_bound": float((diff / (VAE_TOL["atol"] + VAE_TOL[
+            "rtol"] * want.abs())).max()),
+        "ref_max_abs": float(want.abs().max())}
+    del decode_cpu
+
+    # the timed runs at torch's default for cuDNN (TF32 convolutions), the
+    # setting the CLI runs at; the check above ran with TF32 off
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        res.update(vae_timed(encode, decode, gen))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return res
+
+
+def vae_timed(encode, decode, gen) -> dict:
+    """The untiled and the tiled decode of the 480x832x33 latent and the
+    encode of its frames, each timed once with CUDA events beside its
+    peak memory; shapes checked."""
+    from rectified_spaattn_tpu_torch.models.vae import tiled_decode
+    lat = torch.randn(CKPT["latent"], generator=gen, device=DEV)
+    out, res = {}, {"cudnn_tf32": torch.backends.cudnn.allow_tf32}
+    runs = (("untiled", lambda: decode(lat)),
+            ("tiled", lambda: tiled_decode(decode, lat, CKPT["tile"],
+                                           CKPT["overlap"])),
+            ("encode", lambda: encode(out["untiled"])))
+    for name, fn in runs:
+        def run(name=name, fn=fn):
+            out[name] = fn()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(run, reps=1, warmup=0)
+        res[name] = {"ms": ms, "peak_mem_gb":
+                     torch.cuda.max_memory_allocated() / 2**30}
+    pixels = (1, 3, CKPT["frames_out"], CKPT["height"], CKPT["width"])
+    for name, shape in (("untiled", pixels), ("tiled", pixels),
+                        ("encode", CKPT["latent"])):
+        if tuple(out[name].shape) != shape \
+                or not torch.isfinite(out[name]).all():
+            raise AssertionError(f"VAE {name} gave {tuple(out[name].shape)}"
+                                 f", want {shape}")
+    res["tiled_vs_untiled_max_abs"] = float(
+        (out["tiled"] - out["untiled"]).abs().max())
+    res["latent"], res["pixels"] = list(CKPT["latent"]), list(pixels)
+    return res
+
+
+def ckpt_phase(kernels) -> dict:
+    """The pixel end: the codec, the full-width VAE, and the HunyuanVideo
+    checkpoint path through the CLI (--ckpt_dir) on a synthetic bf16
+    snapshot; K1's and K2's launch counters zeroed just before the CLI
+    run and read just after.  The CLI runs at torch's default for cuDNN
+    (TF32 convolutions in the VAE), as a user's run does."""
+    import shutil
+    import tempfile
+    from rectified_spaattn_tpu_torch.cli.generate import main as cli_main
+    from rectified_spaattn_tpu_torch.models.pretrained import load_transformer
+
+    res = {"codec": codec_check()}
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out_dir = os.path.join(root, "out")
+    try:
+        res["vae"] = vae_checks(root)
+        torch.cuda.empty_cache()
+
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(12)
+        sd = synth_hunyuan_sd(CKPT["transformer"], gen)
+        res["transformer_snapshot_bytes"] = write_snapshot(
+            root, "transformer", sd, CKPT["transformer"])
+        del sd
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        with HostPeak() as host:
+            t0 = time.perf_counter()
+            _, model = load_transformer("hunyuan", root, device=DEV)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        res["load"] = {"seconds": load_s, "host_rss": host.gb(),
+                       "device_bytes": torch.cuda.memory_allocated() - base,
+                       "param_bytes": sum(p.numel() * p.element_size()
+                                          for p in model.parameters())}
+        t0 = time.perf_counter()
+        _, ref = load_transformer("hunyuan", root, cache=False, device="cpu")
+        res["load"]["cpu_seconds"] = time.perf_counter() - t0
+        got, want = model.state_dict(), ref.state_dict()
+        if set(got) != set(want):
+            raise AssertionError("GPU and CPU loads hold different keys")
+        for k, t in want.items():
+            g = got[k]
+            if g.dtype != t.dtype or not torch.equal(g.cpu(), t):
+                raise AssertionError(f"{k}: the GPU load differs from the "
+                                     f"CPU load")
+        res["load"]["tensors_equal_to_cpu_load"] = len(want)
+        del model, ref, got, want
+        torch.cuda.empty_cache()
+
+        argv = ["--model", "hunyuan", "--ckpt_dir", root, "--height",
+                str(CKPT["height"]), "--width", str(CKPT["width"]),
+                "--frame", str(CKPT["frame"]), "--num_steps",
+                str(CKPT["steps"]), "--mode", "sparse", "--group_rows", "2",
+                "--out_dir", out_dir, "--device", DEV]
+        kerns = {"K1": kernels.block_sparse_flash_attention,
+                 "K2": kernels.block_sparse_flash_attention_grouped,
+                 "K3": kernels.dense_flash_attention,
+                 "K1_merge": kernels.block_sparse.merge_splits}
+        torch.backends.cudnn.allow_tf32 = True
+        zero_launches(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        line = cli_main(argv)
+        cli_s = time.perf_counter() - t0
+        launches = {n: f.launches for n, f in kerns.items()}
+        if min(launches["K1"], launches["K2"]) == 0 or launches["K3"]:
+            raise AssertionError(f"unexpected launches on the checkpoint "
+                                 f"path: {launches}")
+        frames = np.load(line["output"]) if line["output"].endswith(
+            ".npy") else None
+        want_shape = (CKPT["frames_out"], CKPT["height"], CKPT["width"], 3)
+        if frames is None or frames.dtype != np.uint8 \
+                or frames.shape != want_shape:
+            raise AssertionError(f"the CLI wrote {line['output']}: "
+                                 f"{getattr(frames, 'shape', None)}, "
+                                 f"want uint8 {want_shape}")
+        res["cli"] = {"argv": argv, "line": line, "seconds": cli_s,
+                      "launches": launches, "frames": list(frames.shape),
+                      "frames_dtype": str(frames.dtype),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                      "cudnn_tf32": True}
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        shutil.rmtree(root, ignore_errors=True)
     return res
 
 
@@ -2539,6 +2948,10 @@ def main() -> int:
     pipe8 = pipeline_int8_phase(kernels, pipe["peak_mem_gb"])
     emit("pipeline_int8", t0, **pipe8)
 
+    t0 = time.perf_counter()
+    ckpt = ckpt_phase(kernels)
+    emit("ckpt", t0, nvidia_smi=smi, **ckpt)
+
     wsites = {}
     for regime in ("random", "smooth"):
         t0 = time.perf_counter()
@@ -2597,7 +3010,8 @@ def main() -> int:
                    site["K1_text_rows"])
     k3, k3i = wsite["K3_t2v_text"], wsite["K3_i2v_image"]
     by_path = lambda n: {"hunyuan": pipe["launches"][n],
-                         "wan": wpipe["launches"][n]}
+                         "wan": wpipe["launches"][n],
+                         "hunyuan_ckpt": ckpt["cli"]["launches"].get(n, 0)}
     ks_t, ks_v = rings["random"]["K1s_ring_text"], \
         rings["random"]["K1s_ring_visual"]
     mainloop = "rectified_spaattn_tpu_torch/csrc/hopper_attn.cuh"
@@ -2613,7 +3027,7 @@ def main() -> int:
     line = {"kernels": [
         {"name": "K1", "route": "cuda", "source": src,
          "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:89",
-         "launches": pipe["launches"]["K1"] + wpipe["launches"]["K1"],
+         "launches": sum(by_path("K1").values()),
          "launches_by_path": by_path("K1"),
          "max_abs_err": max(errs["K1"], k1t["max_abs_err"]),
          "ms": k1t["ms"], "plain_ms": k1t["plain_ms"],
@@ -2632,7 +3046,7 @@ def main() -> int:
                         "wan_dense_bm1024": wsite["K1_wan_dense_bm1024"]}},
         {"name": "K2", "route": "cuda", "source": src,
          "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:317",
-         "launches": pipe["launches"]["K2"] + wpipe["launches"]["K2"],
+         "launches": sum(by_path("K2").values()),
          "launches_by_path": by_path("K2"),
          "max_abs_err": max(errs["K2"], k2["max_abs_err"],
                             site["K2_visual_g4"]["max_abs_err"]),
@@ -2648,7 +3062,7 @@ def main() -> int:
         {"name": "K3", "route": "cuda",
          "source": "rectified_spaattn_tpu_torch/csrc/dense_flash.cu",
          "replaces": "rectified_spaattn_tpu/kernels/flash.py:49",
-         "launches": pipe["launches"]["K3"] + wpipe["launches"]["K3"],
+         "launches": sum(by_path("K3").values()),
          "launches_by_path": by_path("K3"),
          "max_abs_err": max(errs["K3"], k3["max_abs_err"],
                             k3i["max_abs_err"]),
@@ -2737,8 +3151,7 @@ def main() -> int:
          "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:89 "
                      "(K1/K1s's key split; the merge of "
                      "rectified_spaattn_tpu/attention/ring.py:48)",
-         "launches": pipe["launches"]["K1_merge"]
-                     + wpipe["launches"]["K1_merge"],
+         "launches": sum(by_path("K1_merge").values()),
          "launches_by_path": by_path("K1_merge"),
          "max_abs_err": merge["max_abs_err"], "ms": merge["ms"],
          "plain_ms": merge["plain_ms"], "bound_ms": merge["bound_ms"],

@@ -14,12 +14,18 @@ The residual is stored as bf16 (the reference's format) or, with
 row scales (half the bytes); ``offload_residual`` keeps it in pinned host
 memory between calls.
 
-Not ported yet: schedule tracing (``TRACE``, ``trace_to``).
+Schedule tracing: inside ``trace_to(path)`` every enabled TeaCache appends
+one meta record at construction and one ``{call, stream, raw, compute}``
+record per ``should_compute`` (``forced`` too on a replayed schedule), the
+JAX package's JSON key for key; ``schedule_from_trace`` reads such a file
+back as a ``forced_schedule``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
 from typing import Optional, Sequence
 
 import numpy as np
@@ -47,12 +53,50 @@ COEFFICIENTS: dict[str, list[float]] = {
                         4.91518089, -0.23412683],
     "wan2.1-i2v-720p-ret": [8.10705460e+03, 2.13393892e+02, -3.72934672e+01,
                             1.66203073e+00, -4.17769401e-02],
+    # CogVideoX (reference: main_cogvideox.py:20-25) and Flux
+    "cogvideox1.5-5b": [-1.53880483e+03, 8.43202495e+02, -1.34363087e+02,
+                        7.97131516e+00, -5.23162339e-02],
+    "cogvideox1.5-5b-i2v": [-1.53880483e+03, 8.43202495e+02, -1.34363087e+02,
+                            7.97131516e+00, -5.23162339e-02],
+    "flux-dev": [4.98651651e+02, -2.83781631e+02, 5.58554382e+01,
+                 -3.82021401e+00, 2.64230861e-01],
     "wan2.2-ti2v-5b": [-3.03318725e+05, 4.90537029e+04, -2.65530556e+03,
                        5.87365115e+01, -3.15583525e-01],
     "wan2.2-a14b": [-3.03318725e+05, 4.90537029e+04, -2.65530556e+03,
                     5.87365115e+01, -3.15583525e-01],
     "identity": [1.0, 0.0],
 }
+
+# The live trace list inside ``trace_to`` (None outside it).
+TRACE: Optional[list] = None
+
+
+@contextlib.contextmanager
+def trace_to(path: Optional[str]):
+    """Trace every TeaCache schedule made in the body and write the records
+    to ``path`` as JSON (a no-op when ``path`` is falsy).  Yields the live
+    list (None when disabled).  Contexts do not nest."""
+    global TRACE
+    if not path:
+        yield None
+        return
+    if TRACE is not None:
+        raise RuntimeError("trace_to contexts must not nest")
+    TRACE = []
+    try:
+        yield TRACE
+    finally:
+        trace, TRACE = TRACE, None
+        with open(path, "w") as f:
+            json.dump(trace, f)
+
+
+def schedule_from_trace(path: str) -> list:
+    """The per-call compute/skip list of a trace_to JSON, for
+    ``TeaCache(forced_schedule=...)`` replay."""
+    with open(path) as f:
+        records = json.load(f)
+    return [bool(r["compute"]) for r in records if "call" in r]
 
 
 def residual_value(x_out: torch.Tensor, x_in: torch.Tensor,
@@ -151,6 +195,15 @@ class TeaCache:
                   if isinstance(self.coefficients, str) else self.coefficients)
         self._poly = np.poly1d(coeffs)
         self.reset()
+        if TRACE is not None and self.enabled:
+            TRACE.append({"meta": {
+                "thresh": self.thresh, "num_steps": self.num_steps,
+                "coefficients": [float(c) for c in coeffs],
+                "ret_steps": self.ret_steps,
+                "cutoff_steps": self.cutoff_steps,
+                "cfg_streams": self.cfg_streams,
+                "signal_scale": self.signal_scale,
+                "replay": self.forced_schedule is not None}})
 
     @property
     def enabled(self) -> bool:
@@ -167,7 +220,7 @@ class TeaCache:
         cnt = self._call_count
         self._call_count += 1
         st = self.states[cnt % self.cfg_streams]
-
+        raw = None
         if self.forced_schedule is not None:
             compute = (bool(self.forced_schedule[cnt])
                        if cnt < len(self.forced_schedule) else True)
@@ -194,6 +247,12 @@ class TeaCache:
         else:
             st.skipped_steps += 1
         self.decisions.append(compute)
+        if TRACE is not None:
+            rec = {"call": cnt, "stream": cnt % self.cfg_streams,
+                   "raw": raw, "compute": compute}
+            if self.forced_schedule is not None:
+                rec["forced"] = True
+            TRACE.append(rec)
         return compute
 
     def apply_residual(self, hidden, ctx=None):
@@ -210,6 +269,15 @@ class TeaCache:
                 ctx = ctx + st.previous_residual_ctx
             return hidden, ctx
         return hidden
+
+    def record_residual(self, hidden_in, hidden_out, ctx_in=None,
+                        ctx_out=None):
+        """Store the bf16 stack residual hidden_out - hidden_in (and the
+        text stream's, when both ctx tensors are given)."""
+        self.record_residual_value(
+            (hidden_out - hidden_in).to(torch.bfloat16),
+            (ctx_out - ctx_in).to(torch.bfloat16)
+            if ctx_in is not None and ctx_out is not None else None)
 
     def record_residual_value(self, residual, residual_ctx=None):
         """Store an already-computed stack residual: the bf16 tensor or the

@@ -17,22 +17,30 @@ output and prints the JSON line:
     torchrun --nproc_per_node 4 -m rectified_spaattn_tpu_torch.cli.generate \
         --tp 4 --model hunyuan ...
 
-Without ``--ckpt_dir`` the run uses seeded random weights at a ``--scale``d config, built as the JAX
-CLI builds them; weights and activations are bf16 on the GPU (the CUDA
-kernels take bf16) and fp32 on the CPU.  ``--quant 8|4`` quantizes the
-weights in place, layer by layer (models/quant.py::quantize_model, the JAX
-CLI's ``quantize_params`` rules), so the device never holds a second full
-copy.  Flags of parts not ported yet (checkpoints, other model families,
-scan execution, I2V images, schedule traces) raise
+``--ckpt_dir`` loads a local diffusers snapshot (``transformer/``,
+``vae/``, optional ``text_encoder[_2]/`` + ``tokenizer[_2]/``; see
+models/pretrained.py): the transformer in bf16 on the GPU (fp32 on the
+CPU), the VAE in fp32, and the prompt through the snapshot's text encoders,
+or the seeded pseudo-embedding of the random-weight runs when it has none.
+The final latents are decoded and saved as ``.mp4`` (``.npy`` of uint8
+frames where imageio or its ffmpeg backend is missing).  Without
+``--ckpt_dir`` the run uses seeded random weights at a ``--scale``d config,
+built as the JAX CLI builds them; weights and activations are bf16 on the
+GPU (the CUDA kernels take bf16) and fp32 on the CPU, and the latents are
+saved as ``.npy``.  ``--quant 8|4`` quantizes the weights in place, layer by
+layer (models/quant.py::quantize_model, the JAX CLI's ``quantize_params``
+rules), so the device never holds a second full copy.  ``--trace_out``
+writes the TeaCache schedule trace (cache/teacache.py::trace_to),
+``--profile`` a torch.profiler chrome trace.  Flags of parts not ported yet
+(other model families, scan execution, I2V images) raise
 NotImplementedError.  ``wan21-i2v`` without ``--image`` runs the JAX CLI's
-neutral conditioning: zero condition channels and a zero [1, 257,
-image_dim] CLIP context.
+neutral conditioning: zero condition channels and, with random weights, a
+zero [1, 257, image_dim] CLIP context.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import time
@@ -41,6 +49,8 @@ from datetime import datetime
 
 import numpy as np
 import torch
+
+from ..cache import schedule_from_trace
 
 MODEL_CHOICES = (
     "hunyuan", "hunyuan-i2v", "wan21-t2v", "wan21-i2v", "wan22-ti2v",
@@ -69,13 +79,17 @@ def parse_args(argv=None):
                    default=None, dest="teacache_thresh")
     p.add_argument("--use_ret_steps", action="store_true")
     p.add_argument("--teacache_signal_scale", type=float, default=1.0)
-    p.add_argument("--trace_out", type=str, default=None)
+    p.add_argument("--trace_out", type=str, default=None,
+                   help="write the TeaCache schedule trace (raw signals and "
+                        "decisions) as JSON")
     p.add_argument("--mode", choices=["sparse", "flash", "torch", "vanilla"],
                    default="sparse")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--controlnet_dir", type=str, default=None)
-    p.add_argument("--ckpt_dir", type=str, default=None)
+    p.add_argument("--ckpt_dir", type=str, default=None,
+                   help="local diffusers snapshot: transformer/, vae/, "
+                        "optional text_encoder[_2]/ + tokenizer[_2]/")
     p.add_argument("--out_dir", type=str, default="./outputs")
     p.add_argument("--scale", type=float, default=1.0,
                    help="model-size scale for random-weight smoke runs")
@@ -101,8 +115,8 @@ def parse_args(argv=None):
                    default="bf16")
     p.add_argument("--teacache_offload", action="store_true")
     p.add_argument("--replay_trace", type=str, default=None,
-                   help="REPLAY a recorded TeaCache schedule (a trace JSON "
-                        "of the JAX CLI's --trace_out)")
+                   help="REPLAY a recorded TeaCache schedule (a "
+                        "--trace_out JSON of either CLI)")
     p.add_argument("--density", action="store_true",
                    help="probe the executed mask density once per step")
     p.add_argument("--host_swap", action="store_true")
@@ -121,10 +135,10 @@ def _check_ported(args):
     # --teacache_signal_scale for hunyuan) belong to other families and
     # are ignored there too
     unported = {
-        "--ckpt_dir (checkpoint loading)": args.ckpt_dir,
         "--scan_blocks": args.scan_blocks,
         "--dispatch_segments": args.dispatch_segments > 1,
-        "--image": args.image, "--trace_out": args.trace_out,
+        "--image (the I2V conditioning of HunyuanVideo I2V and Wan2.2, "
+        "ROADMAP Queue 1 items 2-3)": args.image,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -142,6 +156,31 @@ def _random_text(prompt: str, length: int, dim: int, batch: int = 1,
     mask = torch.zeros((batch, length), dtype=torch.bool, device=device)
     mask[:, :n] = True
     return emb * mask[..., None], mask
+
+
+def _encode_prompt(encoders, prompt, dim, max_len, device):
+    """(cond, mask), (uncond, umask) for the prompt and the empty negative
+    prompt, through the primary encoder, or the seeded pseudo-embedding
+    when the snapshot has no encoders."""
+    if encoders:
+        return encoders[0](prompt), encoders[0]("")
+    return (_random_text(prompt, max_len, dim, device=device),
+            _random_text("", max_len, dim, device=device))
+
+
+def _from_ckpt(args, family, device):
+    """(cfg, model, encoders, vae_decode) from the local
+    diffusers snapshot ``--ckpt_dir`` (reference: one from_pretrained call
+    gives text-encode -> denoise -> VAE decode -> mp4,
+    main_hunyuan.py:232-292)."""
+    from ..models.pretrained import (load_text_encoders, load_transformer,
+                                     load_vae)
+    dtype = "bfloat16" if device.type == "cuda" else "float32"
+    cfg, model = load_transformer(family, args.ckpt_dir, dtype=dtype,
+                                  device=device, mlp_chunk=args.mlp_chunk)
+    _, vae_decode = load_vae(args.ckpt_dir, video=True, device=device)
+    encoders = load_text_encoders(family, args.ckpt_dir, device=device)
+    return cfg, model, encoders, vae_decode
 
 
 def _quantized(model, args):
@@ -162,75 +201,90 @@ def _serving(args) -> dict:
                 head_chunk=args.head_chunk,
                 teacache_residual=args.teacache_residual,
                 teacache_offload=args.teacache_offload,
-                teacache_schedule=_replay_schedule(args),
+                teacache_schedule=(schedule_from_trace(args.replay_trace)
+                                   if args.replay_trace else None),
                 density_probe=args.density, mesh=args.mesh)
 
 
 def build_hunyuan(args):
-    """Returns (pipe, (text, mask)) with seeded random weights at
+    """Returns (pipe, (text, mask, pooled)): the ``--ckpt_dir`` snapshot's
+    model, encoders and VAE decode, or seeded random weights at
     ``--scale`` (the JAX CLI's random-weight config)."""
     from ..models import HunyuanVideoConfig, HunyuanVideoDiT
     from ..models import init_random_weights
     from ..pipelines import HunyuanVideoPipeline
     from ..utils import resolve_device
     device = resolve_device(args.device)
-    s = args.scale
-    cfg = HunyuanVideoConfig(
-        hidden_dim=max(128, int(3072 * s) // 128 * 128),
-        heads=max(1, int(24 * s)), num_dual_blocks=max(1, int(20 * s)),
-        num_single_blocks=max(1, int(40 * s)), text_dim=512,
-        pooled_dim=128, num_refiner_blocks=1, mlp_chunk=args.mlp_chunk)
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    with torch.device(device):
-        model = HunyuanVideoDiT(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    model = _quantized(init_random_weights(model.to(dtype), gen), args)
-    text, mask = _random_text(args.prompt, 256, cfg.text_dim, device=device)
+    pooled, vae_decode = None, None
+    if args.ckpt_dir:
+        cfg, model, encoders, vae_decode = _from_ckpt(args, "hunyuan",
+                                                      device)
+        (text, mask), _ = _encode_prompt(encoders, args.prompt,
+                                         cfg.text_dim, 256, device)
+        if len(encoders) > 1:    # CLIP pooled prompt embeds
+            pooled = encoders[1].pooled(args.prompt)
+        model = _quantized(model, args)
+    else:
+        s = args.scale
+        cfg = HunyuanVideoConfig(
+            hidden_dim=max(128, int(3072 * s) // 128 * 128),
+            heads=max(1, int(24 * s)), num_dual_blocks=max(1, int(20 * s)),
+            num_single_blocks=max(1, int(40 * s)), text_dim=512,
+            pooled_dim=128, num_refiner_blocks=1, mlp_chunk=args.mlp_chunk)
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+        with torch.device(device):
+            model = HunyuanVideoDiT(cfg)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        model = _quantized(init_random_weights(model.to(dtype), gen), args)
+        text, mask = _random_text(args.prompt, 256, cfg.text_dim,
+                                  device=device)
     pipe = HunyuanVideoPipeline(
         model=model, height=args.height, width=args.width,
         frames=args.frame, num_steps=args.num_steps,
         sa_drop_rate=args.sa_drop_rate, p_remain_rates=args.p_remain_rates,
         mode="flash" if args.mode == "torch" else args.mode,
         enable_teacache=args.enable_teacache,
-        rel_l1_thresh=args.teacache_thresh, device=device, **_serving(args))
-    return pipe, (text, mask)
-
-
-def _replay_schedule(args):
-    if not args.replay_trace:
-        return None
-    with open(args.replay_trace) as f:
-        return [bool(r["compute"]) for r in json.load(f) if "call" in r]
+        rel_l1_thresh=args.teacache_thresh, vae_decode=vae_decode,
+        device=device, **_serving(args))
+    return pipe, (text, mask, pooled)
 
 
 def build_wan(args):
-    """Returns (pipe, (text, negative text), extra inputs) with seeded
+    """Returns (pipe, (text, negative text), extra inputs): the
+    ``--ckpt_dir`` snapshot's model, encoder and VAE decode, or seeded
     random weights at ``--scale``, built as the JAX CLI builds them
     (text_dim 512; I2V: 36 input channels and the CLIP image branch)."""
     from ..models import WanConfig, WanDiT, init_random_weights
     from ..pipelines import WanPipeline
     from ..utils import resolve_device
     device = resolve_device(args.device)
-    s = args.scale
     is_i2v = args.model == "wan21-i2v"
     latent_ch = 16
-    cfg = WanConfig(
-        # I2V transformers take [noise 16 | mask 4 | image latents 16]
-        in_channels=latent_ch + 4 + latent_ch if is_i2v else latent_ch,
-        out_channels=latent_ch,
-        hidden_dim=max(128, int(5120 * s) // 128 * 128),
-        heads=max(1, int(40 * s)), num_blocks=max(2, int(40 * s)),
-        ffn_dim=max(256, int(13824 * s)), text_dim=512, freq_dim=256,
-        mlp_chunk=args.mlp_chunk, image_cross=is_i2v)
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    with torch.device(device):
-        model = WanDiT(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(0)
-    model = _quantized(init_random_weights(model.to(dtype), gen), args)
-    text, _ = _random_text(args.prompt, 512, cfg.text_dim, device=device)
-    neg, _ = _random_text("", 512, cfg.text_dim, device=device)
+    vae_decode = None
+    if args.ckpt_dir:
+        cfg, model, encoders, vae_decode = _from_ckpt(args, "wan", device)
+        (text, _), (neg, _) = _encode_prompt(encoders, args.prompt,
+                                             cfg.text_dim, 512, device)
+        model = _quantized(model, args)
+    else:
+        s = args.scale
+        cfg = WanConfig(
+            # I2V transformers take [noise 16 | mask 4 | image latents 16]
+            in_channels=latent_ch + 4 + latent_ch if is_i2v else latent_ch,
+            out_channels=latent_ch,
+            hidden_dim=max(128, int(5120 * s) // 128 * 128),
+            heads=max(1, int(40 * s)), num_blocks=max(2, int(40 * s)),
+            ffn_dim=max(256, int(13824 * s)), text_dim=512, freq_dim=256,
+            mlp_chunk=args.mlp_chunk, image_cross=is_i2v)
+        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+        with torch.device(device):
+            model = WanDiT(cfg)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        model = _quantized(init_random_weights(model.to(dtype), gen), args)
+        text, _ = _random_text(args.prompt, 512, cfg.text_dim, device=device)
+        neg, _ = _random_text("", 512, cfg.text_dim, device=device)
     pipe = WanPipeline(
         model=model, height=args.height, width=args.width, frames=args.frame,
         num_steps=args.num_steps, sa_drop_rate=args.sa_drop_rate,
@@ -240,16 +294,18 @@ def build_wan(args):
         teacache_thresh=args.teacache_thresh,
         use_ret_steps=args.use_ret_steps,
         teacache_signal_scale=args.teacache_signal_scale, is_i2v=is_i2v,
-        device=device, **_serving(args))
+        vae_decode=vae_decode, device=device, **_serving(args))
     extra = {}
     if is_i2v:
-        # no --image: neutral zero conditioning (a black first frame) and
-        # a zero CLIP context, so the I2V architecture still runs
+        # no --image: neutral zero conditioning (a black first frame); the
+        # random-weight model also gets a zero CLIP context (the JAX CLI
+        # passes none to a checkpoint's)
         extra["condition"] = torch.zeros(
             (1, cfg.in_channels - cfg.out_channels, *pipe.grid),
             device=device)
-        extra["image_emb"] = torch.zeros((1, 257, cfg.image_dim),
-                                         device=device)
+        if not args.ckpt_dir:
+            extra["image_emb"] = torch.zeros((1, 257, cfg.image_dim),
+                                             device=device)
     return pipe, (text, neg), extra
 
 
@@ -279,20 +335,6 @@ def _tp_mesh(args):
     return make_mesh(dp=1, tp=args.tp, sp=1), owned
 
 
-@contextlib.contextmanager
-def _profiler(log_dir):
-    if not log_dir:
-        yield
-        return
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield
-    os.makedirs(log_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
 def main(argv=None):
     args = parse_args(argv)
     _check_ported(args)
@@ -302,7 +344,8 @@ def main(argv=None):
     if args.teacache_thresh is None:
         args.teacache_thresh = tea
 
-    from ..utils import set_seed
+    from ..cache.teacache import trace_to
+    from ..utils import profiler_trace, set_seed
     args.mesh, owned = _tp_mesh(args)
     try:
         if args.model == "hunyuan":
@@ -311,8 +354,8 @@ def main(argv=None):
         else:
             pipe, inputs, extra = build_wan(args)
         noise = set_seed(args.seed, pipe.device)
-        with _profiler(args.profile):
-            latents = pipe(*inputs, generator=noise, **extra)
+        with profiler_trace(args.profile), trace_to(args.trace_out):
+            out = pipe(*inputs, generator=noise, **extra)
     finally:
         if owned:
             import torch.distributed as dist
@@ -322,9 +365,21 @@ def main(argv=None):
 
     os.makedirs(args.out_dir, exist_ok=True)
     stamp = datetime.fromtimestamp(time.time()).strftime("%m-%d-%H:%M:%S")
-    path = os.path.join(args.out_dir, f"{stamp}_{args.model}_"
-                                      f"{pipe.denoise_seconds:.0f}s.npy")
-    np.save(path, latents.float().cpu().numpy())
+    # elapsed denoise seconds in the filename, as the reference does
+    # (main_hunyuan.py:288-292); decoded pixels go to mp4 / png, raw
+    # latents to .npy
+    stem = os.path.join(args.out_dir, f"{stamp}_{args.model}_"
+                                      f"{pipe.denoise_seconds:.0f}s")
+    arr = out.float().cpu().numpy()
+    if arr.ndim == 5 and arr.shape[1] == 3:          # [B,3,F,H,W] pixels
+        from ..utils.video import save_video
+        path = save_video(arr[0].transpose(1, 2, 3, 0), stem + ".mp4")
+    elif arr.ndim == 4 and arr.shape[1] == 3:        # [B,3,H,W] image
+        from ..utils.video import save_image
+        path = save_image(arr[0].transpose(1, 2, 0), stem + ".png")
+    else:
+        path = stem + ".npy"
+        np.save(path, arr)
     dens = pipe.density_samples
     result = {
         "output": path,
@@ -332,9 +387,10 @@ def main(argv=None):
         "teacache": pipe.teacache_stats,
         "density": round(float(np.mean(dens)), 4) if dens else None,
     }
+    if pipe.vae_decode is not None:
+        result["decode_seconds"] = round(pipe.decode_seconds, 2)
     print(json.dumps(result))
     return result
-
 
 if __name__ == "__main__":
     main()

@@ -2,6 +2,8 @@
 nested dicts of numpy arrays, into the port's ``state_dict``.
 
   * Flax ``Dense`` kernels are [in, out]; ``nn.Linear`` weights [out, in].
+  * Flax ``Conv`` kernels are [*k, in, out]; ``nn.Conv{2,3}d`` weights
+    [out, in, *k] (the VAE's convolutions).
   * Quantized ``QDense`` nodes (models/quant.py::quantize_params) carry
     across as the port's ``QLinear`` layouts: ``kernel_q`` [in, out] int8
     becomes ``weight_q`` [out, in], ``kernel_q4`` [in // 2, out] uint8
@@ -13,7 +15,9 @@ nested dicts of numpy arrays, into the port's ``state_dict``.
     ``block_{i}`` (Wan); the port holds them in ``dual_blocks`` /
     ``single_blocks`` / ``blocks`` module lists.
   * Parameters that are no module's (Wan's ``scale_shift_table`` and
-    ``scale_shift_table_out``) keep their names.
+    ``scale_shift_table_out``) keep their names, and so do the VAE's
+    modules (``conv_in``, ``up0_res1``, ``mid_attn`` ..., models/vae.py
+    names them as Flax does).
 
 Loading is strict: every source key is consumed, every target key is
 filled, and shapes must agree.
@@ -63,7 +67,12 @@ def _tensor(arr, transpose: bool) -> torch.Tensor:
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))   # a writable copy
-    return t.T.contiguous() if transpose else t
+    if not transpose:
+        return t
+    if t.ndim > 2:                          # conv: [*k, in, out]
+        return t.permute(t.ndim - 1, t.ndim - 2,
+                         *range(t.ndim - 2)).contiguous()
+    return t.T.contiguous()
 
 
 def flax_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:

@@ -11,6 +11,7 @@ heads.  The sparse mask is built per head, so the site function of
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -19,6 +20,8 @@ import torch.nn.functional as F
 from ..curves import cached_curve
 from ..sparse import SparseConfig, select_block_num
 from ..attention import attention
+from ..utils.device import resolve_device
+from ..utils.timing import device_sync
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,11 +49,13 @@ def build_site(latent_t: int, latent_h: int, latent_w: int, *,
                curve_variant: str = "full", axis_order=("w", "h", "t"),
                plan_row_chunk: int = 0, plan_kv_tile: int = 0,
                group_rows: int = 1, kv_pack: bool = False,
-               head_chunk: int = 0, kv_quant: str = "none", device="cpu"):
+               head_chunk: int = 0, kv_quant: str = "none", device="cuda"):
     """Curve + neighbour precompute and sparse config for one geometry
     (reference: build_multi_curve + sparse-param calc,
     scripts/main_hunyuan.py:23-42,249-254).  Returns (site,
-    linear_to_hilbert, hilbert_to_linear) with tensors on ``device``."""
+    linear_to_hilbert, hilbert_to_linear) with tensors on ``device``
+    (default "cuda"; raises without a GPU unless ``device="cpu"``)."""
+    device = resolve_device(device)
     l2h, h2l, neighbors = cached_curve(
         latent_t, latent_h, latent_w, block_size=block_size,
         axis_order=axis_order, variant=curve_variant)
@@ -74,6 +79,17 @@ def build_site(latent_t: int, latent_h: int, latent_w: int, *,
                       visual_len=sv)
     return (site, torch.as_tensor(l2h, device=device),
             torch.as_tensor(h2l, device=device))
+
+
+def decode_timed(vae_decode, latents):
+    """(``vae_decode(latents)``, its device-synced seconds), or (latents,
+    None) without a decoder."""
+    if vae_decode is None:
+        return latents, None
+    t0 = time.perf_counter()
+    pixels = vae_decode(latents)
+    device_sync(pixels)
+    return pixels, time.perf_counter() - t0
 
 
 def pad_tokens(x: torch.Tensor, multiple: int, axis: int = 1) -> torch.Tensor:

@@ -11,15 +11,16 @@ setup for this rank of the tp group and the sparse site runs head-parallel;
 every rank runs the same loop on replicated activations and makes the same
 TeaCache decisions (checked each call).
 
-Left out so far: the TPU levers ``scan_blocks`` and ``dispatch_segments``;
-the I2V conditioning.
+``vae_decode`` (models/pretrained.py::load_vae) turns the final latents
+into pixels.  Left out so far: the TPU levers ``scan_blocks`` and
+``dispatch_segments``; the I2V conditioning.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -28,8 +29,8 @@ from ..cache import TeaCache
 from ..cache.teacache import residual_value
 from ..utils.device import resolve_device
 from ..utils.timing import device_sync
-from .base import (build_site, param_compute_dtype, rank_mean,
-                   shard_tensor_parallel, teacache_decision)
+from .base import (build_site, decode_timed, param_compute_dtype,
+                   rank_mean, shard_tensor_parallel, teacache_decision)
 from .schedulers import FlowMatchEulerScheduler
 
 
@@ -66,6 +67,11 @@ class HunyuanVideoPipeline:
     teacache_offload: bool = False
     # replay a recorded per-call compute/skip list instead of deciding
     teacache_schedule: Optional[list] = None
+    # keep every n-th token of the TeaCache signal (the stored
+    # previous_modulated shrinks n-fold; rel-L1 is a mean over tokens)
+    teacache_signal_stride: int = 1
+    # latents -> pixels, applied to the final latents (None: latents out)
+    vae_decode: Optional[Callable] = None
     # probe the executed mask density of block 0 once per step
     density_probe: bool = False
     # tensor-parallel process groups (parallel.make_mesh; tp only)
@@ -102,6 +108,8 @@ class HunyuanVideoPipeline:
         x, ctx, temb, rope = m.embed(latents, t, text, mask, guidance,
                                      self.h2l, pooled)
         sig = m.teacache_signal(x, temb)
+        if self.teacache_signal_stride > 1:
+            sig = sig[:, ::self.teacache_signal_stride]
         cd = self.compute_dtype
         return x.to(cd), ctx.to(cd), temb.to(cd), rope, sig.to(cd)
 
@@ -189,8 +197,8 @@ class HunyuanVideoPipeline:
                  generator: Optional[torch.Generator] = None):
         """Draw the initial noise from ``generator`` (default: a generator
         on the pipeline's device seeded with ``seed``) unless
-        ``init_latents`` is given, and denoise; returns latents (the VAE
-        decode belongs to a later slice)."""
+        ``init_latents`` is given, and denoise; returns the latents, or
+        ``vae_decode``'s pixels of them."""
         cfg = self.model.cfg
         b = text_emb.shape[0]
         if init_latents is not None:
@@ -202,5 +210,7 @@ class HunyuanVideoPipeline:
             latents = torch.randn((b, cfg.in_channels, *self.grid),
                                   generator=generator, dtype=torch.float32,
                                   device=self.device)
-        return self.denoise(latents, text_emb, text_mask, pooled=pooled,
-                            num_steps=num_steps)
+        latents = self.denoise(latents, text_emb, text_mask, pooled=pooled,
+                               num_steps=num_steps)
+        out, self.decode_seconds = decode_timed(self.vae_decode, latents)
+        return out

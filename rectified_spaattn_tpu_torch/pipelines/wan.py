@@ -21,17 +21,17 @@ setup for this rank of the tp group; the sparse site runs head-parallel,
 the dense warm layers and the cross-attention on the rank's heads, and the
 TeaCache decisions are checked to agree across ranks each call.
 
-Left out so far (raise NotImplementedError): ``scan_blocks``,
+``vae_decode`` (models/pretrained.py::load_vae) turns the final latents
+into pixels.  Left out so far (raise NotImplementedError): ``scan_blocks``,
 ``dispatch_segments`` and ``defer_device``; ``i2v_condition`` /
-``ti2v_first_frame`` (they need the VAE encoder) and ``Wan22A14BPipeline``
-are later slices.
+``ti2v_first_frame`` and ``Wan22A14BPipeline`` are later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -42,7 +42,7 @@ from ..cache import TeaCache
 from ..cache.teacache import residual_value
 from ..utils.device import resolve_device
 from ..utils.timing import device_sync
-from .base import (build_site, classifier_free_guidance,
+from .base import (build_site, decode_timed, classifier_free_guidance,
                    param_compute_dtype, rank_mean, shard_tensor_parallel,
                    teacache_decision)
 from .schedulers import FlowMatchEulerScheduler, UniPCScheduler
@@ -97,6 +97,8 @@ class WanPipeline:
     density_probe: bool = False
     # tensor-parallel process groups (parallel.make_mesh; tp only)
     mesh: Optional[object] = None
+    # latents -> pixels, applied to the final latents (None: latents out)
+    vae_decode: Optional[Callable] = None
     # TPU execution levers of the JAX pipeline: not ported yet
     scan_blocks: bool = False
     dispatch_segments: int = 1
@@ -320,8 +322,8 @@ class WanPipeline:
                  generator: Optional[torch.Generator] = None):
         """Draw the initial noise from ``generator`` (default: a generator
         on the pipeline's device seeded with ``seed``) unless
-        ``init_latents`` is given, and denoise; returns latents (the VAE
-        decode belongs to a later slice)."""
+        ``init_latents`` is given, and denoise; returns the latents, or
+        ``vae_decode``'s pixels of them."""
         cfg = self.model.cfg
         if init_latents is not None:
             latents = init_latents
@@ -334,5 +336,7 @@ class WanPipeline:
             latents = torch.randn((text_cond.shape[0], noise_ch, *self.grid),
                                   generator=generator, dtype=torch.float32,
                                   device=self.device)
-        return self.denoise(latents, text_cond, text_uncond, image_emb,
-                            condition, first_frame, num_steps)
+        latents = self.denoise(latents, text_cond, text_uncond, image_emb,
+                               condition, first_frame, num_steps)
+        out, self.decode_seconds = decode_timed(self.vae_decode, latents)
+        return out

@@ -5,6 +5,7 @@ every stage boundary synchronises the device before reading the clock."""
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from dataclasses import dataclass, field
 
@@ -40,3 +41,20 @@ class StageTimer:
     def summary(self) -> dict:
         return {k: {"total_s": round(v, 3), "calls": self.counts[k]}
                 for k, v in self.totals.items()}
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str | None):
+    """Optional torch.profiler trace around a region (CPU, and CUDA where
+    there is a GPU), written as a chrome trace to ``log_dir``/trace.json;
+    a no-op when ``log_dir`` is falsy."""
+    if not log_dir:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+    os.makedirs(log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -2,7 +2,9 @@
 S3/S2 ablation variants against their plain PyTorch versions, on a CUDA
 GPU (bf16, 2e-2: the repo's bf16 tolerance, tests/test_kernels.py; K1s's
 and K1q-s's l within 1 %; S1's int8 result, the load-only variants and S2
-full / prefetch against K2 bit for bit).
+full / prefetch against K2 bit for bit); the safetensors codec on device
+tensors (bit for bit) and the full-width HunyuanVideo VAE decode on the
+GPU against the CPU (fp32 rtol 2e-4 / atol 2e-5, TF32 off).
 Marked ``cuda``; each test skips without a GPU.  This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
 
@@ -519,3 +521,62 @@ def test_cuda_s2_variants_match_plain(cuda, variant, group):
             k2 = tk.block_sparse_flash_attention_grouped(
                 q, k, v, *args, group=group, **kw)
             assert torch.equal(got, k2)
+
+
+@pytest.mark.cuda
+def test_cuda_codec_round_trip(cuda, tmp_path):
+    """Device tensors of every dtype written (copied to the host one at a
+    time) and read back bit for bit."""
+    from rectified_spaattn_tpu_torch.models import safetensors_io as sio
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    sd = {}
+    for name, dt in sio.DTYPES.items():
+        x = torch.randn((5, 7), generator=g, device=cuda) * 50
+        sd[name] = x > 0 if dt == torch.bool else x.to(dt)
+    sd["empty"] = torch.zeros((0, 3), device=cuda)
+    path = sio.save_file(sd, str(tmp_path / "x.safetensors"))
+    for use_mmap in (True, False):
+        back = sio.load_file(path, use_mmap)
+        assert sorted(back) == sorted(sd)
+        for k, v in sd.items():
+            assert back[k].dtype == v.dtype and torch.equal(back[k],
+                                                            v.cpu()), k
+
+
+@pytest.mark.cuda
+def test_cuda_vae_full_width_matches_cpu(cuda):
+    """The HunyuanVideo VAE decoder at its published widths (vae/
+    config.json of tencent/HunyuanVideo, diffusers format), seeded
+    N(0, 1/fan_in) weights: a [1, 16, 2, 8, 8] latent on the GPU against
+    the CPU in fp32 with TF32 off."""
+    from rectified_spaattn_tpu_torch.models.pretrained import (
+        vae_config_from_json)
+    from rectified_spaattn_tpu_torch.models.vae import VAEDecoder
+    cfg = vae_config_from_json(
+        {"latent_channels": 16, "block_out_channels": [128, 256, 512, 512],
+         "layers_per_block": 2, "temporal_compression_ratio": 4,
+         "spatial_compression_ratio": 8, "scaling_factor": 0.476986,
+         "mid_block_add_attention": True}, video=True)
+    dec = VAEDecoder(cfg).eval()
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, p in dec.named_parameters():
+            if p.ndim > 1:
+                p.copy_(torch.randn(p.shape, generator=g)
+                        * (p[0].numel() ** -0.5))
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.fill_(1.0)
+    lat = torch.randn((1, 16, 2, 8, 8), generator=g)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = dec(lat)
+            got = dec.to(cuda)(lat.to(cuda)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert got.shape == (1, 3, 5, 64, 64)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)

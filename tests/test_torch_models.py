@@ -171,7 +171,7 @@ def test_tiny_dit_forward(mode):
     jsite, jl2h, jh2l = j_build_site(2, 8, 8, sa_drop_rate=0.5, p_remain=0.5,
                                      layout="joint", text_len=128)
     site, l2h, h2l = build_site(2, 8, 8, sa_drop_rate=0.5, p_remain=0.5,
-                                layout="joint", text_len=128)
+                                layout="joint", text_len=128, device="cpu")
     tlen = np.array([9], np.int32)
     jfn = jsite.attn_fn(mode, text_len_rt=jnp.asarray(tlen), interpret=True)
     tfn = site.attn_fn(mode, text_len_rt=t(tlen))

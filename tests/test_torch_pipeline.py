@@ -161,8 +161,8 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == res
     with pytest.raises(NotImplementedError, match="cogvideox-t2v"):
         main(["--model", "cogvideox-t2v", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ckpt_dir"):
-        main(["--device", "cpu", "--ckpt_dir", str(tmp_path)])
+    with pytest.raises(NotImplementedError, match="--image"):
+        main(["--device", "cpu", "--image", str(tmp_path / "x.png")])
 
 
 def test_cuda_entry_points_raise_without_gpu():

@@ -105,7 +105,8 @@ def test_wan_dit_forward(variant):
     _, jl2h, jh2l = j_build_site(2, 4, 4, sa_drop_rate=0.5, p_remain=0.5,
                                  layout="visual", first_frame_retention=True)
     _, l2h, h2l = build_site(2, 4, 4, sa_drop_rate=0.5, p_remain=0.5,
-                             layout="visual", first_frame_retention=True)
+                             layout="visual", first_frame_retention=True,
+                             device="cpu")
     np.testing.assert_array_equal(h2l.numpy(), np.asarray(jh2l))
     want = np.asarray(jmod.apply(
         params, jnp.asarray(lat), jnp.asarray(ts), jnp.asarray(text),
