@@ -6,9 +6,9 @@
 
 Builds the port's CUDA kernels from rectified_spaattn_tpu_torch/csrc with
 nvcc (sm_90a, one nvcc per source, all started together) and drives the
-HunyuanVideo sparse denoise path, its int8 serving levers (K1q, S1, int8 /
-int4 weights, the int8 offloaded TeaCache residual), the Wan2.1-14B
-denoise path, the multi-device path (K1s, the ring, tensor parallelism)
+HunyuanVideo sparse denoise path (T2V and I2V), its int8 serving levers
+(K1q, S1, int8 / int4 weights, the int8 offloaded TeaCache residual), the
+Wan2.1-14B denoise path, Wan2.2 A14B with host_swap, the multi-device path (K1s, the ring, tensor parallelism)
 and the kernel-diagnostic path (K1q-s, the S3 / S2 ablations, the
 headline bench).  Every attention kernel (K1/K1s, K2, K1q/K1q-s, K3)
 and every S3 / S2 ablation run on the Hopper mainloop of
@@ -58,6 +58,14 @@ ranges that the merge kernel folds:
      then one step with the density probe on (untimed in the above); plus
      a small pipeline on the GPU (bf16) against the same one on the CPU
      (fp32).
+  4a. pipeline_i2v: the same pipeline as HunyuanVideo I2V
+     (image_condition_type "token_replace"), the same weights, noise and
+     text and a seeded first-frame latent: launch counters zeroed just
+     before and read just after, held to phase 4's per computed step; the
+     first frame held bit for bit; s/step against phase 4's; then the
+     small pipeline on the GPU (bf16) against the CPU (fp32) under
+     token_replace and under latent_concat (in_channels 33), held to the
+     output's scale.
   4b. int8: S1 (bf16 and int8 looped dots on the mainloop's TMA and
      wgmma shapes, int8 bit for bit against its plain version, rates
      against the peaks, at most 1.05 of them, torch.bmm / torch._int_mm as
@@ -81,7 +89,9 @@ ranges that the merge kernel folds:
      CLI with --ckpt_dir at 480x832, --frame 36 (9 latent frames, 33
      decoded), 2 sparse steps at group_rows 2 -- K1's and K2's launch
      counters zeroed just before and read just after, uint8 frames
-     [33,480,832,3] written.
+     [33,480,832,3] written; then the CLI's --model hunyuan-i2v on the
+     same snapshot with a seeded .npy --image, the VAE's encode of it held
+     in the final latents' first frame bit for bit.
   5. Wan site: the self-attention site at the Wan2.1-14B operating point
      (75,600 visual tokens padded once to 75,648, 40 heads x 128, visual
      layout with first-frame retention, sa_drop_rate 0.75, p_remain 0.3)
@@ -97,6 +107,16 @@ ranges that the merge kernel folds:
      seeded bf16 random weights — the launch counters and the sparse plans
      built are zeroed just before and read just after; then one sparse
      step under the profiler.
+  6a. wan22_a14b: Wan2.2 I2V-A14B, two WanConfig(in_channels=36) trees
+     at full width cut to 6 blocks (2 warm, 2 sparse, 2 last-warm),
+     seeds 0 and 1, 720x1280x81, 4 Euler steps over the boundary 0.875 (2
+     high, 2 low) under CFG, TeaCache on, the i2v_condition of a seeded
+     image through the CLI's stand-in encoder: first co-resident, then
+     with host_swap (both trees pinned on the host) -- launch counters and
+     sparse plans zeroed just before and read just after, the output
+     equal to the co-resident run bit for bit, the device weight bytes
+     after every swap at most one tree's + 5 %; load and swap seconds,
+     GB/s, the 40-block extrapolation, s/step and both peaks.
   6b. k1q_stats: K1q-s (K1q with m and l) in both modes against its plain
      version at small shapes (o equal to K1q's bit for bit, m / l as
      k1s_vs_plain holds them); at the Hunyuan site (both regimes) its time
@@ -188,6 +208,12 @@ SITE = dict(grid=(32, 45, 80), heads=24, head_dim=128, text_len=256, tlen=100)
 # the denoise run: full-width config cut to 2 dual + 2 single blocks
 PIPE = dict(cfg=dict(num_dual_blocks=2, num_single_blocks=2), height=720,
             width=1280, frames=128, steps=3)
+# Wan2.2 I2V-A14B: WanConfig() at in_channels 36 cut from 40 to 6 blocks
+# a tree (2 warm, 2 sparse, 2 last-warm), 4 Euler steps at shift 5 over
+# the boundary 0.875 (2 high-noise steps, 2 low)
+A14B = dict(cfg=dict(in_channels=36, num_blocks=6), height=720, width=1280,
+            frames=81, steps=4, warm_layers=2, warm_last_layers=2,
+            boundary_ratio=0.875)
 # the Wan2.1-14B operating point: latent grid (T', H', W') of 81x720x1280
 # video, heads, the text and CLIP-image context lengths of the cross
 # attention
@@ -1007,14 +1033,18 @@ def text_weighted_checks(kernels, ops, q, k, v, k1_lists, k2_lists,
 
 # --------------------------------------------------------------- phase 4 ---
 
-def pipeline_phase(kernels):
+def hunyuan_full_pipe(image_condition_type=None):
+    """The full-width HunyuanVideoPipeline of PIPE (seeded bf16 weights,
+    the same for T2V and I2V: the condition type adds no weight), its
+    config and its text inputs."""
     from rectified_spaattn_tpu_torch.cli.generate import _random_text
     from rectified_spaattn_tpu_torch.models import (
         HunyuanVideoConfig, HunyuanVideoDiT, init_random_weights)
     from rectified_spaattn_tpu_torch.pipelines import HunyuanVideoPipeline
 
     dev = torch.device(DEV)
-    cfg = HunyuanVideoConfig(**PIPE["cfg"])
+    cfg = HunyuanVideoConfig(**PIPE["cfg"],
+                             image_condition_type=image_condition_type)
     with torch.device(dev):
         model = HunyuanVideoDiT(cfg)
     gen = torch.Generator(device=dev)
@@ -1027,13 +1057,22 @@ def pipeline_phase(kernels):
         enable_teacache=True, rel_l1_thresh=0.15, group_rows=2, device=dev)
     text, mask = _random_text("several hot air balloons flying over a city.",
                               256, cfg.text_dim, device=dev)
-    noise = torch.Generator(device=dev)
+    return pipe, cfg, text, mask
+
+
+def path_kernels(kernels) -> dict:
+    return {"K1": kernels.block_sparse_flash_attention,
+            "K2": kernels.block_sparse_flash_attention_grouped,
+            "K3": kernels.dense_flash_attention,
+            "K1_merge": kernels.block_sparse.merge_splits}
+
+
+def pipeline_phase(kernels):
+    pipe, cfg, text, mask = hunyuan_full_pipe()
+    noise = torch.Generator(device=DEV)
     noise.manual_seed(42)
     torch.cuda.reset_peak_memory_stats()
-    kerns = {"K1": kernels.block_sparse_flash_attention,
-             "K2": kernels.block_sparse_flash_attention_grouped,
-             "K3": kernels.dense_flash_attention,
-             "K1_merge": kernels.block_sparse.merge_splits}
+    kerns = path_kernels(kernels)
     for f in kerns.values():
         f.launches = 0
     out = pipe(text, mask, generator=noise)
@@ -1095,18 +1134,82 @@ def profile_step(pipe, text, mask, top: int = 12):
                      "calls": e.count} for e in rows]}
 
 
-def small_pipeline_check(quant_bits: int = 0, **pipe_kw):
+def pipeline_i2v_phase(kernels, t2v: dict):
+    """HunyuanVideo I2V (token_replace) at PIPE's full width and depth,
+    the T2V phase's weights, noise and text, and a seeded first-frame
+    latent; the launch counters zeroed just before the run and read just
+    after, and held to the T2V run's per computed step.  Its s/step
+    against the T2V phase's; then the small GPU-vs-CPU pipeline under
+    token_replace and under latent_concat."""
+    pipe, cfg, text, mask = hunyuan_full_pipe("token_replace")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(7)
+    first = torch.randn((1, cfg.in_channels, 1, *pipe.grid[1:]),
+                        generator=gen, device=DEV)
+    noise = torch.Generator(device=DEV)
+    noise.manual_seed(42)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kerns = path_kernels(kernels)
+    for f in kerns.values():
+        f.launches = 0
+    out = pipe(text, mask, generator=noise, first_frame=first)
+    launches = {n: f.launches for n, f in kerns.items()}
+    torch.cuda.synchronize()
+    if out.shape != (1, cfg.in_channels, *pipe.grid) \
+            or not torch.isfinite(out).all():
+        raise AssertionError("I2V pipeline output is not finite of its shape")
+    if not torch.equal(out[:, :, :1], first):
+        raise AssertionError("the I2V pipeline did not hold the first frame")
+    # the same sparse decisions per computed step as T2V: token_replace
+    # changes the modulation, not the attention path
+    computed = pipe.teacache_stats["computed"]
+    per_step = {n: c / computed for n, c in launches.items()}
+    if per_step != t2v["launches_per_computed_step"] or launches["K3"]:
+        raise AssertionError(f"I2V launches {launches} per computed step "
+                             f"{per_step}, T2V "
+                             f"{t2v['launches_per_computed_step']}")
+    s_step = float(np.mean(pipe.step_seconds))
+    t2v_s_step = float(np.mean(t2v["step_seconds"]))
+    res = {"launches": launches, "launches_per_computed_step": per_step,
+           "step_seconds": pipe.step_seconds,
+           "denoise_seconds": pipe.denoise_seconds,
+           "teacache": pipe.teacache_stats,
+           "teacache_decisions": pipe.teacache.decisions,
+           "first_frame_tokens": int(pipe._ff_mask_curve.sum()),
+           "first_frame_held": True,
+           "s_per_step": s_step, "t2v_s_per_step": t2v_s_step,
+           "i2v_over_t2v": s_step / t2v_s_step,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "t2v_peak_mem_gb": t2v["peak_mem_gb"]}
+    del pipe, out
+    torch.cuda.empty_cache()
+    res["small_token_replace_gpu_vs_cpu"] = small_pipeline_check(
+        image_condition_type="token_replace")
+    res["small_latent_concat_gpu_vs_cpu"] = small_pipeline_check(
+        image_condition_type="latent_concat")
+    return res
+
+
+def small_pipeline_check(quant_bits: int = 0, image_condition_type=None,
+                         **pipe_kw):
     """A small pipeline (head_dim 128, one block of each kind) on the GPU
     in bf16 against the same weights on the CPU in fp32; with
     ``quant_bits`` both run the same quantized weights, and ``pipe_kw``
-    sets pipeline options (K1q, the TeaCache residual) on both."""
+    sets pipeline options (K1q, the TeaCache residual) on both.  With
+    ``image_condition_type`` both run I2V on the same seeded first frame
+    (token_replace, held bit for bit) or condition (latent_concat), held
+    to the output's scale."""
     from rectified_spaattn_tpu_torch.models import (
         HunyuanVideoConfig, HunyuanVideoDiT, init_random_weights, quant)
     from rectified_spaattn_tpu_torch.pipelines import HunyuanVideoPipeline
 
+    concat = image_condition_type == "latent_concat"
     cfg = HunyuanVideoConfig(hidden_dim=256, heads=2, num_dual_blocks=1,
                              num_single_blocks=1, text_dim=64, pooled_dim=32,
-                             num_refiner_blocks=1)
+                             num_refiner_blocks=1,
+                             in_channels=33 if concat else 16,
+                             image_condition_type=image_condition_type)
     gen = torch.Generator()
     gen.manual_seed(3)
     ref = init_random_weights(HunyuanVideoDiT(cfg), gen)
@@ -1124,10 +1227,27 @@ def small_pipeline_check(quant_bits: int = 0, **pipe_kw):
               p_remain_rates=0.5, group_rows=2)
     kw.update(pipe_kw)
     p_cpu = HunyuanVideoPipeline(model=ref, device="cpu", **kw)
-    init = torch.randn((1, cfg.in_channels, *p_cpu.grid), generator=gen)
-    want = p_cpu(text, mask, init_latents=init)
+    init = torch.randn((1, cfg.out_channels, *p_cpu.grid), generator=gen)
+    extra = {}
+    if image_condition_type == "token_replace":
+        extra["first_frame"] = torch.randn(
+            (1, cfg.out_channels, 1, *p_cpu.grid[1:]), generator=gen)
+    elif concat:
+        extra["condition"] = torch.randn(
+            (1, cfg.in_channels - cfg.out_channels, *p_cpu.grid),
+            generator=gen)
+    want = p_cpu(text, mask, init_latents=init, **extra)
     p_gpu = HunyuanVideoPipeline(model=gpu, device=DEV, **kw)
-    got = p_gpu(text, mask, init_latents=init).cpu()
+    got = p_gpu(text, mask, init_latents=init, **extra).cpu()
+    if image_condition_type:
+        res = held_to_scale(f"small {image_condition_type} pipeline GPU vs "
+                            "CPU", got, want)
+        if "first_frame" in extra:
+            if not torch.equal(got[:, :, :1], extra["first_frame"]):
+                raise AssertionError("small token_replace pipeline: the "
+                                     "first frame is not held")
+            res["first_frame_held"] = True
+        return res
     err = max_err(got, want)
     scale = float(want.abs().max())
     if not err <= 0.05 * scale:
@@ -1659,10 +1779,73 @@ def ckpt_phase(kernels) -> dict:
                       "frames_dtype": str(frames.dtype),
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
                       "cudnn_tf32": True}
+        res["cli_i2v"] = ckpt_i2v_cli(kernels, root, out_dir)
     finally:
         torch.backends.cudnn.allow_tf32 = False
         shutil.rmtree(root, ignore_errors=True)
     return res
+
+
+def ckpt_i2v_cli(kernels, root: str, out_dir: str) -> dict:
+    """The CLI's hunyuan-i2v on the same snapshot (a T2V transformer, so
+    token_replace is forced) with a seeded .npy image: its VAE encodes the
+    image into the first latent frame, which the final latents hold bit
+    for bit.  The pipeline's denoise is wrapped to read its first_frame
+    and its output; K1's and K2's counters zeroed just before the run and
+    read just after."""
+    from rectified_spaattn_tpu_torch.cli.generate import main as cli_main
+    from rectified_spaattn_tpu_torch.pipelines import HunyuanVideoPipeline
+
+    image = os.path.join(root, "image.npy")
+    np.save(image, np.random.default_rng(21).uniform(
+        0, 255, (CKPT["height"], CKPT["width"], 3)).astype(np.float32))
+    argv = ["--model", "hunyuan-i2v", "--ckpt_dir", root, "--image", image,
+            "--height", str(CKPT["height"]), "--width", str(CKPT["width"]),
+            "--frame", str(CKPT["frame"]), "--num_steps", str(CKPT["steps"]),
+            "--mode", "sparse", "--group_rows", "2", "--out_dir", out_dir,
+            "--device", DEV]
+    seen, denoise = {}, HunyuanVideoPipeline.denoise
+
+    def read(self, *a, **kw):
+        seen["first_frame"] = kw.get("first_frame")
+        seen["latents"] = denoise(self, *a, **kw)
+        return seen["latents"]
+
+    kerns = path_kernels(kernels)
+    HunyuanVideoPipeline.denoise = read
+    try:
+        zero_launches(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        line = cli_main(argv)
+        cli_s = time.perf_counter() - t0
+        launches = {n: f.launches for n, f in kerns.items()}
+    finally:
+        HunyuanVideoPipeline.denoise = denoise
+    if min(launches["K1"], launches["K2"]) == 0 or launches["K3"]:
+        raise AssertionError(f"unexpected launches on the I2V checkpoint "
+                             f"path: {launches}")
+    first, lat = seen["first_frame"], seen["latents"]
+    lt = CKPT["frame"] // 4
+    want_ff = (1, lat.shape[1], 1, *lat.shape[3:])
+    if first is None or tuple(first.shape) != want_ff \
+            or not float(first.abs().max()) > 0:
+        raise AssertionError(f"the CLI's first frame: "
+                             f"{None if first is None else first.shape}")
+    if lat.shape[2] != lt or not torch.equal(lat[:, :, :1],
+                                             first.to(lat.dtype)):
+        raise AssertionError("the I2V CLI run did not hold the encoded "
+                             "first frame")
+    frames = np.load(line["output"]) if line["output"].endswith(
+        ".npy") else None
+    want_shape = (CKPT["frames_out"], CKPT["height"], CKPT["width"], 3)
+    if frames is None or frames.dtype != np.uint8 \
+            or frames.shape != want_shape:
+        raise AssertionError(f"the I2V CLI wrote {line['output']}")
+    return {"argv": argv, "line": line, "seconds": cli_s,
+            "launches": launches, "first_frame": list(first.shape),
+            "first_frame_held": True, "frames": list(frames.shape),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
 
 
 # ------------------------------------------------------------- Wan phases ---
@@ -1880,6 +2063,160 @@ def wan_pipeline_phase(kernels):
     # layers, under the profiler
     pipe.warm_calls = 0
     res["profiled_sparse_step"] = profile_step(pipe, text, neg)
+    return res
+
+
+def tree_bytes(model) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in model.state_dict().values())
+
+
+def device_tree_bytes(*models) -> int:
+    """Bytes of the models' parameters and buffers held on the card."""
+    return sum(t.numel() * t.element_size() for m in models
+               for t in m.state_dict().values() if t.is_cuda)
+
+
+def wan22_a14b_phase(kernels):
+    """Wan2.2 I2V-A14B: two WanConfig(in_channels=36) transformers at full
+    width, 6 blocks each (2 warm, 2 sparse, 2 last-warm), different seeds;
+    720x1280x81, 4 Euler steps at shift 5 over boundary 0.875 (2 high, 2
+    low), CFG, TeaCache on, the condition of i2v_condition from the CLI's
+    stand-in encoder on a seeded image.  First both trees co-resident;
+    then the same run with host_swap (both trees pinned on the host, one
+    on the card at a time), its launch counters and sparse plans zeroed
+    just before and read just after, its output held to the co-resident
+    one bit for bit and its device weight bytes, read after every swap, to
+    one tree's."""
+    from rectified_spaattn_tpu_torch.cli.generate import (
+        _demo_vae_encoder, _random_text)
+    from rectified_spaattn_tpu_torch.models import (
+        WanConfig, WanDiT, init_random_weights)
+    from rectified_spaattn_tpu_torch.pipelines import (
+        Wan22A14BPipeline, WanPipeline, i2v_condition)
+
+    dev = torch.device(DEV)
+    cfg = WanConfig(**A14B["cfg"])
+    models = []
+    for seed in (0, 1):
+        with torch.device(dev):
+            m = WanDiT(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        models.append(init_random_weights(m.to(torch.bfloat16), gen))
+    one_tree = tree_bytes(models[0])
+    block_bytes = tree_bytes(models[0].blocks[0])
+    text, _ = _random_text("several hot air balloons flying over a city.",
+                           512, cfg.text_dim, device=dev)
+    neg, _ = _random_text("", 512, cfg.text_dim, device=dev)
+    kw = dict(height=A14B["height"], width=A14B["width"],
+              frames=A14B["frames"], num_steps=A14B["steps"],
+              sa_drop_rate=0.85, p_remain_rates=0.3, mode="sparse",
+              enable_teacache=True, teacache_thresh=0.3,
+              warm_layers=A14B["warm_layers"],
+              warm_last_layers=A14B["warm_last_layers"], scheduler="euler",
+              is_i2v=True, group_rows=1, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    image = torch.rand((1, 3, A14B["height"], A14B["width"]), generator=gen,
+                       device=dev) * 2 - 1
+    hi = WanPipeline(model=models[0], **kw)
+    lo = WanPipeline(model=models[1], **kw)
+    t0 = time.perf_counter()
+    enc = _demo_vae_encoder(cfg.out_channels, hi.grid, dev)
+    cond = i2v_condition(image, A14B["frames"], enc, lt=hi.grid[0])
+    torch.cuda.synchronize()
+    cond_s = time.perf_counter() - t0
+    del enc, image
+    init = torch.randn((1, cfg.out_channels, *hi.grid), generator=gen,
+                       device=dev)
+    kerns = path_kernels(kernels)
+
+    def run(pipe):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        plans, restore = count_sparse_plans()
+        try:
+            for f in kerns.values():
+                f.launches = 0
+            out = pipe(text, neg, condition=cond, init_latents=init)
+            launches = {n: f.launches for n, f in kerns.items()}
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        return out, {"launches": launches, "sparse_plans": plans[0],
+                     "step_seconds": pipe.step_seconds,
+                     "denoise_seconds": pipe.denoise_seconds,
+                     "teacache": pipe.teacache_stats,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+    co = Wan22A14BPipeline(high=hi, low=lo,
+                           boundary_ratio=A14B["boundary_ratio"])
+    out_co, res_co = run(co)
+    # the setup of the host_swap run: both trees copied to the host once
+    for m in models:
+        m.to("cpu")
+    del co, hi, lo
+    hi = WanPipeline(model=models[0], defer_device=True, **kw)
+    lo = WanPipeline(model=models[1], defer_device=True, **kw)
+    sw = Wan22A14BPipeline(high=hi, low=lo,
+                           boundary_ratio=A14B["boundary_ratio"],
+                           host_swap=True)
+    held, swap_in = [], sw._swap_in
+
+    def swap_and_read(*a):
+        sec = swap_in(*a)
+        held.append(device_tree_bytes(hi.model, lo.model))
+        return sec
+    sw._swap_in = swap_and_read
+    out, res = run(sw)
+    tea = sw.teacache
+    calls = {n: len(tea[n].decisions) for n in ("high", "low")}
+    computed = sum(sum(tea[n].decisions) for n in ("high", "low"))
+    n = cfg.num_blocks
+    sparse_blocks = n - A14B["warm_layers"] - A14B["warm_last_layers"]
+    # per computed call: K1 in every block (windowed dense or sparse), K3
+    # the text cross of every block (no CLIP image branch on A14B); Wan's
+    # visual rows fill the card, so nothing splits
+    want = {"K1": n * computed, "K2": 0, "K3": n * computed, "K1_merge": 0}
+    if (res["launches"] != want or res_co["launches"] != want
+            or res["sparse_plans"] != sparse_blocks * computed
+            or res_co["sparse_plans"] != res["sparse_plans"]):
+        raise AssertionError(f"A14B launches {res['launches']} / "
+                             f"{res_co['launches']} (want {want}), sparse "
+                             f"plans {res['sparse_plans']} / "
+                             f"{res_co['sparse_plans']} (want "
+                             f"{sparse_blocks * computed})")
+    if calls != {"high": 4, "low": 4} or sw.swap_seconds <= 0:
+        raise AssertionError(f"A14B routing: calls {calls}, swap "
+                             f"{sw.swap_seconds}")
+    if out.shape != (1, cfg.out_channels, *sw.high.grid) \
+            or not torch.isfinite(out).all():
+        raise AssertionError("A14B output is not finite of its shape")
+    if not torch.equal(out, out_co):
+        raise AssertionError(
+            f"host_swap differs from the co-resident run: "
+            f"{held_to_scale('A14B host_swap', out, out_co)}")
+    if max(held) > 1.05 * one_tree:
+        raise AssertionError(f"device weight bytes {held} above one tree "
+                             f"({one_tree}) + 5 %")
+    gbps = lambda nbytes, sec: nbytes / sec / 1e9
+    base = one_tree - n * block_bytes
+    full = base + 40 * block_bytes
+    rate = gbps(one_tree, sw.swap_seconds)
+    res.update(
+        co_resident=res_co, calls=calls, computed_calls=computed,
+        equal_to_co_resident=True, condition_seconds=cond_s,
+        condition_shape=list(cond.shape), tree_gb=one_tree / 1e9,
+        device_weight_gb_after_swaps=[b / 1e9 for b in held],
+        load_seconds=sw.load_seconds, swap_seconds=sw.swap_seconds,
+        load_gbps=gbps(one_tree, sw.load_seconds), swap_gbps=rate,
+        tree_gb_40_blocks=full / 1e9,
+        swap_seconds_40_blocks_at_this_rate=full / 1e9 / rate,
+        s_per_step=float(np.mean(res["step_seconds"])),
+        co_resident_s_per_step=float(np.mean(res_co["step_seconds"])))
+    del sw, hi, lo, models
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2937,6 +3274,10 @@ def main() -> int:
     emit("pipeline", t0, **pipe)
 
     t0 = time.perf_counter()
+    i2v = pipeline_i2v_phase(kernels, pipe)
+    emit("pipeline_i2v", t0, nvidia_smi=smi, **i2v)
+
+    t0 = time.perf_counter()
     probe = int8_probe_phase()
     emit("int8_probe", t0, **probe)
 
@@ -2965,6 +3306,10 @@ def main() -> int:
     t0 = time.perf_counter()
     wpipe = wan_pipeline_phase(kernels)
     emit("wan_pipeline", t0, **wpipe)
+
+    t0 = time.perf_counter()
+    a14b = wan22_a14b_phase(kernels)
+    emit("wan22_a14b", t0, nvidia_smi=smi, **a14b)
 
     rings, ring_res, ring_ref = {}, {}, None
     for regime in ("random", "smooth"):
@@ -3010,8 +3355,12 @@ def main() -> int:
                    site["K1_text_rows"])
     k3, k3i = wsite["K3_t2v_text"], wsite["K3_i2v_image"]
     by_path = lambda n: {"hunyuan": pipe["launches"][n],
+                         "hunyuan_i2v": i2v["launches"][n],
                          "wan": wpipe["launches"][n],
-                         "hunyuan_ckpt": ckpt["cli"]["launches"].get(n, 0)}
+                         "wan22_a14b": a14b["launches"][n],
+                         "hunyuan_ckpt": ckpt["cli"]["launches"].get(n, 0),
+                         "hunyuan_i2v_ckpt":
+                             ckpt["cli_i2v"]["launches"].get(n, 0)}
     ks_t, ks_v = rings["random"]["K1s_ring_text"], \
         rings["random"]["K1s_ring_visual"]
     mainloop = "rectified_spaattn_tpu_torch/csrc/hopper_attn.cuh"

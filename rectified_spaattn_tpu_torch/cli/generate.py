@@ -1,12 +1,15 @@
 """Generation CLI of the PyTorch port (port of
-rectified_spaattn_tpu/cli/generate.py, ``--model hunyuan``, ``wan21-t2v``
-and ``wan21-i2v``):
+rectified_spaattn_tpu/cli/generate.py: ``--model hunyuan``,
+``hunyuan-i2v``, ``wan21-t2v``, ``wan21-i2v``, ``wan22-t2v``, ``wan22-i2v``
+and ``wan22-ti2v``):
 
     python -m rectified_spaattn_tpu_torch.cli.generate --model hunyuan \
         --height 720 --width 1280 --frame 128 --sa_drop_rate 0.8 \
         --p_remain_rates 0.3 --enable_teacache --mode sparse --group_rows 2
     python -m rectified_spaattn_tpu_torch.cli.generate --model wan21-t2v \
         --height 720 --width 1280 --frame 81 --enable_teacache
+    python -m rectified_spaattn_tpu_torch.cli.generate --model wan22-i2v \
+        --height 720 --width 1280 --frame 81 --image first.npy --host_swap
 
 The flags are the JAX CLI's, plus ``--device`` (default cuda; the run
 raises without a GPU unless ``--device cpu``).  ``--tp N`` runs the
@@ -31,16 +34,29 @@ saved as ``.npy``.  ``--quant 8|4`` quantizes the weights in place, layer by
 layer (models/quant.py::quantize_model, the JAX CLI's ``quantize_params``
 rules), so the device never holds a second full copy.  ``--trace_out``
 writes the TeaCache schedule trace (cache/teacache.py::trace_to),
-``--profile`` a torch.profiler chrome trace.  Flags of parts not ported yet
-(other model families, scan execution, I2V images) raise
-NotImplementedError.  ``wan21-i2v`` without ``--image`` runs the JAX CLI's
-neutral conditioning: zero condition channels and, with random weights, a
-zero [1, 257, image_dim] CLIP context.
+``--profile`` a torch.profiler chrome trace.  Flags of parts not ported
+(the CogVideoX and Flux families, scan execution) raise
+NotImplementedError.
+
+``--image`` conditions the image-to-video models: ``.npy`` (HWC or CHW,
+in [-1, 1] or 0-255), or ``.png`` / ``.jpg`` through PIL where it is
+installed.  The image is encoded by the snapshot's VAE, or with random
+weights by a seeded stand-in encoder (``_demo_vae_encoder``), into
+HunyuanVideo I2V's held first latent frame (token_replace) or condition
+channels (latent_concat), Wan I2V's mask + latent channels, or Wan2.2
+TI2V's held first frame (per-token timesteps).  Without ``--image`` the
+I2V models run the JAX CLI's neutral conditioning: a zero first frame or
+zero condition channels and, for ``wan21-i2v`` with random weights, a
+zero [1, 257, image_dim] CLIP context.  ``wan22-t2v`` / ``wan22-i2v`` run
+Wan2.2 A14B's two transformers (``transformer_2/`` of the snapshot, or a
+second random tree); ``--host_swap`` keeps both trees pinned on the host
+and holds one on the card at a time (pipelines/wan.py::Wan22A14BPipeline).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -49,6 +65,7 @@ from datetime import datetime
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..cache import schedule_from_trace
 
@@ -58,9 +75,15 @@ MODEL_CHOICES = (
     "flux-upscale",
 )
 
-# (sa_drop_rate, teacache_thresh) per reference Inference.md
-DEFAULTS = {"hunyuan": (0.8, 0.15), "wan21-t2v": (0.75, 0.2),
-            "wan21-i2v": (0.75, 0.3)}
+DEFAULTS = {
+    # (sa_drop_rate, teacache_thresh) per reference Inference.md;
+    # hunyuan-i2v (token_replace, no reference driver) inherits the
+    # hunyuan T2V operating point
+    "hunyuan": (0.8, 0.15), "hunyuan-i2v": (0.8, 0.15),
+    "wan21-t2v": (0.75, 0.2),
+    "wan21-i2v": (0.75, 0.3), "wan22-ti2v": (0.75, 0.1),
+    "wan22-t2v": (0.85, 0.2), "wan22-i2v": (0.85, 0.3),
+}
 
 
 def parse_args(argv=None):
@@ -110,7 +133,9 @@ def parse_args(argv=None):
     p.add_argument("--kv_pack", action="store_true")
     p.add_argument("--plan_kv_tile", type=int, default=0)
     p.add_argument("--mlp_chunk", type=int, default=1)
-    p.add_argument("--image", type=str, default=None)
+    p.add_argument("--image", type=str, default=None,
+                   help="conditioning image of the I2V / TI2V models "
+                        "(.npy; .png / .jpg where PIL is installed)")
     p.add_argument("--teacache_residual", choices=("bf16", "int8"),
                    default="bf16")
     p.add_argument("--teacache_offload", action="store_true")
@@ -119,7 +144,11 @@ def parse_args(argv=None):
                         "--trace_out JSON of either CLI)")
     p.add_argument("--density", action="store_true",
                    help="probe the executed mask density once per step")
-    p.add_argument("--host_swap", action="store_true")
+    p.add_argument("--host_swap", action="store_true",
+                   help="A14B (wan22-t2v / wan22-i2v): keep both "
+                        "transformer trees pinned on the host and swap the "
+                        "low-noise tree onto the card once, at the boundary "
+                        "step")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
     # the tp mesh, which main builds under --tp (not a flag)
@@ -131,18 +160,84 @@ def _check_ported(args):
     if args.model not in DEFAULTS:
         raise NotImplementedError(f"--model {args.model} is not ported yet")
     # flags the JAX CLI honours for these models; the rest
-    # (--controlnet_dir, --host_swap, and --use_ret_steps /
-    # --teacache_signal_scale for hunyuan) belong to other families and
-    # are ignored there too
+    # (--controlnet_dir, and --use_ret_steps / --teacache_signal_scale for
+    # hunyuan) belong to other families and are ignored there too
     unported = {
         "--scan_blocks": args.scan_blocks,
         "--dispatch_segments": args.dispatch_segments > 1,
-        "--image (the I2V conditioning of HunyuanVideo I2V and Wan2.2, "
-        "ROADMAP Queue 1 items 2-3)": args.image,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+
+
+def _load_image(path: str, height: int, width: int) -> torch.Tensor:
+    """[1, 3, H, W] float32 in [-1, 1], on the host.  ``.npy`` needs
+    nothing beyond numpy; other formats go through PIL, imported here."""
+    if path.endswith(".npy"):
+        arr = np.load(path).astype(np.float32)
+        if arr.ndim == 3:
+            arr = arr[None]
+        if arr.shape[-1] in (3, 4):       # HWC -> CHW
+            arr = arr[..., :3].transpose(0, 3, 1, 2)
+        if arr.max() > 1.5:
+            arr = arr / 127.5 - 1.0
+    else:
+        from PIL import Image
+        img = Image.open(path).convert("RGB").resize((width, height))
+        arr = (np.asarray(img, np.float32) / 127.5 - 1.0)
+        arr = arr.transpose(2, 0, 1)[None]
+    # the triangle filter widened when downsizing: jax.image.resize's
+    # "linear"
+    return F.interpolate(torch.from_numpy(np.ascontiguousarray(arr)),
+                         size=(height, width), mode="bilinear",
+                         align_corners=False, antialias=True)
+
+
+def _demo_vae_encoder(zc: int, grid, device):
+    """A seeded random-weight tiny VAEEncoder for checkpoint-less runs:
+    pixels [B, 3, F, H, W] -> latents [B, zc, *grid] (fp32 on
+    ``device``)."""
+    import torch.nn as nn
+    from ..models import VAEConfig, VAEEncoder, init_random_weights
+    tiny = VAEConfig.tiny(video=True)
+    cfg = VAEConfig(latent_channels=zc,
+                    block_out_channels=tiny.block_out_channels,
+                    layers_per_block=1,
+                    temporal_upsample=tiny.temporal_upsample,
+                    spatial_upsample=tiny.spatial_upsample,
+                    video=True, mid_attention=False)
+    with torch.device(device):
+        enc = VAEEncoder(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    with torch.no_grad():
+        init_random_weights(enc, gen)
+        for mod in enc.modules():
+            if isinstance(mod, nn.Conv3d):
+                mod.weight.normal_(0.0, mod.weight[0].numel() ** -0.5,
+                                   generator=gen)
+                mod.bias.zero_()
+
+    @torch.no_grad()
+    def encode(video_px):
+        # the tiny encoder halves T (causally: 2t - 1 -> t), H and W:
+        # resize the input so its OUTPUT lands on the latent grid, with
+        # the same antialiased linear filter as _load_image, one axis
+        # group at a time
+        b, c, f, h, w = video_px.shape
+        x = video_px.to(device=device, dtype=torch.float32)
+        x = F.interpolate(x.reshape(b, c * f, h, w),
+                          size=(2 * grid[1], 2 * grid[2]), mode="bilinear",
+                          align_corners=False, antialias=True)
+        x = F.interpolate(x.reshape(b, c, f, -1),
+                          size=(2 * grid[0] - 1, x.shape[-2] * x.shape[-1]),
+                          mode="bilinear", align_corners=False,
+                          antialias=True)
+        return enc(x.reshape(b, c, 2 * grid[0] - 1, 2 * grid[1],
+                             2 * grid[2]))
+
+    return encode
 
 
 def _random_text(prompt: str, length: int, dim: int, batch: int = 1,
@@ -168,19 +263,28 @@ def _encode_prompt(encoders, prompt, dim, max_len, device):
             _random_text("", max_len, dim, device=device))
 
 
-def _from_ckpt(args, family, device):
-    """(cfg, model, encoders, vae_decode) from the local
+def _load_tree(args, family, root, device, host: bool = False):
+    """(cfg, model) of the snapshot transformer at ``root``: bf16 on the
+    GPU, fp32 on the CPU; kept on the host when ``host`` (host_swap)."""
+    from ..models.pretrained import load_transformer
+    dtype = "bfloat16" if device.type == "cuda" else "float32"
+    cfg, model = load_transformer(family, root, dtype=dtype,
+                                  device="cpu" if host else device,
+                                  mlp_chunk=args.mlp_chunk)
+    return cfg, _quantized(model, args)
+
+
+def _from_ckpt(args, family, device, host: bool = False):
+    """(cfg, model, encoders, vae_encode, vae_decode) from the local
     diffusers snapshot ``--ckpt_dir`` (reference: one from_pretrained call
     gives text-encode -> denoise -> VAE decode -> mp4,
     main_hunyuan.py:232-292)."""
-    from ..models.pretrained import (load_text_encoders, load_transformer,
-                                     load_vae)
-    dtype = "bfloat16" if device.type == "cuda" else "float32"
-    cfg, model = load_transformer(family, args.ckpt_dir, dtype=dtype,
-                                  device=device, mlp_chunk=args.mlp_chunk)
-    _, vae_decode = load_vae(args.ckpt_dir, video=True, device=device)
+    from ..models.pretrained import load_text_encoders, load_vae
+    cfg, model = _load_tree(args, family, args.ckpt_dir, device, host)
+    vae_encode, vae_decode = load_vae(args.ckpt_dir, video=True,
+                                      device=device)
     encoders = load_text_encoders(family, args.ckpt_dir, device=device)
-    return cfg, model, encoders, vae_decode
+    return cfg, model, encoders, vae_encode, vae_decode
 
 
 def _quantized(model, args):
@@ -206,37 +310,55 @@ def _serving(args) -> dict:
                 density_probe=args.density, mesh=args.mesh)
 
 
-def build_hunyuan(args):
-    """Returns (pipe, (text, mask, pooled)): the ``--ckpt_dir`` snapshot's
-    model, encoders and VAE decode, or seeded random weights at
-    ``--scale`` (the JAX CLI's random-weight config)."""
-    from ..models import HunyuanVideoConfig, HunyuanVideoDiT
+def _random_model(cls, cfg, device, host: bool = False):
+    """``cls(cfg)`` with random weights drawn on ``device`` from seed 0:
+    bf16 on the GPU, fp32 on the CPU; then moved to the host when ``host``
+    (host_swap), so both runs hold the same weights."""
     from ..models import init_random_weights
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    with torch.device(device):
+        model = cls(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    model = init_random_weights(model.to(dtype), gen)
+    return model.to("cpu") if host else model
+
+
+def build_hunyuan(args):
+    """Returns (pipe, (text, mask, pooled), extra): the ``--ckpt_dir``
+    snapshot's model, encoders and VAE, or seeded random weights at
+    ``--scale`` (the JAX CLI's random-weight config).  ``extra`` carries
+    hunyuan-i2v's first frame (token_replace) or condition
+    (latent_concat): the encoded ``--image``, or zeros without one."""
+    from ..models import HunyuanVideoConfig, HunyuanVideoDiT
     from ..pipelines import HunyuanVideoPipeline
+    from ..pipelines.hunyuan import i2v_condition_concat, i2v_first_frame
     from ..utils import resolve_device
     device = resolve_device(args.device)
-    pooled, vae_decode = None, None
+    is_i2v = args.model == "hunyuan-i2v"
+    pooled, vae_encode, vae_decode = None, None, None
     if args.ckpt_dir:
-        cfg, model, encoders, vae_decode = _from_ckpt(args, "hunyuan",
-                                                      device)
+        cfg, model, encoders, vae_encode, vae_decode = _from_ckpt(
+            args, "hunyuan", device)
+        if is_i2v and cfg.image_condition_type is None:
+            # a T2V-shaped snapshot driven as I2V: force token_replace
+            # (the 720p I2V snapshot carries the flag itself)
+            cfg = model.cfg = dataclasses.replace(
+                cfg, image_condition_type="token_replace")
         (text, mask), _ = _encode_prompt(encoders, args.prompt,
                                          cfg.text_dim, 256, device)
         if len(encoders) > 1:    # CLIP pooled prompt embeds
             pooled = encoders[1].pooled(args.prompt)
-        model = _quantized(model, args)
     else:
         s = args.scale
         cfg = HunyuanVideoConfig(
             hidden_dim=max(128, int(3072 * s) // 128 * 128),
             heads=max(1, int(24 * s)), num_dual_blocks=max(1, int(20 * s)),
             num_single_blocks=max(1, int(40 * s)), text_dim=512,
-            pooled_dim=128, num_refiner_blocks=1, mlp_chunk=args.mlp_chunk)
-        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-        with torch.device(device):
-            model = HunyuanVideoDiT(cfg)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(0)
-        model = _quantized(init_random_weights(model.to(dtype), gen), args)
+            pooled_dim=128, num_refiner_blocks=1,
+            image_condition_type="token_replace" if is_i2v else None,
+            mlp_chunk=args.mlp_chunk)
+        model = _quantized(_random_model(HunyuanVideoDiT, cfg, device), args)
         text, mask = _random_text(args.prompt, 256, cfg.text_dim,
                                   device=device)
     pipe = HunyuanVideoPipeline(
@@ -247,27 +369,62 @@ def build_hunyuan(args):
         enable_teacache=args.enable_teacache,
         rel_l1_thresh=args.teacache_thresh, vae_decode=vae_decode,
         device=device, **_serving(args))
-    return pipe, (text, mask, pooled)
+    extra = {}
+    if is_i2v:
+        img = (_load_image(args.image, args.height, args.width).to(device)
+               if args.image is not None else None)
+        if args.image is not None and not args.ckpt_dir:
+            vae_encode = _demo_vae_encoder(cfg.in_channels,
+                                           (1, *pipe.grid[1:]), device)
+        use_image = img is not None and vae_encode is not None
+        if cfg.image_condition_type == "latent_concat":
+            # v1 (544p): [noise 16 | image latents 16 | mask 1]
+            extra["condition"] = (
+                i2v_condition_concat(img, args.frame, vae_encode,
+                                     pipe.grid[0]) if use_image else
+                torch.zeros((1, cfg.in_channels - cfg.out_channels,
+                             *pipe.grid), device=device))
+        else:
+            # no --image: a neutral zero first frame, so the token_replace
+            # path still runs
+            extra["first_frame"] = (
+                i2v_first_frame(img, vae_encode) if use_image else
+                torch.zeros((1, cfg.in_channels, 1, *pipe.grid[1:]),
+                            device=device))
+    return pipe, (text, mask, pooled), extra
 
 
 def build_wan(args):
     """Returns (pipe, (text, negative text), extra inputs): the
-    ``--ckpt_dir`` snapshot's model, encoder and VAE decode, or seeded
-    random weights at ``--scale``, built as the JAX CLI builds them
-    (text_dim 512; I2V: 36 input channels and the CLIP image branch)."""
-    from ..models import WanConfig, WanDiT, init_random_weights
-    from ..pipelines import WanPipeline
+    ``--ckpt_dir`` snapshot's model(s), encoder and VAE, or seeded random
+    weights at ``--scale``, built as the JAX CLI builds them (text_dim 512;
+    I2V: 36 input channels, and the CLIP image branch for Wan2.1).  The
+    A14B models give a Wan22A14BPipeline over two WanPipelines; TI2V a
+    (4, 32, 32) VAE stride and, with ``--image``, per-token timesteps."""
+    from ..models import WanConfig, WanDiT
+    from ..pipelines import Wan22A14BPipeline, WanPipeline
+    from ..pipelines.wan import i2v_condition, ti2v_first_frame
     from ..utils import resolve_device
     device = resolve_device(args.device)
-    is_i2v = args.model == "wan21-i2v"
+    is_22 = args.model.startswith("wan22")
+    is_i2v = args.model.endswith("i2v") and args.model != "wan22-ti2v"
+    a14b = args.model in ("wan22-t2v", "wan22-i2v")
+    ti2v_image = args.model == "wan22-ti2v" and args.image is not None
     latent_ch = 16
-    vae_decode = None
+    vae_encode, vae_decode, model2 = None, None, None
+    t2 = os.path.join(args.ckpt_dir or "", "transformer_2")
     if args.ckpt_dir:
-        cfg, model, encoders, vae_decode = _from_ckpt(args, "wan", device)
+        # host_swap only when the snapshot holds two different trees
+        swap = args.host_swap and a14b and os.path.isdir(t2)
+        cfg, model, encoders, vae_encode, vae_decode = _from_ckpt(
+            args, "wan", device, host=swap)
+        if a14b and os.path.isdir(t2):
+            # A14B: transformer_2 lives beside transformer in the snapshot
+            _, model2 = _load_tree(args, "wan", t2, device, host=swap)
         (text, _), (neg, _) = _encode_prompt(encoders, args.prompt,
                                              cfg.text_dim, 512, device)
-        model = _quantized(model, args)
     else:
+        swap = args.host_swap and a14b
         s = args.scale
         cfg = WanConfig(
             # I2V transformers take [noise 16 | mask 4 | image latents 16]
@@ -276,36 +433,73 @@ def build_wan(args):
             hidden_dim=max(128, int(5120 * s) // 128 * 128),
             heads=max(1, int(40 * s)), num_blocks=max(2, int(40 * s)),
             ffn_dim=max(256, int(13824 * s)), text_dim=512, freq_dim=256,
-            mlp_chunk=args.mlp_chunk, image_cross=is_i2v)
-        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-        with torch.device(device):
-            model = WanDiT(cfg)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(0)
-        model = _quantized(init_random_weights(model.to(dtype), gen), args)
+            mlp_chunk=args.mlp_chunk, image_cross=is_i2v and not is_22,
+            per_token_timesteps=ti2v_image)
+        model = _quantized(_random_model(WanDiT, cfg, device, host=swap),
+                           args)
+        if a14b:
+            # the second tree from the same seed, as the JAX CLI makes it
+            model2 = _quantized(_random_model(WanDiT, cfg, device,
+                                              host=swap), args)
         text, _ = _random_text(args.prompt, 512, cfg.text_dim, device=device)
         neg, _ = _random_text("", 512, cfg.text_dim, device=device)
-    pipe = WanPipeline(
-        model=model, height=args.height, width=args.width, frames=args.frame,
-        num_steps=args.num_steps, sa_drop_rate=args.sa_drop_rate,
-        p_remain_rates=args.p_remain_rates,
-        mode="flash" if args.mode == "torch" else args.mode,
-        enable_teacache=args.enable_teacache,
-        teacache_thresh=args.teacache_thresh,
-        use_ret_steps=args.use_ret_steps,
-        teacache_signal_scale=args.teacache_signal_scale, is_i2v=is_i2v,
-        vae_decode=vae_decode, device=device, **_serving(args))
+
+    def make_pipe(m, decode):
+        return WanPipeline(
+            model=m, height=args.height, width=args.width,
+            frames=args.frame, num_steps=args.num_steps,
+            sa_drop_rate=args.sa_drop_rate,
+            p_remain_rates=args.p_remain_rates,
+            mode="flash" if args.mode == "torch" else args.mode,
+            enable_teacache=args.enable_teacache,
+            teacache_thresh=args.teacache_thresh,
+            use_ret_steps=args.use_ret_steps,
+            teacache_signal_scale=args.teacache_signal_scale,
+            vae_stride=(4, 32, 32) if args.model == "wan22-ti2v"
+            else (4, 16, 16),
+            is_i2v=is_i2v, warm_last_layers=2 if a14b else 0,
+            scheduler="euler" if is_22 else "unipc", vae_decode=decode,
+            defer_device=swap, device=device, **_serving(args))
+
+    pipe = make_pipe(model, vae_decode)
     extra = {}
-    if is_i2v:
+    if args.image is not None and (is_i2v or args.model == "wan22-ti2v"):
+        img = _load_image(args.image, args.height, args.width).to(device)
+        if args.ckpt_dir:
+            enc = vae_encode
+        elif args.model == "wan22-ti2v":
+            enc = _demo_vae_encoder(cfg.in_channels, (1, *pipe.grid[1:]),
+                                    device)
+        else:
+            enc = _demo_vae_encoder(latent_ch, pipe.grid, device)
+        if enc is not None and args.model == "wan22-ti2v":
+            extra["first_frame"] = ti2v_first_frame(img, enc)
+        elif enc is not None:
+            extra["condition"] = i2v_condition(img, args.frame, enc,
+                                               lt=pipe.grid[0])
+        if is_i2v and not is_22 and not args.ckpt_dir:
+            # CLIP-vision features for the 2.1 I2V cross branch (a seeded
+            # stand-in without a real image encoder)
+            gen = torch.Generator(device=device)
+            gen.manual_seed(5)
+            extra["image_emb"] = torch.randn((1, 257, cfg.image_dim),
+                                             generator=gen, device=device)
+    if is_i2v and "condition" not in extra:
         # no --image: neutral zero conditioning (a black first frame); the
-        # random-weight model also gets a zero CLIP context (the JAX CLI
-        # passes none to a checkpoint's)
+        # random-weight 2.1 model also gets a zero CLIP context (the JAX
+        # CLI passes none to a checkpoint's)
         extra["condition"] = torch.zeros(
             (1, cfg.in_channels - cfg.out_channels, *pipe.grid),
             device=device)
-        if not args.ckpt_dir:
-            extra["image_emb"] = torch.zeros((1, 257, cfg.image_dim),
-                                             device=device)
+        if cfg.image_cross and not args.ckpt_dir:
+            extra.setdefault("image_emb", torch.zeros(
+                (1, 257, cfg.image_dim), device=device))
+    if a14b:
+        # no transformer_2 in the snapshot: one tree serves both phases
+        low = make_pipe(model2, vae_decode) if model2 is not None else pipe
+        extra.pop("image_emb", None)
+        return (Wan22A14BPipeline(high=pipe, low=low, host_swap=swap),
+                (text, neg), extra)
     return pipe, (text, neg), extra
 
 
@@ -348,11 +542,9 @@ def main(argv=None):
     from ..utils import profiler_trace, set_seed
     args.mesh, owned = _tp_mesh(args)
     try:
-        if args.model == "hunyuan":
-            pipe, inputs = build_hunyuan(args)
-            extra = {}
-        else:
-            pipe, inputs, extra = build_wan(args)
+        build = (build_hunyuan if args.model.startswith("hunyuan")
+                 else build_wan)
+        pipe, inputs, extra = build(args)
         noise = set_seed(args.seed, pipe.device)
         with profiler_trace(args.profile), trace_to(args.trace_out):
             out = pipe(*inputs, generator=noise, **extra)
@@ -380,14 +572,14 @@ def main(argv=None):
     else:
         path = stem + ".npy"
         np.save(path, arr)
-    dens = pipe.density_samples
+    dens = getattr(pipe, "density_samples", None)   # none for A14B
     result = {
         "output": path,
         "denoise_seconds": round(pipe.denoise_seconds, 2),
         "teacache": pipe.teacache_stats,
         "density": round(float(np.mean(dens)), 4) if dens else None,
     }
-    if pipe.vae_decode is not None:
+    if getattr(pipe, "vae_decode", None) is not None:
         result["decode_seconds"] = round(pipe.decode_seconds, 2)
     print(json.dumps(result))
     return result

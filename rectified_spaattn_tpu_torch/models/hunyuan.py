@@ -7,8 +7,11 @@ joint visual+text attention, adaLN-continuous head.
 
 The forward is split into embed / blocks / head stages so the TeaCache
 step-skip (cache/teacache.py) branches in the host sampler loop.  The I2V
-variants (``image_condition_type`` "token_replace" / "latent_concat")
-belong to a later slice and raise NotImplementedError.
+variants: "token_replace" holds the clean first latent frame in the stream
+and modulates its tokens at t = 0 (``token_replace_temb``, the
+``temb_alt`` / ``alt_mask`` arguments of ``run_blocks`` and ``head``);
+"latent_concat" needs nothing of the model but ``in_channels`` 33 (noise
+16 | image latents 16 | mask 1, concatenated by the pipeline).
 """
 
 from __future__ import annotations
@@ -43,7 +46,11 @@ class HunyuanVideoConfig:
     rope_theta: float = 256.0
     num_refiner_blocks: int = 2
     guidance_embeds: bool = True
-    image_condition_type: Optional[str] = None   # I2V: a later slice
+    # "token_replace": HunyuanVideo-I2V (720p v2), the clean first latent
+    # frame held in the stream, its tokens modulated at t = 0;
+    # "latent_concat": I2V v1 (544p), [noise | image latents | mask]
+    # channels concatenated at the pipeline seam; None = T2V
+    image_condition_type: Optional[str] = None
     mlp_chunk: int = 1           # FFN sequence chunking (peak-memory lever)
 
     @classmethod
@@ -114,9 +121,6 @@ class HunyuanVideoDiT(nn.Module):
 
     def __init__(self, cfg: HunyuanVideoConfig):
         super().__init__()
-        if cfg.image_condition_type is not None:
-            raise NotImplementedError(
-                "HunyuanVideo I2V (image_condition_type) is not ported yet")
         c = self.cfg = cfg
         hd = c.hidden_dim
         self.x_embedder = QLinear(
@@ -204,6 +208,20 @@ class HunyuanVideoDiT(nn.Module):
                 timestep_embedding(guidance, 256)))
         return temb
 
+    def token_replace_temb(self, text_emb, text_mask, guidance, pooled=None):
+        """The t=0 conditioning vector of the held first-frame tokens
+        (diffusers: ``time_text_embed(zeros_like(t), ...)``); constant
+        across the denoise loop."""
+        b = text_emb.shape[0]
+        if pooled is None:
+            pooled = (torch.zeros((b, self.cfg.pooled_dim),
+                                  dtype=text_emb.dtype, device=text_emb.device)
+                      if text_mask is None
+                      else self.pooled_proj_input(text_emb, text_mask))
+        return self._temb(torch.zeros((b,), dtype=torch.float32,
+                                      device=text_emb.device),
+                          pooled, guidance)
+
     def pooled_proj_input(self, text_emb, text_mask):
         """Pooled-projection stand-in: mean over valid text tokens mapped
         to pooled_dim (real checkpoints supply CLIP pooled text)."""
@@ -219,21 +237,27 @@ class HunyuanVideoDiT(nn.Module):
             return x + temb[:, None]
         return self.dual_blocks[0].norm1(x, temb)[0]
 
-    def run_blocks(self, x, ctx, temb, rope, attn_fn: AttnFn):
+    def run_blocks(self, x, ctx, temb, rope, attn_fn: AttnFn,
+                   temb_alt=None, alt_mask=None):
         """Stage 2: the TeaCache-skippable block stack (reference:
-        scripts/main_hunyuan.py:134-157)."""
+        scripts/main_hunyuan.py:134-157).  ``temb_alt`` / ``alt_mask``
+        (token_replace): the visual tokens under the CURVE-ORDER mask take
+        the t=0 conditioning."""
         for blk in self.dual_blocks:
-            x, ctx = blk(x, ctx, temb, rope, attn_fn)
+            x, ctx = blk(x, ctx, temb, rope, attn_fn, temb_alt, alt_mask)
         for blk in self.single_blocks:
-            x, ctx = blk(x, ctx, temb, rope, attn_fn)
+            x, ctx = blk(x, ctx, temb, rope, attn_fn, temb_alt, alt_mask)
         return x, ctx
 
-    def head(self, x, temb, linear_to_hilbert, t, hh, ww):
+    def head(self, x, temb, linear_to_hilbert, t, hh, ww,
+             temb_alt=None, alt_mask_linear=None):
         """Stage 3: inverse permutation + output projection (reference:
-        scripts/main_hunyuan.py:182-193)."""
+        scripts/main_hunyuan.py:182-193).  ``alt_mask_linear`` is the
+        token_replace mask in LINEAR order: x is un-permuted before the
+        final norm."""
         if linear_to_hilbert is not None:
             x = x.index_select(1, linear_to_hilbert)
-        x = self.proj_out(self.norm_out(x, temb))
+        x = self.proj_out(self.norm_out(x, temb, temb_alt, alt_mask_linear))
         return self._unpatchify(x, t, hh, ww)
 
     def forward(self, latents, timestep, text_emb, text_mask=None,

@@ -88,17 +88,39 @@ def _mods(lin: QLinear, emb: torch.Tensor, n: int):
     return tuple(v[:, None] if v.ndim == 2 else v for v in parts)
 
 
+def _select_mods(mods, mods_alt, alt_mask):
+    """Per-token two-way modulation select (HunyuanVideo I2V
+    ``token_replace``: first-frame tokens are conditioned at t=0, the rest
+    at the current step).  ``alt_mask`` [S] bool, True -> alt modulation.
+    A where of two broadcasts ([B, 1, C] each against [1, S, 1]): no
+    [B, S, 6C] tensor is built.  The curve order scatters the first frame
+    along the stream, so this selects rather than slicing a prefix."""
+    if mods_alt is None:
+        return mods
+    m = alt_mask[None, :, None]
+    return tuple(torch.where(m, a, v) for v, a in zip(mods, mods_alt))
+
+
+def _adaln_mods(lin: QLinear, emb, n: int, emb_alt=None, alt_mask=None):
+    """``_mods`` of ``emb``, with the masked tokens taking ``emb_alt``'s
+    through the SAME projection."""
+    return _select_mods(
+        _mods(lin, emb, n),
+        _mods(lin, emb_alt, n) if emb_alt is not None else None, alt_mask)
+
+
 class AdaLayerNormZero(nn.Module):
     """adaLN-Zero: returns (normed_x, gate_msa, shift_mlp, scale_mlp,
-    gate_mlp)."""
+    gate_mlp).  ``emb_alt`` / ``alt_mask``: a second conditioning vector
+    for the masked tokens (token_replace)."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.linear = QLinear(dim, 6 * dim)
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, emb_alt=None, alt_mask=None):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = \
-            _mods(self.linear, emb, 6)
+            _adaln_mods(self.linear, emb, 6, emb_alt, alt_mask)
         x = layer_norm(x) * (1 + scale_msa) + shift_msa
         return x, gate_msa, shift_mlp, scale_mlp, gate_mlp
 
@@ -110,8 +132,9 @@ class AdaLayerNormZeroSingle(nn.Module):
         super().__init__()
         self.linear = QLinear(dim, 3 * dim)
 
-    def forward(self, x, emb):
-        shift, scale, gate = _mods(self.linear, emb, 3)
+    def forward(self, x, emb, emb_alt=None, alt_mask=None):
+        shift, scale, gate = _adaln_mods(self.linear, emb, 3, emb_alt,
+                                         alt_mask)
         return layer_norm(x) * (1 + scale) + shift, gate
 
 
@@ -122,8 +145,8 @@ class AdaLayerNormContinuous(nn.Module):
         super().__init__()
         self.linear = QLinear(dim, 2 * dim)
 
-    def forward(self, x, emb):
-        shift, scale = _mods(self.linear, emb, 2)
+    def forward(self, x, emb, emb_alt=None, alt_mask=None):
+        shift, scale = _adaln_mods(self.linear, emb, 2, emb_alt, alt_mask)
         return layer_norm(x) * (1 + scale) + shift
 
 
@@ -267,8 +290,14 @@ class DualStreamBlock(nn.Module):
         self.ff = MLP(dim, mlp_mult, chunk=mlp_chunk)
         self.ff_context = MLP(dim, mlp_mult)
 
-    def forward(self, x, ctx, temb, rope, attn_fn: AttnFn):
-        xn, xg_msa, x_shift, x_scale, xg_mlp = self.norm1(x, temb)
+    def forward(self, x, ctx, temb, rope, attn_fn: AttnFn,
+                temb_alt=None, alt_mask=None):
+        """``temb_alt`` / ``alt_mask``: HunyuanVideo I2V token_replace, the
+        visual tokens under the mask take ``temb_alt`` (the t=0
+        conditioning of the clean first frame); the text stream always
+        takes ``temb``."""
+        xn, xg_msa, x_shift, x_scale, xg_mlp = self.norm1(
+            x, temb, temb_alt, alt_mask)
         cn, cg_msa, c_shift, c_scale, cg_mlp = self.norm1_context(ctx, temb)
         attn_x, attn_c = self.attn(xn, cn, rope, attn_fn)
         x = x + xg_msa * attn_x
@@ -299,10 +328,14 @@ class SingleStreamBlock(nn.Module):
         mlp_h = F.gelu(self.proj_mlp(normed), approximate="tanh")
         return self.proj_out(torch.cat([attn, mlp_h], dim=-1))
 
-    def forward(self, x, ctx, temb, rope, attn_fn: AttnFn):
+    def forward(self, x, ctx, temb, rope, attn_fn: AttnFn,
+                temb_alt=None, alt_mask=None):
         sv = x.shape[1]
         fused = torch.cat([x, ctx], dim=1)
-        normed, gate = self.norm(fused, temb)
+        if alt_mask is not None and alt_mask.shape[0] == sv:
+            # token_replace: the text tail always takes the step conditioning
+            alt_mask = F.pad(alt_mask, (0, ctx.shape[1]))
+        normed, gate = self.norm(fused, temb, temb_alt, alt_mask)
         q, k, v = (_split_heads(t, self.heads)
                    for t in self.to_qkv(normed).chunk(3, dim=-1))
         q, k = self.norm_q(q), self.norm_k(k)

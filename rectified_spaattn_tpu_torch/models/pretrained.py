@@ -101,8 +101,7 @@ def hunyuan_config_from_json(cfg: dict):
         pooled_dim=cfg.get("pooled_projection_dim", 768),
         rope_axes_dim=tuple(cfg.get("rope_axes_dim", (16, 56, 56))),
         guidance_embeds=bool(cfg.get("guidance_embeds", True)),
-        # HunyuanVideo-I2V snapshots carry image_condition_type (the
-        # port's DiT raises on it until the I2V slice)
+        # HunyuanVideo-I2V snapshots carry image_condition_type
         image_condition_type=cfg.get("image_condition_type"))
 
 

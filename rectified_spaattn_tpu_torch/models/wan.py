@@ -6,7 +6,9 @@ rectified_wan21_attn.py:389-632).
     dense cross-attention to the text; I2V adds a cross branch over the
     CLIP-vision image context (``image_cross``).
   * Wan2.2 TI2V-5B's per-token timesteps (``per_token_timesteps``): the
-    ``embed`` and ``head`` branches are here; its pipeline is a later slice.
+    ``embed`` and ``head`` branches (its pipeline: pipelines/wan.py).
+  * Wan2.2 A14B's two trees are two WanDiTs (in_channels 36 for I2V,
+    without the CLIP image branch; pipelines/wan.py::Wan22A14BPipeline).
 
 The forward is split into embed / blocks / head stages so TeaCache's
 step-skip branches in the host sampler loop.

@@ -2,11 +2,15 @@ from .schedulers import (FlowMatchEulerScheduler, UniPCScheduler,
                          flow_shift_timesteps)
 from .base import (SparseSite, build_site, pad_tokens,
                    classifier_free_guidance, param_compute_dtype)
-from .hunyuan import HunyuanVideoPipeline
-from .wan import WanPipeline
+from .hunyuan import (HunyuanVideoPipeline, i2v_condition_concat,
+                      i2v_first_frame)
+from .wan import (Wan22A14BPipeline, WanPipeline, i2v_condition,
+                  ti2v_first_frame)
 
 __all__ = [
     "FlowMatchEulerScheduler", "UniPCScheduler", "flow_shift_timesteps",
     "SparseSite", "build_site", "pad_tokens", "classifier_free_guidance",
     "param_compute_dtype", "HunyuanVideoPipeline", "WanPipeline",
+    "Wan22A14BPipeline", "i2v_condition_concat", "i2v_first_frame",
+    "i2v_condition", "ti2v_first_frame",
 ]

@@ -12,8 +12,11 @@ every rank runs the same loop on replicated activations and makes the same
 TeaCache decisions (checked each call).
 
 ``vae_decode`` (models/pretrained.py::load_vae) turns the final latents
-into pixels.  Left out so far: the TPU levers ``scan_blocks`` and
-``dispatch_segments``; the I2V conditioning.
+into pixels.  Image-to-video: ``first_frame`` (token_replace,
+``i2v_first_frame``) holds the clean image latent in the stream with its
+tokens modulated at t = 0; ``condition`` (latent_concat,
+``i2v_condition_concat``) concatenates onto the noise channels at every
+call.  Left out: the TPU levers ``scan_blocks`` and ``dispatch_segments``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,37 @@ from ..utils.timing import device_sync
 from .base import (build_site, decode_timed, param_compute_dtype,
                    rank_mean, shard_tensor_parallel, teacache_decision)
 from .schedulers import FlowMatchEulerScheduler
+
+
+def i2v_condition_concat(image, frames: int, vae_encode, lt: int):
+    """HunyuanVideo-I2V v1 (544p, image_condition_type "latent_concat"):
+    the image VAE-encodes as a video whose first frame is the image and
+    the rest zeros; a 1-channel mask marks the first latent frame
+    (diffusers HunyuanVideoImageToVideoPipeline.prepare_latents).  The
+    result concatenates onto the noise channels every step, feeding the
+    in_channels-33 transformer.
+
+    Returns [B, Cz + 1, lt, lh, lw]."""
+    b = image.shape[0]
+    video = torch.cat(
+        [image[:, :, None],
+         image.new_zeros((b, image.shape[1], frames - 1, *image.shape[2:]))],
+        dim=2)
+    z = vae_encode(video)
+    assert z.shape[2] == lt, (z.shape, lt)
+    mask = z.new_zeros((b, 1, lt, *z.shape[3:]))
+    mask[:, :, :1] = 1.0
+    return torch.cat([z, mask], dim=1)
+
+
+def i2v_first_frame(image, vae_encode):
+    """HunyuanVideo-I2V (720p, "token_replace"): the conditioning image
+    VAE-encodes into the FIRST latent frame, which the pipeline holds
+    fixed every step while its tokens are modulated at t=0 (diffusers
+    HunyuanVideoImageToVideoPipeline).
+
+    Returns [B, Cz, 1, lh, lw]."""
+    return vae_encode(image[:, :, None])
 
 
 @dataclasses.dataclass
@@ -98,6 +132,16 @@ class HunyuanVideoPipeline:
             plan_kv_tile=self.plan_kv_tile, group_rows=self.group_rows,
             kv_pack=self.kv_pack, head_chunk=self.head_chunk,
             kv_quant=self.kv_quant, device=self.device)
+        # token_replace: the first LATENT frame's tokens, scattered by the
+        # curve, are modulated at t=0 (patch_size_t is 1, so they are the
+        # first lh*lw linear tokens); the head reads the linear-order mask
+        self.token_replace = cfg.image_condition_type == "token_replace"
+        if self.token_replace:
+            ff_tokens = self.lh * self.lw
+            self._ff_mask_curve = self.h2l < ff_tokens
+            self._ff_mask_linear = (torch.arange(self.h2l.shape[0],
+                                                 device=self.device)
+                                    < ff_tokens)
         # activations run in the parameter dtype; RoPE tables stay fp32
         self.compute_dtype = param_compute_dtype(self.model)
         self.density_samples = []
@@ -138,16 +182,25 @@ class HunyuanVideoPipeline:
 
     @torch.no_grad()
     def denoise(self, latents, text_emb, text_mask, pooled=None,
-                num_steps: Optional[int] = None):
+                num_steps: Optional[int] = None, first_frame=None,
+                condition=None):
         """Run the scheduler loop; returns the final latents.
 
         latents [B, C, T', H', W'] initial noise in latent grid units;
         text_emb [B, text_len, text_dim] (padded); text_mask [B, text_len];
-        pooled [B, pooled_dim] or None (a learned mean-text projection)."""
+        pooled [B, pooled_dim] or None (a learned mean-text projection).
+        first_frame [B, C, 1, H', W']: the clean image latent of
+        token_replace I2V, written into the stream before every step and
+        after the last one.  condition [B, Cz + 1, T', H', W']: the
+        latent_concat conditioning (``i2v_condition_concat``),
+        concatenated onto the noise channels at every call; latents then
+        carry out_channels, the model in_channels."""
         latents = self._as_tensor(latents, torch.float32)
         text_emb = self._as_tensor(text_emb, torch.float32)
         text_mask = self._as_tensor(text_mask, torch.bool)
         pooled = self._as_tensor(pooled, torch.float32)
+        first_frame = self._as_tensor(first_frame, torch.float32)
+        condition = self._as_tensor(condition, torch.float32)
         steps = num_steps or self.num_steps
         sched = FlowMatchEulerScheduler(steps, shift=self.flow_shift)
         self.density_samples = []
@@ -162,15 +215,28 @@ class HunyuanVideoPipeline:
                               dtype=torch.float32, device=self.device)
         fn = self.site.attn_fn(self.mode, text_len_rt=tlen)
         m = self.model
+        tr = self.token_replace and first_frame is not None
+        temb_tr = mask_curve = mask_linear = None
+        if tr:
+            temb_tr = m.token_replace_temb(text_emb, text_mask, guidance,
+                                           pooled).to(self.compute_dtype)
+            mask_curve, mask_linear = self._ff_mask_curve, self._ff_mask_linear
+
+        def hold(lat):
+            return torch.cat([first_frame, lat[:, :, 1:]], dim=2)
 
         self.step_seconds = []      # wall-clock per step, device-synced
         device_sync(latents)
         t0 = time.perf_counter()
         for i, t in enumerate(sched.timesteps):
+            if tr:
+                latents = hold(latents)
             ts = torch.full((b,), float(t), dtype=torch.float32,
                             device=self.device)
+            model_in = (latents if condition is None
+                        else torch.cat([latents, condition], dim=1))
             x, ctx, temb, rope, sig = self._embed(
-                latents, ts, text_emb, text_mask, guidance, pooled)
+                model_in, ts, text_emb, text_mask, guidance, pooled)
             if self.density_probe:
                 self.density_samples.append(
                     self._density(x, ctx, temb, rope, tlen))
@@ -179,26 +245,32 @@ class HunyuanVideoPipeline:
                 x = tea.apply_residual(x)
             else:
                 x_in = x
-                x, ctx = m.run_blocks(x, ctx, temb, rope, fn)
+                x, ctx = m.run_blocks(x, ctx, temb, rope, fn, temb_tr,
+                                      mask_curve)
                 if tea.enabled:
                     tea.record_residual_value(
                         residual_value(x, x_in, self.teacache_residual))
-            v_pred = m.head(x, temb, self.l2h, *self.grid)
+            v_pred = m.head(x, temb, self.l2h, *self.grid, temb_tr,
+                            mask_linear)
             latents = sched.step(v_pred, latents, i)
             device_sync(latents)
             self.step_seconds.append(time.perf_counter() - t0
                                      - sum(self.step_seconds))
+        if tr:
+            latents = hold(latents)
         self.denoise_seconds = time.perf_counter() - t0
         self.teacache_stats = tea.stats()
         return latents
 
     def __call__(self, text_emb, text_mask, pooled=None, seed: int = 42,
                  num_steps: Optional[int] = None, init_latents=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 first_frame=None, condition=None):
         """Draw the initial noise from ``generator`` (default: a generator
         on the pipeline's device seeded with ``seed``) unless
         ``init_latents`` is given, and denoise; returns the latents, or
-        ``vae_decode``'s pixels of them."""
+        ``vae_decode``'s pixels of them.  Under ``condition`` the noise
+        carries the channels the condition leaves of in_channels."""
         cfg = self.model.cfg
         b = text_emb.shape[0]
         if init_latents is not None:
@@ -207,10 +279,13 @@ class HunyuanVideoPipeline:
             if generator is None:
                 generator = torch.Generator(device=self.device)
                 generator.manual_seed(seed)
-            latents = torch.randn((b, cfg.in_channels, *self.grid),
+            noise_ch = (cfg.in_channels if condition is None
+                        else cfg.in_channels - condition.shape[1])
+            latents = torch.randn((b, noise_ch, *self.grid),
                                   generator=generator, dtype=torch.float32,
                                   device=self.device)
         latents = self.denoise(latents, text_emb, text_mask, pooled=pooled,
-                               num_steps=num_steps)
+                               num_steps=num_steps, first_frame=first_frame,
+                               condition=condition)
         out, self.decode_seconds = decode_timed(self.vae_decode, latents)
         return out

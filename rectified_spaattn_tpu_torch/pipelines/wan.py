@@ -1,5 +1,6 @@
-"""Wan2.1 T2V / I2V pipeline (port of rectified_spaattn_tpu/pipelines/wan.py;
-reference drivers scripts/main_wan21t2v.py, main_wan21i2v.py).
+"""Wan 2.1 / 2.2 pipelines (port of rectified_spaattn_tpu/pipelines/wan.py;
+reference drivers scripts/main_wan21t2v.py, main_wan21i2v.py,
+main_wan22ti2v.py, main_wan22t2v.py, main_wan22i2v.py).
 
 Wan specifics:
   * classifier-free guidance with TWO transformer calls per step and
@@ -10,7 +11,15 @@ Wan specifics:
     ``warm_calls`` (rectified_wan21_attn.py:467; I2V gates layers only,
     :591);
   * the cross-attention (text, and the CLIP image context for I2V) is
-    dense: kernel K3.
+    dense: kernel K3;
+  * Wan2.2 A14B (``Wan22A14BPipeline``): two transformers selected by a
+    timestep boundary (main_wan22t2v.py:57-61), each with its own TeaCache,
+    optionally swapped in and out of the card from pinned host copies
+    (``host_swap``);
+  * Wan2.2 TI2V-5B: VAE stride 32 and per-token timesteps;
+  * image-to-video: ``i2v_condition`` (the mask + latent channels of the
+    in_channels-36 transformers) and ``ti2v_first_frame`` (TI2V's held
+    first latent frame).
 
 The visual token stream is padded once in embed to a multiple of the mask
 block, so every layer's attention sees block-aligned shapes, and sliced
@@ -22,9 +31,8 @@ the dense warm layers and the cross-attention on the rank's heads, and the
 TeaCache decisions are checked to agree across ranks each call.
 
 ``vae_decode`` (models/pretrained.py::load_vae) turns the final latents
-into pixels.  Left out so far (raise NotImplementedError): ``scan_blocks``,
-``dispatch_segments`` and ``defer_device``; ``i2v_condition`` /
-``ti2v_first_frame`` and ``Wan22A14BPipeline`` are later slices.
+into pixels.  Left out (raise NotImplementedError): the TPU levers
+``scan_blocks`` and ``dispatch_segments``.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ import dataclasses
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -46,6 +55,46 @@ from .base import (build_site, decode_timed, classifier_free_guidance,
                    param_compute_dtype, rank_mean, shard_tensor_parallel,
                    teacache_decision)
 from .schedulers import FlowMatchEulerScheduler, UniPCScheduler
+
+
+def i2v_condition(image, frames: int, vae_encode, lt: int,
+                  temporal_stride: int = 4):
+    """Wan I2V conditioning channels (diffusers WanImageToVideoPipeline
+    prepare_latents; reference driver main_wan21i2v.py:230-248 feeds the
+    resulting in_channels-36 transformer).
+
+    The conditioning image is VAE-encoded as a video whose first frame is
+    the image and the rest zeros; a 4-channel mask marks the first latent
+    frame.  Returns [B, 4 + Cz, lt, lh, lw] to concatenate onto the noise
+    channels every denoise call.
+
+    Args:
+      image: [B, 3, H, W] pixels in [-1, 1].
+      frames: pixel-frame count F (lt = (F + 3) // temporal_stride).
+      vae_encode: pixels [B,3,F,H,W] -> normalised latents [B,Cz,lt,lh,lw].
+    """
+    b = image.shape[0]
+    video = torch.cat(
+        [image[:, :, None],
+         image.new_zeros((b, image.shape[1], frames - 1, *image.shape[2:]))],
+        dim=2)
+    z = vae_encode(video)
+    assert z.shape[2] == lt, (z.shape, lt)
+    # ones on the first latent frame (temporal_stride pixel-frame flags
+    # folded into channels), zeros after
+    mask = z.new_zeros((b, temporal_stride, lt, *z.shape[3:]))
+    mask[:, :, 0] = 1.0
+    return torch.cat([mask, z], dim=1)
+
+
+def ti2v_first_frame(image, vae_encode):
+    """Wan2.2 TI2V-5B image mode: the encoded image becomes the FIRST
+    latent frame, held fixed during denoising while its tokens take
+    per-token timestep 0 (diffusers WanImageToVideoPipeline's
+    expand_timesteps branch for the 5B checkpoint).
+
+    Returns [B, Cz, 1, lh, lw]."""
+    return vae_encode(image[:, :, None])
 
 
 @dataclasses.dataclass
@@ -99,24 +148,31 @@ class WanPipeline:
     mesh: Optional[object] = None
     # latents -> pixels, applied to the final latents (None: latents out)
     vae_decode: Optional[Callable] = None
-    # TPU execution levers of the JAX pipeline: not ported yet
+    # TPU execution levers of the JAX pipeline: not ported
     scan_blocks: bool = False
     dispatch_segments: int = 1
+    # leave the model's weights where they are (the host) instead of
+    # moving them to ``device``: for pipelines whose residency a
+    # coordinator manages (Wan22A14BPipeline host_swap); the pipeline must
+    # not run until its weights are placed
     defer_device: bool = False
     device: str = "cuda"
 
     def __post_init__(self):
         unported = {"scan_blocks": self.scan_blocks,
-                    "dispatch_segments > 1": self.dispatch_segments > 1,
-                    "defer_device": self.defer_device}
+                    "dispatch_segments > 1": self.dispatch_segments > 1}
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+        if self.defer_device and self.mesh is not None:
+            raise ValueError("defer_device does not compose with a mesh")
         self.device = resolve_device(self.device)
         # shard before the move (only this rank's slices reach the device)
         self.tp = (shard_tensor_parallel(self.model, self.mesh)
                    if self.mesh is not None else None)
-        self.model = self.model.to(self.device).eval()
+        if not self.defer_device:
+            self.model = self.model.to(self.device)
+        self.model.eval()
         cfg = self.model.cfg
         self.lt = (self.frames + 3) // self.vae_stride[0]
         self.lh = self.height // self.vae_stride[1]
@@ -340,3 +396,158 @@ class WanPipeline:
                                condition, first_frame, num_steps)
         out, self.decode_seconds = decode_timed(self.vae_decode, latents)
         return out
+
+
+def _host_tree(model: torch.nn.Module, pin: bool) -> dict:
+    """The model's weights as host tensors (pinned for fast copies when
+    ``pin``), which the caller keeps; each tensor is replaced in the
+    module as it is pinned, so the host holds one copy."""
+    for v in [*model.parameters(), *model.buffers()]:
+        if v.device.type != "cpu":
+            raise ValueError("host_swap: construct both pipelines with "
+                             "defer_device=True on host weights")
+        if pin and not v.is_pinned():
+            v.data = v.data.pin_memory()
+    return dict(model.state_dict())
+
+
+@dataclasses.dataclass
+class Wan22A14BPipeline:
+    """Wan2.2 A14B dual-transformer pipeline: high-noise steps run
+    ``high`` (the snapshot's ``transformer``), low-noise steps ``low``
+    (``transformer_2``), split by ``boundary_ratio`` over the train
+    timesteps (reference: scripts/main_wan22t2v.py:57-61); each keeps its
+    own TeaCache (:83-127).
+
+    ``host_swap``: the routing is sequential (every high-noise step, then
+    every low-noise one), so both trees stay on the host, pinned, for the
+    pipeline's life (construct both pipelines with ``defer_device=True``);
+    the high tree is copied to the card at denoise start and swapped for
+    the low one once, at the boundary step.  Freeing a tree drops its
+    device tensors (the module goes to the meta device) and never copies
+    them back.  ``swap_seconds`` / ``load_seconds`` time the copies,
+    bounded by a device sync."""
+    high: WanPipeline      # transformer (high noise)
+    low: WanPipeline       # transformer_2 (low noise)
+    boundary_ratio: float = 0.875
+    num_train_timesteps: int = 1000
+    host_swap: bool = False
+
+    def __post_init__(self):
+        self.device = self.high.device
+        self._host = None
+
+    def _swap_in(self, pipe_in: WanPipeline, host_tree: dict,
+                 pipe_out: WanPipeline) -> float:
+        """Free pipe_out's device tree, then place ``host_tree`` on the
+        device for pipe_in; returns the copy seconds (sync-bounded)."""
+        pipe_out.model.to("meta")
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        device_sync()
+        t0 = time.perf_counter()
+        dev = {k: v.to(self.device, non_blocking=True)
+               for k, v in host_tree.items()}
+        pipe_in.model.load_state_dict(dev, strict=True, assign=True)
+        device_sync()
+        return time.perf_counter() - t0
+
+    def _tea(self, pipe: WanPipeline, n_calls: int, ret_steps: int):
+        return TeaCache(
+            pipe.teacache_thresh if pipe.enable_teacache else 0.0,
+            n_calls, coefficients=pipe.teacache_coefficients or "wan2.2-a14b",
+            ret_steps=ret_steps, cfg_streams=2,
+            signal_scale=pipe.teacache_signal_scale,
+            forced_schedule=pipe.teacache_schedule,
+            offload_residual=pipe.teacache_offload)
+
+    @torch.no_grad()
+    def denoise(self, latents, text_cond, text_uncond, condition=None,
+                num_steps: Optional[int] = None):
+        """``condition``: the I2V-A14B conditioning channels
+        (``i2v_condition``); the A14B I2V transformer is in_channels-36
+        with NO CLIP image branch (reference: scripts/main_wan22i2v.py)."""
+        hi, lo = self.high, self.low
+        latents, text_cond, text_uncond, condition = (
+            hi._as_tensor(a, torch.float32)
+            for a in (latents, text_cond, text_uncond, condition))
+        steps = num_steps or hi.num_steps
+        sched = hi._scheduler(steps)
+        boundary = self.boundary_ratio * self.num_train_timesteps
+        high_steps = int(np.sum(sched.timesteps >= boundary))
+        tea_h = self._tea(hi, high_steps * 2, 3 * 2)
+        tea_l = self._tea(lo, (steps - high_steps) * 2, 2)
+        self.teacache = {"high": tea_h, "low": tea_l}
+
+        self.swap_seconds = 0.0
+        swapped = not self.host_swap
+        if self.host_swap:
+            if self._host is None:
+                pin = self.device.type == "cuda"
+                self._host = (_host_tree(hi.model, pin),
+                              _host_tree(lo.model, pin))
+                lo.model.to("meta")
+            self.load_seconds = self._swap_in(hi, self._host[0], lo)
+
+        b = latents.shape[0]
+        self.step_seconds = []      # wall-clock per step, device-synced
+        device_sync(latents)
+        t0 = time.perf_counter()
+        for i, t in enumerate(sched.timesteps):
+            is_high = t >= boundary
+            if not is_high and not swapped:
+                # the one boundary swap: high tree out, low tree in
+                self.swap_seconds = self._swap_in(lo, self._host[1], hi)
+                swapped = True
+            pipe, tea = (hi, tea_h) if is_high else (lo, tea_l)
+            ts = torch.full((b,), float(t), device=self.device)
+            model_in = (latents if condition is None
+                        else torch.cat([latents, condition], dim=1))
+            outs = []
+            for text in (text_cond, text_uncond):
+                x, ctx, ctx_img, temb, temb6, rope = pipe._embed(
+                    model_in, ts, text, None)
+                if tea.enabled and not teacache_decision(
+                        tea, temb, pipe.tp, self.device):
+                    x = tea.apply_residual(x)
+                else:
+                    x_in = x
+                    x = pipe._run_blocks(x, ctx, ctx_img, temb6, rope,
+                                         pipe.mode == "sparse")
+                    if tea.enabled:
+                        tea.record_residual_value(residual_value(
+                            x, x_in, pipe.teacache_residual))
+                outs.append(pipe._head(x, temb))
+            v = classifier_free_guidance(outs[0], outs[1],
+                                         pipe.guidance_scale)
+            latents = sched.step(v, latents, i)
+            device_sync(latents)
+            self.step_seconds.append(time.perf_counter() - t0
+                                     - sum(self.step_seconds))
+        self.denoise_seconds = time.perf_counter() - t0
+        self.teacache_stats = (
+            {"high": tea_h.stats(), "low": tea_l.stats()}
+            if tea_h.enabled or tea_l.enabled else None)
+        return latents
+
+    def __call__(self, text_cond, text_uncond, condition=None, seed: int = 42,
+                 num_steps: Optional[int] = None, init_latents=None,
+                 generator: Optional[torch.Generator] = None):
+        """Draw the initial noise from ``generator`` (default: a generator
+        on the device seeded with ``seed``) unless ``init_latents`` is
+        given, and denoise; returns the latents (the JAX CLI decodes no
+        A14B run)."""
+        cfg = self.high.model.cfg
+        if init_latents is not None:
+            latents = init_latents
+        else:
+            if generator is None:
+                generator = torch.Generator(device=self.device)
+                generator.manual_seed(seed)
+            noise_ch = cfg.in_channels - (
+                condition.shape[1] if condition is not None else 0)
+            latents = torch.randn(
+                (text_cond.shape[0], noise_ch, *self.high.grid),
+                generator=generator, dtype=torch.float32, device=self.device)
+        return self.denoise(latents, text_cond, text_uncond, condition,
+                            num_steps)

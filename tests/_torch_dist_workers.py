@@ -5,6 +5,7 @@ with a ``file://`` rendezvous under the test's tmp_path (no TCP port).
 This module imports no JAX: the test computes the JAX references itself and
 hands inputs over, and takes results back, as files in that directory."""
 
+import dataclasses
 import datetime
 import os
 
@@ -51,8 +52,12 @@ def ring_worker(rank: int, world: int, tmp: str):
 def _model(kind: str, sd: dict):
     from rectified_spaattn_tpu_torch.models import (
         HunyuanVideoConfig, HunyuanVideoDiT, WanConfig, WanDiT, quant)
-    model = (HunyuanVideoDiT(HunyuanVideoConfig.tiny()) if kind == "hunyuan"
-             else WanDiT(WanConfig.tiny()))
+    if kind == "hunyuan_i2v":
+        model = HunyuanVideoDiT(dataclasses.replace(
+            HunyuanVideoConfig.tiny(), image_condition_type="token_replace"))
+    else:
+        model = (HunyuanVideoDiT(HunyuanVideoConfig.tiny())
+                 if kind == "hunyuan" else WanDiT(WanConfig.tiny()))
     quant.adopt_layout(model, sd)
     model.load_state_dict(sd)
     return model
@@ -86,10 +91,11 @@ def tp_worker(rank: int, world: int, tmp: str):
         out["head_count_error"] = str(e)
     for name, c in inp["pipelines"].items():
         model = _model(c["kind"], c["state_dict"])
-        if c["kind"] == "hunyuan":
+        if c["kind"].startswith("hunyuan"):
             pipe = HunyuanVideoPipeline(model=model, device="cpu", mesh=mesh,
                                         **c["kw"])
-            lat = pipe(c["text"], c["mask"], init_latents=c["init"])
+            lat = pipe(c["text"], c["mask"], init_latents=c["init"],
+                       first_frame=c.get("first_frame"))
         else:
             pipe = WanPipeline(model=model, device="cpu", mesh=mesh,
                                **c["kw"])

@@ -3,8 +3,9 @@ S3/S2 ablation variants against their plain PyTorch versions, on a CUDA
 GPU (bf16, 2e-2: the repo's bf16 tolerance, tests/test_kernels.py; K1s's
 and K1q-s's l within 1 %; S1's int8 result, the load-only variants and S2
 full / prefetch against K2 bit for bit); the safetensors codec on device
-tensors (bit for bit) and the full-width HunyuanVideo VAE decode on the
-GPU against the CPU (fp32 rtol 2e-4 / atol 2e-5, TF32 off).
+tensors (bit for bit), the full-width HunyuanVideo VAE decode on the
+GPU against the CPU (fp32 rtol 2e-4 / atol 2e-5, TF32 off), and Wan2.2
+A14B's host_swap against its co-resident run (bit for bit).
 Marked ``cuda``; each test skips without a GPU.  This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
 
@@ -580,3 +581,46 @@ def test_cuda_vae_full_width_matches_cpu(cuda):
         torch.backends.cudnn.allow_tf32 = tf32
     assert got.shape == (1, 3, 5, 64, 64)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_a14b_host_swap_equals_co_resident(cuda):
+    """Wan2.2 A14B on the card (head_dim 128, bf16): host_swap (pinned
+    host trees, one on the card at a time) equals the co-resident run bit
+    for bit, twice in a row; the freed tree holds no device tensor."""
+    from rectified_spaattn_tpu_torch.models import (
+        WanConfig, WanDiT, init_random_weights)
+    from rectified_spaattn_tpu_torch.pipelines import (Wan22A14BPipeline,
+                                                       WanPipeline)
+    cfg = WanConfig(hidden_dim=256, heads=2, num_blocks=2, ffn_dim=512,
+                    text_dim=64)
+    models = []
+    for seed in (0, 1):
+        g = torch.Generator(device=cuda)
+        g.manual_seed(seed)
+        with torch.device(cuda):
+            m = WanDiT(cfg)
+        models.append(init_random_weights(m.to(torch.bfloat16), g))
+    g = torch.Generator(device=cuda)
+    g.manual_seed(2)
+    text = torch.randn((1, 32, cfg.text_dim), generator=g, device=cuda)
+    neg = torch.zeros_like(text)
+    kw = dict(height=192, width=240, frames=5, num_steps=4, mode="sparse",
+              sa_drop_rate=0.5, p_remain_rates=0.5, warm_layers=1,
+              scheduler="euler", device=cuda)
+    pipes = [WanPipeline(model=m, **kw) for m in models]
+    init = torch.randn((1, 16, *pipes[0].grid), generator=g, device=cuda)
+    co = Wan22A14BPipeline(high=pipes[0], low=pipes[1], boundary_ratio=0.7)
+    want = co(text, neg, init_latents=init)
+    for m in models:
+        m.to("cpu")
+    swap = Wan22A14BPipeline(
+        high=WanPipeline(model=models[0], defer_device=True, **kw),
+        low=WanPipeline(model=models[1], defer_device=True, **kw),
+        boundary_ratio=0.7, host_swap=True)
+    for _ in range(2):
+        got = swap(text, neg, init_latents=init)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert all(p.is_meta for p in swap.high.model.parameters())
+        assert all(p.is_cuda for p in swap.low.model.parameters())
+    assert all(t.is_pinned() for t in swap._host[0].values())

@@ -680,8 +680,10 @@ def test_cli_trace_out_profile_and_refusals(tmp_path):
         r["compute"] for r in records[1:])
     assert os.path.exists(prof / "trace.json")
     assert res["output"].endswith(".npy")          # latents without a VAE
-    with pytest.raises(NotImplementedError, match="--image"):
-        gen.main(["--device", "cpu", "--image", "x.png"])
+    # --image is ported (tests/test_torch_i2v.py); the TPU levers are
+    # still refused, before anything is built
+    with pytest.raises(NotImplementedError, match="--scan_blocks"):
+        gen.main(["--device", "cpu", "--scan_blocks"])
 
 
 # ---------------------------------------------------------- video, encoders ---

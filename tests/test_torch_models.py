@@ -207,9 +207,3 @@ def test_convert_is_strict():
     with pytest.raises(ValueError, match="shape"):
         load_flax_params(HunyuanVideoDiT(HunyuanVideoConfig.tiny()),
                          {"params": bad})
-
-
-def test_i2v_is_not_ported():
-    cfg = HunyuanVideoConfig(image_condition_type="token_replace")
-    with pytest.raises(NotImplementedError, match="I2V"):
-        HunyuanVideoDiT(cfg)

@@ -19,6 +19,7 @@ tmp_path (tests/_torch_dist_workers.py, which imports no JAX); the ring
 runs through the in-process group and through gloo, which agree bit for
 bit; the head split runs on gloo."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -365,11 +366,12 @@ def head_parallel_ref():
                                   interpret=True))
 
 
-def hunyuan_pair(bits=0):
+def hunyuan_pair(bits=0, image_condition_type=None):
     """The tiny JAX HunyuanVideo and its params (quantized with ``bits``:
     min_size 1, as the tiny widths are far below 1 << 20, and int4 groups
     of 32 so that a group divides each tp = 2 shard)."""
-    cfg = JHConfig.tiny()
+    cfg = dataclasses.replace(JHConfig.tiny(),
+                              image_condition_type=image_condition_type)
     g = np.random.default_rng(0)
     text = g.normal(size=(1, 128, cfg.text_dim)).astype(np.float32)
     mask = np.zeros((1, 128), bool)
@@ -440,6 +442,18 @@ def tp_gloo(tmp_path_factory):
         inp["pipelines"][name] = dict(
             kind="hunyuan", state_dict=flax_to_state_dict(params),
             kw=HUNYUAN_KW, text=text, mask=mask, init=init_h)
+    # HunyuanVideo I2V (token_replace): the t=0 conditioning and the held
+    # first frame under the head split
+    jmod, params, text, mask = hunyuan_pair(0, "token_replace")
+    jpipe = JHPipe(model=jmod, params=params, interpret=True, **HUNYUAN_KW)
+    first = np.random.default_rng(5).normal(
+        size=(1, 4, 1, *init_h.shape[3:])).astype(np.float32)
+    runs["hunyuan_i2v"] = (lambda p=jpipe, x=text, m=mask: p(
+        jnp.asarray(x), jnp.asarray(m), init_latents=jnp.asarray(init_h),
+        first_frame=jnp.asarray(first)))
+    inp["pipelines"]["hunyuan_i2v"] = dict(
+        kind="hunyuan_i2v", state_dict=flax_to_state_dict(params),
+        kw=HUNYUAN_KW, text=text, mask=mask, init=init_h, first_frame=first)
     jmod, params = wan_pair()
     jpipe = JWPipe(model=jmod, params=params, interpret=True, **WAN_KW)
     g = np.random.default_rng(14)
@@ -478,7 +492,8 @@ def test_head_parallel_on_gloo_and_head_count(tp_gloo, head_parallel_ref):
 
 def test_tensor_parallel_pipelines_and_cli(tp_gloo):
     """At tp = 2 on gloo: the tiny HunyuanVideo pipeline (dense, int8 and
-    int4 QLinears) and the tiny Wan pipeline against the JAX single-device
+    int4 QLinears, and I2V token_replace with its first frame held bit for
+    bit) and the tiny Wan pipeline against the JAX single-device
     pipelines, TeaCache decisions identical on both ranks and equal to
     JAX's; ``--tp 2 --device cpu`` gives rank 0's output, equal to
     ``--tp 1``."""
@@ -491,6 +506,10 @@ def test_tensor_parallel_pipelines_and_cli(tp_gloo):
             assert set(got["heads"]) == {1}, name  # 2 heads over tp = 2
             np.testing.assert_allclose(got["latents"].numpy(), want,
                                        err_msg=name, **SITE)
+    first = np.asarray(refs["hunyuan_i2v"][0])[:, :, :1]
+    for out in outs:
+        np.testing.assert_array_equal(
+            out["hunyuan_i2v"]["latents"].numpy()[:, :, :1], first)
 
     from rectified_spaattn_tpu_torch.cli.generate import main
     assert outs[1]["cli"] is None                  # rank 0 writes alone

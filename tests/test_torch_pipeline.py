@@ -161,8 +161,16 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == res
     with pytest.raises(NotImplementedError, match="cogvideox-t2v"):
         main(["--model", "cogvideox-t2v", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="--image"):
-        main(["--device", "cpu", "--image", str(tmp_path / "x.png")])
+    # --image conditions hunyuan-i2v (tests/test_torch_i2v.py holds it
+    # against JAX)
+    img = str(tmp_path / "x.npy")
+    np.save(img, np.random.default_rng(0).uniform(0, 255, (48, 40, 3)))
+    res = main(["--model", "hunyuan-i2v", "--device", "cpu", "--scale",
+                "0.05", "--height", "64", "--width", "64", "--frame", "8",
+                "--num_steps", "2", "--image", img,
+                "--out_dir", str(tmp_path)])
+    out = np.load(res["output"])
+    assert out.shape == (1, 16, 2, 8, 8) and np.isfinite(out).all()
 
 
 def test_cuda_entry_points_raise_without_gpu():

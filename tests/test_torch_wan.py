@@ -272,14 +272,22 @@ def test_tiny_wan_pipeline_inputs_match_jax(variant):
 def test_wan_pipeline_unported_options_raise():
     _, _, tmod = tiny_pair()
     # the int8 / offloaded TeaCache residual is ported (test_torch_quant.py)
-    for kw in (dict(scan_blocks=True), dict(dispatch_segments=2),
-               dict(defer_device=True)):
+    for kw in (dict(scan_blocks=True), dict(dispatch_segments=2)):
         with pytest.raises(NotImplementedError, match="not ported"):
             WanPipeline(model=tmod, height=64, width=64, frames=5,
                         device="cpu", **kw)
+    # defer_device is ported (Wan22A14BPipeline host_swap,
+    # tests/test_torch_i2v.py): it leaves the weights where they are, and
+    # refuses a mesh as the JAX pipeline asserts
+    from rectified_spaattn_tpu_torch.parallel import in_process_mesh
+    pipe = WanPipeline(model=tmod, height=64, width=64, frames=5,
+                       device="cpu", defer_device=True)
+    assert pipe.model is tmod
+    with pytest.raises(ValueError, match="defer_device"):
+        WanPipeline(model=tmod, height=64, width=64, frames=5, device="cpu",
+                    defer_device=True, mesh=in_process_mesh(sp=1))
     # ``mesh`` is ported (tests/test_torch_parallel.py); the pipelines shard
     # over a torch.distributed tp group only
-    from rectified_spaattn_tpu_torch.parallel import in_process_mesh
     for mesh, msg in ((in_process_mesh(sp=2), "tp only"),
                       (in_process_mesh(sp=1), "torch.distributed")):
         with pytest.raises(ValueError, match=msg):
@@ -297,5 +305,12 @@ def test_cli_wan21_t2v_runs_on_cpu(tmp_path, capsys):
     assert out.shape == (1, 16, 2, 8, 8) and np.isfinite(out).all()
     assert res["teacache"] == {"skipped": 0, "computed": 4}
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == res
-    with pytest.raises(NotImplementedError, match="image"):
-        main(["--model", "wan21-i2v", "--device", "cpu", "--image", "x.png"])
+    # --image conditions wan21-i2v (tests/test_torch_i2v.py)
+    img = str(tmp_path / "x.npy")
+    np.save(img, np.random.default_rng(0).uniform(-1, 1, (3, 40, 48)))
+    res = main(["--model", "wan21-i2v", "--device", "cpu", "--scale", "0.05",
+                "--height", "64", "--width", "64", "--frame", "5",
+                "--num_steps", "2", "--image", img,
+                "--out_dir", str(tmp_path)])
+    out = np.load(res["output"])
+    assert out.shape == (1, 16, 2, 8, 8) and np.isfinite(out).all()
