@@ -8,7 +8,8 @@ Builds the port's CUDA kernels from rectified_spaattn_tpu_torch/csrc with
 nvcc (sm_90a, one nvcc per source, all started together) and drives the
 HunyuanVideo sparse denoise path (T2V and I2V), its int8 serving levers
 (K1q, S1, int8 / int4 weights, the int8 offloaded TeaCache residual), the
-Wan2.1-14B denoise path, Wan2.2 A14B with host_swap, the multi-device path (K1s, the ring, tensor parallelism)
+Wan2.1-14B denoise path, Wan2.2 A14B with host_swap, the CogVideoX1.5
+T2V / I2V path (K1 and K2 at head_dim 64), the multi-device path (K1s, the ring, tensor parallelism)
 and the kernel-diagnostic path (K1q-s, the S3 / S2 ablations, the
 headline bench).  Every attention kernel (K1/K1s, K2, K1q/K1q-s, K3)
 and every S3 / S2 ablation run on the Hopper mainloop of
@@ -32,7 +33,10 @@ ranges that the merge kernel folds:
      tiles (a degenerate list and the text window among them), K2 at G=2
      and G=4 (and K2 == K1 row by row); K3 with Sq and Sk off its tiles, 512
      and 257 keys, a kv_valid mask at B=2 with a row of no valid key, a
-     given sm_scale; max abs error <= 2e-2 and, relative to the output's
+     given sm_scale; then K1 and K2 at head_dim 64 in CogVideoX's joint
+     layout with visual_len % 128 != 0 (visual rows, packed K|V, text rows
+     split and merged, the windowed dense at block_m 1024, K2 at G = 2 and
+     4); max abs error <= 2e-2 and, relative to the output's
      own scale, max abs error <= 5 % of max |output| and rms error <= 2 %
      of its std.  Then K1q ("int8" and "mxu8") against its plain version:
      random masks, the text window at B=2, zero-count and all-masked rows,
@@ -117,7 +121,27 @@ ranges that the merge kernel folds:
      equal to the co-resident run bit for bit, the device weight bytes
      after every swap at most one tree's + 5 %; load and swap seconds,
      GB/s, the 40-block extrapolation, s/step and both peaks.
-  6b. k1q_stats: K1q-s (K1q with m and l) in both modes against its plain
+  6c. cog_site: the CogVideoX1.5 site at its operating point (the token
+     grid (6, 48, 85): 24,480 visual tokens, 191 blocks + 32 keys, and a
+     256-slot text tail with 226 valid; 48 heads x 64, sa_drop_rate 0.85,
+     p_remain 0.3) on random and smooth inputs: plan and site ms, then K1
+     visual rows, K2 at G = 2, K1 text rows (split and merged) and the
+     windowed dense K1 at block_m 1024, each against its plain version on
+     the full inputs, with its time, bound and SDPA's time where one call
+     computes the same function.
+ 6d. pipeline_cogvideox: CogVideoXConfig() at full width and depth (42
+     blocks), 768x1360x81, 4 DDIM steps under dynamic CFG (5 dense warm
+     calls, then 3 sparse), group_rows 2, TeaCache off, seeded bf16 random
+     weights: s/step, peak memory, K1 / K2 / merge launches per dense and
+     per sparse call (counters zeroed just before, read just after), and a
+     profiled sparse step.  pipeline_cogvideox_i2v: the same at
+     in_channels 32 with 6 blocks, ofs 2.0 and a seeded image's condition
+     through the CLI's stand-in encoder.  (The small GPU-vs-CPU check of
+     phase 4 runs the CogVideoX T2V and I2V pipelines too, TeaCache on,
+     and the ckpt phase a CogVideoX leg: a 2-block full-width snapshot in
+     diffusers' key layout loaded bit for bit against a CPU load, then
+     --model cogvideox-t2v --ckpt_dir at 480x832.)
+ 6b. k1q_stats: K1q-s (K1q with m and l) in both modes against its plain
      version at small shapes (o equal to K1q's bit for bit, m / l as
      k1s_vs_plain holds them); at the Hunyuan site (both regimes) its time
      beside K1q's and, random inputs, both modes against their plain
@@ -226,6 +250,26 @@ WAN_PIPE = dict(cfg=dict(num_blocks=4), height=720, width=1280, frames=81,
 # the ring's sequence-parallel ways: 900 Hunyuan blocks over 4 ranks, 591
 # Wan blocks over 3
 RING_SP = dict(hunyuan=4, wan=3)
+# CogVideoX1.5-5B's operating point: the token grid (T', H', W') of
+# 81x768x1360 video (24,480 visual tokens: 191 blocks + 32 keys), 48 heads
+# x 64, the 256-slot T5 text tail with 226 valid tokens
+COG_SITE = dict(grid=(6, 48, 85), heads=48, head_dim=64, text_len=256,
+                tlen=226, sa_drop_rate=0.85)
+# the CogVideoX denoise run: CogVideoXConfig() at full width and depth (42
+# blocks), 768x1360x81 (latent grid (12, 96, 170)), 4 DDIM steps under
+# dynamic CFG: 8 calls, 5 dense warm calls then 3 sparse, group_rows 2,
+# TeaCache off so that every call computes
+COG_PIPE = dict(cfg={}, height=768, width=1360, frames=81, steps=4,
+                group_rows=2, cut="none: 42 of 42 blocks")
+# CogVideoX1.5 I2V: in_channels 32, cut from 42 to 6 blocks
+COG_I2V = dict(cfg=dict(in_channels=32, num_blocks=6),
+               cut="6 of 42 blocks")
+# the small GPU-vs-CPU CogVideoX pipelines' TeaCache: the random model's
+# temb signal scaled into the cogvideox polynomial's positive range; the
+# accumulated signal is 0.097-0.099 at call 2 (skip) and 0.19 at call 4
+# (compute) in fp32 and in bf16 on the CPU, so calls 2 and 3 skip
+SMALL_COG_TEACACHE = dict(enable_teacache=True, teacache_thresh=0.14,
+                          teacache_signal_scale=0.1)
 
 
 def emit(phase: str, t0: float, **fields):
@@ -412,7 +456,7 @@ def kernel_cases(kernels, ops):
     gen.manual_seed(1234)
     rnd = lambda *s, dt=torch.bfloat16: torch.randn(
         s, generator=gen, device=dev).to(dt)
-    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    errs = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K1_d64": 0.0, "K2_d64": 0.0}
     cases = []
 
     def check(name, got, want, kern):
@@ -542,7 +586,98 @@ def kernel_cases(kernels, ops):
     if e > TOL:
         raise AssertionError(f"K3 row with no valid key: {e} from the mean")
     k3_case("k3_sm_scale", 1, 2, 130, 512, sm_scale=0.03)
+    head_dim64_cases(kernels, ops, check, rnd, gen)
     return errs, cases
+
+
+def head_dim64_cases(kernels, ops, check, rnd, gen):
+    """K1 and K2 at head_dim 64 (CogVideoX's width, their D = 64
+    instantiations) against their plain versions, in CogVideoX's joint
+    layout with visual_len % 128 != 0: 7 visual blocks + 32 keys (block 7
+    holds 32 keys and 96 pad keys), the text slot from block 8, 226 valid
+    text tokens of 256 at B=1 and 100 / 0 at B=2 (a degenerate row whose
+    only block is the text block of the batch with none)."""
+    dev = torch.device("cuda")
+    d, nvb = 64, 8                       # visual blocks incl. the partial one
+    vis, tstart, nb = 7 * 128 + 32, nvb * 128, nvb + 2
+    bs = kernels.block_sparse
+
+    def inputs(b, h, rows):
+        return (rnd(b, h, rows, d), rnd(b, h, nb * 128, d),
+                rnd(b, h, nb * 128, d))
+
+    # K1 on visual rows, random masks with the partial block and both text
+    # blocks listed; and on the packed K|V stream
+    q, k, v = inputs(2, 4, nvb * 128)
+    m = torch.rand((2, 4, nvb, nb), generator=gen, device=dev) < 0.4
+    m[..., 7] = m[..., 8] = m[..., 9] = True
+    m[1, 2, 3] = False
+    m[1, 2, 3, 8] = True                 # only a text block, batch 1: none
+    idx, cnt = ops.mask_to_indices(m)
+    tl = torch.tensor([100, 0], dtype=torch.int32, device=dev)
+    kw = dict(visual_len=vis, text_start=tstart)
+    for name, extra in (("k1_d64_joint_visual_rows", {}),
+                        ("k1_d64_packed_kv",
+                         {"packed_kv": torch.cat([k, v], dim=-1)})):
+        check(name, kernels.block_sparse_flash_attention(
+                  q, k, v, idx, cnt, tl, **kw, **extra),
+              kernels.block_sparse_flash_attention_torch(
+                  q, k, v, idx, cnt, tl, **kw, **extra), "K1_d64")
+    # K1 on text rows with full lists: a short launch (8 row tiles), split
+    # into key ranges and merged by the D = 64 merge kernel
+    qt, kt, vt = inputs(1, 4, 256)
+    full_idx = torch.arange(nb, dtype=torch.int32, device=dev).expand(
+        1, 4, 2, nb)
+    full_cnt = torch.full((1, 4, 2), nb, dtype=torch.int32, device=dev)
+    t226 = torch.tensor([226], dtype=torch.int32, device=dev)
+    merges = bs.merge_splits.launches
+    check("k1_d64_text_rows_split",
+          kernels.block_sparse_flash_attention(
+              qt, kt, vt, full_idx, full_cnt, t226, chunk_blocks=4, **kw),
+          kernels.block_sparse_flash_attention_torch(
+              qt, kt, vt, full_idx, full_cnt, t226, chunk_blocks=4, **kw),
+          "K1_d64")
+    if bs.merge_splits.launches != merges + 1:
+        raise AssertionError("k1_d64_text_rows_split did not split")
+    # K1 as the windowed dense of the warm calls (attention/modes.py):
+    # the model's layout [visual ; text] unpadded, so the text window
+    # starts inside block 7, at block_m 1024
+    from rectified_spaattn_tpu_torch.attention.modes import (
+        _windowed_dense_flash)
+    s = vis + 256
+    qd, kd, vd = (rnd(1, 4, s, d) for _ in range(3))
+    dkw = dict(visual_len=vis, text_start=vis, tlen=t226, block_m=1024)
+    k1 = kernels.block_sparse_flash_attention
+    before = k1.launches
+    got = _windowed_dense_flash(qd, kd, vd, **dkw)
+    if k1.launches != before + 1:
+        raise AssertionError("the windowed dense did not launch K1 once")
+    check("k1_d64_windowed_dense_bm1024", got, _windowed_dense_flash(
+        qd.cpu(), kd.cpu(), vd.cpu(), visual_len=vis, text_start=vis,
+        tlen=t226.cpu(), block_m=1024).to(dev), "K1_d64")
+    # K2 at G = 2 and 4 on the visual rows' masks, held to K1 row by row
+    ref = kernels.block_sparse_flash_attention(q, k, v, idx, cnt, tl, **kw)
+    for grp in (2, 4):
+        ui, uc, rb, cl = ops.group_rows(m, grp, clean_blocks=vis // 128)
+        g = dict(group=grp, **kw)
+        got = kernels.block_sparse_flash_attention_grouped(
+            q, k, v, ui, uc, rb, cl, tl, **g)
+        check(f"k2_d64_g{grp}", got,
+              kernels.block_sparse_flash_attention_grouped_torch(
+                  q, k, v, ui, uc, rb, cl, tl, **g), "K2_d64")
+        if grp == 2:
+            check("k2_d64_g2_packed_kv",
+                  kernels.block_sparse_flash_attention_grouped(
+                      q, k, v, ui, uc, rb, cl, tl,
+                      packed_kv=torch.cat([k, v], dim=-1), **g), got,
+                  "K2_d64")
+    # K2 equals K1 on every row block with a live own key (the degenerate
+    # row block (1, 2, 3) averages the union's lanes instead)
+    live = torch.ones_like(ref, dtype=torch.bool)
+    live[1, 2, 3 * 128:4 * 128] = False
+    e = float((got.float() - ref.float())[live].abs().max())
+    if e > TOL:
+        raise AssertionError(f"K2 at head_dim 64 vs K1's rows: {e}")
 
 
 def k1q_cases(kernels, ops):
@@ -849,7 +984,8 @@ def site_phase(kernels, ops, regime: str):
     return res, kern
 
 
-def merge_at_site(kernels, kern, regime, tiles, nb_slots):
+def merge_at_site(kernels, kern, regime, tiles, nb_slots,
+                  d: int = SITE["head_dim"], name: str = "K1_merge"):
     """The key split's merge kernel at the shape of the text rows' split
     (the ranges _split_plan gives their launch on this card), on seeded
     partials, against its plain version (``_merge_splits``); bound: the
@@ -857,7 +993,7 @@ def merge_at_site(kernels, kern, regime, tiles, nb_slots):
     bs = kernels.block_sparse
     n, _ = bs._split_plan(tiles, nb_slots, 16, torch.cuda.get_device_properties(
         0).multi_processor_count)
-    rows, d = tiles * 128, SITE["head_dim"]
+    rows = tiles * 128
     gen = torch.Generator(device=DEV)
     gen.manual_seed(99)
     o_p = torch.randn((n, rows, d), generator=gen, device=DEV)
@@ -882,8 +1018,8 @@ def merge_at_site(kernels, kern, regime, tiles, nb_slots):
                       reps=20)
     r["library_ms"] = None
     r["roofline_share"] = r["bound_ms"] / r["ms"]
-    kern["K1_merge"] = r
-    print(json.dumps({"kernel_at_site": "K1_merge", "regime": regime, **r}),
+    kern[name] = r
+    print(json.dumps({"kernel_at_site": name, "regime": regime, **r}),
           flush=True)
 
 
@@ -1110,13 +1246,20 @@ def pipeline_phase(kernels):
 def profile_step(pipe, text, mask, top: int = 12):
     """One computed denoise step under torch.profiler: device time by
     kernel name and the device's idle share of the step's wall clock."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     gen = torch.Generator(device=DEV)
     gen.manual_seed(43)
+    return profile_run(lambda: pipe(text, mask, generator=gen, num_steps=1),
+                       top)
+
+
+def profile_run(run, top: int = 12):
+    """``run()`` under torch.profiler: device time by kernel name and the
+    device's idle share of its wall clock."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        pipe(text, mask, generator=gen, num_steps=1)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev_us = lambda e: getattr(e, "self_device_time_total",
@@ -1130,7 +1273,7 @@ def profile_step(pipe, text, mask, top: int = 12):
     rows = sorted(events, key=dev_us, reverse=True)[:top]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / (wall * 1e3) if busy else None,
-            "top": [{"name": e.key[:80], "ms": dev_us(e) / 1e3,
+            "top": [{"name": e.key[:160], "ms": dev_us(e) / 1e3,
                      "calls": e.count} for e in rows]}
 
 
@@ -1415,6 +1558,19 @@ CKPT = dict(
                  "rope_axes_dim": [16, 56, 56]},
     small_latent=(1, 16, 2, 8, 8), latent=(1, 16, 9, 60, 104), tile=32,
     overlap=4, height=480, width=832, frame=36, frames_out=33, steps=2)
+# the CogVideoX leg: CogVideoXTransformer3DModel at CogVideoXConfig()'s
+# widths (48 heads x 64, T5 4096, time and ofs embeddings of 512, patch
+# (2, 2, 2)) cut to 2 blocks; 480x832 with --frame 33 gives (33 - 1) // 8
+# + 1 = 5 latent frames, 6 rounded to patch_size_t, which the phase's VAE
+# (4x in time) decodes to 21; 3 steps make 6 calls, the last one sparse
+COG_CKPT = dict(
+    transformer={"_class_name": "CogVideoXTransformer3DModel",
+                 "in_channels": 16, "out_channels": 16,
+                 "num_attention_heads": 48, "attention_head_dim": 64,
+                 "num_layers": 2, "text_embed_dim": 4096,
+                 "time_embed_dim": 512, "ofs_embed_dim": 512,
+                 "patch_size": 2, "patch_size_t": 2},
+    height=480, width=832, frame=33, frames_out=21, steps=3)
 VAE_TOL = dict(rtol=2e-4, atol=2e-5)   # fp32 (tests/test_kernels.py:44)
 
 
@@ -1780,6 +1936,8 @@ def ckpt_phase(kernels) -> dict:
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
                       "cudnn_tf32": True}
         res["cli_i2v"] = ckpt_i2v_cli(kernels, root, out_dir)
+        torch.cuda.empty_cache()
+        res["cogvideox"] = ckpt_cog_leg(kernels, root, out_dir)
     finally:
         torch.backends.cudnn.allow_tf32 = False
         shutil.rmtree(root, ignore_errors=True)
@@ -1846,6 +2004,490 @@ def ckpt_i2v_cli(kernels, root: str, out_dir: str) -> dict:
             "launches": launches, "first_frame": list(first.shape),
             "first_frame_held": True, "frames": list(frames.shape),
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+# -------------------------------------------------------- CogVideoX phases ---
+
+def cog_site_inputs(regime: str) -> dict:
+    """The CogVideoX site's inputs at COG_SITE on "random" (iid, seed 8) or
+    "smooth" q/k/v in the model's layout [visual ; text] (24,480 + 256
+    tokens), and the kernels' layout: rectified_sparse_attention's zero
+    pad between the visual and the text tokens (visual to 24,576, the text
+    slot from there), K and V zeroed off the key window, and the
+    single-row plan."""
+    from rectified_spaattn_tpu_torch.attention import kv_validity
+    from rectified_spaattn_tpu_torch.pipelines import build_site
+    from rectified_spaattn_tpu_torch.sparse import build_sparse_plan
+
+    dev = torch.device(DEV)
+    c = COG_SITE
+    b, h, d, text_len = 1, c["heads"], c["head_dim"], c["text_len"]
+    site, _, h2l = build_site(*c["grid"], sa_drop_rate=c["sa_drop_rate"],
+                              p_remain=0.3, layout="joint",
+                              text_len=text_len, device=dev)
+    sv = site.visual_len                        # 24,480: 191 blocks + 32
+    sv_pad = -(-sv // 128) * 128
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    if regime == "random":
+        q, k, v = (torch.randn((b, h, sv + text_len, d), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+    else:
+        from rectified_spaattn_tpu_torch.bench.inputs import smooth_qkv
+        q, k, v = smooth_qkv(gen, h, text_len, d, h2l, c["grid"])
+    tlen = torch.tensor([c["tlen"]], dtype=torch.int32, device=dev)
+
+    def ins(x):
+        return torch.cat([x[:, :, :sv], x.new_zeros((b, h, sv_pad - sv, d)),
+                          x[:, :, sv:]], dim=2)
+
+    qp, kp, vp = ins(q), ins(k), ins(v)
+    valid = kv_validity(b, sv_pad + text_len, sv, sv_pad, tlen, device=dev)
+    zero = torch.zeros((), dtype=q.dtype, device=dev)
+    kz = torch.where(valid[:, None, :, None], kp, zero)
+    vz = torch.where(valid[:, None, :, None], vp, zero)
+    text_valid = torch.arange(text_len, device=dev)[None, :] < tlen[:, None]
+    plan = build_sparse_plan(qp[:, :, :sv_pad], kz, vz, site.cfg,
+                             neighbor_mask=site.neighbor_mask,
+                             text_valid=text_valid)
+    return dict(site=site, q=q, k=k, v=v, qp=qp, kp=kp, vp=vp, tlen=tlen,
+                valid=valid, kz=kz, vz=vz, plan=plan, sv_pad=sv_pad)
+
+
+def cog_site_phase(kernels, ops, regime: str):
+    """The CogVideoX attention site at its operating point (COG_SITE) on
+    "random" or "smooth" inputs: the plan's time and the site's, then each
+    kernel of the path at these shapes against its plain version on the
+    full inputs (the relative limits), with its time, bound and, where
+    one SDPA call computes the same function, that call's time: K1 on the
+    visual rows (G = 1), K2 at G = 2, K1 on the text rows (key split and
+    merge), and the windowed dense K1 of the warm calls at block_m 1024
+    (attention/modes.py::_windowed_dense_flash, the model's unpadded
+    layout)."""
+    from rectified_spaattn_tpu_torch.attention import (
+        attention, kv_validity, rectified_sparse_attention)
+
+    dev = torch.device(DEV)
+    b, h, d = 1, COG_SITE["heads"], COG_SITE["head_dim"]
+    text_len = COG_SITE["text_len"]
+    st = cog_site_inputs(regime)
+    site, q, k, v, qp, tlen, valid, kz, vz, plan, sv_pad = (
+        st[n] for n in ("site", "q", "k", "v", "qp", "tlen", "valid", "kz",
+                        "vz", "plan", "sv_pad"))
+    sv = site.visual_len
+    cfg1 = site.cfg
+    cfg2 = dataclasses.replace(cfg1, group_rows=2)
+    res = {"regime": regime, "visual_len": sv, "text_len": text_len,
+           "valid_text": int(tlen[0]), "heads": h, "head_dim": d}
+    kern = {}
+
+    def site_call(cfg, **kw):
+        return rectified_sparse_attention(q, k, v, cfg, site.neighbor_mask,
+                                          visual_len=sv, text_len_rt=tlen,
+                                          **kw)
+
+    def launches_of(fn):
+        fs = {"K1": kernels.block_sparse_flash_attention,
+              "K2": kernels.block_sparse_flash_attention_grouped,
+              "K1_merge": kernels.block_sparse.merge_splits}
+        for f in fs.values():
+            f.launches = 0
+        fn()
+        return {n: f.launches for n, f in fs.items()}
+
+    res["plan_ms"] = cuda_ms(lambda: site_call(cfg1, density_only=True))
+    res["density"] = float(site_call(cfg1, density_only=True))
+    res["sparse_g1_ms"] = cuda_ms(lambda: site_call(cfg1))
+    res["sparse_g2_ms"] = cuda_ms(lambda: site_call(cfg2))
+    res["launches_per_call"] = {
+        "sparse_g1": launches_of(lambda: site_call(cfg1)),
+        "sparse_g2": launches_of(lambda: site_call(cfg2))}
+    out = site_call(cfg2)
+    if out.shape != q.shape or not torch.isfinite(out.float()).all():
+        raise AssertionError("CogVideoX site output is not finite of shape "
+                             "q.shape")
+    del out
+
+    nbt = (sv_pad + text_len) // 128
+    pairs = float(plan.counts.sum())
+    res["pairs"] = pairs
+    kv_bytes = lambda blocks: 2 * blocks * 128 * d * 2
+    used = torch.zeros((b * h, nbt), dtype=torch.int32, device=dev)
+    used.scatter_add_(1, plan.indices.reshape(b * h, -1).long(),
+                      (torch.arange(plan.indices.shape[-1], device=dev)
+                       < plan.counts[..., None]).reshape(b * h, -1).int())
+    vis_kv_blocks = float((used > 0).sum())
+    qo_bytes = lambda rows: 2 * b * h * rows * d * 2
+    flops_pair = lambda rows: 4.0 * rows * 128 * d
+    idx_bytes = lambda *ts: sum(t.numel() * 4 for t in ts)
+    kw = dict(visual_len=sv, text_start=sv_pad)
+    q_vis, q_txt = qp[:, :, :sv_pad], qp[:, :, sv_pad:]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    ui, uc, rb, cl = ops.group_rows(plan.block_mask, 2,
+                                    clean_blocks=sv // 128)
+    g2 = dict(group=2, **kw)
+    measure(kern, "cog_K2_visual_g2", regime, True,
+            lambda: kernels.block_sparse_flash_attention_grouped(
+                q_vis, kz, vz, ui, uc, rb, cl, tlen, **g2),
+            lambda: kernels.block_sparse_flash_attention_grouped_torch(
+                q_vis, kz, vz, ui, uc, rb, cl, tlen, **g2),
+            flops=pairs * flops_pair(128),
+            nbytes=qo_bytes(sv_pad) + kv_bytes(vis_kv_blocks)
+            + idx_bytes(ui, uc, rb, cl))
+    del ui, uc, rb, cl
+    measure(kern, "cog_K1_visual_g1", regime, True,
+            lambda: kernels.block_sparse_flash_attention(
+                q_vis, kz, vz, plan.indices, plan.counts, tlen, **kw),
+            lambda: kernels.block_sparse_flash_attention_torch(
+                q_vis, kz, vz, plan.indices, plan.counts, tlen, **kw),
+            flops=pairs * flops_pair(128),
+            nbytes=qo_bytes(sv_pad) + kv_bytes(vis_kv_blocks)
+            + idx_bytes(plan.indices, plan.counts))
+    # the text rows: full lists over every key block, the split's merge
+    nt = text_len // 128
+    fidx = torch.arange(nbt, dtype=torch.int32, device=dev).expand(
+        b, h, nt, nbt)
+    fcnt = torch.full((b, h, nt), nbt, dtype=torch.int32, device=dev)
+    keys = sv + int(tlen[0])              # the keys the window keeps
+    amask = valid[:, None, None, :]
+    measure(kern, "cog_K1_text_rows", regime, True,
+            lambda: kernels.block_sparse_flash_attention(
+                q_txt, kz, vz, fidx, fcnt, tlen, **kw),
+            lambda: kernels.block_sparse_flash_attention_torch(
+                q_txt, kz, vz, fidx, fcnt, tlen, **kw),
+            flops=4.0 * b * h * text_len * keys * d,
+            nbytes=qo_bytes(text_len) + 2 * b * h * keys * d * 2
+            + idx_bytes(fidx, fcnt),
+            library=lambda: sdpa(q_txt, kz, vz, attn_mask=amask))
+    merge_at_site(kernels, kern, regime, b * h * nt, nbt, d=d,
+                  name="cog_K1_merge")
+    # the warm calls' windowed dense, as attention(mode="flash") runs it on
+    # the model's layout: K1 over full lists at block_m 1024, the text
+    # window from the 24,480th key; the rows the data needs are the real
+    # ones, the keys the window's
+    s = sv + text_len
+    nbd = -(-s // 128)
+    nqd = -(-(nbd * 128) // 1024)
+    pad = lambda x, n: torch.nn.functional.pad(x, (0, 0, 0, n - s))
+    qd, kd, vd = pad(q, nqd * 1024), pad(k, nbd * 128), pad(v, nbd * 128)
+    didx = torch.arange(nbd, dtype=torch.int32, device=dev).expand(
+        b, h, nqd, nbd)
+    dcnt = torch.full((b, h, nqd), nbd, dtype=torch.int32, device=dev)
+    dkw = dict(visual_len=sv, text_start=sv, block_m=1024)
+    dvalid = kv_validity(b, s, sv, sv, tlen, device=dev)[:, None, None, :]
+    measure(kern, "cog_K1_dense_bm1024", regime, True,
+            lambda: kernels.block_sparse_flash_attention(
+                qd, kd, vd, didx, dcnt, tlen, **dkw),
+            lambda: kernels.block_sparse_flash_attention_torch(
+                qd, kd, vd, didx, dcnt, tlen, **dkw),
+            flops=4.0 * b * h * s * keys * d,
+            nbytes=qo_bytes(s) + 2 * b * h * keys * d * 2
+            + idx_bytes(didx, dcnt),
+            library=lambda: sdpa(q, k, v, attn_mask=dvalid))
+    dense = lambda: attention(q, k, v, "flash", cfg=cfg1, visual_len=sv,
+                              text_len_rt=tlen)
+    res["dense_ms"] = cuda_ms(dense, reps=2)
+    res["launches_per_call"]["dense"] = launches_of(dense)
+    if res["launches_per_call"]["dense"] != {"K1": 1, "K2": 0,
+                                             "K1_merge": 0}:
+        raise AssertionError(f"the windowed dense launched "
+                             f"{res['launches_per_call']['dense']}")
+    return res, kern
+
+
+def cog_full_pipe(cfg_kw: dict, steps: int, seed: int = 0):
+    """A CogVideoXPipeline of COG_PIPE's geometry on a full-width
+    CogVideoXConfig (``cfg_kw`` cuts its depth or widens its input), with
+    seeded bf16 random weights drawn on the card; TeaCache off, so every
+    call computes; and the seeded cond / uncond T5 stand-ins."""
+    from rectified_spaattn_tpu_torch.cli.generate import _random_text
+    from rectified_spaattn_tpu_torch.models import (
+        CogVideoXConfig, CogVideoXDiT, init_random_weights)
+    from rectified_spaattn_tpu_torch.pipelines import CogVideoXPipeline
+
+    dev = torch.device(DEV)
+    cfg = CogVideoXConfig(**cfg_kw)
+    with torch.device(dev):
+        model = CogVideoXDiT(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = init_random_weights(model.to(torch.bfloat16), gen)
+    pipe = CogVideoXPipeline(
+        model=model, height=COG_PIPE["height"], width=COG_PIPE["width"],
+        frames=COG_PIPE["frames"], num_steps=steps, sa_drop_rate=0.85,
+        p_remain_rates=0.3, mode="sparse", enable_teacache=False,
+        group_rows=COG_PIPE["group_rows"], device=dev)
+    text = _random_text("several hot air balloons flying over a city.", 256,
+                        cfg.text_dim, device=dev)[0]
+    neg = _random_text("", 256, cfg.text_dim, device=dev)[0]
+    return pipe, cfg, text, neg
+
+
+def per_call_launches(kernels, pipe):
+    """Wrap ``pipe.model.run_blocks`` to record, per computed call, the
+    K1 / K2 / merge launches it made; returns the list it fills."""
+    kerns = path_kernels(kernels)
+    calls, run = [], pipe.model.run_blocks
+
+    def counted(*a, **kw):
+        before = {n: f.launches for n, f in kerns.items()}
+        out = run(*a, **kw)
+        calls.append({n: f.launches - before[n] for n, f in kerns.items()})
+        return out
+
+    pipe.model.run_blocks = counted
+    return calls
+
+
+def cog_pipe_run(kernels, pipe, text, neg, **call_kw):
+    """The pipeline's run with the launch counters zeroed just before and
+    read just after, per call too; checks the shape, finiteness, the
+    calls gated sparse (from call 5 on) and that each dense call launched
+    K1 once a block (the windowed dense) and each sparse call K2 (visual
+    rows), K1 (text rows) and the merge once a block, and K3 never."""
+    kerns = path_kernels(kernels)
+    calls = per_call_launches(kernels, pipe)
+    noise = torch.Generator(device=DEV)
+    noise.manual_seed(42)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kerns.values():
+        f.launches = 0
+    out = pipe(text, neg, generator=noise, **call_kw)
+    torch.cuda.synchronize()
+    launches = {n: f.launches for n, f in kerns.items()}
+    del pipe.model.run_blocks
+    n = pipe.model.cfg.num_blocks
+    cfg = pipe.model.cfg
+    if out.shape != (1, cfg.out_channels, *pipe.grid) \
+            or not torch.isfinite(out).all():
+        raise AssertionError(f"CogVideoX output {tuple(out.shape)} not "
+                             f"finite or of the wrong shape")
+    ncalls = 2 * len(pipe.step_seconds)
+    want_sparse = list(range(pipe.sparse_warm_calls, ncalls))
+    dense_call = {"K1": n, "K2": 0, "K3": 0, "K1_merge": 0}
+    sparse_call = {"K1": n, "K2": n, "K3": 0, "K1_merge": n}
+    want = [sparse_call if c in want_sparse else dense_call
+            for c in range(ncalls)]
+    if pipe.sparse_calls != want_sparse or calls != want:
+        raise AssertionError(f"CogVideoX launches per call {calls} (sparse "
+                             f"calls {pipe.sparse_calls}), want {want}")
+    return out, {
+        "launches": launches,
+        "launches_per_dense_call": dense_call,
+        "launches_per_sparse_call": sparse_call,
+        "sparse_calls": pipe.sparse_calls, "step_seconds": pipe.step_seconds,
+        "denoise_seconds": pipe.denoise_seconds,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def pipeline_cogvideox_phase(kernels):
+    """CogVideoX1.5-5B T2V at full width and depth (COG_PIPE): s/step, peak
+    memory, launches per dense and sparse call, then one sparse step (2
+    calls, the gate at 0) under the profiler."""
+    pipe, cfg, text, neg = cog_full_pipe(COG_PIPE["cfg"], COG_PIPE["steps"])
+    res = {"config": dataclasses.asdict(cfg),
+           "params": sum(p.numel() for p in pipe.model.parameters()),
+           "weight_gb": tree_bytes(pipe.model) / 2**30,
+           "grid": list(pipe.grid), "visual_tokens": pipe.site.visual_len,
+           "steps": COG_PIPE["steps"], "cut": COG_PIPE["cut"]}
+    _, run = cog_pipe_run(kernels, pipe, text, neg)
+    res.update(run)
+    pipe.sparse_warm_calls = 0
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(43)
+    res["profiled_sparse_step"] = profile_run(
+        lambda: pipe(text, neg, generator=gen, num_steps=1))
+    return res
+
+
+def pipeline_cogvideox_i2v_phase(kernels):
+    """CogVideoX1.5 I2V: in_channels 32 (noise | image latents), COG_I2V's
+    depth, the condition of a seeded image through the CLI's stand-in
+    encoder (cog_i2v_condition: the first latent frame, zeros after), ofs
+    2.0; launches per call as the T2V phase's."""
+    from rectified_spaattn_tpu_torch.cli.generate import _demo_vae_encoder
+    from rectified_spaattn_tpu_torch.pipelines import cog_i2v_condition
+
+    pipe, cfg, text, neg = cog_full_pipe(COG_I2V["cfg"], COG_PIPE["steps"],
+                                         seed=1)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(44)
+    image = torch.rand((1, 3, COG_PIPE["height"], COG_PIPE["width"]),
+                       generator=gen, device=DEV) * 2 - 1
+    enc = _demo_vae_encoder(cfg.out_channels, (1, *pipe.grid[1:]), DEV)
+    cond = cog_i2v_condition(image, enc, pipe.grid)
+    if cond.shape != (1, cfg.in_channels - cfg.out_channels, *pipe.grid) \
+            or cond[:, :, 1:].abs().max() != 0 \
+            or not cond[:, :, :1].abs().max() > 0:
+        raise AssertionError("cog_i2v_condition: not the first latent frame "
+                             "alone")
+    seen, embed = {}, pipe.model.embed
+
+    def read_ofs(*a, **kw):
+        seen["ofs"] = a[4] if len(a) > 4 else kw.get("ofs")
+        return embed(*a, **kw)
+
+    pipe.model.embed = read_ofs
+    try:
+        _, res = cog_pipe_run(kernels, pipe, text, neg, condition=cond)
+    finally:
+        del pipe.model.embed
+    if seen["ofs"] is None or not bool((seen["ofs"] == 2.0).all()):
+        raise AssertionError(f"I2V ran with ofs {seen['ofs']}, want 2.0")
+    res.update({"config": dataclasses.asdict(cfg), "ofs": 2.0,
+                "condition": list(cond.shape), "cut": COG_I2V["cut"]})
+    return res
+
+
+def small_cog_check(i2v: bool) -> dict:
+    """A small CogVideoX pipeline (2 blocks of 4 heads x 64) on the GPU in
+    bf16 against the same weights on the CPU in fp32, TeaCache on (calls
+    2 and 3 skip; the same decisions on both), sparse from call 5, I2V on
+    a seeded condition; held to the output's scale."""
+    from rectified_spaattn_tpu_torch.models import (
+        CogVideoXConfig, CogVideoXDiT, init_random_weights)
+    from rectified_spaattn_tpu_torch.pipelines import CogVideoXPipeline
+
+    cfg = CogVideoXConfig(in_channels=32 if i2v else 16, hidden_dim=256,
+                          heads=4, num_blocks=2, text_dim=64,
+                          time_embed_dim=64)
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    ref = init_random_weights(CogVideoXDiT(cfg), gen)
+    gpu = CogVideoXDiT(cfg)
+    gpu.load_state_dict(ref.state_dict())
+    gpu = gpu.to(torch.bfloat16)
+    text = torch.randn((1, 256, cfg.text_dim), generator=gen)
+    neg = torch.zeros_like(text)
+    kw = dict(height=128, width=256, frames=17, num_steps=4, sa_drop_rate=0.5,
+              p_remain_rates=0.5, group_rows=2, **SMALL_COG_TEACACHE)
+    p_cpu = CogVideoXPipeline(model=ref, device="cpu", **kw)
+    init = torch.randn((1, cfg.out_channels, *p_cpu.grid), generator=gen)
+    extra = {}
+    if i2v:
+        cond = torch.zeros((1, 16, *p_cpu.grid))
+        cond[:, :, :1] = torch.randn((1, 16, 1, *p_cpu.grid[1:]),
+                                     generator=gen)
+        extra["condition"] = cond
+    want = p_cpu(text, neg, init_latents=init, **extra)
+    p_gpu = CogVideoXPipeline(model=gpu, device=DEV, **kw)
+    got = p_gpu(text, neg, init_latents=init, **extra).cpu()
+    if p_gpu.teacache.decisions != p_cpu.teacache.decisions \
+            or False not in p_gpu.teacache.decisions \
+            or not p_gpu.sparse_calls:
+        raise AssertionError(
+            f"small CogVideoX pipeline: decisions {p_gpu.teacache.decisions}"
+            f" (CPU {p_cpu.teacache.decisions}), sparse calls "
+            f"{p_gpu.sparse_calls}")
+    name = f"small CogVideoX {'I2V' if i2v else 'T2V'} pipeline GPU vs CPU"
+    return {**held_to_scale(name, got, want),
+            "teacache_decisions": p_gpu.teacache.decisions,
+            "sparse_calls": p_gpu.sparse_calls}
+
+
+def synth_cog_sd(cj: dict, gen) -> dict:
+    """A diffusers CogVideoXTransformer3DModel state dict (1.5: the Linear
+    patch embed, the ofs embedding) for the config json ``cj``."""
+    d = cj["num_attention_heads"] * cj["attention_head_dim"]
+    hd, te = cj["attention_head_dim"], cj["time_embed_dim"]
+    sd = {}
+    lin = lambda n, o, i: (_synth(sd, gen, n + ".weight", (o, i), "w"),
+                           _synth(sd, gen, n + ".bias", (o,), "0"))
+    ln = lambda n, c: (_synth(sd, gen, n + ".weight", (c,), "ones"),
+                       _synth(sd, gen, n + ".bias", (c,), "0"))
+    patch = cj["patch_size_t"] * cj["patch_size"] ** 2
+    lin("patch_embed.proj", d, cj["in_channels"] * patch)
+    lin("patch_embed.text_proj", d, cj["text_embed_dim"])
+    for emb in ("time_embedding", "ofs_embedding"):
+        lin(f"{emb}.linear_1", te, te)
+        lin(f"{emb}.linear_2", te, te)
+    for i in range(cj["num_layers"]):
+        b = f"transformer_blocks.{i}"
+        for n in ("norm1", "norm2"):
+            lin(f"{b}.{n}.linear", 6 * d, te)
+            ln(f"{b}.{n}.norm", d)
+        for nm in ("to_q", "to_k", "to_v", "to_out.0"):
+            lin(f"{b}.attn1.{nm}", d, d)
+        ln(f"{b}.attn1.norm_q", hd)
+        ln(f"{b}.attn1.norm_k", hd)
+        lin(f"{b}.ff.net.0.proj", 4 * d, d)
+        lin(f"{b}.ff.net.2", d, 4 * d)
+    ln("norm_final", d)
+    lin("norm_out.linear", 2 * d, te)
+    ln("norm_out.norm", d)
+    lin("proj_out", patch * cj["out_channels"], d)
+    return sd
+
+
+def ckpt_cog_leg(kernels, root: str, out_dir: str) -> dict:
+    """The CogVideoX checkpoint path: a seeded bf16 snapshot with
+    transformer/ in diffusers' CogVideoXTransformer3DModel key layout at
+    CogVideoXConfig()'s widths cut to 2 blocks, and the phase's 16-channel
+    VAE; load_transformer on the card held to a CPU load bit for bit; then
+    the CLI's --model cogvideox-t2v --ckpt_dir at 480x832 (K1 and K2
+    launched, the text rows split and merged, K3 never), writing uint8
+    frames."""
+    from rectified_spaattn_tpu_torch.cli.generate import main as cli_main
+    from rectified_spaattn_tpu_torch.models.pretrained import load_transformer
+
+    c = COG_CKPT
+    cog_root = os.path.join(root, "cogvideox")
+    os.makedirs(cog_root)
+    os.symlink(os.path.join(root, "vae"), os.path.join(cog_root, "vae"))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(13)
+    sd = synth_cog_sd(c["transformer"], gen)
+    res = {"transformer_snapshot_bytes": write_snapshot(
+        cog_root, "transformer", sd, c["transformer"])}
+    del sd
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, model = load_transformer("cogvideox", cog_root, device=DEV)
+    torch.cuda.synchronize()
+    res["load_seconds"] = time.perf_counter() - t0
+    _, ref = load_transformer("cogvideox", cog_root, cache=False,
+                              device="cpu")
+    got, want = model.state_dict(), ref.state_dict()
+    if set(got) != set(want) or any(
+            got[k].dtype != t.dtype or not torch.equal(got[k].cpu(), t)
+            for k, t in want.items()):
+        raise AssertionError("the CogVideoX GPU load differs from the CPU "
+                             "load")
+    res.update(tensors_equal_to_cpu_load=len(want),
+               config=dataclasses.asdict(cfg))
+    del model, ref, got, want
+    torch.cuda.empty_cache()
+    argv = ["--model", "cogvideox-t2v", "--ckpt_dir", cog_root, "--height",
+            str(c["height"]), "--width", str(c["width"]), "--frame",
+            str(c["frame"]), "--num_steps", str(c["steps"]), "--mode",
+            "sparse", "--group_rows", "2", "--out_dir", out_dir, "--device",
+            DEV]
+    kerns = path_kernels(kernels)
+    zero_launches(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    line = cli_main(argv)
+    cli_s = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in kerns.items()}
+    if min(launches["K1"], launches["K2"], launches["K1_merge"]) == 0 \
+            or launches["K3"]:
+        raise AssertionError(f"unexpected launches on the CogVideoX "
+                             f"checkpoint path: {launches}")
+    frames = np.load(line["output"]) if line["output"].endswith(
+        ".npy") else None
+    want_shape = (c["frames_out"], c["height"], c["width"], 3)
+    if frames is None or frames.dtype != np.uint8 \
+            or frames.shape != want_shape:
+        raise AssertionError(f"the CogVideoX CLI wrote {line['output']}: "
+                             f"{getattr(frames, 'shape', None)}, want uint8 "
+                             f"{want_shape}")
+    res["cli"] = {"argv": argv, "line": line, "seconds": cli_s,
+                  "launches": launches, "frames": list(frames.shape),
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    return res
 
 
 # ------------------------------------------------------------- Wan phases ---
@@ -3207,6 +3849,23 @@ def variant_entries(s3, s2, sass) -> list:
 
 # ------------------------------------------------------------------ main ---
 
+def cog_jobs(name: str, csites: dict) -> dict:
+    """The kernel's head_dim-64 jobs at the CogVideoX site (both regimes)
+    for the kernels line."""
+    jobs = {"K1": ("visual_rows_g1", "text_rows", "dense_bm1024"),
+            "K2": ("visual_g2",), "K1_merge": ("merge",)}[name]
+    out = {}
+    for regime, kern in csites.items():
+        for job in jobs:
+            key = {"visual_rows_g1": "cog_K1_visual_g1",
+                   "text_rows": "cog_K1_text_rows",
+                   "dense_bm1024": "cog_K1_dense_bm1024",
+                   "visual_g2": "cog_K2_visual_g2",
+                   "merge": "cog_K1_merge"}[job]
+            out[f"cogvideox_d64_{job}_{regime}"] = kern[key]
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3267,6 +3926,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     small = small_pipeline_check()
+    small["cogvideox_t2v"] = small_cog_check(i2v=False)
+    small["cogvideox_i2v"] = small_cog_check(i2v=True)
     emit("small_pipeline_gpu_vs_cpu", t0, **small)
 
     t0 = time.perf_counter()
@@ -3310,6 +3971,23 @@ def main() -> int:
     t0 = time.perf_counter()
     a14b = wan22_a14b_phase(kernels)
     emit("wan22_a14b", t0, nvidia_smi=smi, **a14b)
+
+    csites = {}
+    for regime in ("random", "smooth"):
+        t0 = time.perf_counter()
+        res, csites[regime] = cog_site_phase(kernels, ops, regime)
+        emit(f"cog_site_{regime}", t0, nvidia_smi=smi, **res)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cpipe = pipeline_cogvideox_phase(kernels)
+    emit("pipeline_cogvideox", t0, nvidia_smi=smi, **cpipe)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ci2v = pipeline_cogvideox_i2v_phase(kernels)
+    emit("pipeline_cogvideox_i2v", t0, nvidia_smi=smi, **ci2v)
+    torch.cuda.empty_cache()
 
     rings, ring_res, ring_ref = {}, {}, None
     for regime in ("random", "smooth"):
@@ -3360,7 +4038,11 @@ def main() -> int:
                          "wan22_a14b": a14b["launches"][n],
                          "hunyuan_ckpt": ckpt["cli"]["launches"].get(n, 0),
                          "hunyuan_i2v_ckpt":
-                             ckpt["cli_i2v"]["launches"].get(n, 0)}
+                             ckpt["cli_i2v"]["launches"].get(n, 0),
+                         "cogvideox": cpipe["launches"][n],
+                         "cogvideox_i2v": ci2v["launches"][n],
+                         "cogvideox_ckpt":
+                             ckpt["cogvideox"]["cli"]["launches"][n]}
     ks_t, ks_v = rings["random"]["K1s_ring_text"], \
         rings["random"]["K1s_ring_visual"]
     mainloop = "rectified_spaattn_tpu_torch/csrc/hopper_attn.cuh"
@@ -3378,7 +4060,7 @@ def main() -> int:
          "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:89",
          "launches": sum(by_path("K1").values()),
          "launches_by_path": by_path("K1"),
-         "max_abs_err": max(errs["K1"], k1t["max_abs_err"]),
+         "max_abs_err": max(errs["K1"], errs["K1_d64"], k1t["max_abs_err"]),
          "ms": k1t["ms"], "plain_ms": k1t["plain_ms"],
          "bound_ms": k1t["bound_ms"], "bound_by": k1t["bound_by"],
          "library_ms": k1t["library_ms"],
@@ -3392,12 +4074,13 @@ def main() -> int:
                         "wan_visual_g1": wsite["K1_wan_visual_g1"],
                         "wan_visual_g1_smooth":
                             wsites["smooth"]["K1_wan_visual_g1"],
-                        "wan_dense_bm1024": wsite["K1_wan_dense_bm1024"]}},
+                        "wan_dense_bm1024": wsite["K1_wan_dense_bm1024"],
+                        **cog_jobs("K1", csites)}},
         {"name": "K2", "route": "cuda", "source": src,
          "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:317",
          "launches": sum(by_path("K2").values()),
          "launches_by_path": by_path("K2"),
-         "max_abs_err": max(errs["K2"], k2["max_abs_err"],
+         "max_abs_err": max(errs["K2"], errs["K2_d64"], k2["max_abs_err"],
                             site["K2_visual_g4"]["max_abs_err"]),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
@@ -3407,7 +4090,8 @@ def main() -> int:
          "kernel_ab": ab_of("K2_visual_g2"),
          "other_jobs": {"visual_rows_g2_smooth": smooth["K2_visual_g2"],
                         "visual_rows_g4": site["K2_visual_g4"],
-                        "visual_rows_g4_smooth": smooth["K2_visual_g4"]}},
+                        "visual_rows_g4_smooth": smooth["K2_visual_g4"],
+                        **cog_jobs("K2", csites)}},
         {"name": "K3", "route": "cuda",
          "source": "rectified_spaattn_tpu_torch/csrc/dense_flash.cu",
          "replaces": "rectified_spaattn_tpu/kernels/flash.py:49",
@@ -3507,7 +4191,8 @@ def main() -> int:
          "bound_by": merge["bound_by"], "library_ms": None,
          "shape": f"{merge['n_split']} ranges x 6,144 rows x 128 (the "
                   "Hunyuan text rows' split)",
-         "design": "one warp a row"},
+         "design": "one warp a row",
+         "other_jobs": cog_jobs("K1_merge", csites)},
         k1q_stats_entry(src, site, smooth, qserrs),
         *variant_entries(s3, s2, ptxas["sass"]),
     ]}

@@ -78,7 +78,7 @@ EDITS = {
          "        un = P::next(p, c, u + 1);\n"),
     ],
     "compute": [(HEADER, "            mbar_expect_tx(&full[st], P::COPY_BYTES);\n"
-                 "            unsigned char* dst = ring + st * HA_STAGE;\n"
+                 "            unsigned char* dst = ring + st * STAGE;\n"
                  "            P::copy(p, c, row, dst, &full[st]);",
                  "            mbar_expect_tx(&full[st], 0);\n"
                  "            (void)row;"),
@@ -92,7 +92,7 @@ EDITS = {
                  "&full[st]);",
                  "        mbar_expect_tx(&full[st], 0);")],
     "load": [(HEADER, "        mbar_wait_or_trap(&full[st], ph);\n"
-              "        const unsigned char* ks = ring + st * HA_STAGE;",
+              "        const unsigned char* ks = ring + st * STAGE;",
               "        mbar_wait_or_trap(&full[st], ph);\n"
               "        if (u >= 0) {\n          (void)win;\n"
               "          un = P::next(p, c, u + 1);\n"
@@ -101,7 +101,7 @@ EDITS = {
               "          if (++st == NS) {\n            st = 0;\n"
               "            ph ^= 1;\n          }\n          continue;\n"
               "        }\n"
-              "        const unsigned char* ks = ring + st * HA_STAGE;"),
+              "        const unsigned char* ks = ring + st * STAGE;"),
              (K1Q, "      mbar_wait_or_trap(&full[st], ph);\n"
               "      const unsigned char* kst = ring + st * L::RING;",
               "      mbar_wait_or_trap(&full[st], ph);\n"

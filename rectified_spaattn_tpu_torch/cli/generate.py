@@ -1,7 +1,7 @@
 """Generation CLI of the PyTorch port (port of
 rectified_spaattn_tpu/cli/generate.py: ``--model hunyuan``,
-``hunyuan-i2v``, ``wan21-t2v``, ``wan21-i2v``, ``wan22-t2v``, ``wan22-i2v``
-and ``wan22-ti2v``):
+``hunyuan-i2v``, ``wan21-t2v``, ``wan21-i2v``, ``wan22-t2v``, ``wan22-i2v``,
+``wan22-ti2v``, ``cogvideox-t2v`` and ``cogvideox-i2v``):
 
     python -m rectified_spaattn_tpu_torch.cli.generate --model hunyuan \
         --height 720 --width 1280 --frame 128 --sa_drop_rate 0.8 \
@@ -10,6 +10,8 @@ and ``wan22-ti2v``):
         --height 720 --width 1280 --frame 81 --enable_teacache
     python -m rectified_spaattn_tpu_torch.cli.generate --model wan22-i2v \
         --height 720 --width 1280 --frame 81 --image first.npy --host_swap
+    python -m rectified_spaattn_tpu_torch.cli.generate --model cogvideox-t2v \
+        --height 768 --width 1360 --frame 81 --group_rows 2
 
 The flags are the JAX CLI's, plus ``--device`` (default cuda; the run
 raises without a GPU unless ``--device cpu``).  ``--tp N`` runs the
@@ -35,7 +37,9 @@ layer (models/quant.py::quantize_model, the JAX CLI's ``quantize_params``
 rules), so the device never holds a second full copy.  ``--trace_out``
 writes the TeaCache schedule trace (cache/teacache.py::trace_to),
 ``--profile`` a torch.profiler chrome trace.  Flags of parts not ported
-(the CogVideoX and Flux families, scan execution) raise
+(the Flux family, scan execution, and for CogVideoX the port's own levers
+that its JAX pipeline lacks: ``--mlp_chunk``, ``--teacache_residual int8``,
+``--teacache_offload``, ``--replay_trace``, ``--density``) raise
 NotImplementedError.
 
 ``--image`` conditions the image-to-video models: ``.npy`` (HWC or CHW,
@@ -43,10 +47,12 @@ in [-1, 1] or 0-255), or ``.png`` / ``.jpg`` through PIL where it is
 installed.  The image is encoded by the snapshot's VAE, or with random
 weights by a seeded stand-in encoder (``_demo_vae_encoder``), into
 HunyuanVideo I2V's held first latent frame (token_replace) or condition
-channels (latent_concat), Wan I2V's mask + latent channels, or Wan2.2
-TI2V's held first frame (per-token timesteps).  Without ``--image`` the
-I2V models run the JAX CLI's neutral conditioning: a zero first frame or
-zero condition channels and, for ``wan21-i2v`` with random weights, a
+channels (latent_concat), Wan I2V's mask + latent channels, Wan2.2
+TI2V's held first frame (per-token timesteps), or CogVideoX I2V's
+first-frame latent channels (``cog_i2v_condition``).  Without ``--image``
+the I2V models run the JAX CLI's neutral conditioning: a zero first frame
+or zero condition channels (CogVideoX too, where the JAX CLI draws noise
+for all 32 input channels) and, for ``wan21-i2v`` with random weights, a
 zero [1, 257, image_dim] CLIP context.  ``wan22-t2v`` / ``wan22-i2v`` run
 Wan2.2 A14B's two transformers (``transformer_2/`` of the snapshot, or a
 second random tree); ``--host_swap`` keeps both trees pinned on the host
@@ -83,6 +89,7 @@ DEFAULTS = {
     "wan21-t2v": (0.75, 0.2),
     "wan21-i2v": (0.75, 0.3), "wan22-ti2v": (0.75, 0.1),
     "wan22-t2v": (0.85, 0.2), "wan22-i2v": (0.85, 0.3),
+    "cogvideox-t2v": (0.85, 0.2), "cogvideox-i2v": (0.75, 0.2),
 }
 
 
@@ -166,6 +173,17 @@ def _check_ported(args):
         "--scan_blocks": args.scan_blocks,
         "--dispatch_segments": args.dispatch_segments > 1,
     }
+    if args.model.startswith("cogvideox"):
+        # the port's levers that the CogVideoX pipeline (as its JAX
+        # counterpart) does not take
+        unported.update({
+            "--mlp_chunk for cogvideox": args.mlp_chunk > 1,
+            "--teacache_residual int8 for cogvideox":
+                args.teacache_residual != "bf16",
+            "--teacache_offload for cogvideox": args.teacache_offload,
+            "--replay_trace for cogvideox": args.replay_trace is not None,
+            "--density for cogvideox": args.density,
+        })
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
@@ -503,6 +521,66 @@ def build_wan(args):
     return pipe, (text, neg), extra
 
 
+def build_cogvideox(args):
+    """Returns (pipe, (text, negative text), extra): the ``--ckpt_dir``
+    snapshot's model, T5 encoder and VAE, or seeded random weights at
+    ``--scale`` (the JAX CLI's config: ``hidden`` from the scale, head_dim
+    held at 64, text_dim 512, time_embed_dim 256; I2V takes 32 input
+    channels).  ``extra`` carries cogvideox-i2v's condition channels: the
+    encoded ``--image`` (the snapshot's VAE, or the seeded stand-in
+    encoder), or zeros without one."""
+    from ..models import CogVideoXConfig, CogVideoXDiT
+    from ..pipelines import CogVideoXPipeline
+    from ..pipelines.cogvideox import cog_i2v_condition
+    from ..utils import resolve_device
+    device = resolve_device(args.device)
+    is_i2v = args.model.endswith("i2v")
+    latent_ch = 16
+    vae_encode, vae_decode = None, None
+    if args.ckpt_dir:
+        cfg, model, encoders, vae_encode, vae_decode = _from_ckpt(
+            args, "cogvideox", device)
+        (text, _), (neg, _) = _encode_prompt(encoders, args.prompt,
+                                             cfg.text_dim, 226, device)
+    else:
+        s = args.scale
+        hidden = max(128, int(3072 * s) // 64 * 64)
+        cfg = CogVideoXConfig(
+            in_channels=2 * latent_ch if is_i2v else latent_ch,
+            out_channels=latent_ch, hidden_dim=hidden,
+            heads=hidden // 64,    # head_dim 64 = the rope axes' sum
+            num_blocks=max(2, int(42 * s)), text_dim=512,
+            time_embed_dim=256)
+        model = _quantized(_random_model(CogVideoXDiT, cfg, device), args)
+        text, _ = _random_text(args.prompt, 256, cfg.text_dim, device=device)
+        neg, _ = _random_text("", 256, cfg.text_dim, device=device)
+    pipe = CogVideoXPipeline(
+        model=model, height=args.height, width=args.width,
+        frames=args.frame, num_steps=args.num_steps,
+        sa_drop_rate=args.sa_drop_rate, p_remain_rates=args.p_remain_rates,
+        mode="flash" if args.mode == "torch" else args.mode,
+        enable_teacache=args.enable_teacache,
+        teacache_thresh=args.teacache_thresh,
+        teacache_signal_scale=args.teacache_signal_scale, is_i2v=is_i2v,
+        vae_decode=vae_decode, mesh=args.mesh, device=device,
+        group_rows=args.group_rows, plan_row_chunk=args.plan_row_chunk,
+        plan_kv_tile=args.plan_kv_tile, kv_pack=args.kv_pack,
+        head_chunk=args.head_chunk)
+    extra = {}
+    if is_i2v:
+        if args.image is not None and not args.ckpt_dir:
+            vae_encode = _demo_vae_encoder(latent_ch, (1, *pipe.grid[1:]),
+                                           device)
+        extra["condition"] = (
+            cog_i2v_condition(
+                _load_image(args.image, args.height, args.width).to(device),
+                vae_encode, pipe.grid)
+            if args.image is not None and vae_encode is not None else
+            torch.zeros((1, cfg.in_channels - cfg.out_channels, *pipe.grid),
+                        device=device))
+    return pipe, (text, neg), extra
+
+
 def _tp_mesh(args):
     """--tp N: a 1 x N x 1 mesh over the torch.distributed world of N
     processes (torchrun sets it up; a process group the caller already
@@ -542,8 +620,9 @@ def main(argv=None):
     from ..utils import profiler_trace, set_seed
     args.mesh, owned = _tp_mesh(args)
     try:
-        build = (build_hunyuan if args.model.startswith("hunyuan")
-                 else build_wan)
+        build = {"hunyuan": build_hunyuan, "wan21": build_wan,
+                 "wan22": build_wan, "cogvideox": build_cogvideox}[
+                     args.model.split("-")[0]]
         pipe, inputs, extra = build(args)
         noise = set_seed(args.seed, pipe.device)
         with profiler_trace(args.profile), trace_to(args.trace_out):

@@ -55,7 +55,12 @@
 // registers, and the mask is applied branch-free by selects.  K1/K1s and
 // K2 are policies of hopper_attn_kernel (SparseTiles and GroupedTiles in
 // sparse_tiles.cuh, sections "K1 and K1s" and "K2"); K1's launches of fewer row tiles than SMs split each list into
-// key ranges whose fp32 partials a second kernel merges.  K1q/K1q-s
+// key ranges whose fp32 partials a second kernel merges.  K1/K1s, K2 and
+// the merge are built at head_dim 128 (SparseTiles, GroupedTiles,
+// merge_splits_kernel) and 64 (CogVideoX: SparseTilesAt<T, *, 64>,
+// GroupedTilesAt<T, 64>, merge_splits64_kernel): at 64 a q / K / V tile is
+// one 64-column half and O += P V runs m64n64k16, the head_dim being the
+// policy's compile-time D; K1q stays at 128.  K1q/K1q-s
 // (section "K1q") is hopper_attn_q_kernel: the same CTA, with the
 // producer warpgroup converting int8 tiles and, for "mxu8", the s8 wgmma.
 //
@@ -134,28 +139,76 @@ merge_splits_kernel(const float* o_part, const float* m_part,
   }
 }
 
-template <typename T>
+// The same merge at head_dim 64: 2 columns a lane.
+template <typename T, bool STATS>
+__global__ void __launch_bounds__(256)
+merge_splits64_kernel(const float* o_part, const float* m_part,
+                      const float* l_part, T* o, float* m_out, float* l_out,
+                      long long rows, int n_split) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int col = (threadIdx.x & 31) * 2;
+  float mx = neg_inf();
+  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, m_part[s * rows + row]);
+  const float m_safe = isfinite(mx) ? mx : 0.f;
+  float lsum = 0.f;
+  float acc[2] = {0.f, 0.f};
+  for (int s = 0; s < n_split; ++s) {
+    const long long pr = s * rows + row;
+    const float ls = l_part[pr];
+    const float w = ls > 0.f ? __expf(m_part[pr] - m_safe) * ls : 0.f;
+    const float2 x = *reinterpret_cast<const float2*>(o_part + pr * 64 + col);
+    lsum += w;
+    acc[0] += x.x * w;
+    acc[1] += x.y * w;
+  }
+  const float den = lsum > 0.f ? lsum : 1.f;
+  *reinterpret_cast<uint32_t*>(o + row * 64 + col) =
+      Type<T>::pack(acc[0] / den, acc[1] / den);
+  if constexpr (STATS) {
+    if (col == 0) {
+      m_out[row] = mx;
+      l_out[row] = lsum;
+    }
+  }
+}
+
+template <typename T, int D>
 int launch_k1(const K1Params& p, int bh, bool stats, cudaStream_t s) {
   const dim3 grid(p.sq / HA_ROWS * p.n_split, bh);
   // a split launch writes partials, whose merge gives K1s its stats: one
-  // kernel for K1 and K1s, so that their outputs agree bit for bit
-  if (stats && p.n_split == 1)
-    return launch_hopper_attn<T, SparseTiles<T, true>>(p, grid, s);
-  return launch_hopper_attn<T, SparseTiles<T, false>>(p, grid, s);
+  // kernel for K1 and K1s, so that their outputs agree bit for bit; head_dim
+  // 128 runs SparseTiles (the kernels' names of the D = 128 build), 64
+  // SparseTilesAt<T, *, 64>
+  using K1 = std::conditional_t<D == HA_D, SparseTiles<T, false>,
+                                SparseTilesAt<T, false, D>>;
+  using K1s = std::conditional_t<D == HA_D, SparseTiles<T, true>,
+                                 SparseTilesAt<T, true, D>>;
+  if (stats && p.n_split == 1) return launch_hopper_attn<T, K1s>(p, grid, s);
+  return launch_hopper_attn<T, K1>(p, grid, s);
 }
 
-template <typename T>
+template <typename T, int D>
 int launch_merge(const float* o_part, const float* m_part, const float* l_part,
                  void* o, float* m_out, float* l_out, long long rows,
                  int n_split, cudaStream_t s) {
   const dim3 grid((unsigned)((rows + 7) / 8));
   T* out = static_cast<T*>(o);
-  if (m_out)
-    merge_splits_kernel<T, true><<<grid, 256, 0, s>>>(
-        o_part, m_part, l_part, out, m_out, l_out, rows, n_split);
-  else
-    merge_splits_kernel<T, false><<<grid, 256, 0, s>>>(
-        o_part, m_part, l_part, out, m_out, l_out, rows, n_split);
+  if constexpr (D == HA_D) {
+    if (m_out)
+      merge_splits_kernel<T, true><<<grid, 256, 0, s>>>(
+          o_part, m_part, l_part, out, m_out, l_out, rows, n_split);
+    else
+      merge_splits_kernel<T, false><<<grid, 256, 0, s>>>(
+          o_part, m_part, l_part, out, m_out, l_out, rows, n_split);
+  } else {
+    if (m_out)
+      merge_splits64_kernel<T, true><<<grid, 256, 0, s>>>(
+          o_part, m_part, l_part, out, m_out, l_out, rows, n_split);
+    else
+      merge_splits64_kernel<T, false><<<grid, 256, 0, s>>>(
+          o_part, m_part, l_part, out, m_out, l_out, rows, n_split);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -691,6 +744,29 @@ int launch_q(const QParams& p, dim3 grid, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// The kernels of one head_dim, D = 128 or 64: q [BH, Sq, D] dense, K and V
+// rows of D elements `kv_row_stride` apart (D, or 2D for the packed K|V
+// stream), maps of D columns.
+template <int D>
+int encode_k1_maps(K1Params& p, int dtype, const void* q, const void* k,
+                   const void* v, int bh, int sq, long long s,
+                   long long kv_bh_stride, long long kv_row_stride) {
+  if (encode_rows_map(&p.tmq, dtype, q, sq, bh, 1, D, (long long)sq * D,
+                      (long long)bh * sq * D, 64, D) ||
+      encode_rows_map(&p.tmk, dtype, k, s, bh, 1, kv_row_stride, kv_bh_stride,
+                      bh * kv_bh_stride, 64, D) ||
+      encode_rows_map(&p.tmv, dtype, v, s, bh, 1, kv_row_stride, kv_bh_stride,
+                      bh * kv_bh_stride, 64, D))
+    return -2;
+  return 0;
+}
+
+// head_dim 128 or 64 with K and V rows D or 2D (packed) apart
+bool k1_shape_ok(int head_dim, long long kv_row_stride) {
+  return (head_dim == HA_D || head_dim == 64) &&
+         (kv_row_stride == head_dim || kv_row_stride == 2 * head_dim);
+}
+
 }  // namespace
 
 extern "C" {
@@ -699,8 +775,9 @@ extern "C" {
 // K1s when `stats`.  n_split == 1: o [BH, Sq, D] in the K/V type, and K1s's
 // m_out / l_out [BH, Sq].  n_split > 1: the ranges' partials into o_part
 // [n_split, BH, Sq, D] and m_out / l_out [n_split, BH, Sq], all fp32, for
-// rsa_k1_merge_launch.  Returns a cudaError_t value (0 on success), -1 for
-// an unsupported (dtype, head_dim), -2 if a tensor map cannot be encoded.
+// rsa_k1_merge_launch.  head_dim 128 or 64.  Returns a cudaError_t value (0
+// on success), -1 for an unsupported (dtype, head_dim, row stride), -2 if
+// a tensor map cannot be encoded.
 int rsa_k1_launch(const void* q, const void* k, const void* v, void* o,
                   float* o_part, float* m_out, float* l_out,
                   const int* indices, const int* counts, const int* clean,
@@ -710,15 +787,14 @@ int rsa_k1_launch(const void* q, const void* k, const void* v, void* o,
                   int chunk_blocks, int visual_len, int text_start,
                   int has_text, int n_split, int split_slots, float sm_scale,
                   int head_dim, int dtype, int stats, void* stream) {
-  if (head_dim != HA_D || (dtype != 0 && dtype != 1)) return -1;
+  if (!k1_shape_ok(head_dim, kv_row_stride) || (dtype != 0 && dtype != 1))
+    return -1;
   K1Params p{};
   const long long s = (long long)num_key_blocks * HA_KEYS;
-  if (encode_rows_map(&p.tmq, dtype, q, sq, bh, 1, HA_D, (long long)sq * HA_D,
-                      (long long)bh * sq * HA_D) ||
-      encode_rows_map(&p.tmk, dtype, k, s, bh, 1, kv_row_stride, kv_bh_stride,
-                      bh * kv_bh_stride) ||
-      encode_rows_map(&p.tmv, dtype, v, s, bh, 1, kv_row_stride, kv_bh_stride,
-                      bh * kv_bh_stride))
+  if (head_dim == HA_D ? encode_k1_maps<HA_D>(p, dtype, q, k, v, bh, sq, s,
+                                              kv_bh_stride, kv_row_stride)
+                       : encode_k1_maps<64>(p, dtype, q, k, v, bh, sq, s,
+                                            kv_bh_stride, kv_row_stride))
     return -2;
   p.o = o; p.o_part = o_part; p.m_out = m_out; p.l_out = l_out; p.v = v;
   p.indices = indices; p.counts = counts; p.clean = clean;
@@ -731,30 +807,43 @@ int rsa_k1_launch(const void* q, const void* k, const void* v, void* o,
   p.n_split = n_split; p.split_slots = split_slots;
   p.sm_scale = sm_scale;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_k1<__nv_bfloat16>(p, bh, stats != 0, st);
-  return launch_k1<__half>(p, bh, stats != 0, st);
+  const bool sts = stats != 0;
+  if (head_dim == HA_D)
+    return dtype == 0 ? launch_k1<__nv_bfloat16, HA_D>(p, bh, sts, st)
+                      : launch_k1<__half, HA_D>(p, bh, sts, st);
+  return dtype == 0 ? launch_k1<__nv_bfloat16, 64>(p, bh, sts, st)
+                    : launch_k1<__half, 64>(p, bh, sts, st);
 }
 
 // The key split's merge: `rows` = BH * Sq rows of n_split partials into o
-// [rows, D] in the K/V type; K1s when m_out and l_out ([rows] fp32) are
-// given.
+// [rows, D] in the K/V type (D = head_dim, 128 or 64); K1s when m_out and
+// l_out ([rows] fp32) are given.
 int rsa_k1_merge_launch(const float* o_part, const float* m_part,
                         const float* l_part, void* o, float* m_out,
-                        float* l_out, long long rows, int n_split, int dtype,
-                        void* stream) {
+                        float* l_out, long long rows, int n_split,
+                        int head_dim, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if ((m_out == nullptr) != (l_out == nullptr)) return -1;
-  if (dtype == 0)
-    return launch_merge<__nv_bfloat16>(o_part, m_part, l_part, o, m_out,
-                                       l_out, rows, n_split, st);
-  if (dtype == 1)
-    return launch_merge<__half>(o_part, m_part, l_part, o, m_out, l_out,
-                                rows, n_split, st);
-  return -1;
+  if ((m_out == nullptr) != (l_out == nullptr) ||
+      (head_dim != HA_D && head_dim != 64) || (dtype != 0 && dtype != 1))
+    return -1;
+  if (head_dim == HA_D)
+    return dtype == 0
+               ? launch_merge<__nv_bfloat16, HA_D>(o_part, m_part, l_part, o,
+                                                   m_out, l_out, rows,
+                                                   n_split, st)
+               : launch_merge<__half, HA_D>(o_part, m_part, l_part, o, m_out,
+                                            l_out, rows, n_split, st);
+  return dtype == 0
+             ? launch_merge<__nv_bfloat16, 64>(o_part, m_part, l_part, o,
+                                               m_out, l_out, rows, n_split,
+                                               st)
+             : launch_merge<__half, 64>(o_part, m_part, l_part, o, m_out,
+                                        l_out, rows, n_split, st);
 }
 
 // K2: one union list per group * block_m query rows (block_m a multiple
-// of 128), membership in rowbits.  Returns as rsa_k1_launch.
+// of 128), membership in rowbits; head_dim 128 or 64.  Returns as
+// rsa_k1_launch.
 int rsa_k2_launch(const void* q, const void* k, const void* v, void* o,
                   const int* indices, const int* counts, const int* clean,
                   const int* rowbits, const int* text_len,
@@ -764,17 +853,15 @@ int rsa_k2_launch(const void* q, const void* k, const void* v, void* o,
                   int chunk_blocks, int visual_len, int text_start,
                   int has_text, float sm_scale, int head_dim, int dtype,
                   void* stream) {
-  if (head_dim != HA_D || (dtype != 0 && dtype != 1) || block_m % HA_ROWS ||
-      sq % HA_ROWS)
+  if (!k1_shape_ok(head_dim, kv_row_stride) || (dtype != 0 && dtype != 1) ||
+      block_m % HA_ROWS || sq % HA_ROWS)
     return -1;
   K1Params p{};
   const long long s = (long long)num_key_blocks * HA_KEYS;
-  if (encode_rows_map(&p.tmq, dtype, q, sq, bh, 1, HA_D, (long long)sq * HA_D,
-                      (long long)bh * sq * HA_D) ||
-      encode_rows_map(&p.tmk, dtype, k, s, bh, 1, kv_row_stride, kv_bh_stride,
-                      bh * kv_bh_stride) ||
-      encode_rows_map(&p.tmv, dtype, v, s, bh, 1, kv_row_stride, kv_bh_stride,
-                      bh * kv_bh_stride))
+  if (head_dim == HA_D ? encode_k1_maps<HA_D>(p, dtype, q, k, v, bh, sq, s,
+                                              kv_bh_stride, kv_row_stride)
+                       : encode_k1_maps<64>(p, dtype, q, k, v, bh, sq, s,
+                                            kv_bh_stride, kv_row_stride))
     return -2;
   p.o = o; p.v = v;
   p.indices = indices; p.counts = counts; p.clean = clean;
@@ -788,10 +875,18 @@ int rsa_k2_launch(const void* q, const void* k, const void* v, void* o,
   p.sm_scale = sm_scale;
   const dim3 grid(sq / HA_ROWS, bh);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_hopper_attn<__nv_bfloat16, GroupedTiles<__nv_bfloat16>>(
-        p, grid, st);
-  return launch_hopper_attn<__half, GroupedTiles<__half>>(p, grid, st);
+  if (head_dim == HA_D)
+    return dtype == 0
+               ? launch_hopper_attn<__nv_bfloat16,
+                                    GroupedTiles<__nv_bfloat16>>(p, grid, st)
+               : launch_hopper_attn<__half, GroupedTiles<__half>>(p, grid,
+                                                                  st);
+  return dtype == 0
+             ? launch_hopper_attn<__nv_bfloat16,
+                                  GroupedTilesAt<__nv_bfloat16, 64>>(p, grid,
+                                                                     st)
+             : launch_hopper_attn<__half, GroupedTilesAt<__half, 64>>(p, grid,
+                                                                      st);
 }
 
 // K1q: K1 on an int8 K|V payload kv [BH, S, 2D] (kv_bh_stride = S * 2D

@@ -12,15 +12,18 @@
 // others leaving at once; setmaxnreg moves the producer's registers to the
 // consumers (40 / 232 of the 168 a thread starts with).
 //
-//   * The q tile (128 x 128, 32 KB) arrives once per tile by TMA; a unit is
-//     128 keys (one mask block) of K and V, 64 KB, copied by TMA
+//   * The head_dim D is the policy's (P::D, a compile-time 128 or 64;
+//     MainloopDefaults is 128).  The q tile (128 x D: 32 KB at 128, 16 KB
+//     at 64) arrives once per tile by TMA; a unit is 128 keys (one mask
+//     block) of K and V (64 KB at 128, 32 KB at 64), copied by TMA
 //     (cp.async.bulk.tensor, 64 x 64 boxes, 128-byte swizzle) into a ring of
 //     HA_STAGES stages, one "full" and one "empty" mbarrier per stage.
 //   * S = Q K^T: wgmma.m64n128k16 with Q and K read from shared memory,
-//     fp32 accumulation.  O += P V: P rounded to the K/V type in registers
-//     (the S accumulator's layout is the A-register fragment's), V read
-//     from shared memory as the transposed B operand; nothing is
-//     transposed by hand.  m, l and O stay in fp32 registers.
+//     D / 16 steps, fp32 accumulation.  O += P V (m64nDk16): P rounded to
+//     the K/V type in registers (the S accumulator's layout is the
+//     A-register fragment's), V read from shared memory as the transposed
+//     B operand; nothing is transposed by hand.  m, l and O stay in fp32
+//     registers.
 //   * The caller's policy (a struct of static device functions) gives the
 //     tiles a CTA walks, the copies of each, the score mask of a unit, and
 //     the epilogue.  The mask is branch-free: each unit computes its key
@@ -31,8 +34,8 @@
 //     scripts' linear stand-in for exp, and the producer's cursor over a
 //     tile's units.
 //
-// Shared memory (1024-byte aligned for the swizzle): q [2 column halves]
-// [128 rows][128 B], then the ring: per stage K then V in the same layout,
+// Shared memory (1024-byte aligned for the swizzle): q [D / 64 column
+// halves][128 rows][128 B], then the ring: per stage K then V in the same layout,
 // then the barriers and 1 KB of per-warpgroup floats for the epilogue.
 #pragma once
 
@@ -105,7 +108,7 @@ EncodeTiled tensor_map_encoder() {
 
 constexpr int HA_ROWS = 128;          // query rows per CTA
 constexpr int HA_KEYS = 128;          // keys per unit (one mask block)
-constexpr int HA_D = 128;             // head_dim
+constexpr int HA_D = 128;             // head_dim of K1q, K3, S1 and the ablations
 constexpr int HA_THREADS = 384;       // 2 consumer warpgroups + 1 producer
 constexpr int HA_CONSUMERS = 256;
 constexpr int HA_STAGES = 2;
@@ -113,10 +116,13 @@ constexpr int HA_BOX = 64 * 128;      // a 64 x 64 box of 16-bit elements: 8 KB
 constexpr int HA_HALF = 2 * HA_BOX;   // 128 rows x 64 columns: 16 KB
 constexpr int HA_TILE = 2 * HA_HALF;  // 128 rows x 128 columns: 32 KB
 constexpr int HA_STAGE = 2 * HA_TILE; // K and V of one unit: 64 KB
-// the dynamic shared memory of a ring of `stages` stages: 165,936 bytes at
-// 2, 231,488 at 3 (of the 232,448 a CTA can have)
-constexpr int ha_smem(int stages) {
-  return 1024 + HA_TILE + stages * HA_STAGE + 8 * (2 + 2 * stages) +
+// a tile at head_dim d (64 or 128): d / 64 column halves, 16 KB at 64
+__host__ __device__ constexpr int ha_tile(int d) { return d / 64 * HA_HALF; }
+// the dynamic shared memory of a ring of `stages` stages at head_dim d:
+// 165,936 bytes at 2 stages and d = 128, 231,488 at 3 (of the 232,448 a
+// CTA can have); 84,016 at 2 stages and d = 64
+constexpr int ha_smem(int stages, int d = HA_D) {
+  return 1024 + ha_tile(d) + stages * 2 * ha_tile(d) + 8 * (2 + 2 * stages) +
          2 * 128 * 4;
 }
 
@@ -142,15 +148,17 @@ __device__ __forceinline__ void tma_halves(unsigned char* dst,
   }
 }
 
-// a 128-row x 128-column tile of 16-bit elements (rows from `row` of head
-// `head`, batch `batch`; rows past the tensor are zero-filled) as four 64 x 64
-// boxes of a 4-D map (D, row, head, batch), one column half after the other
+// a 128-row x D-column tile of 16-bit elements (rows from `row` of head
+// `head`, batch `batch`; rows past the tensor are zero-filled) as 64 x 64
+// boxes of a 4-D map (D, row, head, batch), one column half after the
+// other: four boxes at D = 128, two at 64
+template <int D = HA_D>
 __device__ __forceinline__ void tma_tile(unsigned char* dst,
                                          const CUtensorMap* map, int row,
                                          int head, int batch, uint64_t* bar) {
   const uint64_t m = reinterpret_cast<uint64_t>(map);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
+  for (int h = 0; h < D / 64; ++h) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       asm volatile(
@@ -164,18 +172,18 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst,
   }
 }
 
-// A 4-D map (D = 128, rows, heads, batch) of bf16 (dtype 0) or fp16 (1)
-// elements with the given strides in elements, in boxes of 64 columns x
-// `box_rows` rows (at most 256) with the 128-byte swizzle; rows past `rows`
-// read as zeros.  The stride of an axis of extent 1 is never applied, so
-// it is replaced by a valid one.
+// A 4-D map (D = d, 128 or 64, rows, heads, batch) of bf16 (dtype 0) or
+// fp16 (1) elements with the given strides in elements, in boxes of 64
+// columns x `box_rows` rows (at most 256) with the 128-byte swizzle; rows
+// past `rows` read as zeros.  The stride of an axis of extent 1 is never
+// applied, so it is replaced by a valid one.
 int encode_rows_map(CUtensorMap* map, int dtype, const void* base,
                     long long rows, long long heads, long long batch,
                     long long row_stride, long long head_stride,
-                    long long batch_stride, int box_rows = 64) {
+                    long long batch_stride, int box_rows = 64, int d = HA_D) {
   EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return -2;
-  cuuint64_t dims[4] = {(cuuint64_t)HA_D, (cuuint64_t)rows,
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)rows,
                         (cuuint64_t)heads, (cuuint64_t)batch};
   long long st[4] = {1, row_stride, head_stride, batch_stride};
   for (int i = 1; i < 4; ++i)
@@ -250,6 +258,10 @@ __device__ __forceinline__ void fence_regs(float (&r)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
+__device__ __forceinline__ void fence_regs(float (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[8][4]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i)
@@ -268,12 +280,19 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[8][4]) {
 #define HA_F64                                                      \
   HA_F8(0), HA_F8(8), HA_F8(16), HA_F8(24), HA_F8(32), HA_F8(40),   \
       HA_F8(48), HA_F8(56)
+#define HA_R32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}, "
+#define HA_F32 HA_F8(0), HA_F8(8), HA_F8(16), HA_F8(24)
 // d (64 x 128 fp32 of a warpgroup) += A B for one 16-deep step:
 //   ss: A (64 x 16) and B (128 x 16, K-major) from shared memory; d is
 //       overwritten where scale_d == 0
 //   rs: A from registers (the m16n8k16 A fragment of each warp's 16 rows),
 //       B (16 x 128) from shared memory as it is stored, a row per key with
-//       its 128 columns contiguous: the transposed (MN-major) operand
+//       its 128 columns contiguous: the transposed (MN-major) operand; on
+//       a 64 x 64 d (32 floats a thread), m64n64k16 with B 16 x 64, one
+//       column half (head_dim 64's O += P V)
 #define HA_WGMMA(T, TY)                                                      \
   template <> struct Wgmma<T> {                                              \
     static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a,    \
@@ -290,6 +309,16 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[8][4]) {
                    "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY  \
                    " " HA_R64 "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
                    : HA_F64                                                  \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),     \
+                     "r"(1));                                                \
+    }                                                                        \
+    static __device__ __forceinline__ void rs(float (&d)[32],                \
+                                              const uint32_t (&a)[4],        \
+                                              uint64_t b) {                  \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"              \
+                   "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY   \
+                   " " HA_R32 "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+                   : HA_F32                                                  \
                    : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),     \
                      "r"(1));                                                \
     }                                                                        \
@@ -319,6 +348,8 @@ __device__ __forceinline__ void fence_regs(int (&r)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 #undef HA_I8
+#undef HA_F32
+#undef HA_R32
 #undef HA_F64
 #undef HA_F8
 #undef HA_R64
@@ -417,10 +448,15 @@ struct Frag {
   int t4;       // lane % 4
 };
 
-// The ablations' hooks, which a policy inherits and may hide:
+// The head_dim and the ablations' hooks, which a policy inherits from
+// MainloopBase<D> (MainloopDefaults: D = 128) and may hide:
+//   D           the head_dim, 64 or 128: a q, K or V tile holds D / 64
+//               column halves, O is 64 x D a warpgroup (D / 2 floats a
+//               thread) and O += P V runs m64nDk16;
 //   STAGES      the ring's depth;
 //   copy(p, tile, row, dst, full): the unit's copies into ring stage dst,
-//               counted on its full barrier: K and V, COPY_BYTES (64 KB);
+//               counted on its full barrier: K and V, COPY_BYTES (64 KB
+//               at D = 128, 32 KB at 64);
 //   COPIES      false: the walk copies nothing; the producer fills each
 //               stage at its first use with keys 0-63 of the tile's K and
 //               V in both 64-row halves, and later only arrives on it;
@@ -432,21 +468,25 @@ struct Frag {
 //   Cursor      the producer's state across one tile's units, made anew
 //               (value-initialised) for each tile and handed to key_row;
 //               by default empty.
-struct MainloopDefaults {
+template <int D_>
+struct MainloopBase {
+  static constexpr int D = D_;
   static constexpr int STAGES = HA_STAGES;
   static constexpr bool COPIES = true;
-  static constexpr int COPY_BYTES = HA_STAGE;
+  static constexpr int TILE_BYTES = ha_tile(D_);
+  static constexpr int COPY_BYTES = 2 * TILE_BYTES;
   static constexpr bool LOAD_ONLY = false;
   static constexpr bool LINEAR = false;
   template <class Params, class Tile>
   static __device__ __forceinline__ void copy(const Params& p, const Tile& c,
                                               int row, unsigned char* dst,
                                               uint64_t* full) {
-    tma_tile(dst, &p.tmk, row, c.kv_head, c.kv_batch, full);
-    tma_tile(dst + HA_TILE, &p.tmv, row, c.kv_head, c.kv_batch, full);
+    tma_tile<D_>(dst, &p.tmk, row, c.kv_head, c.kv_batch, full);
+    tma_tile<D_>(dst + TILE_BYTES, &p.tmv, row, c.kv_head, c.kv_batch, full);
   }
   struct Cursor {};
 };
+using MainloopDefaults = MainloopBase<HA_D>;
 
 // The shared mainloop.  P (the policy, a MainloopDefaults) provides
 //   Params (with CUtensorMap tmq, tmk, tmv), Tile, Window, SCALE_Q,
@@ -464,10 +504,15 @@ template <typename T, class P>
 __global__ void __launch_bounds__(HA_THREADS, 1)
 hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
   constexpr int NS = P::STAGES;
+  constexpr int D = P::D;
+  constexpr int TILE = ha_tile(D);    // a q, K or V tile
+  constexpr int STAGE = 2 * TILE;     // K and V of one unit
+  static_assert(D == 64 || D == 128, "head_dim 64 or 128");
+  static_assert(P::COPIES || D == HA_D, "the copy-free walk fills 128 columns");
   extern __shared__ unsigned char ha_raw[];
   unsigned char* sq = ha_raw + ((1024u - (smem_addr(ha_raw) & 1023u)) & 1023u);
-  unsigned char* ring = sq + HA_TILE;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + NS * HA_STAGE);
+  unsigned char* ring = sq + TILE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + NS * STAGE);
   uint64_t* q_full = bars;
   uint64_t* q_empty = bars + 1;
   uint64_t* full = bars + 2;
@@ -495,8 +540,8 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
       for (int t = P::first(p); t < P::count(p); t += P::stride(p)) {
         const typename P::Tile c = P::tile(p, t);
         mbar_wait_or_trap(q_empty, qph ^ 1);
-        mbar_expect_tx(q_full, HA_TILE);
-        tma_tile(sq, &p.tmq, c.q_row, c.q_head, c.q_batch, q_full);
+        mbar_expect_tx(q_full, TILE);
+        tma_tile<D>(sq, &p.tmq, c.q_row, c.q_head, c.q_batch, q_full);
         qph ^= 1;
         typename P::Cursor cur{};
         for (int u = P::next(p, c, c.u0); u < c.u1; u = P::next(p, c, u + 1)) {
@@ -504,7 +549,7 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
           mbar_wait_or_trap(&empty[st], ph ^ 1);
           if constexpr (P::COPIES) {
             mbar_expect_tx(&full[st], P::COPY_BYTES);
-            unsigned char* dst = ring + st * HA_STAGE;
+            unsigned char* dst = ring + st * STAGE;
             P::copy(p, c, row, dst, &full[st]);
           } else if (filled < NS) {
             // the stage's first use: keys 0-63 of K and V, in both halves
@@ -547,7 +592,7 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
         // q * sm_scale in fp32, rounded to T, in place (elementwise, so
         // the swizzle does not matter); then visible to wgmma
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < 4 * (D / 64); ++i) {
           uint4* v = reinterpret_cast<uint4*>(
               sq + (i >> 2) * HA_HALF + f.wg * HA_BOX) + (i & 3) * 128 + f.wtid;
           uint4 x = *v;
@@ -562,16 +607,16 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         wg_sync(f.wg);
       }
-      float o[64];
+      float o[D / 2];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) o[i] = 0.f;
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
       float m[2] = {neg_inf(), neg_inf()};
       float l[2] = {0.f, 0.f};   // this thread's 32 columns of each row
       for (int u = P::next(p, c, c.u0), un; u < c.u1; u = un) {
         // the unit's key window, read before the waits hide its loads
         const typename P::Window win = P::window(p, c, u, f);
         mbar_wait_or_trap(&full[st], ph);
-        const unsigned char* ks = ring + st * HA_STAGE;
+        const unsigned char* ks = ring + st * STAGE;
         if constexpr (P::LOAD_ONLY) {
           P::load_only(p, c, u, ks, o, f);
           un = P::next(p, c, u + 1);
@@ -583,11 +628,11 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
           }
           continue;
         }
-        const unsigned char* vs = ks + HA_TILE;
+        const unsigned char* vs = ks + TILE;
         float s[64];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
+        for (int kk = 0; kk < D / 16; ++kk) {
           const int off = (kk >> 2) * HA_HALF + (kk & 3) * 32;
           Wgmma<T>::ss(s, sw128_desc(qw + off, 16), sw128_desc(ks + off, 16),
                        kk);
@@ -633,7 +678,7 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
         l[0] = alpha[0] * l[0] + ls[0];
         l[1] = alpha[1] * l[1] + ls[1];
 #pragma unroll
-        for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
         uint32_t pa[8][4];
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
@@ -675,7 +720,7 @@ __device__ __forceinline__ void quad_sum(float (&l)[2], float (&inv)[2]) {
 template <typename T, class P>
 int launch_hopper_attn(const typename P::Params& p, dim3 grid,
                        cudaStream_t stream) {
-  constexpr int smem = ha_smem(P::STAGES);
+  constexpr int smem = ha_smem(P::STAGES, P::D);
   auto kern = hopper_attn_kernel<T, P>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

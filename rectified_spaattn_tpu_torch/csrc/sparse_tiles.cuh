@@ -98,21 +98,23 @@ __device__ __forceinline__ bool block_has_key(int k0, int visual_len,
                              k0 + HA_KEYS > text_start);
 }
 // o / l of a thread's rows (row: the r = 0 row's index in [BH * Sq]) in
-// T, and with STATS m and l, one lane of each row's quad
-template <typename T, bool STATS>
+// T, and with STATS m and l, one lane of each row's quad; o holds N = D / 2
+// floats a thread at head_dim D
+template <typename T, bool STATS, int N>
 __device__ __forceinline__ void store_rows(void* out, float* m_out,
                                            float* l_out, long long row,
-                                           const float (&o)[64],
+                                           const float (&o)[N],
                                            const float (&m)[2],
                                            const float (&l)[2],
                                            const float (&inv)[2],
                                            const Frag& f) {
-  T* o0 = reinterpret_cast<T*>(out) + row * HA_D + 2 * f.t4;
+  constexpr int D = 2 * N;
+  T* o0 = reinterpret_cast<T*>(out) + row * D + 2 * f.t4;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<uint32_t*>(o0 + r * 8 * HA_D + 8 * j) =
+      *reinterpret_cast<uint32_t*>(o0 + r * 8 * D + 8 * j) =
           Type<T>::pack(o[4 * j + 2 * r] * inv[r],
                         o[4 * j + 2 * r + 1] * inv[r]);
   }
@@ -126,9 +128,12 @@ __device__ __forceinline__ void store_rows(void* out, float* m_out,
   }
 }
 
-template <typename T, bool STATS>
-struct SparseTiles : MainloopDefaults {
+// at head_dim D (SparseTiles below is D = 128, whose kernels keep their
+// names; block_sparse.cu launches SparseTilesAt<T, STATS, 64> directly)
+template <typename T, bool STATS, int D>
+struct SparseTilesAt : MainloopBase<D> {
   using Params = K1Params;
+  using Cursor = typename MainloopBase<D>::Cursor;
   static constexpr bool SCALE_Q = true;   // q * sm_scale rounded to T
   struct Tile {
     int q_row, q_head, q_batch, kv_head, kv_batch, u0, u1;
@@ -181,12 +186,13 @@ struct SparseTiles : MainloopDefaults {
     mask_window(w, s);
   }
   static __device__ void finish(const Params& p, const Tile& c,
-                                float (&o)[64], float (&m)[2], float (&l)[2],
-                                const Frag& f, float* sums) {
+                                float (&o)[D / 2], float (&m)[2],
+                                float (&l)[2], const Frag& f, float* sums) {
     // degenerate rows (the header of this file): this warpgroup's rows
     // share the list and the window, so all of them or none are; the
     // range holding the list's last slot adds every lane of the chunk
     // padding, p = 1, from the column sums of V over the padding blocks
+    // (thread wtid sums column wtid; at D = 64 half the threads)
     if (c.count > c.u0 && c.count <= c.u0 + p.split_slots &&
         m[0] <= MASK_VALUE) {
       const int g = p.chunk_blocks;
@@ -194,7 +200,7 @@ struct SparseTiles : MainloopDefaults {
       const T* vb = reinterpret_cast<const T*>(p.v) +
                     (long long)c.bh * p.kv_bh_stride + f.wtid;
       float acc = 0.f;
-      for (int ps = c.count; ps < npad; ++ps) {
+      for (int ps = c.count; ps < npad && (D == HA_D || f.wtid < D); ++ps) {
         // past the list: the JAX wrapper's padding, block 0
         const int blk = ps < p.nb_slots ? block_of(p, c, ps) : 0;
         const T* vr = vb + (long long)blk * HA_KEYS * p.kv_row_stride;
@@ -204,7 +210,7 @@ struct SparseTiles : MainloopDefaults {
       sums[f.wtid] = acc;
       wg_sync(f.wg);
 #pragma unroll
-      for (int i = 0; i < 64; ++i)
+      for (int i = 0; i < D / 2; ++i)
         o[i] += sums[8 * (i >> 2) + 2 * f.t4 + (i & 1)];
       l[0] += 32.f * (npad - c.count);   // this thread's 32 of 128 lanes
       l[1] += 32.f * (npad - c.count);
@@ -217,12 +223,12 @@ struct SparseTiles : MainloopDefaults {
       store_rows<T, STATS>(p.o, p.m_out, p.l_out, row, o, m, l, inv, f);
     } else {
       const long long prow = (long long)c.split * gridDim.y * p.sq + row;
-      float* o0 = p.o_part + prow * HA_D + 2 * f.t4;
+      float* o0 = p.o_part + prow * D + 2 * f.t4;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
         for (int r = 0; r < 2; ++r)
-          *reinterpret_cast<float2*>(o0 + r * 8 * HA_D + 8 * j) =
+          *reinterpret_cast<float2*>(o0 + r * 8 * D + 8 * j) =
               make_float2(o[4 * j + 2 * r] * inv[r],
                           o[4 * j + 2 * r + 1] * inv[r]);
       }
@@ -235,6 +241,9 @@ struct SparseTiles : MainloopDefaults {
     }
   }
 };
+
+template <typename T, bool STATS>
+struct SparseTiles : SparseTilesAt<T, STATS, HA_D> {};
 
 // ------------------------------------------------------------------- K2 ---
 //
@@ -250,8 +259,8 @@ struct SparseTiles : MainloopDefaults {
 // own, non-member and padding (block 0 past the list) — with every score
 // masked, so p = 1 on each lane: the JAX chunk average.
 
-template <typename T>
-struct GroupedTiles : SparseTiles<T, false> {
+template <typename T, int D>
+struct GroupedTilesAt : SparseTilesAt<T, false, D> {
   using Params = K1Params;
   using Window = KeyWindow;
   struct Tile {
@@ -307,7 +316,7 @@ struct GroupedTiles : SparseTiles<T, false> {
     return u;
   }
   static __device__ int key_row(const Params& p, const Tile& c, int u,
-                                MainloopDefaults::Cursor&) {
+                                typename MainloopBase<D>::Cursor&) {
     return block_of(p, c, u) * HA_KEYS;
   }
   // K1's window; a degenerate CTA's keeps no key
@@ -322,8 +331,8 @@ struct GroupedTiles : SparseTiles<T, false> {
     return w;
   }
   static __device__ void finish(const Params& p, const Tile& c,
-                                float (&o)[64], float (&m)[2], float (&l)[2],
-                                const Frag& f, float*) {
+                                float (&o)[D / 2], float (&m)[2],
+                                float (&l)[2], const Frag& f, float*) {
     float inv[2];
     quad_sum(l, inv);
     store_rows<T, false>(p.o, nullptr, nullptr,
@@ -331,5 +340,8 @@ struct GroupedTiles : SparseTiles<T, false> {
                          inv, f);
   }
 };
+
+template <typename T>
+struct GroupedTiles : GroupedTilesAt<T, HA_D> {};
 
 }  // namespace

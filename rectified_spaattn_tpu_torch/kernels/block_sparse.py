@@ -29,7 +29,9 @@ them run on the Hopper mainloop of ``csrc/hopper_attn.cuh`` (128-row CTAs,
 TMA copies into an mbarrier ring, wgmma): K2 walks only its row block's
 member slots; K1q converts its int8 tiles in the producer warpgroup and,
 for "mxu8", runs QK^T on the int8 wgmma.  So ``block_m`` must be a
-multiple of 128 on the card.  The library is built with nvcc at first use
+multiple of 128 on the card.  K1/K1s, K2 and the split merge take
+head_dim 128 or 64 (CogVideoX), each width its own instantiation of the
+mainloop (``_HEAD_DIMS``); K1q takes 128.  The library is built with nvcc at first use
 into the package's ``build/`` directory and loaded with ctypes
 (kernels/cuda_build.py).
 
@@ -85,6 +87,7 @@ MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
 _QUANT_CODE = {"int8": 0, "mxu8": 1}
 _CTA_ROWS = 128       # query rows per CTA of every kernel here (csrc HA_ROWS)
+_HEAD_DIMS = (64, 128)  # the head_dims K1/K1s, K2 and the merge are built for
 
 
 def _declare(lib):
@@ -92,7 +95,7 @@ def _declare(lib):
     lib.rsa_k1_launch.argtypes = [p] * 11 + [ll, ll] + [i] * 13 + [f, i, i,
                                                                    i, p]
     lib.rsa_k1_launch.restype = i
-    lib.rsa_k1_merge_launch.argtypes = [p] * 6 + [ll, i, i, p]
+    lib.rsa_k1_merge_launch.argtypes = [p] * 6 + [ll, i, i, i, p]
     lib.rsa_k1_merge_launch.restype = i
     lib.rsa_k2_launch.argtypes = [p, p, p, p, p, p, p, p, p, ll, ll, i, i, i,
                                   i, i, i, i, i, i, i, i, i, f, i, i, p]
@@ -446,7 +449,8 @@ def _operands(q, k, v, packed_kv):
     return q, out, kp, vp, *strides, keep
 
 
-def _cuda_checks(q, k, v, packed_kv, block_m, block_n, *ints):
+def _cuda_checks(q, k, v, packed_kv, block_m, block_n, *ints,
+                 head_dims=_HEAD_DIMS):
     kvt = packed_kv if packed_kv is not None else k
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"the CUDA kernels take bf16 or fp16, got {q.dtype} "
@@ -454,8 +458,9 @@ def _cuda_checks(q, k, v, packed_kv, block_m, block_n, *ints):
     if kvt is not None and (kvt.dtype != q.dtype or (
             packed_kv is None and v.dtype != q.dtype)):
         raise TypeError("q, k and v must share one dtype")
-    if q.shape[-1] != 128:
-        raise ValueError(f"the CUDA kernels take head_dim 128, got "
+    if q.shape[-1] not in head_dims:
+        raise ValueError(f"the CUDA kernels take head_dim "
+                         f"{' or '.join(map(str, head_dims))}, got "
                          f"{q.shape[-1]}")
     if block_n != 128 or block_m % _CTA_ROWS:
         raise ValueError(f"the CUDA kernels need block_n == 128 and block_m a "
@@ -499,7 +504,7 @@ def _launch_k1q(q, kv_quant, quant_mode, indices, counts, clean, text_len, *,
         raise TypeError(f"K1q takes bf16 q (its dots run in bf16 or int8), "
                         f"got {q.dtype}")
     _cuda_checks(q, None, None, None, block_m, block_n, kv, scale_k, scale_v,
-                 indices, counts, text_len)
+                 indices, counts, text_len, head_dims=(128,))
     s = kv.shape[1]
     if kv.dtype != torch.int8 or tuple(kv.shape) != (b * h, s, 2 * d):
         raise ValueError(f"kv_quant payload must be int8 [B*H, S, 2D], got "
@@ -640,14 +645,14 @@ def merge_splits(o_part, m_part, l_part, out_dtype, *, return_stats=False):
         o, m, l = _merge_splits(list(o_part), list(m_part), list(l_part))
         o = o.to(out_dtype)
         return (o, m, l) if return_stats else o
-    if out_dtype not in _DTYPE_CODE or d != 128:
-        raise TypeError(f"the merge kernel writes bf16 or fp16 rows of 128, "
-                        f"got {out_dtype} and {d}")
+    if out_dtype not in _DTYPE_CODE or d not in _HEAD_DIMS:
+        raise TypeError(f"the merge kernel writes bf16 or fp16 rows of 64 or "
+                        f"128, got {out_dtype} and {d}")
     parts = (o_part, m_part, l_part)
     if any(t.dtype != torch.float32 or not t.is_contiguous()
            or t.device != o_part.device for t in parts) \
             or m_part.shape != (n, rows) or l_part.shape != (n, rows):
-        raise ValueError("o_part [n, rows, 128], m_part and l_part [n, rows] "
+        raise ValueError("o_part [n, rows, D], m_part and l_part [n, rows] "
                          "must be contiguous fp32 on one device")
     out = torch.empty((rows, d), dtype=out_dtype, device=o_part.device)
     stats = [torch.empty((rows,), dtype=torch.float32, device=out.device)
@@ -656,7 +661,7 @@ def merge_splits(o_part, m_part, l_part, out_dtype, *, return_stats=False):
     lib = _load()
     rc = lib.rsa_k1_merge_launch(
         *(t.data_ptr() for t in parts), out.data_ptr(), m_ptr, l_ptr, rows,
-        n, _DTYPE_CODE[out_dtype], _stream(out))
+        n, d, _DTYPE_CODE[out_dtype], _stream(out))
     if rc:
         raise RuntimeError(f"split merge launch failed: "
                            f"{lib.rsa_error_string(rc).decode()}")

@@ -264,7 +264,7 @@ def _launch(code, stages, q, k, v, indices, counts, text_len, *,
         raise TypeError(f"the variant kernels take bf16, got {q.dtype}")
     _cuda_checks(q, k, v, packed_kv, BLOCK, BLOCK, indices, counts,
                  text_len, *(t for t in (clean, rowbits, plen)
-                             if t is not None))
+                             if t is not None), head_dims=(128,))
     lib = cuda_build.load("variants", _declare)
     b, h, sq, _ = q.shape
     s = (packed_kv if packed_kv is not None else k).shape[2]

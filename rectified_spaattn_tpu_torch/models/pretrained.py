@@ -105,21 +105,44 @@ def hunyuan_config_from_json(cfg: dict):
         image_condition_type=cfg.get("image_condition_type"))
 
 
+def cogvideox_config_from_json(cfg: dict):
+    """A CogVideoXTransformer3DModel config.json (1.5: patch_size_t 2 and
+    the ofs embedding; 1.0: neither)."""
+    from .cogvideox import CogVideoXConfig
+    heads = cfg["num_attention_heads"]
+    hd = cfg["attention_head_dim"]
+    return CogVideoXConfig(
+        in_channels=cfg["in_channels"], out_channels=cfg["out_channels"],
+        hidden_dim=heads * hd, heads=heads, head_dim=hd,
+        num_blocks=cfg["num_layers"],
+        text_dim=cfg.get("text_embed_dim", 4096),
+        time_embed_dim=cfg.get("time_embed_dim", 512),
+        patch_size=cfg.get("patch_size", 2),
+        patch_size_t=cfg.get("patch_size_t") or 1,
+        use_ofs_embed=cfg.get("ofs_embed_dim") is not None)
+
+
 CONFIG_PARSERS = {
     "wan": wan_config_from_json,
     "hunyuan": hunyuan_config_from_json,
+    "cogvideox": cogvideox_config_from_json,
 }
 
 
 def _model_class(family: str):
+    from .cogvideox import CogVideoXDiT
     from .hunyuan import HunyuanVideoDiT
     from .wan import WanDiT
-    return {"wan": WanDiT, "hunyuan": HunyuanVideoDiT}[family]
+    return {"wan": WanDiT, "hunyuan": HunyuanVideoDiT,
+            "cogvideox": CogVideoXDiT}[family]
 
 
 def _convert_args(family: str, cfg) -> tuple:
     if family == "wan":
         return (cfg.num_blocks,)
+    if family == "cogvideox":
+        return (cfg.num_blocks, cfg.use_ofs_embed, cfg.patch_size_t,
+                cfg.patch_size)
     return (cfg.num_dual_blocks, cfg.num_single_blocks,
             cfg.num_refiner_blocks, cfg.pooled_dim, cfg.text_dim)
 
@@ -249,6 +272,7 @@ TEXT_ENCODER_KINDS = {
     "wan": [("text_encoder", "umt5", 512)],
     "hunyuan": [("text_encoder", "llama", 256),
                 ("text_encoder_2", "clip", 77)],
+    "cogvideox": [("text_encoder", "t5", 226)],
 }
 
 

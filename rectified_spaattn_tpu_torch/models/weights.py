@@ -15,7 +15,10 @@ weight [out, in, *k].  The transforms are the JAX converters':
   * a diffusers TimestepEmbedding (linear_1, silu, linear_2) becomes the
     port's (Linear in, MLP(fc1 = identity, silu, fc2 = linear_2)) pair;
   * HunyuanVideo's ``clip_pool_proj`` (no checkpoint counterpart) is zeros;
-  * Wan's [6, d] modulation tables gain a leading axis.
+  * Wan's [6, d] modulation tables gain a leading axis;
+  * CogVideoX 1.5's channel-major patch features (C, pt, p, p) become the
+    port's channel-last order (pt, p, p, C) in patch_embed's input and
+    proj_out's output features.
 
 ``place``, where given, is applied to each tensor as it is made (for
 example a move to the device and a cast), so the converted model is never
@@ -202,9 +205,61 @@ def convert_hunyuan(sd, num_dual: int, num_single: int, num_refiner: int = 2,
     return dict(out)
 
 
+def convert_cogvideox(sd, num_blocks: int, use_ofs: bool = True,
+                      patch_size_t: int = 2, patch_size: int = 2,
+                      place: Place = None) -> dict:
+    """diffusers CogVideoXTransformer3DModel -> CogVideoXDiT state_dict:
+    1.5's Linear patch embed, or 1.0's Conv2d one ([out, in, p, p] per
+    frame).  diffusers orders a token's features channel-major (C, pt, p,
+    p); the port's ``_patchify`` / ``_unpatchify`` channel-last (pt, p,
+    p, C), so 1.5's patch_embed input features and proj_out's output
+    features are permuted (JAX ``convert_cogvideox``'s transform)."""
+    out = _Out(place)
+    pt, ps = patch_size_t, patch_size
+    w = sd["patch_embed.proj.weight"]
+    if w.ndim == 2:        # 1.5 Linear patchify: (C, pt, p, p) -> (pt, p, p, C)
+        hid, fin = w.shape
+        ch = fin // (pt * ps * ps)
+        out["patch_embed.weight"] = w.reshape(hid, ch, pt, ps, ps).permute(
+            0, 2, 3, 4, 1).reshape(hid, fin)
+    else:                  # 1.0 Conv2d: [out, in, p, p] -> (p, p, in)
+        out["patch_embed.weight"] = w.permute(0, 2, 3, 1).reshape(
+            w.shape[0], -1)
+    out["patch_embed.bias"] = sd["patch_embed.proj.bias"]
+    out.linear("text_proj", sd, "patch_embed.text_proj")
+    out.folded_embedder("time_in", "time_mlp", sd, "time_embedding")
+    if use_ofs and "ofs_embedding.linear_1.weight" in sd:
+        out.folded_embedder("ofs_in", "ofs_mlp", sd, "ofs_embedding")
+    for i in range(num_blocks):
+        b, o = f"transformer_blocks.{i}", f"blocks.{i}"
+        for n in ("norm1", "norm2"):
+            out.linear(f"{o}.{n}_lin", sd, f"{b}.{n}.linear")
+            out.norm(f"{o}.{n}_ln", sd, f"{b}.{n}.norm")
+        for nm in ("to_q", "to_k", "to_v"):
+            out.linear(f"{o}.{nm}", sd, f"{b}.attn1.{nm}")
+        out.norm(f"{o}.norm_q", sd, f"{b}.attn1.norm_q")
+        out.norm(f"{o}.norm_k", sd, f"{b}.attn1.norm_k")
+        out.linear(f"{o}.to_out", sd, f"{b}.attn1.to_out.0")
+        out.linear(f"{o}.ff.fc1", sd, f"{b}.ff.net.0.proj")
+        out.linear(f"{o}.ff.fc2", sd, f"{b}.ff.net.2")
+    out.norm("norm_final", sd, "norm_final")
+    out.linear("norm_out_lin", sd, "norm_out.linear")
+    out.norm("norm_out_ln", sd, "norm_out.norm")
+    # output features (C, pt, p, p) -> (pt, p, p, C); 1.0: pt == 1
+    wo, bo = sd["proj_out.weight"], sd["proj_out.bias"]
+    fout, hid = wo.shape
+    och = fout // (pt * ps * ps)
+    out["proj_out.weight"] = wo.reshape(och, pt, ps, ps, hid).permute(
+        1, 2, 3, 0, 4).reshape(fout, hid)
+    out["proj_out.bias"] = bo.reshape(och, pt, ps, ps).permute(
+        1, 2, 3, 0).reshape(fout)
+    return dict(out)
+
+
 CONVERTERS: dict[str, Callable] = {
     "wan": convert_wan,
     "hunyuan": convert_hunyuan,
+    "cogvideox": convert_cogvideox,
 }
 
 

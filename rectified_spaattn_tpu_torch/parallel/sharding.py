@@ -9,8 +9,8 @@ rank of the tp group:
   * column-parallel (output features split): the projections that produce
     per-head features (``to_q/k/v``, ``add_to_q/k/v``, the fused
     single-stream ``to_qkv`` cut per q/k/v segment, Wan's ``attn1_*`` /
-    ``attn2_*`` q/k/v and the I2V ``attn2_add_k/v_proj``), the blocks'
-    MLP ``fc1`` and ``proj_mlp``;
+    ``attn2_*`` q/k/v and the I2V ``attn2_add_k/v_proj``, CogVideoX's
+    shared ``to_q/k/v``), the blocks' MLP ``fc1`` and ``proj_mlp``;
   * row-parallel (input features split, ``RowParallelLinear``): the
     projections that consume them (``to_out``, ``to_add_out``,
     ``attn1/2_to_out``, the MLP ``fc2``, and ``proj_out``, whose input is
@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..models.cogvideox import CogVideoXBlock
 from ..models.layers import (MLP, CrossAttnBlock, DualStreamBlock,
                              JointAttention, RMSNorm, SingleStreamBlock)
 from ..models.quant import QLinear
@@ -215,4 +216,12 @@ def shard_model(model: nn.Module, group) -> nn.Module:
                                                   group))
             _row(mod, ("attn1_to_out", "attn2_to_out"), [(dim, True)], group)
             _shard_mlp(mod.ffn, group)
+        elif isinstance(mod, CogVideoXBlock):
+            # per-head q/k LayerNorms need no cut; one MLP serves both
+            # streams
+            dim = mod.to_q.out_features
+            _shard_heads(mod, group)
+            _column(mod, ("to_q", "to_k", "to_v"), dim, group)
+            _row(mod, ("to_out",), [(dim, True)], group)
+            _shard_mlp(mod.ff, group)
     return model

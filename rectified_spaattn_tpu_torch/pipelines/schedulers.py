@@ -1,13 +1,15 @@
-"""Samplers (port of the flow-match part of
-rectified_spaattn_tpu/pipelines/schedulers.py): host-side state machines
-whose per-step math is a few tensor expressions.
+"""Samplers (port of rectified_spaattn_tpu/pipelines/schedulers.py):
+host-side state machines whose per-step math is a few tensor expressions.
 
   * flow-match Euler (HunyuanVideo),
   * UniPC multistep for flow matching (Wan2.1, flow_shift 5.0; reference:
-    scripts/main_wan21t2v.py:236-241).
+    scripts/main_wan21t2v.py:236-241),
+  * DDIM over the zero-terminal-SNR CogVideoX betas with v-prediction,
+    and CogVideoX's dynamic guidance scale.
 
-Both update in fp32: the JAX steps multiply by numpy float64 scalars, which
-promote a bf16 model output to fp32 before the update.
+All update in fp32: the JAX steps multiply by numpy float64 scalars, which
+promote a bf16 model output to fp32 before the update.  The DDIM alpha
+tables stay numpy float64, as in JAX.
 """
 
 from __future__ import annotations
@@ -142,3 +144,76 @@ class UniPCScheduler:
             corr = 0.5 * d1_t      # order-1 corrector
         return x_t_ - float(a_t * hh) * corr
 
+
+
+def _rescale_zero_terminal_snr(alphas_cum: np.ndarray) -> np.ndarray:
+    """Zero-terminal-SNR beta rescale (Lin et al.; diffusers
+    CogVideoXDDIMScheduler.rescale_zero_terminal_snr): shift/scale
+    sqrt(alpha_bar) so the last timestep has alpha_bar exactly 0."""
+    ab_sqrt = np.sqrt(alphas_cum)
+    ab0, abT = ab_sqrt[0], ab_sqrt[-1]
+    ab_sqrt = (ab_sqrt - abT) * ab0 / (ab0 - abT)
+    return ab_sqrt ** 2
+
+
+@dataclasses.dataclass
+class CogVideoXDDIMScheduler:
+    """DDIM (eta=0) over the CogVideoX scaled-linear betas, matching the
+    checkpoint's scheduler config (THUDM/CogVideoX1.5-5B
+    scheduler_config.json: trailing timestep spacing,
+    rescale_betas_zero_snr, set_alpha_to_one, snr_shift_scale 1.0,
+    v_prediction; reference script: main_cogvideox.py:274-288)."""
+    num_steps: int
+    num_train_timesteps: int = 1000
+    beta_start: float = 0.00085
+    beta_end: float = 0.012
+    snr_shift_scale: float = 1.0    # CogVideoX 1.5 uses 1.0
+    rescale_betas_zero_snr: bool = True
+    timestep_spacing: str = "trailing"
+
+    def __post_init__(self):
+        betas = np.linspace(self.beta_start ** 0.5, self.beta_end ** 0.5,
+                            self.num_train_timesteps) ** 2
+        alphas_cum = np.cumprod(1.0 - betas)
+        if self.snr_shift_scale != 1.0:
+            alphas_cum = alphas_cum / (
+                self.snr_shift_scale + (1 - self.snr_shift_scale) * alphas_cum)
+        if self.rescale_betas_zero_snr:
+            alphas_cum = _rescale_zero_terminal_snr(alphas_cum)
+        self.alphas_cum = alphas_cum
+        self.final_alpha_cum = 1.0     # set_alpha_to_one
+        if self.timestep_spacing == "trailing":
+            ratio = self.num_train_timesteps / self.num_steps
+            self._timesteps = np.round(np.arange(
+                self.num_train_timesteps, 0, -ratio)).astype(np.int64) - 1
+        else:  # leading
+            step = self.num_train_timesteps // self.num_steps
+            self._timesteps = (np.arange(self.num_steps) * step)[::-1].copy()
+
+    @property
+    def timesteps(self) -> np.ndarray:
+        return self._timesteps.astype(np.float32)
+
+    def step(self, model_out, sample, i: int):
+        dtype = _update_dtype(model_out, sample)
+        model_out, sample = model_out.to(dtype), sample.to(dtype)
+        t = int(self._timesteps[i])
+        prev_t = t - self.num_train_timesteps // self.num_steps
+        a_t = self.alphas_cum[t]
+        a_prev = (self.alphas_cum[prev_t] if prev_t >= 0
+                  else self.final_alpha_cum)
+        # v-prediction (CogVideoX): x0 = sqrt(a) x - sqrt(1-a) v
+        x0 = float(a_t ** 0.5) * sample - float((1 - a_t) ** 0.5) * model_out
+        eps = float(a_t ** 0.5) * model_out + float((1 - a_t) ** 0.5) * sample
+        return float(a_prev ** 0.5) * x0 + float((1 - a_prev) ** 0.5) * eps
+
+
+def dynamic_cfg_scale(base_scale: float, timestep: float,
+                      num_steps: int) -> float:
+    """CogVideoX dynamic guidance, diffusers' pipeline_cogvideox.py
+    use_dynamic_cfg expression: keyed on the RAW scheduler timestep
+    (0..999), not the step index:
+    1 + g * (1 - cos(pi * ((steps - t)/steps)^5)) / 2."""
+    return 1.0 + base_scale * (
+        (1.0 - math.cos(math.pi * (
+            (num_steps - float(timestep)) / num_steps) ** 5.0)) / 2.0)

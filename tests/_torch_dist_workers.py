@@ -107,3 +107,26 @@ def tp_worker(rank: int, world: int, tmp: str):
     torch.save(out, os.path.join(tmp, f"tp_out_{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
+
+
+def cog_tp_worker(rank: int, world: int, tmp: str):
+    """The tiny CogVideoX pipeline of cog_tp_in.pt at tp = ``world``;
+    writes cog_tp_out_<rank>.pt (latents, TeaCache decisions, the sparse
+    calls and each block's head count)."""
+    _init(rank, world, tmp)
+    from rectified_spaattn_tpu_torch.models import (CogVideoXConfig,
+                                                    CogVideoXDiT)
+    from rectified_spaattn_tpu_torch.parallel import make_mesh
+    from rectified_spaattn_tpu_torch.pipelines import CogVideoXPipeline
+    c = _load(tmp, "cog_tp_in.pt")
+    model = CogVideoXDiT(CogVideoXConfig.tiny())
+    model.load_state_dict(c["state_dict"])
+    pipe = CogVideoXPipeline(model=model, device="cpu",
+                             mesh=make_mesh(tp=world), **c["kw"])
+    lat = pipe.denoise(c["init"], c["text_c"], c["text_u"])
+    torch.save({"latents": lat, "decisions": pipe.teacache.decisions,
+                "sparse_calls": pipe.sparse_calls,
+                "heads": [b.heads for b in model.blocks]},
+               os.path.join(tmp, f"cog_tp_out_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()

@@ -36,6 +36,50 @@ def test_csrc_passes_host_syntax_check(tmp_path, source):
     assert proc.returncode == 0, proc.stderr[-4000:]
 
 
+def _syntax_check(tmp_path, main: str, text: str):
+    """g++ -fsyntax-only of ``text`` (saved as ``main``) beside a copy of
+    the shared headers, launches rewritten as calls."""
+    for name in cuda_build.HEADERS:
+        with open(os.path.join(cuda_build.CSRC, name)) as f:
+            (tmp_path / name).write_text(re.sub(r"<<<.*>>>", "", f.read()))
+    (tmp_path / main).write_text(text)
+    return subprocess.run(
+        [shutil.which("g++"), "-std=c++17", "-fsyntax-only",
+         "-Wno-unknown-pragmas", "-I", STUBS, "-x", "c++",
+         str(tmp_path / main)], capture_output=True, text=True, timeout=300)
+
+
+@pytest.mark.parametrize("head_dim", [64, 128, 96])
+def test_mainloop_policies_at_head_dim(tmp_path, head_dim):
+    """K1/K1s's and K2's policies instantiated on the mainloop at an
+    explicit head_dim (the CogVideoX width 64 and 128) pass the host
+    syntax check; 96 is refused at compile time (the mainloop's
+    static_assert), so no other width can be built by mistake."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ for the host-compiler check")
+    text = "#include \"sparse_tiles.cuh\"\n" + "".join(
+        f"template void hopper_attn_kernel<{t}, {p}>("
+        f"const typename {p}::Params);\n"
+        for t in ("__nv_bfloat16", "__half")
+        for p in (f"SparseTilesAt<{t}, false, {head_dim}>",
+                  f"SparseTilesAt<{t}, true, {head_dim}>",
+                  f"GroupedTilesAt<{t}, {head_dim}>"))
+    proc = _syntax_check(tmp_path, "instantiate.cu", text)
+    if head_dim == 96:
+        assert proc.returncode != 0
+        assert "head_dim 64 or 128" in proc.stderr, proc.stderr[-2000:]
+    else:
+        assert proc.returncode == 0, proc.stderr[-4000:]
+    # block_sparse.cu launches both widths of K1/K1s, K2 and the merge
+    with open(os.path.join(cuda_build.CSRC, "block_sparse.cu")) as f:
+        src = f.read()
+    for call in ("launch_k1<__nv_bfloat16, 64>", "launch_k1<__half, 64>",
+                 "GroupedTilesAt<__nv_bfloat16, 64>",
+                 "GroupedTilesAt<__half, 64>", "merge_splits64_kernel<T, true>",
+                 "launch_merge<__nv_bfloat16, 64>"):
+        assert call in src, call
+
+
 # PTX of the pre-Hopper operand path (warp-level mma, ldmatrix, 16-byte
 # cp.async); the kernels run on wgmma fed by TMA (cp.async.bulk.tensor)
 PRE_HOPPER_PTX = ("mma.sync", "ldmatrix.sync", "cp.async.cg", "cp.async.ca",

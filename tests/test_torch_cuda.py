@@ -1,6 +1,6 @@
-"""The port's CUDA kernels K1/K1s/K2/K1q/K1q-s/K3, the S1 probe and the
-S3/S2 ablation variants against their plain PyTorch versions, on a CUDA
-GPU (bf16, 2e-2: the repo's bf16 tolerance, tests/test_kernels.py; K1s's
+"""The port's CUDA kernels K1/K1s/K2/K1q/K1q-s/K3 (K1/K1s/K2 at head_dim
+128 and 64), the S1 probe and the S3/S2 ablation variants against their
+plain PyTorch versions, on a CUDA GPU (bf16, 2e-2: the repo's bf16 tolerance, tests/test_kernels.py; K1s's
 and K1q-s's l within 1 %; S1's int8 result, the load-only variants and S2
 full / prefetch against K2 bit for bit); the safetensors codec on device
 tensors (bit for bit), the full-width HunyuanVideo VAE decode on the
@@ -624,3 +624,100 @@ def test_cuda_a14b_host_swap_equals_co_resident(cuda):
         assert all(p.is_meta for p in swap.high.model.parameters())
         assert all(p.is_cuda for p in swap.low.model.parameters())
     assert all(t.is_pinned() for t in swap._host[0].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,packed,chunk_blocks", [
+    (1, False, 2), (1, False, 16), (1, True, 2), (2, False, 16),
+    (2, True, 16), (4, False, 2)])
+def test_cuda_head_dim64_matches_plain(cuda, group, packed, chunk_blocks):
+    """K1/K1s (with and without the key split), K2 (G = 2, 4) and the
+    split merge at head_dim 64, the CogVideoX width, against their plain
+    versions in the joint layout: visual block 4 holds 32 keys and 96 pad
+    keys, the text block starts at 5 * 128, text_len 90 / 0 (a degenerate
+    row whose only block is the text block of the batch with none); the
+    packed K|V stream too.  K1s's o equals K1's bit for bit."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(64 + group + 8 * packed + chunk_blocks)
+    b, h, nq, nb, d = 2, 3, 8, 6, 64
+    q, k, v = (torch.randn((b, h, n * BM, d), generator=g, device=cuda
+                           ).to(torch.bfloat16) for n in (nq, nb, nb))
+    mask = torch.rand((b, h, nq, nb), generator=g, device=cuda) < 0.4
+    mask[..., 4] = mask[..., 5] = True
+    mask[1, 0, 1] = False
+    mask[1, 0, 1, 5] = True                    # only the text block
+    tl = torch.tensor([90, 0], dtype=torch.int32, device=cuda)
+    kw = dict(visual_len=4 * BN + 32, text_start=5 * BN,
+              chunk_blocks=chunk_blocks,
+              packed_kv=torch.cat([k, v], dim=-1) if packed else None)
+    k1 = tk.block_sparse_flash_attention.launches
+    k2 = tk.block_sparse_flash_attention_grouped.launches
+    if group == 1:
+        idx, cnt = ops.mask_to_indices(mask)
+        got = tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl, **kw)
+        want = tk.block_sparse_flash_attention_torch(q, k, v, idx, cnt, tl,
+                                                     **kw)
+        o, m, l = tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl,
+                                                  return_stats=True, **kw)
+        _, wm, wl = tk.block_sparse_flash_attention_torch(
+            q, k, v, idx, cnt, tl, return_stats=True, **kw)
+        torch.cuda.synchronize()
+        assert tk.block_sparse_flash_attention.launches == k1 + 1
+        assert torch.equal(o, got)
+        torch.testing.assert_close(m, wm, rtol=0, atol=2e-2)
+        torch.testing.assert_close(l, wl, rtol=1e-2, atol=0)
+    else:
+        ui, uc, rb, cl = ops.group_rows(mask, group,
+                                        clean_blocks=kw["visual_len"] // BN)
+        got = tk.block_sparse_flash_attention_grouped(
+            q, k, v, ui, uc, rb, cl, tl, group=group, **kw)
+        want = tk.block_sparse_flash_attention_grouped_torch(
+            q, k, v, ui, uc, rb, cl, tl, group=group, **kw)
+        torch.cuda.synchronize()
+        assert tk.block_sparse_flash_attention_grouped.launches == k2 + 1
+    assert want[1, 0, BM:2 * BM].float().abs().max() > 0.01
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+@pytest.mark.cuda
+def test_cuda_head_dim64_windowed_dense_matches_plain(cuda):
+    """K1 with full index lists at block_m 1024 and head_dim 64 (the
+    CogVideoX warm calls' windowed dense): 972 visual tokens, the text at
+    972 .. 972 + text_len (not block aligned), against the plain
+    version."""
+    from rectified_spaattn_tpu_torch.attention.modes import \
+        _windowed_dense_flash
+    g = torch.Generator(device=cuda)
+    g.manual_seed(640)
+    b, h, s, d = 2, 4, 972 + 128, 64
+    q, k, v = (torch.randn((b, h, s, d), generator=g, device=cuda
+                           ).to(torch.bfloat16) for _ in range(3))
+    tl = torch.tensor([128, 37], dtype=torch.int32, device=cuda)
+    got = _windowed_dense_flash(q, k, v, visual_len=972, text_start=972,
+                                tlen=tl)
+    want = _windowed_dense_flash(q.cpu(), k.cpu(), v.cpu(), visual_len=972,
+                                 text_start=972, tlen=tl.cpu())
+    torch.testing.assert_close(got.float().cpu(), want.float(), **BF16)
+
+
+@pytest.mark.cuda
+def test_cuda_rejects_head_dim_96(cuda):
+    """K1 and K2 take head_dim 64 or 128 on the card and raise otherwise
+    (no padded launch); K1q takes 128 only."""
+    z = lambda d: torch.zeros((1, 1, BM, d), dtype=torch.bfloat16,
+                              device=cuda)
+    tl = torch.zeros(1, dtype=torch.int32, device=cuda)
+    idx = torch.zeros((1, 1, 1, 1), dtype=torch.int32, device=cuda)
+    cnt = torch.ones((1, 1, 1), dtype=torch.int32, device=cuda)
+    kw = dict(visual_len=BN, text_start=None)
+    with pytest.raises(ValueError, match="head_dim 64 or 128, got 96"):
+        tk.block_sparse_flash_attention(z(96), z(96), z(96), idx, cnt, tl,
+                                        **kw)
+    with pytest.raises(ValueError, match="head_dim 64 or 128, got 96"):
+        tk.block_sparse_flash_attention_grouped(
+            z(96), z(96), z(96), idx, cnt, idx, cnt * 0, tl, group=1, **kw)
+    with pytest.raises(ValueError, match="head_dim 128, got 64"):
+        tk.block_sparse_flash_attention(
+            z(64), z(64), z(64), idx, cnt, tl,
+            kv_quant=ops.quantize_kv_blocks(z(64), z(64), BN),
+            quant_mode="int8", **kw)

@@ -159,8 +159,8 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     assert res["teacache"] == {"skipped": 0, "computed": 2}
     assert 0 < res["density"] <= 1
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == res
-    with pytest.raises(NotImplementedError, match="cogvideox-t2v"):
-        main(["--model", "cogvideox-t2v", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="flux-upscale"):
+        main(["--model", "flux-upscale", "--device", "cpu"])
     # --image conditions hunyuan-i2v (tests/test_torch_i2v.py holds it
     # against JAX)
     img = str(tmp_path / "x.npy")
