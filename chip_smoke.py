@@ -9,7 +9,9 @@ nvcc (sm_90a, one nvcc per source, all started together) and drives the
 HunyuanVideo sparse denoise path (T2V and I2V), its int8 serving levers
 (K1q, S1, int8 / int4 weights, the int8 offloaded TeaCache residual), the
 Wan2.1-14B denoise path, Wan2.2 A14B with host_swap, the CogVideoX1.5
-T2V / I2V path (K1 and K2 at head_dim 64), the multi-device path (K1s, the ring, tensor parallelism)
+T2V / I2V path (K1 and K2 at head_dim 64), Flux.1-dev's two-stage 4096^2
+upscale with its ControlNet (K1, K2 and K3 at 65,536 + 512 tokens), the
+multi-device path (K1s, the ring, tensor parallelism)
 and the kernel-diagnostic path (K1q-s, the S3 / S2 ablations, the
 headline bench).  Every attention kernel (K1/K1s, K2, K1q/K1q-s, K3)
 and every S3 / S2 ablation run on the Hopper mainloop of
@@ -141,6 +143,31 @@ ranges that the merge kernel folds:
      and the ckpt phase a CogVideoX leg: a 2-block full-width snapshot in
      diffusers' key layout loaded bit for bit against a CPU load, then
      --model cogvideox-t2v --ckpt_dir at 480x832.)
+ 6e. flux_site: Flux.1-dev's 4096^2 stage (the token grid (1, 256, 256):
+     65,536 visual tokens in 512 blocks, 512 text slots all valid; 24
+     heads x 128, sa_drop_rate 0.9, p_remain 0.3) on random and smooth
+     inputs: the plan and the site, K2 at G = 2, K1 visual, K1 text rows
+     (split and merged), the windowed dense K1 at block_m 1024 (beside
+     SDPA: every key is valid, so unmasked) and K3 as the ControlNet runs
+     it, unmasked self-attention over all 66,048 tokens (beside unmasked
+     SDPA), each against its plain version on the full inputs with its
+     time and bound.  pipeline_flux: FluxConfig() at full width and depth
+     (19 + 38 blocks, 11.9e9 parameters built on the card in bf16) and
+     the 5-block FluxControlNetConfig() (nudged as the CLI's random build
+     does) as a FluxUpscalePipeline: base 1024^2 then up 4096^2, 2 steps
+     each, every step sparse under the gate (37, 57), nearest-latent
+     control, group_rows 2, TeaCache off: s/step per stage, peak memory,
+     device weight bytes, the launches of every trunk call (K2 37, K1 57,
+     K3 0) and every ControlNet call (K3 5), counters zeroed just before
+     and read just after; then one up step under the profiler.  (Phase 4's
+     small check runs a small Flux upscale with a ControlNet, nearest
+     control and through a small 2-D VAE and the bicubic resize, on the
+     GPU in bf16 against the CPU in fp32, and the ckpt phase a Flux leg:
+     a seeded bf16 snapshot at FluxConfig() widths cut to 2 + 2 blocks, a
+     2-block controlnet/ and FLUX.1-dev's 2-D vae/ config, loaded on the
+     card and held to a CPU load bit for bit, then --model flux-upscale
+     --ckpt_dir at 1024^2, 2 steps a stage, writing a [1024, 1024, 3]
+     uint8 image with K1, K2 and K3 launched.)
  6b. k1q_stats: K1q-s (K1q with m and l) in both modes against its plain
      version at small shapes (o equal to K1q's bit for bit, m / l as
      k1s_vs_plain holds them); at the Hunyuan site (both regimes) its time
@@ -264,6 +291,21 @@ COG_PIPE = dict(cfg={}, height=768, width=1360, frames=81, steps=4,
 # CogVideoX1.5 I2V: in_channels 32, cut from 42 to 6 blocks
 COG_I2V = dict(cfg=dict(in_channels=32, num_blocks=6),
                cut="6 of 42 blocks")
+# Flux.1-dev's 4096^2 upscale stage: the token grid (1, 256, 256), 65,536
+# visual tokens in 512 blocks, and 512 text slots all valid (the
+# reference's diffusers pipeline passes no text mask); 24 heads x 128
+FLUX_SITE = dict(grid=(1, 256, 256), heads=24, head_dim=128, text_len=512,
+                 tlen=512, sa_drop_rate=0.9)
+# the Flux upscale run: FluxConfig() at full width and depth (19 dual + 38
+# single blocks) and FluxControlNetConfig() (5 dual blocks, nudged off its
+# zero init as the CLI's random build does); base 1024^2 then up 4096^2,
+# 2 mu-Euler steps each, every step sparse under the gate (37, 57): 37
+# sparse blocks, 20 windowed dense; nearest-latent control, group_rows 2,
+# TeaCache off
+FLUX_PIPE = dict(cfg={}, cn_cfg={}, base=1024, up=4096, steps=2,
+                 group_rows=2,
+                 cut="none: 19 + 38 of 19 + 38 blocks, 5 of 5 ControlNet "
+                     "blocks; 2 steps a stage")
 # the small GPU-vs-CPU CogVideoX pipelines' TeaCache: the random model's
 # temb signal scaled into the cogvideox polynomial's positive range; the
 # accumulated signal is 0.097-0.099 at call 2 (skip) and 0.19 at call 4
@@ -1571,6 +1613,28 @@ COG_CKPT = dict(
                  "time_embed_dim": 512, "ofs_embed_dim": 512,
                  "patch_size": 2, "patch_size_t": 2},
     height=480, width=832, frame=33, frames_out=21, steps=3)
+# the Flux leg: FluxTransformer2DModel at FluxConfig()'s widths cut to 2
+# dual + 2 single blocks, a 2-block FluxControlNetModel, and the 2-D
+# AutoencoderKL of FLUX.1-dev's published vae/config.json (16 latent
+# channels, 8x, no quant convs); the CLI at 1024^2: base 256^2, up 1024^2
+FLUX_CKPT = dict(
+    vae={"_class_name": "AutoencoderKL", "in_channels": 3, "out_channels": 3,
+         "latent_channels": 16, "block_out_channels": [128, 256, 512, 512],
+         "layers_per_block": 2, "scaling_factor": 0.3611,
+         "shift_factor": 0.1159, "use_quant_conv": False,
+         "use_post_quant_conv": False, "mid_block_add_attention": True},
+    transformer={"_class_name": "FluxTransformer2DModel", "in_channels": 64,
+                 "num_attention_heads": 24, "attention_head_dim": 128,
+                 "num_layers": 2, "num_single_layers": 2,
+                 "joint_attention_dim": 4096, "pooled_projection_dim": 768,
+                 "axes_dims_rope": [16, 56, 56], "guidance_embeds": True,
+                 "patch_size": 1},
+    controlnet={"_class_name": "FluxControlNetModel", "in_channels": 64,
+                "num_attention_heads": 24, "attention_head_dim": 128,
+                "num_layers": 2, "num_single_layers": 0,
+                "joint_attention_dim": 4096, "pooled_projection_dim": 768,
+                "axes_dims_rope": [16, 56, 56], "guidance_embeds": True},
+    height=1024, width=1024, steps=2)
 VAE_TOL = dict(rtol=2e-4, atol=2e-5)   # fp32 (tests/test_kernels.py:44)
 
 
@@ -1684,11 +1748,13 @@ def synth_hunyuan_sd(cj: dict, gen) -> dict:
 
 def synth_vae_sd(cfg, gen) -> dict:
     """A diffusers VAE state dict (encoder and decoder) for the port's
-    VAEConfig ``cfg`` (the key set of tests/test_weights.py::synth_vae_sd)."""
+    VAEConfig ``cfg`` (the key set of tests/test_weights.py::synth_vae_sd;
+    3-D convolutions for a video VAE, 2-D for an image one)."""
     sd = {}
+    dims = 3 if cfg.video else 2
 
     def conv(name, o, i, k=3):
-        _synth(sd, gen, name + ".weight", (o, i, k, k, k), "w")
+        _synth(sd, gen, name + ".weight", (o, i, *(k,) * dims), "w")
         _synth(sd, gen, name + ".bias", (o,), "0")
 
     def gn(name, c):
@@ -1938,6 +2004,8 @@ def ckpt_phase(kernels) -> dict:
         res["cli_i2v"] = ckpt_i2v_cli(kernels, root, out_dir)
         torch.cuda.empty_cache()
         res["cogvideox"] = ckpt_cog_leg(kernels, root, out_dir)
+        torch.cuda.empty_cache()
+        res["flux"] = ckpt_flux_leg(kernels, root, out_dir)
     finally:
         torch.backends.cudnn.allow_tf32 = False
         shutil.rmtree(root, ignore_errors=True)
@@ -2008,24 +2076,23 @@ def ckpt_i2v_cli(kernels, root: str, out_dir: str) -> dict:
 
 # -------------------------------------------------------- CogVideoX phases ---
 
-def cog_site_inputs(regime: str) -> dict:
-    """The CogVideoX site's inputs at COG_SITE on "random" (iid, seed 8) or
-    "smooth" q/k/v in the model's layout [visual ; text] (24,480 + 256
-    tokens), and the kernels' layout: rectified_sparse_attention's zero
-    pad between the visual and the text tokens (visual to 24,576, the text
-    slot from there), K and V zeroed off the key window, and the
-    single-row plan."""
+def joint_site_inputs(c: dict, regime: str) -> dict:
+    """A joint site's inputs at ``c`` (COG_SITE, FLUX_SITE) on "random"
+    (iid, seed 8) or "smooth" q/k/v in the model's layout [visual ; text],
+    and the kernels' layout: rectified_sparse_attention's zero pad between
+    the visual and the text tokens (CogVideoX: visual 24,480 to 24,576, the
+    text slot from there; Flux: none, 65,536 fill 512 blocks), K and V
+    zeroed off the key window, and the single-row plan."""
     from rectified_spaattn_tpu_torch.attention import kv_validity
     from rectified_spaattn_tpu_torch.pipelines import build_site
     from rectified_spaattn_tpu_torch.sparse import build_sparse_plan
 
     dev = torch.device(DEV)
-    c = COG_SITE
     b, h, d, text_len = 1, c["heads"], c["head_dim"], c["text_len"]
     site, _, h2l = build_site(*c["grid"], sa_drop_rate=c["sa_drop_rate"],
                               p_remain=0.3, layout="joint",
                               text_len=text_len, device=dev)
-    sv = site.visual_len                        # 24,480: 191 blocks + 32
+    sv = site.visual_len
     sv_pad = -(-sv // 128) * 128
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
@@ -2055,23 +2122,24 @@ def cog_site_inputs(regime: str) -> dict:
                 valid=valid, kz=kz, vz=vz, plan=plan, sv_pad=sv_pad)
 
 
-def cog_site_phase(kernels, ops, regime: str):
-    """The CogVideoX attention site at its operating point (COG_SITE) on
-    "random" or "smooth" inputs: the plan's time and the site's, then each
-    kernel of the path at these shapes against its plain version on the
-    full inputs (the relative limits), with its time, bound and, where
-    one SDPA call computes the same function, that call's time: K1 on the
-    visual rows (G = 1), K2 at G = 2, K1 on the text rows (key split and
-    merge), and the windowed dense K1 of the warm calls at block_m 1024
+def joint_site_phase(kernels, ops, c: dict, regime: str, prefix: str):
+    """A joint attention site at its operating point (COG_SITE: CogVideoX,
+    prefix "cog_"; FLUX_SITE: Flux's 4096^2 stage, "flux_") on "random" or
+    "smooth" inputs: the plan's time and the site's, then each kernel of
+    the path at these shapes against its plain version on the full inputs
+    (the relative limits), with its time, bound and, where one SDPA call
+    computes the same function, that call's time: K1 on the visual rows
+    (G = 1), K2 at G = 2, K1 on the text rows (key split and merge), and
+    the windowed dense K1 of the dense calls or blocks at block_m 1024
     (attention/modes.py::_windowed_dense_flash, the model's unpadded
-    layout)."""
+    layout).  Returns (results, per-kernel results, the inputs)."""
     from rectified_spaattn_tpu_torch.attention import (
         attention, kv_validity, rectified_sparse_attention)
 
     dev = torch.device(DEV)
-    b, h, d = 1, COG_SITE["heads"], COG_SITE["head_dim"]
-    text_len = COG_SITE["text_len"]
-    st = cog_site_inputs(regime)
+    b, h, d = 1, c["heads"], c["head_dim"]
+    text_len = c["text_len"]
+    st = joint_site_inputs(c, regime)
     site, q, k, v, qp, tlen, valid, kz, vz, plan, sv_pad = (
         st[n] for n in ("site", "q", "k", "v", "qp", "tlen", "valid", "kz",
                         "vz", "plan", "sv_pad"))
@@ -2105,7 +2173,7 @@ def cog_site_phase(kernels, ops, regime: str):
         "sparse_g2": launches_of(lambda: site_call(cfg2))}
     out = site_call(cfg2)
     if out.shape != q.shape or not torch.isfinite(out.float()).all():
-        raise AssertionError("CogVideoX site output is not finite of shape "
+        raise AssertionError(f"{prefix}site output is not finite of shape "
                              "q.shape")
     del out
 
@@ -2128,7 +2196,7 @@ def cog_site_phase(kernels, ops, regime: str):
     ui, uc, rb, cl = ops.group_rows(plan.block_mask, 2,
                                     clean_blocks=sv // 128)
     g2 = dict(group=2, **kw)
-    measure(kern, "cog_K2_visual_g2", regime, True,
+    measure(kern, prefix + "K2_visual_g2", regime, True,
             lambda: kernels.block_sparse_flash_attention_grouped(
                 q_vis, kz, vz, ui, uc, rb, cl, tlen, **g2),
             lambda: kernels.block_sparse_flash_attention_grouped_torch(
@@ -2137,7 +2205,7 @@ def cog_site_phase(kernels, ops, regime: str):
             nbytes=qo_bytes(sv_pad) + kv_bytes(vis_kv_blocks)
             + idx_bytes(ui, uc, rb, cl))
     del ui, uc, rb, cl
-    measure(kern, "cog_K1_visual_g1", regime, True,
+    measure(kern, prefix + "K1_visual_g1", regime, True,
             lambda: kernels.block_sparse_flash_attention(
                 q_vis, kz, vz, plan.indices, plan.counts, tlen, **kw),
             lambda: kernels.block_sparse_flash_attention_torch(
@@ -2152,7 +2220,7 @@ def cog_site_phase(kernels, ops, regime: str):
     fcnt = torch.full((b, h, nt), nbt, dtype=torch.int32, device=dev)
     keys = sv + int(tlen[0])              # the keys the window keeps
     amask = valid[:, None, None, :]
-    measure(kern, "cog_K1_text_rows", regime, True,
+    measure(kern, prefix + "K1_text_rows", regime, True,
             lambda: kernels.block_sparse_flash_attention(
                 q_txt, kz, vz, fidx, fcnt, tlen, **kw),
             lambda: kernels.block_sparse_flash_attention_torch(
@@ -2162,7 +2230,7 @@ def cog_site_phase(kernels, ops, regime: str):
             + idx_bytes(fidx, fcnt),
             library=lambda: sdpa(q_txt, kz, vz, attn_mask=amask))
     merge_at_site(kernels, kern, regime, b * h * nt, nbt, d=d,
-                  name="cog_K1_merge")
+                  name=prefix + "K1_merge")
     # the warm calls' windowed dense, as attention(mode="flash") runs it on
     # the model's layout: K1 over full lists at block_m 1024, the text
     # window from the 24,480th key; the rows the data needs are the real
@@ -2177,7 +2245,9 @@ def cog_site_phase(kernels, ops, regime: str):
     dcnt = torch.full((b, h, nqd), nbd, dtype=torch.int32, device=dev)
     dkw = dict(visual_len=sv, text_start=sv, block_m=1024)
     dvalid = kv_validity(b, s, sv, sv, tlen, device=dev)[:, None, None, :]
-    measure(kern, "cog_K1_dense_bm1024", regime, True,
+    # every key valid (Flux's 512 text slots): the same function unmasked
+    dmask = None if bool(dvalid.all()) else dvalid
+    measure(kern, prefix + "K1_dense_bm1024", regime, True,
             lambda: kernels.block_sparse_flash_attention(
                 qd, kd, vd, didx, dcnt, tlen, **dkw),
             lambda: kernels.block_sparse_flash_attention_torch(
@@ -2185,7 +2255,7 @@ def cog_site_phase(kernels, ops, regime: str):
             flops=4.0 * b * h * s * keys * d,
             nbytes=qo_bytes(s) + 2 * b * h * keys * d * 2
             + idx_bytes(didx, dcnt),
-            library=lambda: sdpa(q, k, v, attn_mask=dvalid))
+            library=lambda: sdpa(q, k, v, attn_mask=dmask))
     dense = lambda: attention(q, k, v, "flash", cfg=cfg1, visual_len=sv,
                               text_len_rt=tlen)
     res["dense_ms"] = cuda_ms(dense, reps=2)
@@ -2194,7 +2264,7 @@ def cog_site_phase(kernels, ops, regime: str):
                                              "K1_merge": 0}:
         raise AssertionError(f"the windowed dense launched "
                              f"{res['launches_per_call']['dense']}")
-    return res, kern
+    return res, kern, st
 
 
 def cog_full_pipe(cfg_kw: dict, steps: int, seed: int = 0):
@@ -2490,16 +2560,410 @@ def ckpt_cog_leg(kernels, root: str, out_dir: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------ Flux phases ---
+
+def flux_site_phase(kernels, ops, regime: str):
+    """Flux's attention site at its 4096^2 operating point (FLUX_SITE) on
+    "random" or "smooth" inputs: joint_site_phase's plan, K2 at G = 2, K1
+    visual, K1 text rows (split and merged) and the windowed dense K1 of
+    the 20 dense-band blocks at block_m 1024; then K3 as the ControlNet
+    runs it: unmasked self-attention over all 66,048 tokens (padded text
+    slots included), against its plain version on the full inputs (in
+    chunks of heads and rows) and beside unmasked SDPA."""
+    res, kern, st = joint_site_phase(kernels, ops, FLUX_SITE, regime,
+                                     "flux_")
+    q, k, v = st["q"], st["k"], st["v"]
+    del st
+    torch.cuda.empty_cache()
+    b, h, s, d = q.shape
+    k3 = kernels.dense_flash_attention
+    k3.launches = 0
+    measure(kern, "flux_K3_self", regime, True,
+            lambda: kernels.dense_attention(q, k, v, mode="flash"),
+            lambda: plain_dense(kernels, q, k, v, heads=1, rows=8192),
+            flops=4.0 * b * h * s * s * d, nbytes=4 * b * h * s * d * 2,
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v))
+    if k3.launches == 0:
+        raise AssertionError("K3 was not launched at the Flux site")
+    res["tokens"] = s
+    return res, kern
+
+
+def flux_full_pipe():
+    """A FluxUpscalePipeline of FLUX_PIPE's geometry on FluxConfig() and
+    FluxControlNetConfig() with the CLI's seeded random weights
+    (random_flux: built on the card in bf16, so no fp32 tree of the 12B
+    trunk ever exists; the ControlNet nudged off its zero init), the
+    seeded T5 stand-in and a seeded pooled vector."""
+    from rectified_spaattn_tpu_torch.cli.generate import (_random_text,
+                                                          random_flux)
+    from rectified_spaattn_tpu_torch.models import (FluxConfig,
+                                                    FluxControlNetConfig)
+    from rectified_spaattn_tpu_torch.pipelines import (FluxPipeline,
+                                                       FluxUpscalePipeline)
+
+    dev = torch.device(DEV)
+    cfg = FluxConfig(**FLUX_PIPE["cfg"])
+    cn_cfg = FluxControlNetConfig(**FLUX_PIPE["cn_cfg"])
+    model, cn = random_flux(cfg, cn_cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    kw = dict(num_steps=FLUX_PIPE["steps"], sa_drop_rate=0.9,
+              p_remain_rates=0.3, mode="sparse",
+              group_rows=FLUX_PIPE["group_rows"], device=dev)
+    pipe = FluxUpscalePipeline(
+        base=FluxPipeline(model=model, height=FLUX_PIPE["base"],
+                          width=FLUX_PIPE["base"], **kw),
+        up=FluxPipeline(model=model, height=FLUX_PIPE["up"],
+                        width=FLUX_PIPE["up"], **kw),
+        controlnet=cn)
+    text, mask = _random_text("several hot air balloons flying over a city.",
+                              512, cfg.text_dim, device=dev)
+    pooled = torch.randn((1, cfg.pooled_dim), generator=gen, device=dev)
+    return pipe, cfg, cn_cfg, text, mask, pooled
+
+
+def record_calls(kernels, obj, name: str, calls: list):
+    """Wrap ``obj.<name>`` to append, per call, the K1 / K2 / K3 / merge
+    launches it made to ``calls``; returns the undo."""
+    kerns = path_kernels(kernels)
+    fn = getattr(obj, name)
+
+    def counted(*a, **kw):
+        before = {n: f.launches for n, f in kerns.items()}
+        out = fn(*a, **kw)
+        calls.append({n: f.launches - before[n] for n, f in kerns.items()})
+        return out
+
+    setattr(obj, name, counted)
+    return lambda: delattr(obj, name)
+
+
+def check_flux_launches(trunk: list, ctrl: list, steps: int) -> None:
+    """Each of the 2 x ``steps`` trunk calls launched K2 37 times (the
+    visual rows of the 37 sparse blocks), K1 57 (their text rows, split
+    and merged, and the 20 windowed dense blocks) and K3 never; each of
+    the ``steps`` ControlNet calls K3 5 times (its 5 blocks) and nothing
+    else."""
+    want_trunk = {"K1": 57, "K2": 37, "K3": 0}
+    bad = [c for c in trunk if {k: c[k] for k in want_trunk} != want_trunk
+           or c["K1_merge"] == 0]
+    bad += [c for c in ctrl if c != {"K1": 0, "K2": 0, "K3": 5,
+                                     "K1_merge": 0}]
+    if bad or len(trunk) != 2 * steps or len(ctrl) != steps:
+        raise AssertionError(f"Flux launches per trunk call {trunk}, per "
+                             f"ControlNet call {ctrl}")
+
+
+def pipeline_flux_phase(kernels):
+    """Flux.1-dev's upscale at full width and depth (FLUX_PIPE): s/step of
+    each stage, peak memory, the device's weight bytes, and the launches
+    of each trunk call and each ControlNet call (counters zeroed just
+    before the run, read just after): every trunk call K2 37 (the visual
+    rows of the sparse blocks), K1 57 (their text rows and the 20
+    windowed dense blocks) and K3 0, every ControlNet call K3 5 and
+    nothing else.  Then one up step under the profiler."""
+    pipe, cfg, cn_cfg, text, mask, pooled = flux_full_pipe()
+    model, cn = pipe.up.model, pipe.controlnet
+    res = {"config": dataclasses.asdict(cfg),
+           "controlnet_config": dataclasses.asdict(cn_cfg),
+           "params": sum(p.numel() for p in model.parameters()),
+           "controlnet_params": sum(p.numel() for p in cn.parameters()),
+           "device_weight_gb": device_tree_bytes(model, cn) / 2**30,
+           "base_tokens": pipe.base.site.visual_len,
+           "up_tokens": pipe.up.site.visual_len, "text_slots": 512,
+           "valid_text": int(mask.sum()), "steps": FLUX_PIPE["steps"],
+           "cut": FLUX_PIPE["cut"]}
+    kerns = path_kernels(kernels)
+    trunk, ctrl = [], []
+    undo = [record_calls(kernels, model, "run_blocks", trunk),
+            record_calls(kernels, cn, "forward", ctrl)]
+    noise = torch.Generator(device=DEV)
+    noise.manual_seed(42)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kerns.values():
+        f.launches = 0
+    try:
+        out = pipe(text, mask, pooled, generator=noise)
+        torch.cuda.synchronize()
+    finally:
+        for u in undo:
+            u()
+    launches = {n: f.launches for n, f in kerns.items()}
+    if out.shape != (1, pipe.up.gh * pipe.up.gw, cfg.in_channels) \
+            or not torch.isfinite(out).all():
+        raise AssertionError(f"Flux output {tuple(out.shape)} not finite or "
+                             f"of the wrong shape")
+    n = FLUX_PIPE["steps"]
+    check_flux_launches(trunk, ctrl, n)
+    per_up_step = [{k: t[k] + c[k] for k in t}
+                   for t, c in zip(trunk[n:], ctrl)]
+    res.update({"launches": launches, "launches_per_trunk_call": trunk,
+                "launches_per_controlnet_call": ctrl,
+                "launches_per_up_step": per_up_step,
+                "base_step_seconds": pipe.base.step_seconds,
+                "up_step_seconds": pipe.up.step_seconds,
+                "base_denoise_seconds": pipe.base.denoise_seconds,
+                "up_denoise_seconds": pipe.up.denoise_seconds,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30})
+    del out
+    # one up step with the ControlNet, under the profiler
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(43)
+    base = torch.randn((1, pipe.base.gh * pipe.base.gw, cfg.in_channels),
+                       generator=gen, device=DEV)
+    control = pipe.control_tokens(base)
+    fn = pipe.controlnet_fn(control, text, pooled)
+    init = pipe.up.noise(1, generator=gen)
+    res["profiled_up_step"] = profile_run(
+        lambda: pipe.up(text, mask, pooled, controlnet_fn=fn,
+                        init_tokens=init, num_steps=1))
+    return res
+
+
+def tiny_flux_models(gen):
+    """The small check's trunk (1 + 1 blocks, 2 heads of 128) and
+    ControlNet (1 block, nudged), seeded on the host in fp32."""
+    from rectified_spaattn_tpu_torch.models import (
+        FluxConfig, FluxControlNet, FluxControlNetConfig, FluxDiT,
+        init_controlnet_weights, init_random_weights)
+    cfg = FluxConfig(hidden_dim=256, heads=2, num_dual_blocks=1,
+                     num_single_blocks=1, text_dim=64, pooled_dim=32)
+    cn_cfg = FluxControlNetConfig(hidden_dim=256, heads=2, num_dual_blocks=1,
+                                  text_dim=64, pooled_dim=32)
+    return (init_random_weights(FluxDiT(cfg), gen),
+            init_controlnet_weights(FluxControlNet(cn_cfg), gen, nudge=0.02))
+
+
+def tiny_image_vae(gen):
+    """A seeded 2-D AutoencoderKL (16 latent channels, widths 32 / 64,
+    stride 2, FLUX.1-dev's scaling and shift) on the host in fp32: (encoder,
+    decoder)."""
+    import torch.nn as nn
+    from rectified_spaattn_tpu_torch.models import (VAEConfig, VAEDecoder,
+                                                    VAEEncoder,
+                                                    init_random_weights)
+    cfg = VAEConfig(latent_channels=16, block_out_channels=(32, 64),
+                    layers_per_block=1, temporal_upsample=(False, False),
+                    spatial_upsample=(True, False), video=False,
+                    mid_attention=True, scaling_factor=0.3611,
+                    shift_factor=0.1159)
+    out = []
+    for cls in (VAEEncoder, VAEDecoder):
+        m = init_random_weights(cls(cfg), gen)
+        with torch.no_grad():
+            for mod in m.modules():
+                if isinstance(mod, nn.Conv2d):
+                    mod.weight.normal_(0.0, mod.weight[0].numel() ** -0.5,
+                                       generator=gen)
+                    mod.bias.zero_()
+        out.append(m.eval())
+    return tuple(out)
+
+
+def small_flux_check(pixels: bool) -> dict:
+    """A small Flux upscale (base 128^2, up 512^2: 1,024 tokens in 8 blocks
+    + 512 text slots, 9 valid; 2 sparse steps a stage, the gate (1, 2) so
+    that the single block runs the windowed dense, group_rows 2) with a
+    nudged ControlNet on the GPU in bf16 against the same weights on the
+    CPU in fp32, the same noise; with ``pixels`` the control goes through
+    a small 2-D VAE (fp32 on both) and the bicubic resize.  Held to the
+    output's scale."""
+    from rectified_spaattn_tpu_torch.models import FluxControlNet, FluxDiT
+    from rectified_spaattn_tpu_torch.pipelines import (FluxPipeline,
+                                                       FluxUpscalePipeline)
+
+    gen = torch.Generator()
+    gen.manual_seed(6)
+    trunk, cn = tiny_flux_models(gen)
+    enc, dec = tiny_image_vae(gen) if pixels else (None, None)
+    text = torch.randn((1, 512, 64), generator=gen)
+    mask = torch.zeros((1, 512), dtype=torch.bool)
+    mask[:, :9] = True
+    pooled = torch.randn((1, 32), generator=gen)
+    base_init = torch.randn((1, 64, 64), generator=gen)
+    up_noise = torch.randn((1, 1024, 64), generator=gen)
+    kw = dict(num_steps=2, sa_drop_rate=0.5, group_rows=2,
+              sparse_layer_gate=(1, 2))
+    outs, seen = [], []
+    for dev, dt in (("cpu", torch.float32), (DEV, torch.bfloat16)):
+        t, c = FluxDiT(trunk.cfg), FluxControlNet(cn.cfg)
+        t.load_state_dict(trunk.state_dict())
+        c.load_state_dict(cn.state_dict())
+        vae = {}
+        if pixels:
+            e, d = (m.to(dev) for m in (enc, dec))
+            vae = dict(vae_encode=lambda px, e=e: (
+                seen.append(tuple(px.shape)), e(px.to(dev)))[1],
+                       vae_decode=lambda z, d=d: d(z.to(dev)))
+        pipe = FluxUpscalePipeline(
+            base=FluxPipeline(model=t.to(dt), height=128, width=128,
+                              device=dev, **kw),
+            up=FluxPipeline(model=t, height=512, width=512, device=dev,
+                            **kw), controlnet=c.to(dt), **vae)
+        with torch.no_grad():
+            outs.append(pipe(text, mask, pooled, base_init=base_init,
+                             up_noise=up_noise).cpu())
+    want, got = outs
+    res = held_to_scale(f"small Flux upscale{' (pixels)' if pixels else ''}"
+                        " GPU vs CPU", got, want)
+    if pixels:
+        # base latents 16x16 -> 32x32 pixels, resized 4x, on both devices
+        if seen != [(1, 3, 128, 128)] * 2:
+            raise AssertionError(f"the pixel control encoded {seen}")
+        res["encoded_pixels"] = list(seen[0])
+    return res
+
+
+def synth_flux_sd(cj: dict, gen, controlnet: bool = False) -> dict:
+    """A diffusers FluxTransformer2DModel state dict for the config json
+    ``cj`` (the key set of tests/manifests/flux_keys.json), or with
+    ``controlnet`` a FluxControlNetModel's (flux_controlnet_keys.json: no
+    head, controlnet_x_embedder and one projection per block)."""
+    d = cj["num_attention_heads"] * cj["attention_head_dim"]
+    hd, mlp_h = cj["attention_head_dim"], 4 * d
+    sd = {}
+    lin = lambda n, o, i: (_synth(sd, gen, n + ".weight", (o, i), "w"),
+                           _synth(sd, gen, n + ".bias", (o,), "0"))
+    rms = lambda n, c: _synth(sd, gen, n + ".weight", (c,), "ones")
+    lin("x_embedder", d, cj["in_channels"])
+    lin("context_embedder", d, cj["joint_attention_dim"])
+    for emb, in_f in (("timestep_embedder", 256), ("guidance_embedder", 256),
+                      ("text_embedder", cj["pooled_projection_dim"])):
+        lin(f"time_text_embed.{emb}.linear_1", d, in_f)
+        lin(f"time_text_embed.{emb}.linear_2", d, d)
+    for i in range(cj["num_layers"]):
+        b = f"transformer_blocks.{i}"
+        lin(f"{b}.norm1.linear", 6 * d, d)
+        lin(f"{b}.norm1_context.linear", 6 * d, d)
+        for nm in ("to_q", "to_k", "to_v", "add_q_proj", "add_k_proj",
+                   "add_v_proj", "to_out.0", "to_add_out"):
+            lin(f"{b}.attn.{nm}", d, d)
+        for nm in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            rms(f"{b}.attn.{nm}", hd)
+        for ff in ("ff", "ff_context"):
+            lin(f"{b}.{ff}.net.0.proj", mlp_h, d)
+            lin(f"{b}.{ff}.net.2", d, mlp_h)
+        if controlnet:
+            lin(f"controlnet_blocks.{i}", d, d)
+    for i in range(cj["num_single_layers"]):
+        b = f"single_transformer_blocks.{i}"
+        lin(f"{b}.norm.linear", 3 * d, d)
+        for nm in ("to_q", "to_k", "to_v"):
+            lin(f"{b}.attn.{nm}", d, d)
+        rms(f"{b}.attn.norm_q", hd)
+        rms(f"{b}.attn.norm_k", hd)
+        lin(f"{b}.proj_mlp", mlp_h, d)
+        lin(f"{b}.proj_out", d, d + mlp_h)
+        if controlnet:
+            lin(f"controlnet_single_blocks.{i}", d, d)
+    if controlnet:
+        lin("controlnet_x_embedder", d, cj["in_channels"])
+    else:
+        lin("norm_out.linear", 2 * d, d)
+        lin("proj_out", cj["in_channels"], d)
+    return sd
+
+
+def same_tensors(name: str, got: dict, want: dict) -> int:
+    """Every tensor of a GPU load equal to the CPU load's, bit for bit;
+    returns their count."""
+    if set(got) != set(want) or any(
+            got[k].dtype != t.dtype or not torch.equal(got[k].cpu(), t)
+            for k, t in want.items()):
+        raise AssertionError(f"the {name} GPU load differs from the CPU load")
+    return len(want)
+
+
+def ckpt_flux_leg(kernels, root: str, out_dir: str) -> dict:
+    """The Flux checkpoint path: a seeded bf16 snapshot in diffusers' key
+    layout (FLUX_CKPT: transformer/, controlnet/ and the 2-D vae/);
+    load_transformer and load_flux_controlnet on the card held to CPU loads
+    bit for bit; then the CLI's --model flux-upscale --ckpt_dir at
+    1024^2 (base 256^2 and up 1024^2, 2 sparse steps each, the control
+    through pixels) -- K1, K2 and K3 launched (counters zeroed just before,
+    read just after) -- writing a [1024, 1024, 3] uint8 image.  The untiled
+    2-D decode at 4096^2 is left out (ROADMAP)."""
+    from rectified_spaattn_tpu_torch.cli.generate import main as cli_main
+    from rectified_spaattn_tpu_torch.models.pretrained import (
+        load_flux_controlnet, load_transformer, vae_config_from_json)
+
+    c = FLUX_CKPT
+    froot = os.path.join(root, "flux")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(14)
+    res = {"snapshot_bytes": {
+        "vae": write_snapshot(froot, "vae", synth_vae_sd(
+            vae_config_from_json(c["vae"], video=False), gen), c["vae"]),
+        "transformer": write_snapshot(froot, "transformer", synth_flux_sd(
+            c["transformer"], gen), c["transformer"]),
+        "controlnet": write_snapshot(froot, "controlnet", synth_flux_sd(
+            c["controlnet"], gen, controlnet=True), c["controlnet"])}}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, model = load_transformer("flux", froot, device=DEV)
+    _, cn = load_flux_controlnet(os.path.join(froot, "controlnet"),
+                                 device=DEV)
+    torch.cuda.synchronize()
+    res["load_seconds"] = time.perf_counter() - t0
+    _, ref = load_transformer("flux", froot, cache=False, device="cpu")
+    _, cn_ref = load_flux_controlnet(os.path.join(froot, "controlnet"),
+                                     device="cpu")
+    res["tensors_equal_to_cpu_load"] = {
+        "transformer": same_tensors("Flux transformer", model.state_dict(),
+                                    ref.state_dict()),
+        "controlnet": same_tensors("Flux ControlNet", cn.state_dict(),
+                                   cn_ref.state_dict())}
+    res["config"] = dataclasses.asdict(cfg)
+    del model, cn, ref, cn_ref
+    torch.cuda.empty_cache()
+    argv = ["--model", "flux-upscale", "--ckpt_dir", froot, "--height",
+            str(c["height"]), "--width", str(c["width"]), "--num_steps",
+            str(c["steps"]), "--mode", "sparse", "--group_rows", "2",
+            "--out_dir", out_dir, "--device", DEV]
+    kerns = path_kernels(kernels)
+    zero_launches(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    line = cli_main(argv)
+    cli_s = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in kerns.items()}
+    if min(launches["K1"], launches["K2"], launches["K3"]) == 0:
+        raise AssertionError(f"unexpected launches on the Flux checkpoint "
+                             f"path: {launches}")
+    path = line["output"]
+    image = (np.load(path) if path.endswith(".npy") else None)
+    if image is None and path.endswith(".png"):
+        from PIL import Image
+        image = np.asarray(Image.open(path))
+    want_shape = (c["height"], c["width"], 3)
+    if image is None or image.dtype != np.uint8 \
+            or image.shape != want_shape:
+        raise AssertionError(f"the Flux CLI wrote {path}: "
+                             f"{getattr(image, 'shape', None)}, want uint8 "
+                             f"{want_shape}")
+    res["cli"] = {"argv": argv, "line": line, "seconds": cli_s,
+                  "launches": launches, "image": list(image.shape),
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    return res
+
+
 # ------------------------------------------------------------- Wan phases ---
 
-def plain_dense(kernels, q, k, v, heads: int = 8):
+def plain_dense(kernels, q, k, v, heads: int = 8, rows=None):
     """K3's plain version over chunks of heads (its fp32 scores at the
-    T2V cross shape would take 6 GB per 40 heads)."""
+    T2V cross shape would take 6 GB per 40 heads) and, with ``rows``, of
+    query rows (every row is its own softmax)."""
     out = torch.empty_like(q)
+    rows = rows or q.shape[2]
     for h0 in range(0, q.shape[1], heads):
         hs = slice(h0, h0 + heads)
-        out[:, hs] = kernels.flash._vanilla_attention(q[:, hs], k[:, hs],
-                                                      v[:, hs])
+        for r0 in range(0, q.shape[2], rows):
+            rs = slice(r0, r0 + rows)
+            out[:, hs, rs] = kernels.flash._vanilla_attention(
+                q[:, hs, rs], k[:, hs], v[:, hs])
     return out
 
 
@@ -3849,20 +4313,22 @@ def variant_entries(s3, s2, sass) -> list:
 
 # ------------------------------------------------------------------ main ---
 
-def cog_jobs(name: str, csites: dict) -> dict:
-    """The kernel's head_dim-64 jobs at the CogVideoX site (both regimes)
-    for the kernels line."""
+def joint_jobs(name: str, csites: dict, model: str = "cog") -> dict:
+    """The kernel's jobs at a joint site (both regimes) for the kernels
+    line: the CogVideoX site's at head_dim 64 (``model`` "cog") or Flux's
+    4096^2 site's ("flux")."""
     jobs = {"K1": ("visual_rows_g1", "text_rows", "dense_bm1024"),
             "K2": ("visual_g2",), "K1_merge": ("merge",)}[name]
     out = {}
     for regime, kern in csites.items():
         for job in jobs:
-            key = {"visual_rows_g1": "cog_K1_visual_g1",
-                   "text_rows": "cog_K1_text_rows",
-                   "dense_bm1024": "cog_K1_dense_bm1024",
-                   "visual_g2": "cog_K2_visual_g2",
-                   "merge": "cog_K1_merge"}[job]
-            out[f"cogvideox_d64_{job}_{regime}"] = kern[key]
+            key = {"visual_rows_g1": "K1_visual_g1",
+                   "text_rows": "K1_text_rows",
+                   "dense_bm1024": "K1_dense_bm1024",
+                   "visual_g2": "K2_visual_g2",
+                   "merge": "K1_merge"}[job]
+            label = "cogvideox_d64" if model == "cog" else model
+            out[f"{label}_{job}_{regime}"] = kern[f"{model}_{key}"]
     return out
 
 
@@ -3928,6 +4394,8 @@ def main() -> int:
     small = small_pipeline_check()
     small["cogvideox_t2v"] = small_cog_check(i2v=False)
     small["cogvideox_i2v"] = small_cog_check(i2v=True)
+    small["flux_upscale"] = small_flux_check(pixels=False)
+    small["flux_upscale_pixels"] = small_flux_check(pixels=True)
     emit("small_pipeline_gpu_vs_cpu", t0, **small)
 
     t0 = time.perf_counter()
@@ -3975,7 +4443,8 @@ def main() -> int:
     csites = {}
     for regime in ("random", "smooth"):
         t0 = time.perf_counter()
-        res, csites[regime] = cog_site_phase(kernels, ops, regime)
+        res, csites[regime], _ = joint_site_phase(kernels, ops, COG_SITE,
+                                                  regime, "cog_")
         emit(f"cog_site_{regime}", t0, nvidia_smi=smi, **res)
     torch.cuda.empty_cache()
 
@@ -3987,6 +4456,18 @@ def main() -> int:
     t0 = time.perf_counter()
     ci2v = pipeline_cogvideox_i2v_phase(kernels)
     emit("pipeline_cogvideox_i2v", t0, nvidia_smi=smi, **ci2v)
+    torch.cuda.empty_cache()
+
+    fsites = {}
+    for regime in ("random", "smooth"):
+        t0 = time.perf_counter()
+        res, fsites[regime] = flux_site_phase(kernels, ops, regime)
+        emit(f"flux_site_{regime}", t0, nvidia_smi=smi, **res)
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    fpipe = pipeline_flux_phase(kernels)
+    emit("pipeline_flux", t0, nvidia_smi=smi, **fpipe)
     torch.cuda.empty_cache()
 
     rings, ring_res, ring_ref = {}, {}, None
@@ -4042,7 +4523,9 @@ def main() -> int:
                          "cogvideox": cpipe["launches"][n],
                          "cogvideox_i2v": ci2v["launches"][n],
                          "cogvideox_ckpt":
-                             ckpt["cogvideox"]["cli"]["launches"][n]}
+                             ckpt["cogvideox"]["cli"]["launches"][n],
+                         "flux": fpipe["launches"][n],
+                         "flux_ckpt": ckpt["flux"]["cli"]["launches"][n]}
     ks_t, ks_v = rings["random"]["K1s_ring_text"], \
         rings["random"]["K1s_ring_visual"]
     mainloop = "rectified_spaattn_tpu_torch/csrc/hopper_attn.cuh"
@@ -4075,7 +4558,8 @@ def main() -> int:
                         "wan_visual_g1_smooth":
                             wsites["smooth"]["K1_wan_visual_g1"],
                         "wan_dense_bm1024": wsite["K1_wan_dense_bm1024"],
-                        **cog_jobs("K1", csites)}},
+                        **joint_jobs("K1", csites),
+                        **joint_jobs("K1", fsites, "flux")}},
         {"name": "K2", "route": "cuda", "source": src,
          "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:317",
          "launches": sum(by_path("K2").values()),
@@ -4091,7 +4575,8 @@ def main() -> int:
          "other_jobs": {"visual_rows_g2_smooth": smooth["K2_visual_g2"],
                         "visual_rows_g4": site["K2_visual_g4"],
                         "visual_rows_g4_smooth": smooth["K2_visual_g4"],
-                        **cog_jobs("K2", csites)}},
+                        **joint_jobs("K2", csites),
+                        **joint_jobs("K2", fsites, "flux")}},
         {"name": "K3", "route": "cuda",
          "source": "rectified_spaattn_tpu_torch/csrc/dense_flash.cu",
          "replaces": "rectified_spaattn_tpu/kernels/flash.py:49",
@@ -4105,7 +4590,9 @@ def main() -> int:
          "shape": "Wan T2V text cross: q [1,40,75648,128] x 512 keys",
          "design": design + ", persistent CTAs",
          "kernel_ab": ab_of("K3_t2v_text", "K3_i2v_image"),
-         "other_jobs": {"i2v_image_cross_257": k3i}},
+         "other_jobs": {"i2v_image_cross_257": k3i,
+                        **{f"flux_controlnet_self_66048_{r}":
+                           fsites[r]["flux_K3_self"] for r in fsites}}},
         {"name": "K1q", "route": "cuda", "source": src,
          "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:176",
          "launches": (pipe8["launches"]["K1q_mxu8"]
@@ -4192,7 +4679,8 @@ def main() -> int:
          "shape": f"{merge['n_split']} ranges x 6,144 rows x 128 (the "
                   "Hunyuan text rows' split)",
          "design": "one warp a row",
-         "other_jobs": cog_jobs("K1_merge", csites)},
+         "other_jobs": {**joint_jobs("K1_merge", csites),
+                        **joint_jobs("K1_merge", fsites, "flux")}},
         k1q_stats_entry(src, site, smooth, qserrs),
         *variant_entries(s3, s2, ptxas["sass"]),
     ]}

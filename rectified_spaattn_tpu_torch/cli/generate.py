@@ -1,7 +1,8 @@
 """Generation CLI of the PyTorch port (port of
 rectified_spaattn_tpu/cli/generate.py: ``--model hunyuan``,
 ``hunyuan-i2v``, ``wan21-t2v``, ``wan21-i2v``, ``wan22-t2v``, ``wan22-i2v``,
-``wan22-ti2v``, ``cogvideox-t2v`` and ``cogvideox-i2v``):
+``wan22-ti2v``, ``cogvideox-t2v``, ``cogvideox-i2v`` and
+``flux-upscale``):
 
     python -m rectified_spaattn_tpu_torch.cli.generate --model hunyuan \
         --height 720 --width 1280 --frame 128 --sa_drop_rate 0.8 \
@@ -12,6 +13,8 @@ rectified_spaattn_tpu/cli/generate.py: ``--model hunyuan``,
         --height 720 --width 1280 --frame 81 --image first.npy --host_swap
     python -m rectified_spaattn_tpu_torch.cli.generate --model cogvideox-t2v \
         --height 768 --width 1360 --frame 81 --group_rows 2
+    python -m rectified_spaattn_tpu_torch.cli.generate --model flux-upscale \
+        --height 4096 --width 4096 --num_steps 28 --group_rows 2
 
 The flags are the JAX CLI's, plus ``--device`` (default cuda; the run
 raises without a GPU unless ``--device cpu``).  ``--tp N`` runs the
@@ -37,10 +40,21 @@ layer (models/quant.py::quantize_model, the JAX CLI's ``quantize_params``
 rules), so the device never holds a second full copy.  ``--trace_out``
 writes the TeaCache schedule trace (cache/teacache.py::trace_to),
 ``--profile`` a torch.profiler chrome trace.  Flags of parts not ported
-(the Flux family, scan execution, and for CogVideoX the port's own levers
-that its JAX pipeline lacks: ``--mlp_chunk``, ``--teacache_residual int8``,
+(scan execution, and for CogVideoX and Flux the port's own levers that
+their JAX pipelines lack: ``--mlp_chunk``, ``--teacache_residual int8``,
 ``--teacache_offload``, ``--replay_trace``, ``--density``) raise
 NotImplementedError.
+
+``flux-upscale`` is the two-stage upscale: the base stage at a quarter of
+``--height`` x ``--width``, then the ControlNet pass at the full size
+(reference: scripts/main_upflux.py:287-328).  ``--controlnet_dir`` (default
+``<ckpt_dir>/controlnet``) holds the FluxControlNetModel snapshot; without
+one a warning says the up stage falls back to img2img at strength 0.7.
+With ``--ckpt_dir`` the control goes through pixels (decode, bicubic
+resize, encode) and the up stage is decoded to a ``.png``; with random
+weights a ``--scale``d trunk and a ControlNet of ``max(1, int(5 * scale))``
+blocks, its parameters nudged off the zero init, and the up stage's
+packed tokens are saved.  The JSON line reports the up stage.
 
 ``--image`` conditions the image-to-video models: ``.npy`` (HWC or CHW,
 in [-1, 1] or 0-255), or ``.png`` / ``.jpg`` through PIL where it is
@@ -90,6 +104,7 @@ DEFAULTS = {
     "wan21-i2v": (0.75, 0.3), "wan22-ti2v": (0.75, 0.1),
     "wan22-t2v": (0.85, 0.2), "wan22-i2v": (0.85, 0.3),
     "cogvideox-t2v": (0.85, 0.2), "cogvideox-i2v": (0.75, 0.2),
+    "flux-upscale": (0.9, 0.8),
 }
 
 
@@ -116,7 +131,9 @@ def parse_args(argv=None):
                    default="sparse")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--controlnet_dir", type=str, default=None)
+    p.add_argument("--controlnet_dir", type=str, default=None,
+                   help="FluxControlNetModel snapshot for flux-upscale "
+                        "(default: <ckpt_dir>/controlnet)")
     p.add_argument("--ckpt_dir", type=str, default=None,
                    help="local diffusers snapshot: transformer/, vae/, "
                         "optional text_encoder[_2]/ + tokenizer[_2]/")
@@ -167,22 +184,24 @@ def _check_ported(args):
     if args.model not in DEFAULTS:
         raise NotImplementedError(f"--model {args.model} is not ported yet")
     # flags the JAX CLI honours for these models; the rest
-    # (--controlnet_dir, and --use_ret_steps / --teacache_signal_scale for
-    # hunyuan) belong to other families and are ignored there too
+    # (--controlnet_dir outside flux-upscale, and --use_ret_steps /
+    # --teacache_signal_scale for hunyuan) belong to other families and
+    # are ignored there too
     unported = {
         "--scan_blocks": args.scan_blocks,
         "--dispatch_segments": args.dispatch_segments > 1,
     }
-    if args.model.startswith("cogvideox"):
-        # the port's levers that the CogVideoX pipeline (as its JAX
-        # counterpart) does not take
+    family = args.model.split("-")[0]
+    if family in ("cogvideox", "flux"):
+        # the port's levers that the CogVideoX and Flux pipelines (as
+        # their JAX counterparts) do not take
         unported.update({
-            "--mlp_chunk for cogvideox": args.mlp_chunk > 1,
-            "--teacache_residual int8 for cogvideox":
+            f"--mlp_chunk for {family}": args.mlp_chunk > 1,
+            f"--teacache_residual int8 for {family}":
                 args.teacache_residual != "bf16",
-            "--teacache_offload for cogvideox": args.teacache_offload,
-            "--replay_trace for cogvideox": args.replay_trace is not None,
-            "--density for cogvideox": args.density,
+            f"--teacache_offload for {family}": args.teacache_offload,
+            f"--replay_trace for {family}": args.replay_trace is not None,
+            f"--density for {family}": args.density,
         })
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -328,18 +347,43 @@ def _serving(args) -> dict:
                 density_probe=args.density, mesh=args.mesh)
 
 
+def _built(cls, cfg, device):
+    """``cls(cfg)`` made on ``device`` in the dtype its weights run in
+    there (bf16 on the GPU, fp32 on the CPU): no wider copy of the model
+    ever exists (12B Flux is 47 GB in fp32)."""
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        with torch.device(device):
+            return cls(cfg)
+    finally:
+        torch.set_default_dtype(old)
+
+
 def _random_model(cls, cfg, device, host: bool = False):
-    """``cls(cfg)`` with random weights drawn on ``device`` from seed 0:
-    bf16 on the GPU, fp32 on the CPU; then moved to the host when ``host``
+    """``cls(cfg)`` with random weights drawn on ``device`` from seed 0
+    (``_built``'s dtype); then moved to the host when ``host``
     (host_swap), so both runs hold the same weights."""
     from ..models import init_random_weights
-    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    with torch.device(device):
-        model = cls(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    model = init_random_weights(model.to(dtype), gen)
+    model = init_random_weights(_built(cls, cfg, device), gen)
     return model.to("cpu") if host else model
+
+
+def random_flux(cfg, cn_cfg, device):
+    """Seeded random-weight flux-upscale models, built as the JAX CLI
+    builds them: the FluxDiT from seed 0, and the FluxControlNet from seed
+    21 with its zero-initialised outputs and then every parameter nudged
+    by 0.02 * N(0, 1), so the conditioned path does something."""
+    from ..models import FluxControlNet, FluxDiT, init_controlnet_weights
+    model = _random_model(FluxDiT, cfg, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(21)
+    cn = init_controlnet_weights(_built(FluxControlNet, cn_cfg, device), gen,
+                                 nudge=0.02)
+    return model, cn
 
 
 def build_hunyuan(args):
@@ -581,6 +625,87 @@ def build_cogvideox(args):
     return pipe, (text, neg), extra
 
 
+def build_flux(args):
+    """Returns (FluxUpscalePipeline, (text, mask, pooled), {}): the
+    ``--ckpt_dir`` snapshot's trunk, T5 + CLIP encoders, 2-D VAE and
+    ControlNet (``--controlnet_dir`` or <ckpt_dir>/controlnet; without one
+    the JAX CLI's warning and the img2img fallback), or ``random_flux`` of
+    the JAX CLI's ``--scale``d configs with the seeded T5 stand-in (512
+    tokens) and a seeded pooled vector.  The base stage runs at a quarter
+    of the size and returns tokens; only the up stage decodes (through the
+    2x2 unpack).  One trunk serves both stages."""
+    import warnings
+    from ..pipelines import FluxPipeline, FluxUpscalePipeline
+    from ..pipelines.flux import flux_unpack_latents
+    from ..utils import resolve_device
+    device = resolve_device(args.device)
+    vae_encode = vae_decode = cn = None
+    if args.ckpt_dir:
+        from ..models.pretrained import (load_flux_controlnet,
+                                         load_text_encoders, load_vae)
+        cfg, model = _load_tree(args, "flux", args.ckpt_dir, device)
+        vae_encode, vae_decode = load_vae(args.ckpt_dir, video=False,
+                                          device=device)
+        encoders = load_text_encoders("flux", args.ckpt_dir, device=device)
+        (text, mask), _ = _encode_prompt(encoders, args.prompt, cfg.text_dim,
+                                         512, device)
+        pooled = torch.zeros((1, cfg.pooled_dim), device=device)
+        if len(encoders) > 1:        # CLIP pooled prompt embeds
+            pooled = encoders[1].pooled(args.prompt)
+        cn_dir = args.controlnet_dir or os.path.join(args.ckpt_dir,
+                                                     "controlnet")
+        if os.path.isdir(cn_dir):
+            _, cn = load_flux_controlnet(
+                cn_dir, dtype="bfloat16" if device.type == "cuda"
+                else "float32", device=device)
+        else:
+            warnings.warn(
+                "flux-upscale: no ControlNet snapshot found at "
+                f"{cn_dir!r}; stage 2 degrades to img2img (strength 0.7) "
+                "instead of the reference's ControlNet-conditioned "
+                "upscale -- pass --controlnet_dir to match the reference")
+    else:
+        from ..models import FluxConfig, FluxControlNetConfig
+        sc = args.scale
+        cfg = FluxConfig(
+            hidden_dim=max(128, int(3072 * sc) // 128 * 128),
+            heads=max(1, int(24 * sc)), num_dual_blocks=max(1, int(19 * sc)),
+            num_single_blocks=max(1, int(38 * sc)), text_dim=512,
+            pooled_dim=128)
+        model, cn = random_flux(cfg, FluxControlNetConfig(
+            in_channels=cfg.in_channels, cond_channels=cfg.in_channels,
+            hidden_dim=cfg.hidden_dim, heads=cfg.heads,
+            num_dual_blocks=max(1, int(5 * sc)), text_dim=cfg.text_dim,
+            pooled_dim=cfg.pooled_dim), device)
+        model = _quantized(model, args)
+        text, mask = _random_text(args.prompt, 512, cfg.text_dim,
+                                  device=device)
+        pooled = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (1, cfg.pooled_dim)).astype(np.float32)).to(device)
+
+    def mk(hh, ww, decode=None):
+        return FluxPipeline(
+            model=model, height=hh, width=ww, num_steps=args.num_steps,
+            sa_drop_rate=args.sa_drop_rate,
+            p_remain_rates=args.p_remain_rates,
+            mode="flash" if args.mode == "torch" else args.mode,
+            enable_teacache=args.enable_teacache,
+            rel_l1_thresh=args.teacache_thresh, vae_decode=decode,
+            mesh=args.mesh, device=device, group_rows=args.group_rows,
+            plan_row_chunk=args.plan_row_chunk,
+            plan_kv_tile=args.plan_kv_tile, kv_pack=args.kv_pack,
+            head_chunk=args.head_chunk)
+
+    gh_u, gw_u = args.height // 16, args.width // 16
+    up_decode = ((lambda t: vae_decode(flux_unpack_latents(t, gh_u, gw_u)))
+                 if vae_decode is not None else None)
+    pipe = FluxUpscalePipeline(
+        base=mk(args.height // 4, args.width // 4),
+        up=mk(args.height, args.width, up_decode), controlnet=cn,
+        vae_encode=vae_encode, vae_decode=vae_decode)
+    return pipe, (text, mask, pooled), {}
+
+
 def _tp_mesh(args):
     """--tp N: a 1 x N x 1 mesh over the torch.distributed world of N
     processes (torchrun sets it up; a process group the caller already
@@ -621,12 +746,14 @@ def main(argv=None):
     args.mesh, owned = _tp_mesh(args)
     try:
         build = {"hunyuan": build_hunyuan, "wan21": build_wan,
-                 "wan22": build_wan, "cogvideox": build_cogvideox}[
-                     args.model.split("-")[0]]
+                 "wan22": build_wan, "cogvideox": build_cogvideox,
+                 "flux": build_flux}[args.model.split("-")[0]]
         pipe, inputs, extra = build(args)
         noise = set_seed(args.seed, pipe.device)
         with profiler_trace(args.profile), trace_to(args.trace_out):
-            out = pipe(*inputs, generator=noise, **extra)
+            out = pipe(*inputs, seed=args.seed, generator=noise, **extra)
+        if args.model == "flux-upscale":
+            pipe = pipe.up       # report the high-res stage, as JAX does
     finally:
         if owned:
             import torch.distributed as dist

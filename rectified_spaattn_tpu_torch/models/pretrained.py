@@ -105,6 +105,40 @@ def hunyuan_config_from_json(cfg: dict):
         image_condition_type=cfg.get("image_condition_type"))
 
 
+def flux_config_from_json(cfg: dict):
+    """A FluxTransformer2DModel config.json."""
+    from .flux import FluxConfig
+    heads = cfg["num_attention_heads"]
+    hd = cfg["attention_head_dim"]
+    return FluxConfig(
+        in_channels=cfg["in_channels"],
+        out_channels=cfg.get("out_channels") or cfg["in_channels"],
+        hidden_dim=heads * hd, heads=heads, head_dim=hd,
+        num_dual_blocks=cfg["num_layers"],
+        num_single_blocks=cfg["num_single_layers"],
+        text_dim=cfg.get("joint_attention_dim", 4096),
+        pooled_dim=cfg.get("pooled_projection_dim", 768),
+        rope_axes_dim=tuple(cfg.get("axes_dims_rope", (16, 56, 56))),
+        guidance_embeds=bool(cfg.get("guidance_embeds", True)))
+
+
+def flux_controlnet_config_from_json(cj: dict):
+    """A FluxControlNetModel config.json (the JAX loader's defaults for
+    absent keys)."""
+    from .flux import FluxControlNetConfig
+    heads = cj.get("num_attention_heads", 24)
+    return FluxControlNetConfig(
+        in_channels=cj.get("in_channels", 64),
+        cond_channels=cj.get("in_channels", 64),
+        hidden_dim=heads * cj.get("attention_head_dim", 128), heads=heads,
+        num_dual_blocks=cj.get("num_layers", 5),
+        num_single_blocks=cj.get("num_single_layers", 0),
+        text_dim=cj.get("joint_attention_dim", 4096),
+        pooled_dim=cj.get("pooled_projection_dim", 768),
+        rope_axes_dim=tuple(cj.get("axes_dims_rope", (16, 56, 56))),
+        guidance_embeds=cj.get("guidance_embeds", True))
+
+
 def cogvideox_config_from_json(cfg: dict):
     """A CogVideoXTransformer3DModel config.json (1.5: patch_size_t 2 and
     the ofs embedding; 1.0: neither)."""
@@ -125,15 +159,17 @@ def cogvideox_config_from_json(cfg: dict):
 CONFIG_PARSERS = {
     "wan": wan_config_from_json,
     "hunyuan": hunyuan_config_from_json,
+    "flux": flux_config_from_json,
     "cogvideox": cogvideox_config_from_json,
 }
 
 
 def _model_class(family: str):
     from .cogvideox import CogVideoXDiT
+    from .flux import FluxDiT
     from .hunyuan import HunyuanVideoDiT
     from .wan import WanDiT
-    return {"wan": WanDiT, "hunyuan": HunyuanVideoDiT,
+    return {"wan": WanDiT, "hunyuan": HunyuanVideoDiT, "flux": FluxDiT,
             "cogvideox": CogVideoXDiT}[family]
 
 
@@ -143,6 +179,8 @@ def _convert_args(family: str, cfg) -> tuple:
     if family == "cogvideox":
         return (cfg.num_blocks, cfg.use_ofs_embed, cfg.patch_size_t,
                 cfg.patch_size)
+    if family == "flux":
+        return (cfg.num_dual_blocks, cfg.num_single_blocks)
     return (cfg.num_dual_blocks, cfg.num_single_blocks,
             cfg.num_refiner_blocks, cfg.pooled_dim, cfg.text_dim)
 
@@ -187,6 +225,22 @@ def load_transformer(family: str, root: str, dtype="bfloat16",
                 pass            # a read-only snapshot: no cache
     model = _assemble(lambda: _model_class(family)(cfg), state)
     return cfg, model
+
+
+def load_flux_controlnet(root: str, dtype="bfloat16", device="cuda"):
+    """(FluxControlNetConfig, FluxControlNet with its weights on
+    ``device``) from a FluxControlNetModel snapshot directory (the jasperai
+    Flux.1-dev-Controlnet-Upscaler layout; reference loads it at
+    scripts/main_upflux.py:308-311).  Strict, as load_transformer."""
+    from .flux import FluxControlNet
+    from .weights import convert_strict, load_safetensors_dir
+    device = resolve_device(device)
+    cfg = flux_controlnet_config_from_json(
+        _read_json(os.path.join(root, "config.json")))
+    state = convert_strict("flux_controlnet", load_safetensors_dir(root),
+                           cfg.num_dual_blocks, cfg.num_single_blocks,
+                           place=_placer(device, _dtype(dtype)))
+    return cfg, _assemble(lambda: FluxControlNet(cfg), state)
 
 
 # ---------------------------------------------------------------------------
@@ -272,6 +326,8 @@ TEXT_ENCODER_KINDS = {
     "wan": [("text_encoder", "umt5", 512)],
     "hunyuan": [("text_encoder", "llama", 256),
                 ("text_encoder_2", "clip", 77)],
+    "flux": [("text_encoder_2", "t5", 512),
+             ("text_encoder", "clip", 77)],
     "cogvideox": [("text_encoder", "t5", 226)],
 }
 

@@ -15,6 +15,9 @@ weight [out, in, *k].  The transforms are the JAX converters':
   * a diffusers TimestepEmbedding (linear_1, silu, linear_2) becomes the
     port's (Linear in, MLP(fc1 = identity, silu, fc2 = linear_2)) pair;
   * HunyuanVideo's ``clip_pool_proj`` (no checkpoint counterpart) is zeros;
+  * the FluxControlNet's ``controlnet_blocks.{i}`` /
+    ``controlnet_single_blocks.{i}`` are the port's ``cn_proj_{i}`` /
+    ``cn_single_proj_{i}`` (the Flax names);
   * Wan's [6, d] modulation tables gain a leading axis;
   * CogVideoX 1.5's channel-major patch features (C, pt, p, p) become the
     port's channel-last order (pt, p, p, C) in patch_embed's input and
@@ -135,6 +138,38 @@ def convert_wan(sd, num_blocks: int, place: Place = None) -> dict:
     return dict(out)
 
 
+def _mmdit_blocks(out, sd, num_dual: int, num_single: int) -> None:
+    """The dual- and single-stream blocks of diffusers' HunyuanVideo and
+    Flux transformers (the same names in both): the single blocks'
+    separate to_q / to_k / to_v are fused into to_qkv, one proj_out over
+    [attention ; MLP]."""
+    for i in range(num_dual):
+        b, o = f"transformer_blocks.{i}", f"dual_blocks.{i}"
+        out.linear(f"{o}.norm1.linear", sd, f"{b}.norm1.linear")
+        out.linear(f"{o}.norm1_context.linear", sd,
+                   f"{b}.norm1_context.linear")
+        for ours, theirs in (("to_q", "to_q"), ("to_k", "to_k"),
+                             ("to_v", "to_v"), ("add_to_q", "add_q_proj"),
+                             ("add_to_k", "add_k_proj"),
+                             ("add_to_v", "add_v_proj"),
+                             ("to_out", "to_out.0"),
+                             ("to_add_out", "to_add_out")):
+            out.linear(f"{o}.attn.{ours}", sd, f"{b}.attn.{theirs}")
+        for nm in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            out.rms(f"{o}.attn.{nm}", sd, f"{b}.attn.{nm}")
+        for ff in ("ff", "ff_context"):
+            out.linear(f"{o}.{ff}.fc1", sd, f"{b}.{ff}.net.0.proj")
+            out.linear(f"{o}.{ff}.fc2", sd, f"{b}.{ff}.net.2")
+    for i in range(num_single):
+        b, o = f"single_transformer_blocks.{i}", f"single_blocks.{i}"
+        out.linear(f"{o}.norm.linear", sd, f"{b}.norm.linear")
+        out.fused(f"{o}.to_qkv", sd, [f"{b}.attn.to_{x}" for x in "qkv"])
+        out.rms(f"{o}.norm_q", sd, f"{b}.attn.norm_q")
+        out.rms(f"{o}.norm_k", sd, f"{b}.attn.norm_k")
+        out.linear(f"{o}.proj_mlp", sd, f"{b}.proj_mlp")
+        out.linear(f"{o}.proj_out", sd, f"{b}.proj_out")
+
+
 def convert_hunyuan(sd, num_dual: int, num_single: int, num_refiner: int = 2,
                     pooled_dim: int = 768, text_dim: int = 4096,
                     place: Place = None) -> dict:
@@ -175,31 +210,7 @@ def convert_hunyuan(sd, num_dual: int, num_single: int, num_refiner: int = 2,
         out.linear(f"{r}.blk{i}_mlp.fc2", sd, f"{b}.ff.net.2")
         out.linear(f"{r}.blk{i}_ada", sd, f"{b}.norm_out.linear")
 
-    for i in range(num_dual):
-        b, o = f"transformer_blocks.{i}", f"dual_blocks.{i}"
-        out.linear(f"{o}.norm1.linear", sd, f"{b}.norm1.linear")
-        out.linear(f"{o}.norm1_context.linear", sd,
-                   f"{b}.norm1_context.linear")
-        for ours, theirs in (("to_q", "to_q"), ("to_k", "to_k"),
-                             ("to_v", "to_v"), ("add_to_q", "add_q_proj"),
-                             ("add_to_k", "add_k_proj"),
-                             ("add_to_v", "add_v_proj"),
-                             ("to_out", "to_out.0"),
-                             ("to_add_out", "to_add_out")):
-            out.linear(f"{o}.attn.{ours}", sd, f"{b}.attn.{theirs}")
-        for nm in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
-            out.rms(f"{o}.attn.{nm}", sd, f"{b}.attn.{nm}")
-        for ff in ("ff", "ff_context"):
-            out.linear(f"{o}.{ff}.fc1", sd, f"{b}.{ff}.net.0.proj")
-            out.linear(f"{o}.{ff}.fc2", sd, f"{b}.{ff}.net.2")
-    for i in range(num_single):
-        b, o = f"single_transformer_blocks.{i}", f"single_blocks.{i}"
-        out.linear(f"{o}.norm.linear", sd, f"{b}.norm.linear")
-        out.fused(f"{o}.to_qkv", sd, [f"{b}.attn.to_{x}" for x in "qkv"])
-        out.rms(f"{o}.norm_q", sd, f"{b}.attn.norm_q")
-        out.rms(f"{o}.norm_k", sd, f"{b}.attn.norm_k")
-        out.linear(f"{o}.proj_mlp", sd, f"{b}.proj_mlp")
-        out.linear(f"{o}.proj_out", sd, f"{b}.proj_out")
+    _mmdit_blocks(out, sd, num_dual, num_single)
     out.linear("norm_out.linear", sd, "norm_out.linear")
     out.linear("proj_out", sd, "proj_out")
     return dict(out)
@@ -256,8 +267,53 @@ def convert_cogvideox(sd, num_blocks: int, use_ofs: bool = True,
     return dict(out)
 
 
+def _flux_embedders(out, sd) -> None:
+    """The Flux trunk's conditioning embedders (x / context / time /
+    pooled / guidance): the same keys in FluxTransformer2DModel and
+    FluxControlNetModel state dicts."""
+    out.linear("x_embedder", sd, "x_embedder")
+    out.linear("context_embedder", sd, "context_embedder")
+    tte = "time_text_embed"
+    out.folded_embedder("time_in", "time_mlp", sd,
+                        f"{tte}.timestep_embedder")
+    out.folded_embedder("pooled_in", "pooled_mlp", sd, f"{tte}.text_embedder")
+    if f"{tte}.guidance_embedder.linear_1.weight" in sd:
+        out.folded_embedder("guide_in", "guide_mlp", sd,
+                            f"{tte}.guidance_embedder")
+
+
+def convert_flux(sd, num_dual: int, num_single: int,
+                 place: Place = None) -> dict:
+    """diffusers FluxTransformer2DModel -> FluxDiT state_dict."""
+    out = _Out(place)
+    _flux_embedders(out, sd)
+    _mmdit_blocks(out, sd, num_dual, num_single)
+    out.linear("norm_out.linear", sd, "norm_out.linear")
+    out.linear("proj_out", sd, "proj_out")
+    return dict(out)
+
+
+def convert_flux_controlnet(sd, num_dual: int, num_single: int,
+                            place: Place = None) -> dict:
+    """diffusers FluxControlNetModel -> FluxControlNet state_dict (the
+    jasperai Flux.1-dev-Controlnet-Upscaler layout: the Flux embedders, a
+    truncated trunk, controlnet_x_embedder and one output projection per
+    block; reference loads it at scripts/main_upflux.py:308-311)."""
+    out = _Out(place)
+    _flux_embedders(out, sd)
+    _mmdit_blocks(out, sd, num_dual, num_single)
+    out.linear("controlnet_x_embedder", sd, "controlnet_x_embedder")
+    for i in range(num_dual):
+        out.linear(f"cn_proj_{i}", sd, f"controlnet_blocks.{i}")
+    for i in range(num_single):
+        out.linear(f"cn_single_proj_{i}", sd, f"controlnet_single_blocks.{i}")
+    return dict(out)
+
+
 CONVERTERS: dict[str, Callable] = {
     "wan": convert_wan,
+    "flux": convert_flux,
+    "flux_controlnet": convert_flux_controlnet,
     "hunyuan": convert_hunyuan,
     "cogvideox": convert_cogvideox,
 }

@@ -1,7 +1,8 @@
 """Samplers (port of rectified_spaattn_tpu/pipelines/schedulers.py):
 host-side state machines whose per-step math is a few tensor expressions.
 
-  * flow-match Euler (HunyuanVideo),
+  * flow-match Euler (HunyuanVideo; Flux with its resolution-dependent
+    mu shift),
   * UniPC multistep for flow matching (Wan2.1, flow_shift 5.0; reference:
     scripts/main_wan21t2v.py:236-241),
   * DDIM over the zero-terminal-SNR CogVideoX betas with v-prediction,
@@ -29,16 +30,35 @@ def flow_shift_timesteps(num_steps: int, shift: float = 1.0) -> np.ndarray:
     return sigmas
 
 
+def flux_mu_shift(seq_len: int, base_len: int = 256, max_len: int = 4096,
+                  base_shift: float = 0.5, max_shift: float = 1.15) -> float:
+    """Flux's resolution-dependent exponential shift parameter: linear in
+    the token count, extrapolated past ``max_len`` as diffusers'
+    ``calculate_shift`` does (65,536 tokens give mu = 11.55)."""
+    m = (max_shift - base_shift) / (max_len - base_len)
+    b = base_shift - m * base_len
+    return seq_len * m + b
+
+
 @dataclasses.dataclass
 class FlowMatchEulerScheduler:
     """First-order Euler over the rectified-flow ODE:
-    x_{t-1} = x_t + (sigma_{t-1} - sigma_t) * v_pred."""
+    x_{t-1} = x_t + (sigma_{t-1} - sigma_t) * v_pred.  ``use_mu``: Flux's
+    exponential shift sigma' = e^mu / (e^mu + 1/sigma - 1) in place of
+    ``shift``."""
     num_steps: int
     shift: float = 7.0
+    use_mu: bool = False
+    mu: float = 0.0
 
     def __post_init__(self):
-        self.sigmas = np.append(
-            flow_shift_timesteps(self.num_steps, self.shift), 0.0)
+        if self.use_mu:
+            sigmas = np.linspace(1.0, 1.0 / self.num_steps, self.num_steps)
+            emu = math.exp(self.mu)
+            sigmas = emu / (emu + (1.0 / sigmas - 1.0))
+        else:
+            sigmas = flow_shift_timesteps(self.num_steps, self.shift)
+        self.sigmas = np.append(sigmas, 0.0)
 
     @property
     def timesteps(self) -> np.ndarray:

@@ -130,3 +130,38 @@ def cog_tp_worker(rank: int, world: int, tmp: str):
                os.path.join(tmp, f"cog_tp_out_{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
+
+
+def flux_tp_worker(rank: int, world: int, tmp: str):
+    """The tiny Flux upscale of flux_tp_in.pt (trunk and ControlNet) at
+    tp = ``world``; writes flux_tp_out_<rank>.pt (the up stage's tokens,
+    both stages' TeaCache decisions and the head counts of the trunk's
+    and the ControlNet's blocks)."""
+    _init(rank, world, tmp)
+    from rectified_spaattn_tpu_torch.models import (
+        FluxConfig, FluxControlNet, FluxControlNetConfig, FluxDiT)
+    from rectified_spaattn_tpu_torch.parallel import make_mesh
+    from rectified_spaattn_tpu_torch.pipelines import (FluxPipeline,
+                                                       FluxUpscalePipeline)
+    c = _load(tmp, "flux_tp_in.pt")
+    model = FluxDiT(FluxConfig.tiny())
+    model.load_state_dict(c["state_dict"])
+    cn = FluxControlNet(FluxControlNetConfig.tiny())
+    cn.load_state_dict(c["cn_state_dict"])
+    mesh = make_mesh(tp=world)
+    pipe = FluxUpscalePipeline(
+        base=FluxPipeline(model=model, device="cpu", mesh=mesh,
+                          **c["base_kw"]),
+        up=FluxPipeline(model=model, device="cpu", mesh=mesh, **c["up_kw"]),
+        controlnet=cn)
+    out = pipe(c["text"], c["mask"], c["pooled"], base_init=c["base_init"],
+               up_noise=c["up_noise"])
+    torch.save({"tokens": out,
+                "decisions": [pipe.base.teacache.decisions,
+                              pipe.up.teacache.decisions],
+                "heads": [m.attn.heads for m in model.dual_blocks]
+                + [m.heads for m in model.single_blocks]
+                + [m.attn.heads for m in cn.dual_blocks]},
+               os.path.join(tmp, f"flux_tp_out_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()

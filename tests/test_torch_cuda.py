@@ -4,8 +4,10 @@ plain PyTorch versions, on a CUDA GPU (bf16, 2e-2: the repo's bf16 tolerance, te
 and K1q-s's l within 1 %; S1's int8 result, the load-only variants and S2
 full / prefetch against K2 bit for bit); the safetensors codec on device
 tensors (bit for bit), the full-width HunyuanVideo VAE decode on the
-GPU against the CPU (fp32 rtol 2e-4 / atol 2e-5, TF32 off), and Wan2.2
-A14B's host_swap against its co-resident run (bit for bit).
+GPU against the CPU (fp32 rtol 2e-4 / atol 2e-5, TF32 off), Wan2.2
+A14B's host_swap against its co-resident run (bit for bit), and the tiny
+Flux upscale with a ControlNet (bf16 against the CPU's fp32, 5 % of the
+output's scale) and its bicubic resize (fp32 2e-4 / 2e-5).
 Marked ``cuda``; each test skips without a GPU.  This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
 
@@ -721,3 +723,64 @@ def test_cuda_rejects_head_dim_96(cuda):
             z(64), z(64), z(64), idx, cnt, tl,
             kv_quant=ops.quantize_kv_blocks(z(64), z(64), BN),
             quant_mode="int8", **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_flux_upscale_matches_cpu(cuda):
+    """A tiny Flux upscale (head_dim 128: the kernels' width) with a
+    nudged ControlNet on the GPU in bf16 (K1 / K2 on the trunk, K3 in the
+    ControlNet) against the same weights on the CPU in fp32, the same
+    noise; within 5 % of the output's largest value."""
+    from rectified_spaattn_tpu_torch.models import (
+        FluxConfig, FluxControlNet, FluxControlNetConfig, FluxDiT,
+        init_controlnet_weights, init_random_weights)
+    from rectified_spaattn_tpu_torch.pipelines import (FluxPipeline,
+                                                       FluxUpscalePipeline)
+    cfg = FluxConfig(hidden_dim=256, heads=2, num_dual_blocks=1,
+                     num_single_blocks=1, text_dim=64, pooled_dim=32)
+    cn_cfg = FluxControlNetConfig(hidden_dim=256, heads=2,
+                                  num_dual_blocks=1, text_dim=64,
+                                  pooled_dim=32)
+    gen = torch.Generator().manual_seed(4)
+    trunk = init_random_weights(FluxDiT(cfg), gen)
+    cn = init_controlnet_weights(FluxControlNet(cn_cfg), gen, nudge=0.02)
+    text = torch.randn((1, 512, 64), generator=gen)
+    mask = torch.zeros((1, 512), dtype=torch.bool)
+    mask[:, :9] = True
+    pooled = torch.randn((1, 32), generator=gen)
+    base_init = torch.randn((1, 64, 64), generator=gen)
+    up_noise = torch.randn((1, 1024, 64), generator=gen)
+    kw = dict(num_steps=2, sa_drop_rate=0.5, group_rows=2,
+              sparse_layer_gate=(1, 2))
+    outs = []
+    for dev, dt in (("cpu", torch.float32), (cuda, torch.bfloat16)):
+        t, c = FluxDiT(cfg), FluxControlNet(cn_cfg)
+        t.load_state_dict(trunk.state_dict())
+        c.load_state_dict(cn.state_dict())
+        pipe = FluxUpscalePipeline(
+            base=FluxPipeline(model=t.to(dt), height=128, width=128,
+                              device=dev, **kw),
+            up=FluxPipeline(model=t, height=512, width=512, device=dev,
+                            **kw),
+            controlnet=c.to(dt))
+        outs.append(pipe(text, mask, pooled, base_init=base_init,
+                         up_noise=up_noise).cpu())
+    want, got = outs
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 0.05 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_resize_bicubic_matches_cpu(cuda):
+    """The bicubic resize on CUDA tensors equals the CPU's within fp32
+    rounding (TF32 off)."""
+    from rectified_spaattn_tpu_torch.pipelines import resize_bicubic
+    x = torch.randn((1, 3, 33, 47), generator=torch.Generator().manual_seed(2))
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = resize_bicubic(x.to(cuda), 132, 188).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    torch.testing.assert_close(got, resize_bicubic(x, 132, 188), rtol=2e-4,
+                               atol=2e-5)

@@ -159,8 +159,11 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     assert res["teacache"] == {"skipped": 0, "computed": 2}
     assert 0 < res["density"] <= 1
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == res
-    with pytest.raises(NotImplementedError, match="flux-upscale"):
-        main(["--model", "flux-upscale", "--device", "cpu"])
+    # every --model is ported; the TPU lever dispatch_segments is refused,
+    # before anything is built
+    with pytest.raises(NotImplementedError, match="--dispatch_segments"):
+        main(["--model", "hunyuan", "--device", "cpu",
+              "--dispatch_segments", "2"])
     # --image conditions hunyuan-i2v (tests/test_torch_i2v.py holds it
     # against JAX)
     img = str(tmp_path / "x.npy")
