@@ -10,7 +10,8 @@ HunyuanVideo sparse denoise path (T2V and I2V), its int8 serving levers
 (K1q, S1, int8 / int4 weights, the int8 offloaded TeaCache residual), the
 Wan2.1-14B denoise path, Wan2.2 A14B with host_swap, the CogVideoX1.5
 T2V / I2V path (K1 and K2 at head_dim 64), Flux.1-dev's two-stage 4096^2
-upscale with its ControlNet (K1, K2 and K3 at 65,536 + 512 tokens), the
+upscale with its ControlNet (K1, K2 and K3 at 65,536 + 512 tokens), batch
+evaluation (eval/run_eval.py and the multi-process launcher), the
 multi-device path (K1s, the ring, tensor parallelism)
 and the kernel-diagnostic path (K1q-s, the S3 / S2 ablations, the
 headline bench).  Every attention kernel (K1/K1s, K2, K1q/K1q-s, K3)
@@ -168,6 +169,29 @@ ranges that the merge kernel folds:
      card and held to a CPU load bit for bit, then --model flux-upscale
      --ckpt_dir at 1024^2, 2 steps a stage, writing a [1024, 1024, 3]
      uint8 image with K1, K2 and K3 launched.)
+ 6f. eval: batch evaluation (eval/run_eval.py) on the ckpt phase's
+     snapshots, launch counters zeroed just before each phase and read
+     just after.  eval_hunyuan: run_eval.main --model hunyuan --ckpt_dir
+     (HunyuanVideoConfig() widths, 2 dual + 2 single blocks, its VAE), 3
+     prompts at 480x832, --frame 36, 2 steps, --score: the files written
+     ([33,480,832,3] uint8), seconds per prompt (its VAE decode apart),
+     peak memory; K1 and merge launches of the sparse calls (the 3
+     prompts, whose outputs the scoring reuses; G = 1: visual rows, text
+     rows split and merged) and of the dense rerun (2 prompts, the
+     windowed dense K1) apart, each equal to the count the blocks and
+     steps give; diff_vs_dense finite with cosine in (0, 1];
+     live_metrics and each gated adapter's availability.
+     eval_multihost: the launcher as two processes on this card (python -m
+     ...parallel.multihost --coordinator_address 127.0.0.1:<port>
+     --num_processes 2 --process_id 0|1, tp 1 over gloo), 3 prompts at
+     --frame 12 without --score: rank 0 writes prompts 0 and 2, rank 1
+     prompt 1, each file equal byte for byte to a one-process run's.
+     eval_flux: --model flux-upscale --ckpt_dir (2 + 2 blocks, FLUX.1-dev's
+     VAE config) --controlnet_dir (2 blocks) at 1024^2, 2 steps, --score, 2
+     prompts: [1024,1024,3] images, dense_ref over every prompt, FID's
+     gate, CLIPScore refused on pseudo-text; K1, K3 (the ControlNet) and
+     merge launches of the sparse and the dense calls apart, each equal
+     to the count the blocks and steps give, K2 none.
  6b. k1q_stats: K1q-s (K1q with m and l) in both modes against its plain
      version at small shapes (o equal to K1q's bit for bit, m / l as
      k1s_vs_plain holds them); at the Hunyuan site (both regimes) its time
@@ -231,14 +255,17 @@ failure exits non-zero; nothing falls back to the CPU.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import hashlib
 import importlib.util
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1919,19 +1946,17 @@ def vae_timed(encode, decode, gen) -> dict:
     return res
 
 
-def ckpt_phase(kernels) -> dict:
+def ckpt_phase(kernels, root: str) -> dict:
     """The pixel end: the codec, the full-width VAE, and the HunyuanVideo
     checkpoint path through the CLI (--ckpt_dir) on a synthetic bf16
     snapshot; K1's and K2's launch counters zeroed just before the CLI
     run and read just after.  The CLI runs at torch's default for cuDNN
-    (TF32 convolutions in the VAE), as a user's run does."""
-    import shutil
-    import tempfile
+    (TF32 convolutions in the VAE), as a user's run does.  The snapshots
+    stay in ``root`` for the eval phases."""
     from rectified_spaattn_tpu_torch.cli.generate import main as cli_main
     from rectified_spaattn_tpu_torch.models.pretrained import load_transformer
 
     res = {"codec": codec_check()}
-    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     out_dir = os.path.join(root, "out")
     try:
         res["vae"] = vae_checks(root)
@@ -2008,7 +2033,6 @@ def ckpt_phase(kernels) -> dict:
         res["flux"] = ckpt_flux_leg(kernels, root, out_dir)
     finally:
         torch.backends.cudnn.allow_tf32 = False
-        shutil.rmtree(root, ignore_errors=True)
     return res
 
 
@@ -2948,6 +2972,339 @@ def ckpt_flux_leg(kernels, root: str, out_dir: str) -> dict:
                   "launches": launches, "image": list(image.shape),
                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
     return res
+
+
+# ------------------------------------------------------------ eval phases ---
+
+# batch evaluation (eval/run_eval.py) on the ckpt phase's snapshots: the
+# HunyuanVideo one at CKPT's widths (2 dual + 2 single blocks, its VAE) at
+# 480x832, --frame 36, 2 steps, 3 prompts; the launcher's two ranks on the
+# same snapshot at --frame 12 (eval_multihost_phase says why); Flux at
+# FLUX_CKPT's (2 + 2 blocks, the 2-block ControlNet) at 1024^2, 2 prompts
+EVAL_PROMPTS = ("several hot air balloons flying over a city.",
+                "a red fox running through fresh snow, slow motion",
+                "an old lighthouse on a cliff at dusk, waves below")
+EVAL = dict(height=480, width=832, frame=36, steps=2, multihost_frame=12,
+            flux_size=1024, pixels=(33, 480, 832, 3),
+            flux_pixels=(1024, 1024, 3))
+
+
+def write_prompts(root: str, n: int) -> str:
+    path = os.path.join(root, f"eval_prompts_{n}.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(EVAL_PROMPTS[:n]) + "\n")
+    return path
+
+
+class RunnerLog:
+    """While active, every runner that run_eval.make_runner builds is
+    wrapped: each call is timed (device-synced) and its kernel launches
+    are counted apart, with the runner's mode ("sparse" or "flash"); the
+    pipelines' final VAE decode (``decode_timed``, device-synced) is
+    timed apart within the call, the rest being the text, the denoise and
+    the copy to the host."""
+
+    def __init__(self, run_eval, kernels):
+        from rectified_spaattn_tpu_torch.pipelines import flux, hunyuan
+        self.mod, self.make = run_eval, run_eval.make_runner
+        self.pipes = [(m, m.decode_timed) for m in (hunyuan, flux)]
+        self.kerns, self.calls, self.decodes = path_kernels(kernels), [], []
+
+    def __enter__(self):
+        def make(args):
+            run, is_video = self.make(args)
+
+            def logged(prompt, seed):
+                before = {n: f.launches for n, f in self.kerns.items()}
+                self.decodes.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run(prompt, seed)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                decode = sum(self.decodes)
+                self.calls.append({
+                    "mode": args.mode, "prompt": EVAL_PROMPTS.index(prompt),
+                    "seconds": seconds, "decode_seconds": decode,
+                    "rest_seconds": seconds - decode,
+                    "launches": {n: f.launches - before[n]
+                                 for n, f in self.kerns.items()}})
+                return out
+            logged.last_raw = run.last_raw
+            return logged, is_video
+
+        def timed_for(orig):
+            def timed(vae_decode, latents):
+                out, sec = orig(vae_decode, latents)
+                if sec is not None:
+                    self.decodes.append(sec)
+                return out, sec
+            return timed
+        self.mod.make_runner = make
+        for m, orig in self.pipes:
+            m.decode_timed = timed_for(orig)
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_runner = self.make
+        for m, orig in self.pipes:
+            m.decode_timed = orig
+
+    def by_mode(self) -> dict:
+        out = {}
+        for c in self.calls:
+            m = out.setdefault(c["mode"], {"calls": 0, **{
+                n: 0 for n in self.kerns}})
+            m["calls"] += 1
+            for n, k in c["launches"].items():
+                m[n] += k
+        return out
+
+
+def run_eval_logged(kernels, argv) -> tuple:
+    """run_eval.main(argv) in this process, at torch's default for cuDNN
+    (TF32 convolutions in the VAE, as a user's run and the launcher's
+    ranks have it): (written paths, scores, RunnerLog, launches, seconds,
+    peak GB), the counters zeroed just before and read just after."""
+    from rectified_spaattn_tpu_torch.eval import run_eval
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with RunnerLog(run_eval, kernels) as log:
+            zero_launches(kernels)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            written, scores = run_eval.main(argv)
+            seconds = time.perf_counter() - t0
+            launches = {n: f.launches for n, f in log.kerns.items()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    return (written, scores, log, launches, seconds,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def read_output(path: str):
+    """A file run_eval wrote as an array (.npy, or .png through PIL)."""
+    if path.endswith(".npy"):
+        return np.load(path)
+    if path.endswith(".png"):
+        from PIL import Image
+        return np.asarray(Image.open(path))
+    return None
+
+
+def check_diffs(name: str, scores: dict) -> dict:
+    d = scores["diff_vs_dense"]
+    if not all(np.isfinite(v) or k == "psnr" for k, v in d.items()) \
+            or not 0.0 < d["cosine"] <= 1.0 + 1e-9:
+        raise AssertionError(f"{name}: diff_vs_dense {d}")
+    return d
+
+
+def eval_hunyuan_phase(kernels, root: str) -> dict:
+    """run_eval.main --model hunyuan --ckpt_dir <the ckpt phase's
+    snapshot> --score in process, 3 prompts at 480x832x36, 2 sparse
+    steps at G = 1 (run_eval has no --group_rows): the files written, the
+    seconds per prompt (its decode apart) and the peak memory; K1's and
+    the merge's launches by mode against the count the blocks, steps and
+    prompts give (a sparse call: visual rows and split text rows per
+    block and step, 3 calls, as the scoring reuses the run's outputs of
+    its first 2 prompts; the dense rerun: one windowed dense K1 per block
+    and step, 2 calls); diff_vs_dense finite with cosine in (0, 1]; each
+    gated adapter's availability."""
+    c = EVAL
+    out_dir = os.path.join(root, "eval_hunyuan")
+    argv = ["--model", "hunyuan", "--ckpt_dir", root, "--prompts",
+            write_prompts(root, 3), "--height", str(c["height"]),
+            "--width", str(c["width"]), "--frame", str(c["frame"]),
+            "--num_steps", str(c["steps"]), "--score", "--out_dir", out_dir,
+            "--device", DEV]
+    written, scores, log, launches, seconds, peak = run_eval_logged(
+        kernels, argv)
+    frames = [read_output(p) for p in written]
+    want_shape = c["pixels"]
+    if len(written) != 3 or any(f is None or f.dtype != np.uint8
+                                or f.shape != want_shape for f in frames):
+        raise AssertionError(f"eval_hunyuan wrote {written}: "
+                             f"{[getattr(f, 'shape', None) for f in frames]}"
+                             f", want uint8 {want_shape}")
+    blocks = (CKPT["transformer"]["num_layers"]
+              + CKPT["transformer"]["num_single_layers"])
+    per = blocks * c["steps"]
+    modes = log.by_mode()
+    want = {"sparse": {"calls": 3, "K1": 3 * 2 * per, "K1_merge": 3 * per,
+                       "K2": 0, "K3": 0},
+            "flash": {"calls": 2, "K1": 2 * per, "K1_merge": 0, "K2": 0,
+                      "K3": 0}}
+    if modes != want or launches["K1"] != sum(m["K1"] for m in
+                                              want.values()):
+        raise AssertionError(f"eval_hunyuan launches {modes} (total "
+                             f"{launches}), want {want}")
+    gen = [x["seconds"] for x in log.calls[:3]]
+    return {"argv": argv, "seconds": seconds,
+            "files": [os.path.basename(p) for p in written],
+            "extension": sorted({os.path.splitext(p)[1] for p in written}),
+            "frames": list(want_shape), "seconds_per_prompt": gen,
+            "mean_seconds_per_prompt": float(np.mean(gen)),
+            "decode_seconds_per_prompt": [x["decode_seconds"]
+                                          for x in log.calls[:3]],
+            "peak_mem_gb": peak, "launches": launches,
+            "launches_by_mode": modes, "expected_launches": want,
+            "calls": log.calls,
+            "diff_vs_dense": check_diffs("eval_hunyuan", scores),
+            "live_metrics": scores["live_metrics"],
+            "available": {k: scores[k]["available"]
+                          for k in ("vbench", "vision_reward")}}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def eval_multihost_phase(root: str) -> dict:
+    """The launcher (python -m ...parallel.multihost --coordinator_address
+    127.0.0.1:<port> --num_processes 2 --process_id {0,1}) on this one
+    card: two processes at tp 1, so gloo, each loading the snapshot, 3
+    prompts without --score; rank 0 writes prompts 0 and 2, rank 1 prompt
+    1, and each file equals byte for byte the file of the same name from
+    a one-process run_eval.main (in this process) of the same arguments.
+    At --frame 12 (9 decoded frames): at eval_hunyuan's --frame 36 each
+    rank's untiled VAE decode peaks at ~47 GB (the ckpt phase's untiled
+    decode of the same frames), and two at once do not fit one 80 GB
+    card."""
+    from rectified_spaattn_tpu_torch.eval import run_eval
+    c = EVAL
+    common = ["--model", "hunyuan", "--ckpt_dir", root, "--prompts",
+              write_prompts(root, 3), "--height", str(c["height"]),
+              "--width", str(c["width"]), "--frame",
+              str(c["multihost_frame"]), "--num_steps", str(c["steps"])]
+    one_dir, multi_dir = (os.path.join(root, "mh_one"),
+                          os.path.join(root, "mh_multi"))
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        t0 = time.perf_counter()
+        one, _ = run_eval.main(common + ["--device", DEV, "--out_dir",
+                                         one_dir])
+        one_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    port = free_port()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "rectified_spaattn_tpu_torch.parallel"
+         ".multihost", "--coordinator_address", f"127.0.0.1:{port}",
+         "--num_processes", "2", "--process_id", str(i), *common,
+         "--device", DEV, "--out_dir", multi_dir], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    try:
+        logs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    multi_s = time.perf_counter() - t0
+    ranks = []
+    for i, (p, (out, err)) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"launcher rank {i} exited "
+                                 f"{p.returncode}: {err[-3000:]}")
+        ranks.append(json.loads(out.strip().splitlines()[-1]))
+    names = [os.path.basename(p) for p in one]
+    want = [[names[0], names[2]], [names[1]]]
+    if [r["files"] for r in ranks] != want:
+        raise AssertionError(f"the ranks wrote {ranks}, want {want}")
+    equal, worst = {}, {}
+    for name in names:
+        with open(os.path.join(one_dir, name), "rb") as f, \
+                open(os.path.join(multi_dir, name), "rb") as g:
+            equal[name] = f.read() == g.read()
+        if not equal[name]:
+            a = read_output(os.path.join(one_dir, name))
+            b = read_output(os.path.join(multi_dir, name))
+            worst[name] = (None if a is None or a.shape != b.shape else int(
+                np.abs(a.astype(np.int16) - b.astype(np.int16)).max()))
+    res = {"argv": common, "one_process_seconds": one_s,
+           "launcher_seconds": multi_s, "files": names, "ranks": ranks,
+           "byte_equal": equal, "max_uint8_diff": worst}
+    if not all(equal.values()):
+        raise AssertionError(f"the launcher's files differ from the "
+                             f"one-process run's: {res}")
+    return res
+
+
+def eval_flux_phase(kernels, root: str) -> dict:
+    """run_eval.main --model flux-upscale --ckpt_dir <the ckpt phase's Flux
+    snapshot> --controlnet_dir <its 2-block ControlNet> at 1024^2, 2 steps
+    a stage, --score, 2 prompts: the image branch (dense_ref over every
+    prompt, FID's gate, CLIPScore refused on pseudo-text); K1, K3 (the
+    ControlNet) and merge launches by mode against the count the blocks
+    and steps give, K2 none (G = 1).  A sparse call (2, the scoring
+    reusing the run's): visual and text rows per block, step and stage,
+    the text rows split in the up stage only (the base stage's 256 + 512
+    tokens make lists too short to split: _split_plan), K3 per ControlNet
+    block and up step; a dense call (2 for the diffs, 2 for dense_ref):
+    one windowed dense K1 per block, step and stage, the same K3."""
+    froot = os.path.join(root, "flux")
+    out_dir = os.path.join(root, "eval_flux")
+    s = str(EVAL["flux_size"])
+    argv = ["--model", "flux-upscale", "--ckpt_dir", froot,
+            "--controlnet_dir", os.path.join(froot, "controlnet"),
+            "--prompts", write_prompts(root, 2), "--height", s, "--width", s,
+            "--num_steps", str(EVAL["steps"]), "--score", "--out_dir",
+            out_dir, "--device", DEV]
+    written, scores, log, launches, seconds, peak = run_eval_logged(
+        kernels, argv)
+    images = [read_output(p) for p in written]
+    want_shape = EVAL["flux_pixels"]
+    dense = sorted(os.listdir(os.path.join(out_dir, "dense_ref")))
+    if len(written) != 2 or any(x is None or x.dtype != np.uint8
+                                or x.shape != want_shape for x in images) \
+            or dense != sorted(os.path.basename(p) for p in written):
+        raise AssertionError(f"eval_flux wrote {written}: "
+                             f"{[getattr(x, 'shape', None) for x in images]}"
+                             f", want uint8 {want_shape}; dense_ref {dense}")
+    tcfg = FLUX_CKPT["transformer"]
+    per = (tcfg["num_layers"] + tcfg["num_single_layers"]) * EVAL["steps"]
+    k3 = FLUX_CKPT["controlnet"]["num_layers"] * EVAL["steps"]
+    want = {"sparse": {"calls": 2, "K1": 2 * (2 * 2 * per),
+                       "K1_merge": 2 * per, "K2": 0, "K3": 2 * k3},
+            "flash": {"calls": 4, "K1": 4 * (2 * per), "K1_merge": 0,
+                      "K2": 0, "K3": 4 * k3}}
+    modes = log.by_mode()
+    if modes != want or any(launches[n] != sum(m[n] for m in want.values())
+                            for n in ("K1", "K1_merge", "K2", "K3")):
+        raise AssertionError(f"eval_flux launches {modes} (total "
+                             f"{launches}), want {want}")
+    fid, clip = scores["fid"], scores["clip_score"]
+    if fid["samples"] != {"sparse": 2, "dense": 2} \
+            or "hash" not in clip["status"]:
+        raise AssertionError(f"eval_flux scores {scores}")
+    gen = [x["seconds"] for x in log.calls[:2]]
+    return {"argv": argv, "seconds": seconds,
+            "files": [os.path.basename(p) for p in written],
+            "extension": sorted({os.path.splitext(p)[1] for p in written}),
+            "dense_ref": dense, "image": list(want_shape),
+            "seconds_per_prompt": gen,
+            "mean_seconds_per_prompt": float(np.mean(gen)),
+            "decode_seconds_per_prompt": [x["decode_seconds"]
+                                          for x in log.calls[:2]],
+            "peak_mem_gb": peak, "launches": launches,
+            "launches_by_mode": modes, "expected_launches": want,
+            "calls": log.calls,
+            "diff_vs_dense": check_diffs("eval_flux", scores),
+            "live_metrics": scores["live_metrics"],
+            "available": {k: scores[k]["available"]
+                          for k in ("vbench", "vision_reward", "clip_score",
+                                    "fid")},
+            "fid": fid}
 
 
 # ------------------------------------------------------------- Wan phases ---
@@ -4419,7 +4776,10 @@ def main() -> int:
     emit("pipeline_int8", t0, **pipe8)
 
     t0 = time.perf_counter()
-    ckpt = ckpt_phase(kernels)
+    # the snapshots the ckpt phase writes serve the eval phases too
+    ckpt_root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    atexit.register(shutil.rmtree, ckpt_root, True)
+    ckpt = ckpt_phase(kernels, ckpt_root)
     emit("ckpt", t0, nvidia_smi=smi, **ckpt)
 
     wsites = {}
@@ -4468,6 +4828,21 @@ def main() -> int:
     t0 = time.perf_counter()
     fpipe = pipeline_flux_phase(kernels)
     emit("pipeline_flux", t0, nvidia_smi=smi, **fpipe)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ehun = eval_hunyuan_phase(kernels, ckpt_root)
+    emit("eval_hunyuan", t0, nvidia_smi=smi, **ehun)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    emit("eval_multihost", t0, nvidia_smi=smi,
+         **eval_multihost_phase(ckpt_root))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    eflux = eval_flux_phase(kernels, ckpt_root)
+    emit("eval_flux", t0, nvidia_smi=smi, **eflux)
     torch.cuda.empty_cache()
 
     rings, ring_res, ring_ref = {}, {}, None
@@ -4525,7 +4900,9 @@ def main() -> int:
                          "cogvideox_ckpt":
                              ckpt["cogvideox"]["cli"]["launches"][n],
                          "flux": fpipe["launches"][n],
-                         "flux_ckpt": ckpt["flux"]["cli"]["launches"][n]}
+                         "flux_ckpt": ckpt["flux"]["cli"]["launches"][n],
+                         "eval_hunyuan": ehun["launches"][n],
+                         "eval_flux": eflux["launches"][n]}
     ks_t, ks_v = rings["random"]["K1s_ring_text"], \
         rings["random"]["K1s_ring_visual"]
     mainloop = "rectified_spaattn_tpu_torch/csrc/hopper_attn.cuh"

@@ -711,7 +711,14 @@ def _tp_mesh(args):
     processes (torchrun sets it up; a process group the caller already
     initialised is used as it is).  Sets ``args.device`` to this rank's
     device.  Returns (mesh, whether this call initialised the group), or
-    (None, False) for one device."""
+    (None, False) for one device.  A mesh the caller built (``args.mesh``:
+    a dp x N mesh of parallel/multihost.py, on the caller's device) is
+    returned as it is, its tp group the pipelines'."""
+    if args.mesh is not None:
+        if args.mesh.shape["tp"] != args.tp or args.mesh.shape["sp"] != 1:
+            raise SystemExit(f"--tp {args.tp} but the caller's mesh is "
+                             f"{args.mesh.shape}")
+        return args.mesh, False
     if args.tp <= 1:
         return None, False
     import torch.distributed as dist

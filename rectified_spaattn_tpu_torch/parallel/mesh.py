@@ -174,13 +174,15 @@ class Mesh:
 
 def init_distributed(device, *, init_method: Optional[str] = None,
                      world_size: Optional[int] = None,
-                     rank: Optional[int] = None, **kw) -> None:
+                     rank: Optional[int] = None,
+                     backend: Optional[str] = None, **kw) -> None:
     """``torch.distributed.init_process_group`` with the backend that
-    matches ``device`` (NCCL for cuda, gloo for cpu).  Without arguments it
-    reads torchrun's environment (``env://``); ``kw`` goes to
-    ``init_process_group`` (e.g. ``timeout``)."""
+    matches ``device`` (NCCL for cuda, gloo for cpu) unless ``backend``
+    names one.  Without arguments it reads torchrun's environment
+    (``env://``); ``kw`` goes to ``init_process_group`` (e.g.
+    ``timeout``)."""
     dev = torch.device(device)
-    backend = "nccl" if dev.type == "cuda" else "gloo"
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if dev.type == "cuda" and dev.index is not None:
         torch.cuda.set_device(dev)
     if world_size is not None:
@@ -189,11 +191,18 @@ def init_distributed(device, *, init_method: Optional[str] = None,
                             **kw)
 
 
-def local_device(device: str = "cuda") -> torch.device:
-    """This process's device under torchrun: cuda:LOCAL_RANK, or the CPU."""
-    if torch.device(device).type == "cuda":
+def local_device(device: str = "cuda",
+                 rank: Optional[int] = None) -> torch.device:
+    """This process's device: cuda:LOCAL_RANK under torchrun; else, given
+    the global ``rank`` of a group made without torchrun,
+    cuda:(rank mod the card count), so that ranks spread over the host's
+    cards and share them when there are fewer; else cuda:0.  The CPU
+    when ``device`` is the CPU."""
+    if torch.device(device).type != "cuda":
+        return torch.device("cpu")
+    if "LOCAL_RANK" in os.environ or rank is None:
         return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-    return torch.device("cpu")
+    return torch.device("cuda", rank % max(torch.cuda.device_count(), 1))
 
 
 def axis_groups(shape: dict) -> dict:

@@ -114,14 +114,16 @@ def param_compute_dtype(module: torch.nn.Module) -> torch.dtype:
 
 def shard_tensor_parallel(model: torch.nn.Module, mesh):
     """Slice ``model`` for this rank of ``mesh``'s tp group (once, at
-    pipeline setup) and return the group.  The pipelines run
-    tensor-parallel only: dp and sp must be 1, and the tp group must be a
-    torch.distributed one (an in-process group runs the ring alone)."""
+    pipeline setup) and return the group.  The pipelines shard over tp
+    only: a dp axis is fine (each dp slice runs its own prompts with its
+    own tp group, parallel/multihost.py), sp must be 1, and the tp group
+    must be a torch.distributed one (an in-process group runs the ring
+    alone)."""
     from ..parallel.mesh import DistGroup
     from ..parallel.sharding import shard_model
-    if mesh.shape["dp"] != 1 or mesh.shape["sp"] != 1:
-        raise ValueError(f"the pipelines shard over tp only, got the mesh "
-                         f"{mesh.shape}")
+    if mesh.shape["sp"] != 1:
+        raise ValueError(f"the pipelines shard over tp only (dp slices run "
+                         f"their own prompts), got the mesh {mesh.shape}")
     group = mesh.group("tp")
     if not isinstance(group, DistGroup):
         raise ValueError("tensor-parallel pipelines need a torch.distributed "

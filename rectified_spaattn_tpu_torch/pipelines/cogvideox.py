@@ -16,7 +16,7 @@ scripts/main_cogvideox.py).
   * I2V: ``cog_i2v_condition``'s image latents concatenated on the
     channels every call (in_channels 32) and the ofs embedding input 2.0.
 
-With ``mesh`` (parallel.make_mesh, dp = sp = 1) the model is sliced once at
+With ``mesh`` (parallel.make_mesh, sp = 1) the model is sliced once at
 setup for this rank of the tp group and the sparse site runs head-parallel;
 every rank runs the same loop on replicated activations and makes the same
 TeaCache decisions (checked each call).  ``vae_decode``

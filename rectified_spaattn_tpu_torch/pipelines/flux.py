@@ -10,7 +10,7 @@ rectified site, the 20 single blocks between run the windowed dense K1
 The mu-shifted Euler keeps its sigmas near 1 until the last step at
 4096^2 (mu = 11.55), so the update stays fp32.
 
-With ``mesh`` (parallel.make_mesh, dp = sp = 1) the trunk (and the
+With ``mesh`` (parallel.make_mesh, sp = 1) the trunk (and the
 ControlNet) is sliced once for this rank of the tp group; the two stages
 share one trunk.  Left out: the TPU lever ``scan_blocks``.
 """

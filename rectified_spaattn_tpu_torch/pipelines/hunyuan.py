@@ -6,7 +6,7 @@ Latent geometry (f/4, h/16, w/16); flow-match Euler steps with embedded
 guidance (no CFG); the text tokens trail the visual tokens; TeaCache over
 the whole block stack with the block-0 norm1 signal.
 
-With ``mesh`` (parallel.make_mesh, dp = sp = 1) the model is sliced once at
+With ``mesh`` (parallel.make_mesh, sp = 1) the model is sliced once at
 setup for this rank of the tp group and the sparse site runs head-parallel;
 every rank runs the same loop on replicated activations and makes the same
 TeaCache decisions (checked each call).

@@ -25,7 +25,7 @@ The visual token stream is padded once in embed to a multiple of the mask
 block, so every layer's attention sees block-aligned shapes, and sliced
 back in head.
 
-With ``mesh`` (parallel.make_mesh, dp = sp = 1) the model is sliced once at
+With ``mesh`` (parallel.make_mesh, sp = 1) the model is sliced once at
 setup for this rank of the tp group; the sparse site runs head-parallel,
 the dense warm layers and the cross-attention on the rank's heads, and the
 TeaCache decisions are checked to agree across ranks each call.

@@ -1,4 +1,5 @@
-"""Per-rank bodies of the multi-process cases of tests/test_torch_parallel.py.
+"""Per-rank bodies of the multi-process cases of tests/test_torch_parallel.py
+and tests/test_torch_eval.py.
 
 Each is spawned with torch.multiprocessing, one process per rank, on gloo
 with a ``file://`` rendezvous under the test's tmp_path (no TCP port).
@@ -163,5 +164,66 @@ def flux_tp_worker(rank: int, world: int, tmp: str):
                 + [m.heads for m in model.single_blocks]
                 + [m.attn.heads for m in cn.dual_blocks]},
                os.path.join(tmp, f"flux_tp_out_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dp_tp_worker(rank: int, world: int, tmp: str):
+    """At dp 2 x tp 2: each case of dp_in.pt through
+    head_parallel_rectified_attention (global in / out; batch_axis "dp"
+    and None), and a batch of 1 that dp does not divide; writes
+    dp_out_<rank>.pt."""
+    _init(rank, world, tmp)
+    from rectified_spaattn_tpu_torch.attention import (
+        head_parallel_rectified_attention)
+    from rectified_spaattn_tpu_torch.parallel import make_mesh
+    from rectified_spaattn_tpu_torch.sparse import SparseConfig
+    mesh = make_mesh(dp=2, tp=world // 2)
+    out = {"mesh": mesh.shape}
+    for name, c in _load(tmp, "dp_in.pt").items():
+        cfg = SparseConfig(**c["cfg"])
+        vl = c["q"].shape[2] - cfg.text_len
+
+        def site(**kw):
+            return head_parallel_rectified_attention(
+                mesh, c["q"], c["k"], c["v"], cfg, None, visual_len=vl,
+                text_len_rt=c.get("text_len_rt"), **kw)
+        out[name] = site()
+        out[f"{name}_no_batch_axis"] = site(batch_axis=None)
+    try:
+        head_parallel_rectified_attention(
+            mesh, c["q"][:1], c["k"][:1], c["v"][:1], cfg, None,
+            visual_len=vl)
+        out["batch_error"] = None
+    except ValueError as e:
+        out["batch_error"] = str(e)
+    torch.save(out, os.path.join(tmp, f"dp_out_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def eval_worker(rank: int, world: int, tmp: str):
+    """eval_in.pt's arguments through the launcher (``--distributed``: a
+    dp x tp mesh over the group) or through run_eval.main alone (its --tp
+    then builds a 1 x tp mesh over the group); writes eval_out_<rank>.pt
+    (what the entry point returned, and the frames this rank saved, as
+    float arrays by their path under the output directory)."""
+    import numpy as np
+    _init(rank, world, tmp)
+    from rectified_spaattn_tpu_torch.eval import generation, run_eval
+    from rectified_spaattn_tpu_torch.parallel.multihost import launch_eval
+    c = _load(tmp, "eval_in.pt")
+    frames = {}
+    for name in ("save_video", "save_image"):
+        def saved(arr, path, *a, save=getattr(generation, name), **k):
+            frames[os.path.relpath(path, c["out_dir"])] = np.array(arr)
+            return save(arr, path, *a, **k)
+        setattr(generation, name, saved)
+    if c["launcher"]:
+        got = launch_eval(["--distributed", *c["argv"]])
+    else:
+        got = run_eval.main(c["argv"])
+    torch.save({"got": got, "frames": frames},
+               os.path.join(tmp, f"eval_out_{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()

@@ -7,7 +7,8 @@ tensors (bit for bit), the full-width HunyuanVideo VAE decode on the
 GPU against the CPU (fp32 rtol 2e-4 / atol 2e-5, TF32 off), Wan2.2
 A14B's host_swap against its co-resident run (bit for bit), and the tiny
 Flux upscale with a ControlNet (bf16 against the CPU's fp32, 5 % of the
-output's scale) and its bicubic resize (fp32 2e-4 / 2e-5).
+output's scale) and its bicubic resize (fp32 2e-4 / 2e-5), and the eval
+diff metrics in float64 on the card against the CPU (rtol 1e-10).
 Marked ``cuda``; each test skips without a GPU.  This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
 
@@ -784,3 +785,21 @@ def test_cuda_resize_bicubic_matches_cpu(cuda):
         torch.backends.cuda.matmul.allow_tf32 = old
     torch.testing.assert_close(got, resize_bicubic(x, 132, 188), rtol=2e-4,
                                atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_diff_metrics_match_cpu(cuda):
+    """eval/diff_metrics.py on CUDA tensors (float64 on the card) against
+    the same metrics on the CPU, at rtol 1e-10: [F,H,W,C] frames in
+    [-1, 1] and an [H,W,C] image in [0, 1]."""
+    from rectified_spaattn_tpu_torch.eval import diff_metrics as dm
+    g = torch.Generator().manual_seed(3)
+    for shape, lo in (((3, 40, 56, 3), -1.0), ((48, 64, 3), 0.0)):
+        a = torch.rand(shape, generator=g, dtype=torch.float64) * (1 - lo) + lo
+        b = (a + 0.05 * torch.randn(shape, generator=g, dtype=torch.float64)
+             ).clamp(lo, 1.0)
+        want = dm.evaluate_pair(a, b)
+        got = dm.evaluate_pair(a.to(cuda), b.to(cuda))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k] == pytest.approx(want[k], rel=1e-10), k

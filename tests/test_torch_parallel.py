@@ -539,8 +539,9 @@ def test_mesh_rank_groups_match_jax_devices(dp, tp, sp):
 
 
 def test_port_imports_no_jax_in_a_fresh_process():
-    """Every module of the port, the multi-device ones included, imports
-    in a fresh interpreter without loading jax or the JAX package."""
+    """Every module of the port, the multi-device and batch-evaluation
+    ones included, imports in a fresh interpreter without loading jax or
+    the JAX package."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import rectified_spaattn_tpu_torch as pkg\n"
@@ -548,8 +549,16 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "pkg.__name__ + '.')]\n"
         "need = {'rectified_spaattn_tpu_torch.parallel.mesh', "
         "'rectified_spaattn_tpu_torch.parallel.sharding', "
+        "'rectified_spaattn_tpu_torch.parallel.multihost', "
         "'rectified_spaattn_tpu_torch.attention.ring', "
-        "'rectified_spaattn_tpu_torch.attention.sharded'}\n"
+        "'rectified_spaattn_tpu_torch.attention.sharded', "
+        "'rectified_spaattn_tpu_torch.eval', "
+        "'rectified_spaattn_tpu_torch.eval.diff_metrics', "
+        "'rectified_spaattn_tpu_torch.eval.generation', "
+        "'rectified_spaattn_tpu_torch.eval.quality', "
+        "'rectified_spaattn_tpu_torch.eval.run_eval', "
+        "'rectified_spaattn_tpu_torch.curves.__main__', "
+        "'rectified_spaattn_tpu_torch.curves.visualize'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
@@ -560,4 +569,4 @@ def test_port_imports_no_jax_in_a_fresh_process():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 24
+    assert int(proc.stdout.strip()) >= 69
