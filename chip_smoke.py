@@ -12,6 +12,8 @@ Wan2.1-14B denoise path, Wan2.2 A14B with host_swap, the CogVideoX1.5
 T2V / I2V path (K1 and K2 at head_dim 64), Flux.1-dev's two-stage 4096^2
 upscale with its ControlNet (K1, K2 and K3 at 65,536 + 512 tokens), batch
 evaluation (eval/run_eval.py and the multi-process launcher), the
+stacked block execution (models/scan.py: scan_blocks and
+dispatch_segments, and HunyuanVideo at its published depth with int4 weights), the
 multi-device path (K1s, the ring, tensor parallelism)
 and the kernel-diagnostic path (K1q-s, the S3 / S2 ablations, the
 headline bench).  Every attention kernel (K1/K1s, K2, K1q/K1q-s, K3)
@@ -123,7 +125,11 @@ ranges that the merge kernel folds:
      sparse plans zeroed just before and read just after, the output
      equal to the co-resident run bit for bit, the device weight bytes
      after every swap at most one tree's + 5 %; load and swap seconds,
-     GB/s, the 40-block extrapolation, s/step and both peaks.
+     GB/s, the 40-block extrapolation, s/step and both peaks (the swap
+     run's by segment: load, high steps, low steps); then the same swap
+     on stacked trees (scan_blocks, dispatch_segments=2): equal
+     to the co-resident run bit for bit, each swapped tree exactly one
+     tree's bytes, its peak within 5 % of the unstacked swap's.
   6c. cog_site: the CogVideoX1.5 site at its operating point (the token
      grid (6, 48, 85): 24,480 visual tokens, 191 blocks + 32 keys, and a
      256-slot text tail with 226 valid; 48 heads x 64, sa_drop_rate 0.85,
@@ -192,6 +198,23 @@ ranges that the merge kernel folds:
      gate, CLIPScore refused on pseudo-text; K1, K3 (the ControlNet) and
      merge launches of the sparse and the dense calls apart, each equal
      to the count the blocks and steps give, K2 none.
+ 6g. scan: the stacked block execution (models/scan.py), every run with
+     the launch counters zeroed just before and read just after, each
+     model stacked in place on the card first (the allocated bytes just
+     before and after equal within 1 MiB: no second copy): (a) the
+     Hunyuan pipeline of phase 4 (its config, seeds and steps, TeaCache
+     on, G = 2) with scan_blocks, then dispatch_segments=2, the latents
+     held to phase 4's bit for bit (else, reported, within the pipeline
+     limits), launches and TeaCache decisions equal, s/step and peak
+     beside phase 4's; (b) the Wan pipeline of phase 6 likewise, its
+     sparse plans too; (c) CogVideoX at full width cut to 4 blocks, and
+     Flux's upscale cut to 2 + 2 blocks with a 2-block ControlNet and the
+     gate (1, 3), unrolled then stacked on the same weights; (d) the
+     serving tier at HunyuanVideo's published depth: HunyuanVideoConfig()
+     (20 + 40 blocks, 720x1280x128, 115,200 + 256 tokens) with int4
+     weights (quantize_model), stacked, dispatch_segments=2, one sparse step
+     at G = 2, TeaCache off, against the same step unrolled on the same
+     weights: s/step, device weight bytes, peak, K1 / K2 / merge 60 each.
  6b. k1q_stats: K1q-s (K1q with m and l) in both modes against its plain
      version at small shapes (o equal to K1q's bit for bit, m / l as
      k1s_vs_plain holds them); at the Hunyuan site (both regimes) its time
@@ -333,6 +356,18 @@ FLUX_PIPE = dict(cfg={}, cn_cfg={}, base=1024, up=4096, steps=2,
                  group_rows=2,
                  cut="none: 19 + 38 of 19 + 38 blocks, 5 of 5 ControlNet "
                      "blocks; 2 steps a stage")
+# the scan phase (models/scan.py): Hunyuan and Wan as PIPE / WAN_PIPE,
+# CogVideoX cut from 42 to 4 blocks, Flux to 2 + 2 blocks with a 2-block
+# ControlNet and the gate (1, 3), so that each stack runs a sparse and a
+# windowed-dense segment; then the serving tier at full depth:
+# HunyuanVideoConfig() (20 + 40 blocks) with int4 weights, stacked,
+# dispatch_segments=2, one sparse step at G = 2, TeaCache off
+SCAN = dict(windows=2, cog_cfg=dict(num_blocks=4),
+            flux_cfg=dict(num_dual_blocks=2, num_single_blocks=2),
+            flux_cn_cfg=dict(num_dual_blocks=2), flux_gate=(1, 3),
+            full_cfg={}, full_bits=4, full_steps=1,
+            cut="CogVideoX 4 of 42 blocks; Flux 2 + 2 of 19 + 38, "
+                "ControlNet 2 of 5; full depth: none (20 + 40 of 20 + 40)")
 # the small GPU-vs-CPU CogVideoX pipelines' TeaCache: the random model's
 # temb signal scaled into the cogvideox polynomial's positive range; the
 # accumulated signal is 0.097-0.099 at call 2 (skip) and 0.19 at call 4
@@ -1238,14 +1273,11 @@ def text_weighted_checks(kernels, ops, q, k, v, k1_lists, k2_lists,
 
 # --------------------------------------------------------------- phase 4 ---
 
-def hunyuan_full_pipe(image_condition_type=None):
-    """The full-width HunyuanVideoPipeline of PIPE (seeded bf16 weights,
-    the same for T2V and I2V: the condition type adds no weight), its
-    config and its text inputs."""
-    from rectified_spaattn_tpu_torch.cli.generate import _random_text
+def hunyuan_full_model(image_condition_type=None):
+    """The full-width HunyuanVideoDiT of PIPE with seeded bf16 weights (the
+    same for T2V and I2V: the condition type adds no weight)."""
     from rectified_spaattn_tpu_torch.models import (
         HunyuanVideoConfig, HunyuanVideoDiT, init_random_weights)
-    from rectified_spaattn_tpu_torch.pipelines import HunyuanVideoPipeline
 
     dev = torch.device(DEV)
     cfg = HunyuanVideoConfig(**PIPE["cfg"],
@@ -1254,12 +1286,26 @@ def hunyuan_full_pipe(image_condition_type=None):
         model = HunyuanVideoDiT(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    model = init_random_weights(model.to(torch.bfloat16), gen)
+    return init_random_weights(model.to(torch.bfloat16), gen)
+
+
+def hunyuan_full_pipe(image_condition_type=None, model=None, **pipe_kw):
+    """The HunyuanVideoPipeline of PIPE over ``model`` (default
+    ``hunyuan_full_model``), its config and its text inputs; ``pipe_kw``
+    adds pipeline options (scan_blocks, dispatch_segments)."""
+    from rectified_spaattn_tpu_torch.cli.generate import _random_text
+    from rectified_spaattn_tpu_torch.pipelines import HunyuanVideoPipeline
+
+    dev = torch.device(DEV)
+    if model is None:
+        model = hunyuan_full_model(image_condition_type)
+    cfg = model.cfg
     pipe = HunyuanVideoPipeline(
         model=model, height=PIPE["height"], width=PIPE["width"],
         frames=PIPE["frames"], num_steps=PIPE["steps"],
         sa_drop_rate=0.8, p_remain_rates=0.3, mode="sparse",
-        enable_teacache=True, rel_l1_thresh=0.15, group_rows=2, device=dev)
+        enable_teacache=True, rel_l1_thresh=0.15, group_rows=2, device=dev,
+        **pipe_kw)
     text, mask = _random_text("several hot air balloons flying over a city.",
                               256, cfg.text_dim, device=dev)
     return pipe, cfg, text, mask
@@ -1277,6 +1323,7 @@ def pipeline_phase(kernels):
     noise = torch.Generator(device=DEV)
     noise.manual_seed(42)
     torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 2**30
     kerns = path_kernels(kernels)
     for f in kerns.values():
         f.launches = 0
@@ -1301,7 +1348,8 @@ def pipeline_phase(kernels):
            "visual_tokens": pipe.site.visual_len,
            "launches_per_computed_step": {
                n: c / computed for n, c in launches.items()},
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "start_gb": start_gb}
     res["profiled_step"] = profile_step(pipe, text, mask)
     # block 0's mask density, from one more step with the probe on (the
     # CLI's --density; kept out of the timed steps above)
@@ -2614,9 +2662,10 @@ def flux_site_phase(kernels, ops, regime: str):
     return res, kern
 
 
-def flux_full_pipe():
+def flux_full_pipe(cfg_kw=None, cn_kw=None, **pipe_kw):
     """A FluxUpscalePipeline of FLUX_PIPE's geometry on FluxConfig() and
-    FluxControlNetConfig() with the CLI's seeded random weights
+    FluxControlNetConfig() (``cfg_kw`` / ``cn_kw`` cut their depths,
+    ``pipe_kw`` adds stage options) with the CLI's seeded random weights
     (random_flux: built on the card in bf16, so no fp32 tree of the 12B
     trunk ever exists; the ControlNet nudged off its zero init), the
     seeded T5 stand-in and a seeded pooled vector."""
@@ -2628,14 +2677,14 @@ def flux_full_pipe():
                                                        FluxUpscalePipeline)
 
     dev = torch.device(DEV)
-    cfg = FluxConfig(**FLUX_PIPE["cfg"])
-    cn_cfg = FluxControlNetConfig(**FLUX_PIPE["cn_cfg"])
+    cfg = FluxConfig(**FLUX_PIPE["cfg"], **(cfg_kw or {}))
+    cn_cfg = FluxControlNetConfig(**FLUX_PIPE["cn_cfg"], **(cn_kw or {}))
     model, cn = random_flux(cfg, cn_cfg, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(22)
     kw = dict(num_steps=FLUX_PIPE["steps"], sa_drop_rate=0.9,
               p_remain_rates=0.3, mode="sparse",
-              group_rows=FLUX_PIPE["group_rows"], device=dev)
+              group_rows=FLUX_PIPE["group_rows"], device=dev, **pipe_kw)
     pipe = FluxUpscalePipeline(
         base=FluxPipeline(model=model, height=FLUX_PIPE["base"],
                           width=FLUX_PIPE["base"], **kw),
@@ -2744,6 +2793,267 @@ def pipeline_flux_phase(kernels):
     res["profiled_up_step"] = profile_run(
         lambda: pipe.up(text, mask, pooled, controlnet_fn=fn,
                         init_tokens=init, num_steps=1))
+    return res
+
+
+def counted_run(kernels, run):
+    """``run()`` with the path's launch counters zeroed just before and
+    read just after; returns (its output, launches, memory: the peak, the
+    bytes allocated at the start (what earlier phases left) and the peak
+    above them, GB)."""
+    kerns = path_kernels(kernels)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated() / 2**30
+    for f in kerns.values():
+        f.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return (out, {n: f.launches for n, f in kerns.items()},
+            {"peak_mem_gb": peak, "start_gb": start,
+             "peak_above_start_gb": peak - start})
+
+
+def held_to_run(name, got, want) -> dict:
+    """A stacked run's output against the unrolled run's: bit for bit, or
+    (reported as not) within the pipeline limits of held_to_scale."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} against "
+                             f"{tuple(want.shape)}")
+    if torch.equal(got, want):
+        return {"bit_for_bit": True}
+    return {"bit_for_bit": False, **held_to_scale(name, got, want)}
+
+
+def stack_on_card(model, *names) -> dict:
+    """Stack ``model``'s block lists in place (models/scan.py), the device
+    bytes allocated just before and just after and the transient peak
+    above them; raises if the card holds more than before (a second copy;
+    the allocator's 512-byte rounding of one tensor against many may move
+    the count by < 1 MiB)."""
+    from rectified_spaattn_tpu_torch.models import scan
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    scan.stack_model_blocks(model, *names)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    weights = sum(t.numel() * t.element_size()
+                  for t in scan.stacked_state_dict(model).values())
+    r = {"allocated_before_gb": before / 2**30,
+         "allocated_after_gb": after / 2**30,
+         "stacking_peak_above_gb":
+             (torch.cuda.max_memory_allocated() - before) / 2**30,
+         "device_weight_gb": weights / 2**30}
+    if after - before > 2**20:
+        raise AssertionError(f"stacking grew the card's memory: {r}")
+    return r
+
+
+def scan_pair(name, unrolled: tuple, stacked_runs: dict) -> dict:
+    """Hold each stacked run ({label: (output, launches, ...)}) to the
+    unrolled run's (output, launches): the latents (held_to_run) and the
+    launch counts, equal."""
+    want, want_l = unrolled[:2]
+    res = {}
+    for label, (out, launches, *_rest) in stacked_runs.items():
+        res[label] = held_to_run(f"{name} {label}", out, want)
+        if launches != want_l or launches["K1"] == 0:
+            raise AssertionError(f"{name} {label}: launches {launches}, the "
+                                 f"unrolled run's {want_l}")
+    return res
+
+
+def scan_phase(kernels, hun: dict, hun_latents, wan: dict, wan_latents):
+    """The stacked block execution (models/scan.py) on the card, each run
+    with the launch counters zeroed just before and read just after:
+
+    (a) Hunyuan at PIPE (phase 4's config, seeds and steps, TeaCache on,
+        G = 2) stacked, then with dispatch_segments=2, held to phase
+        4's latents and launches, its TeaCache decisions too;
+    (b) Wan at WAN_PIPE (UniPC under CFG), stacked and with
+        dispatch_segments=2, held to the Wan phase's latents, launches and
+        sparse plans;
+    (c) CogVideoX and Flux cut to SCAN's depths, unrolled then stacked
+        on the same model;
+    (d) the serving tier at full depth: HunyuanVideoConfig() with int4
+        weights, stacked, dispatch_segments=2, one sparse step, held to
+        the unrolled step on the same weights.
+
+    Stacking happens on the card in place (``stack_on_card``: no second
+    copy); the pipelines reuse those stacks."""
+    from rectified_spaattn_tpu_torch.cli.generate import (_random_model,
+                                                          _random_text)
+    from rectified_spaattn_tpu_torch.models import (
+        HunyuanVideoConfig, HunyuanVideoDiT, quantize_model)
+    from rectified_spaattn_tpu_torch.pipelines import HunyuanVideoPipeline
+
+    dev = torch.device(DEV)
+    w = SCAN["windows"]
+    res, runs = {"cut": SCAN["cut"]}, {}
+
+    def seeded(seed=42):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return gen
+
+    # (a) Hunyuan, phase 4's run
+    model = hunyuan_full_model()
+    stacking = stack_on_card(model, "dual_blocks", "single_blocks")
+    pipe, cfg, text, mask = hunyuan_full_pipe(model=model, scan_blocks=True)
+    stacked = {}
+    for label, k in (("scan", 1), ("windows", w)):
+        pipe.dispatch_segments = k
+        stacked[label] = counted_run(
+            kernels, lambda: pipe(text, mask, generator=seeded()))
+        if pipe.teacache.decisions != hun["teacache_decisions"]:
+            raise AssertionError(f"Hunyuan {label}: TeaCache decisions "
+                                 f"{pipe.teacache.decisions}, phase 4's "
+                                 f"{hun['teacache_decisions']}")
+        stacked[label] += (pipe.step_seconds,)
+    hold = scan_pair("Hunyuan", (hun_latents, hun["launches"]),
+                     stacked)
+    res["hunyuan"] = {
+        "stacking": stacking, "hold": hold, "teacache": pipe.teacache_stats,
+        **{label: {"launches": r[1], **r[2],
+                   "step_seconds": r[3]} for label, r in stacked.items()},
+        "unrolled": {"launches": hun["launches"],
+                     "peak_mem_gb": hun["peak_mem_gb"],
+                     "start_gb": hun["start_gb"],
+                     "peak_above_start_gb":
+                         hun["peak_mem_gb"] - hun["start_gb"],
+                     "step_seconds": hun["step_seconds"]}}
+    runs.update(hunyuan=stacked["scan"][1],
+                hunyuan_windows=stacked["windows"][1])
+    del pipe, model, stacked
+
+    # (b) Wan, the Wan phase's run
+    model = wan_full_model()
+    stacking = stack_on_card(model, "blocks")
+    pipe, wtext, wneg = wan_full_pipe(model, scan_blocks=True)
+    stacked = {}
+    for label, k in (("scan", 1), ("windows", w)):
+        pipe.dispatch_segments = k
+        plans, restore = count_sparse_plans()
+        try:
+            stacked[label] = counted_run(
+                kernels, lambda: pipe(wtext, wneg, generator=seeded()))
+        finally:
+            restore()
+        if plans[0] != wan["sparse_plans"]:
+            raise AssertionError(f"Wan {label}: {plans[0]} sparse plans, "
+                                 f"the Wan phase's {wan['sparse_plans']}")
+        stacked[label] += (pipe.step_seconds,)
+    hold = scan_pair("Wan", (wan_latents, wan["launches"]), stacked)
+    res["wan"] = {
+        "stacking": stacking, "hold": hold,
+        "sparse_plans": wan["sparse_plans"],
+        **{label: {"launches": r[1], **r[2],
+                   "step_seconds": r[3]} for label, r in stacked.items()},
+        "unrolled": {"launches": wan["launches"],
+                     "peak_mem_gb": wan["peak_mem_gb"],
+                     "start_gb": wan["start_gb"],
+                     "peak_above_start_gb":
+                         wan["peak_mem_gb"] - wan["start_gb"],
+                     "step_seconds": wan["step_seconds"]}}
+    runs.update(wan=stacked["scan"][1], wan_windows=stacked["windows"][1])
+    del pipe, model, stacked
+
+    # (c) CogVideoX and Flux, unrolled then stacked on the same weights
+    pipe, _, ctext, cneg = cog_full_pipe(SCAN["cog_cfg"], COG_PIPE["steps"])
+    unrolled = counted_run(kernels,
+                           lambda: pipe(ctext, cneg, generator=seeded()))
+    stacking = stack_on_card(pipe.model, "blocks")
+    spipe = dataclasses.replace(pipe, scan_blocks=True)
+    stacked = {"scan": counted_run(
+        kernels, lambda: spipe(ctext, cneg, generator=seeded()))}
+    res["cogvideox"] = {
+        "stacking": stacking,
+        "hold": scan_pair("CogVideoX", unrolled, stacked),
+        "unrolled": {"launches": unrolled[1], **unrolled[2],
+                     "step_seconds": pipe.step_seconds},
+        "scan": {"launches": stacked["scan"][1],
+                 **stacked["scan"][2],
+                 "step_seconds": spipe.step_seconds}}
+    runs.update(cogvideox_unrolled=unrolled[1],
+                cogvideox=stacked["scan"][1])
+    del pipe, spipe, unrolled, stacked
+
+    pipe, _, _, ftext, fmask, pooled = flux_full_pipe(
+        SCAN["flux_cfg"], SCAN["flux_cn_cfg"],
+        sparse_layer_gate=SCAN["flux_gate"])
+    unrolled = counted_run(
+        kernels, lambda: pipe(ftext, fmask, pooled, generator=seeded()))
+    stacking = stack_on_card(pipe.up.model, "dual_blocks", "single_blocks")
+    spipe = dataclasses.replace(
+        pipe, base=dataclasses.replace(pipe.base, scan_blocks=True),
+        up=dataclasses.replace(pipe.up, scan_blocks=True))
+    stacked = {"scan": counted_run(
+        kernels, lambda: spipe(ftext, fmask, pooled, generator=seeded()))}
+    res["flux"] = {
+        "stacking": stacking, "gate": list(SCAN["flux_gate"]),
+        "hold": scan_pair("Flux", unrolled, stacked),
+        "unrolled": {"launches": unrolled[1], **unrolled[2],
+                     "up_step_seconds": pipe.up.step_seconds},
+        "scan": {"launches": stacked["scan"][1],
+                 **stacked["scan"][2],
+                 "up_step_seconds": spipe.up.step_seconds}}
+    if not stacked["scan"][1]["K2"] or not stacked["scan"][1]["K3"]:
+        raise AssertionError(f"Flux stacked launches {stacked['scan'][1]}")
+    runs.update(flux_unrolled=unrolled[1], flux=stacked["scan"][1])
+    del pipe, spipe, unrolled, stacked
+    torch.cuda.empty_cache()
+
+    # (d) the serving tier at full depth
+    t0 = time.perf_counter()
+    fcfg = HunyuanVideoConfig(**SCAN["full_cfg"])
+    model = quantize_model(_random_model(HunyuanVideoDiT, fcfg, dev),
+                           bits=SCAN["full_bits"])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    stacking = stack_on_card(model, "dual_blocks", "single_blocks")
+    ftext, fmask = _random_text(
+        "several hot air balloons flying over a city.", 256, fcfg.text_dim,
+        device=dev)
+    kw = dict(model=model, height=PIPE["height"], width=PIPE["width"],
+              frames=PIPE["frames"], num_steps=SCAN["full_steps"],
+              sa_drop_rate=0.8, p_remain_rates=0.3, mode="sparse",
+              enable_teacache=False, group_rows=2, device=dev)
+    spipe = HunyuanVideoPipeline(scan_blocks=True, dispatch_segments=w, **kw)
+    stacked = counted_run(kernels,
+                          lambda: spipe(ftext, fmask, generator=seeded()))
+    upipe = HunyuanVideoPipeline(**kw)
+    unrolled = counted_run(kernels,
+                           lambda: upipe(ftext, fmask, generator=seeded()))
+    blocks = fcfg.num_dual_blocks + fcfg.num_single_blocks
+    n = blocks * SCAN["full_steps"]
+    want = {"K1": n, "K2": n, "K3": 0, "K1_merge": n}
+    if unrolled[1] != want:
+        raise AssertionError(f"full-depth launches {unrolled[1]}, want "
+                             f"{want} (one K2, K1 and merge a block)")
+    layouts = sorted({m.layout for m in model.modules()
+                      if hasattr(m, "layout") and m.weight is None})
+    res["hunyuan_full_depth"] = {
+        "config": dataclasses.asdict(fcfg), "blocks": blocks,
+        "weights": f"int{SCAN['full_bits']} (quantize_model), layouts "
+                   f"{layouts}",
+        "visual_tokens": spipe.site.visual_len, "group_rows": 2,
+        "dispatch_segments": w, "steps": SCAN["full_steps"],
+        "build_seconds": build_s, "stacking": stacking,
+        "hold": scan_pair("full-depth Hunyuan", unrolled,
+                          {"scan_windows": stacked}),
+        "scan_windows": {"launches": stacked[1], **stacked[2],
+                         "step_seconds": spipe.step_seconds},
+        "unrolled": {"launches": unrolled[1], **unrolled[2],
+                     "step_seconds": upipe.step_seconds}}
+    runs.update(hunyuan_full_depth=stacked[1],
+                hunyuan_full_depth_unrolled=unrolled[1])
+    del spipe, upipe, model, stacked, unrolled
+    torch.cuda.empty_cache()
+    res["launches_by_run"] = runs
     return res
 
 
@@ -3453,36 +3763,52 @@ def count_sparse_plans():
     return count, lambda: setattr(rectified, "build_sparse_plan", orig)
 
 
-def wan_pipeline_phase(kernels):
-    """WanPipeline at full width (WanConfig()) cut to 4 blocks,
-    720x1280x81, 3 UniPC steps under CFG, TeaCache on, seeded bf16 random
-    weights; the launch counters (and the sparse plans built) are zeroed
-    just before the run and read just after."""
-    from rectified_spaattn_tpu_torch.cli.generate import _random_text
+def wan_full_model():
+    """WanConfig() cut to WAN_PIPE's depth, seeded bf16 weights."""
     from rectified_spaattn_tpu_torch.models import (
         WanConfig, WanDiT, init_random_weights)
+
+    dev = torch.device(DEV)
+    with torch.device(dev):
+        model = WanDiT(WanConfig(**WAN_PIPE["cfg"]))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    return init_random_weights(model.to(torch.bfloat16), gen)
+
+
+def wan_full_pipe(model, **pipe_kw):
+    """The WanPipeline of WAN_PIPE over ``model`` and its cond / uncond
+    text; ``pipe_kw`` adds pipeline options."""
+    from rectified_spaattn_tpu_torch.cli.generate import _random_text
     from rectified_spaattn_tpu_torch.pipelines import WanPipeline
 
     dev = torch.device(DEV)
-    cfg = WanConfig(**WAN_PIPE["cfg"])
-    with torch.device(dev):
-        model = WanDiT(cfg)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    model = init_random_weights(model.to(torch.bfloat16), gen)
     pipe = WanPipeline(
         model=model, height=WAN_PIPE["height"], width=WAN_PIPE["width"],
         frames=WAN_PIPE["frames"], num_steps=WAN_PIPE["steps"],
         sa_drop_rate=0.75, p_remain_rates=0.3, mode="sparse",
         enable_teacache=True, teacache_thresh=0.2,
         warm_layers=WAN_PIPE["warm_layers"],
-        warm_calls=WAN_PIPE["warm_calls"], group_rows=1, device=dev)
+        warm_calls=WAN_PIPE["warm_calls"], group_rows=1, device=dev,
+        **pipe_kw)
     text, _ = _random_text("several hot air balloons flying over a city.",
-                           512, cfg.text_dim, device=dev)
-    neg, _ = _random_text("", 512, cfg.text_dim, device=dev)
+                           512, model.cfg.text_dim, device=dev)
+    neg, _ = _random_text("", 512, model.cfg.text_dim, device=dev)
+    return pipe, text, neg
+
+
+def wan_pipeline_phase(kernels):
+    """WanPipeline at full width (WanConfig()) cut to 4 blocks,
+    720x1280x81, 3 UniPC steps under CFG, TeaCache on, seeded bf16 random
+    weights; the launch counters (and the sparse plans built) are zeroed
+    just before the run and read just after.  Returns (result, latents)."""
+    dev = torch.device(DEV)
+    pipe, text, neg = wan_full_pipe(wan_full_model())
+    cfg = pipe.model.cfg
     noise = torch.Generator(device=dev)
     noise.manual_seed(42)
     torch.cuda.reset_peak_memory_stats()
+    start_gb = torch.cuda.memory_allocated() / 2**30
     kerns = {"K1": kernels.block_sparse_flash_attention,
              "K2": kernels.block_sparse_flash_attention_grouped,
              "K3": kernels.dense_flash_attention,
@@ -3521,12 +3847,13 @@ def wan_pipeline_phase(kernels):
            "visual_tokens": pipe.site.visual_len, "pad": pipe.pad,
            "launches_per_computed_call": {
                n: c / computed for n, c in launches.items()},
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "start_gb": start_gb}
     # one more step, both CFG calls computed and sparse past the warm
     # layers, under the profiler
     pipe.warm_calls = 0
     res["profiled_sparse_step"] = profile_step(pipe, text, neg)
-    return res
+    return res, out.cpu()
 
 
 def tree_bytes(model) -> int:
@@ -3625,14 +3952,26 @@ def wan22_a14b_phase(kernels):
     sw = Wan22A14BPipeline(high=hi, low=lo,
                            boundary_ratio=A14B["boundary_ratio"],
                            host_swap=True)
-    held, swap_in = [], sw._swap_in
+    held, alloc, peaks, swap_in = [], [], [], sw._swap_in
 
     def swap_and_read(*a):
+        # the peak up to this swap (the load, or the high-noise steps)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        torch.cuda.reset_peak_memory_stats()
         sec = swap_in(*a)
         held.append(device_tree_bytes(hi.model, lo.model))
+        alloc.append(torch.cuda.memory_allocated())
         return sec
+
+    def swapped_run(pipe):
+        out, res = run(pipe)
+        res["peak_by_segment_gb"] = [*peaks, res["peak_mem_gb"]]
+        res["peak_mem_gb"] = max(res["peak_by_segment_gb"])
+        res["allocated_gb_after_swaps"] = [b / 2**30 for b in alloc]
+        return out, res
+
     sw._swap_in = swap_and_read
-    out, res = run(sw)
+    out, res = swapped_run(sw)
     tea = sw.teacache
     calls = {n: len(tea[n].decisions) for n in ("high", "low")}
     computed = sum(sum(tea[n].decisions) for n in ("high", "low"))
@@ -3663,22 +4002,61 @@ def wan22_a14b_phase(kernels):
     if max(held) > 1.05 * one_tree:
         raise AssertionError(f"device weight bytes {held} above one tree "
                              f"({one_tree}) + 5 %")
+    # the same swap on stacked trees (scan_blocks, dispatch_segments=2):
+    # the trees back on the host from the pinned copies, each
+    # stacked there; the tree swapped is the stacked one
+    for pipe, tree in ((hi, sw._host[0]), (lo, sw._host[1])):
+        pipe.model.to("meta")
+        pipe.model.load_state_dict(tree, assign=True)
+    # the first swap run's TeaCache state (its residuals on the card) goes
+    load_s, swap_s = sw.load_seconds, sw.swap_seconds
+    del sw, tea
+    skw = dict(kw, scan_blocks=True, dispatch_segments=2)
+    sws = Wan22A14BPipeline(
+        high=WanPipeline(model=hi.model, defer_device=True, **skw),
+        low=WanPipeline(model=lo.model, defer_device=True, **skw),
+        boundary_ratio=A14B["boundary_ratio"], host_swap=True)
+    hi, lo = sws.high, sws.low
+    held_co, held, swap_in = held, [], sws._swap_in
+    alloc.clear()
+    peaks.clear()
+    sws._swap_in = swap_and_read
+    out_s, res_s = swapped_run(sws)
+    swapped = [sum(t.numel() * t.element_size() for t in tree.values())
+               for tree in sws._host]
+    if res_s["launches"] != want or not torch.equal(out_s, out_co) \
+            or swapped != [one_tree] * 2 or max(held) > 1.05 * one_tree \
+            or res_s["peak_mem_gb"] > 1.05 * res["peak_mem_gb"]:
+        raise AssertionError(
+            f"A14B stacked host_swap: launches {res_s['launches']}, "
+            f"equal {torch.equal(out_s, out_co)}, trees {swapped} (one "
+            f"tree {one_tree}), device bytes {held}, peak by segment "
+            f"{res_s['peak_by_segment_gb']} against "
+            f"{res['peak_by_segment_gb']} GB, allocated after swaps "
+            f"{res_s['allocated_gb_after_swaps']} against "
+            f"{res['allocated_gb_after_swaps']} GB")
+    res["scan_blocks_host_swap"] = dict(
+        res_s, equal_to_co_resident=True, dispatch_segments=2,
+        swapped_tree_gb=[b / 1e9 for b in swapped],
+        device_weight_gb_after_swaps=[b / 1e9 for b in held],
+        swap_seconds=sws.swap_seconds, load_seconds=sws.load_seconds,
+        s_per_step=float(np.mean(res_s["step_seconds"])))
     gbps = lambda nbytes, sec: nbytes / sec / 1e9
     base = one_tree - n * block_bytes
     full = base + 40 * block_bytes
-    rate = gbps(one_tree, sw.swap_seconds)
+    rate = gbps(one_tree, swap_s)
     res.update(
         co_resident=res_co, calls=calls, computed_calls=computed,
         equal_to_co_resident=True, condition_seconds=cond_s,
         condition_shape=list(cond.shape), tree_gb=one_tree / 1e9,
-        device_weight_gb_after_swaps=[b / 1e9 for b in held],
-        load_seconds=sw.load_seconds, swap_seconds=sw.swap_seconds,
-        load_gbps=gbps(one_tree, sw.load_seconds), swap_gbps=rate,
+        device_weight_gb_after_swaps=[b / 1e9 for b in held_co],
+        load_seconds=load_s, swap_seconds=swap_s,
+        load_gbps=gbps(one_tree, load_s), swap_gbps=rate,
         tree_gb_40_blocks=full / 1e9,
         swap_seconds_40_blocks_at_this_rate=full / 1e9 / rate,
         s_per_step=float(np.mean(res["step_seconds"])),
         co_resident_s_per_step=float(np.mean(res_co["step_seconds"])))
-    del sw, hi, lo, models
+    del sws, hi, lo, models
     torch.cuda.empty_cache()
     return res
 
@@ -4793,7 +5171,7 @@ def main() -> int:
     emit("small_wan_pipeline_gpu_vs_cpu", t0, **small)
 
     t0 = time.perf_counter()
-    wpipe = wan_pipeline_phase(kernels)
+    wpipe, wan_latents = wan_pipeline_phase(kernels)
     emit("wan_pipeline", t0, **wpipe)
 
     t0 = time.perf_counter()
@@ -4828,6 +5206,11 @@ def main() -> int:
     t0 = time.perf_counter()
     fpipe = pipeline_flux_phase(kernels)
     emit("pipeline_flux", t0, nvidia_smi=smi, **fpipe)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    scan = scan_phase(kernels, pipe, pipe_latents, wpipe, wan_latents)
+    emit("scan", t0, nvidia_smi=smi, **scan)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -4902,7 +5285,9 @@ def main() -> int:
                          "flux": fpipe["launches"][n],
                          "flux_ckpt": ckpt["flux"]["cli"]["launches"][n],
                          "eval_hunyuan": ehun["launches"][n],
-                         "eval_flux": eflux["launches"][n]}
+                         "eval_flux": eflux["launches"][n],
+                         **{f"scan_{r}": c[n] for r, c in
+                            scan["launches_by_run"].items()}}
     ks_t, ks_v = rings["random"]["K1s_ring_text"], \
         rings["random"]["K1s_ring_visual"]
     mainloop = "rectified_spaattn_tpu_torch/csrc/hopper_attn.cuh"

@@ -39,11 +39,20 @@ saved as ``.npy``.  ``--quant 8|4`` quantizes the weights in place, layer by
 layer (models/quant.py::quantize_model, the JAX CLI's ``quantize_params``
 rules), so the device never holds a second full copy.  ``--trace_out``
 writes the TeaCache schedule trace (cache/teacache.py::trace_to),
-``--profile`` a torch.profiler chrome trace.  Flags of parts not ported
-(scan execution, and for CogVideoX and Flux the port's own levers that
-their JAX pipelines lack: ``--mlp_chunk``, ``--teacache_residual int8``,
-``--teacache_offload``, ``--replay_trace``, ``--density``) raise
-NotImplementedError.
+``--profile`` a torch.profiler chrome trace.  ``--scan_blocks`` runs the
+block stacks stacked (models/scan.py; after ``--quant`` and ``--tp``'s
+sharding), every family; ``--dispatch_segments N`` with it reaches the
+HunyuanVideo and Wan pipelines, which check it as JAX's do and run the
+one stacked pass its windows make in eager PyTorch (without
+``--scan_blocks`` it is ignored, as the JAX CLI ignores it).  For CogVideoX and Flux the
+port's own levers that their JAX pipelines lack (``--mlp_chunk``,
+``--teacache_residual int8``, ``--teacache_offload``, ``--replay_trace``,
+``--density``) raise NotImplementedError.
+
+The JAX README's serving tier, int4 weights run stacked:
+
+    python -m rectified_spaattn_tpu_torch.cli.generate --model hunyuan \
+        --scan_blocks --quant 4 --dispatch_segments 2 --group_rows 2
 
 ``flux-upscale`` is the two-stage upscale: the base stage at a quarter of
 ``--height`` x ``--width``, then the ControlNet pass at the full size
@@ -184,25 +193,23 @@ def _check_ported(args):
     if args.model not in DEFAULTS:
         raise NotImplementedError(f"--model {args.model} is not ported yet")
     # flags the JAX CLI honours for these models; the rest
-    # (--controlnet_dir outside flux-upscale, and --use_ret_steps /
-    # --teacache_signal_scale for hunyuan) belong to other families and
-    # are ignored there too
-    unported = {
-        "--scan_blocks": args.scan_blocks,
-        "--dispatch_segments": args.dispatch_segments > 1,
-    }
+    # (--controlnet_dir outside flux-upscale, --use_ret_steps /
+    # --teacache_signal_scale for hunyuan, and --dispatch_segments outside
+    # hunyuan and wan or without --scan_blocks) belong to other families
+    # or modes and are ignored there too
     family = args.model.split("-")[0]
-    if family in ("cogvideox", "flux"):
-        # the port's levers that the CogVideoX and Flux pipelines (as
-        # their JAX counterparts) do not take
-        unported.update({
-            f"--mlp_chunk for {family}": args.mlp_chunk > 1,
-            f"--teacache_residual int8 for {family}":
-                args.teacache_residual != "bf16",
-            f"--teacache_offload for {family}": args.teacache_offload,
-            f"--replay_trace for {family}": args.replay_trace is not None,
-            f"--density for {family}": args.density,
-        })
+    if family not in ("cogvideox", "flux"):
+        return
+    # the port's levers that the CogVideoX and Flux pipelines (as their
+    # JAX counterparts) do not take
+    unported = {
+        f"--mlp_chunk for {family}": args.mlp_chunk > 1,
+        f"--teacache_residual int8 for {family}":
+            args.teacache_residual != "bf16",
+        f"--teacache_offload for {family}": args.teacache_offload,
+        f"--replay_trace for {family}": args.replay_trace is not None,
+        f"--density for {family}": args.density,
+    }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
@@ -334,9 +341,20 @@ def _quantized(model, args):
     return model
 
 
+def _scan(args, windows: bool) -> dict:
+    """``--scan_blocks`` (the model quantized before the pipeline stacks
+    it), and under it ``--dispatch_segments`` where ``windows``: the JAX
+    CLI's ``_serving`` and Hunyuan's ``_segs``."""
+    kw = {"scan_blocks": args.scan_blocks}
+    if windows and args.scan_blocks and args.dispatch_segments > 1:
+        kw["dispatch_segments"] = args.dispatch_segments
+    return kw
+
+
 def _serving(args) -> dict:
-    """Pipeline keywords of the serving levers shared by the families."""
-    return dict(group_rows=args.group_rows,
+    """Pipeline keywords of the serving levers shared by HunyuanVideo and
+    Wan."""
+    return dict(**_scan(args, windows=True), group_rows=args.group_rows,
                 plan_row_chunk=args.plan_row_chunk,
                 plan_kv_tile=args.plan_kv_tile, kv_pack=args.kv_pack,
                 head_chunk=args.head_chunk,
@@ -609,7 +627,7 @@ def build_cogvideox(args):
         vae_decode=vae_decode, mesh=args.mesh, device=device,
         group_rows=args.group_rows, plan_row_chunk=args.plan_row_chunk,
         plan_kv_tile=args.plan_kv_tile, kv_pack=args.kv_pack,
-        head_chunk=args.head_chunk)
+        head_chunk=args.head_chunk, **_scan(args, windows=False))
     extra = {}
     if is_i2v:
         if args.image is not None and not args.ckpt_dir:
@@ -694,7 +712,7 @@ def build_flux(args):
             mesh=args.mesh, device=device, group_rows=args.group_rows,
             plan_row_chunk=args.plan_row_chunk,
             plan_kv_tile=args.plan_kv_tile, kv_pack=args.kv_pack,
-            head_chunk=args.head_chunk)
+            head_chunk=args.head_chunk, **_scan(args, windows=False))
 
     gh_u, gw_u = args.height // 16, args.width // 16
     up_decode = ((lambda t: vae_decode(flux_unpack_latents(t, gh_u, gw_u)))

@@ -8,7 +8,9 @@ eval/video/experiments/multigpu_*.py).
         --out_dir ./eval_out --loops 1 --mode sparse [--score]
 
 The flags are the JAX run_eval's, plus ``--device`` (default cuda; the run
-raises without a GPU unless ``--device cpu``).  Every family runs through
+raises without a GPU unless ``--device cpu``) and the CLI's
+``--scan_blocks`` / ``--dispatch_segments`` (the stacked block execution
+of models/scan.py).  Every family runs through
 its real pipeline, built by the CLI's builders (cli/generate.py) from the
 CLI's defaults with run_eval's flags on top.  Prompts shard across workers
 with the reference interleaving (prompt_list[i::num_shards]); generation
@@ -320,6 +322,11 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--scan_blocks", action="store_true",
+                    help="run the block stacks stacked (as in the CLI)")
+    ap.add_argument("--dispatch_segments", type=int, default=1,
+                    help="JAX's dispatch windows under --scan_blocks "
+                         "(as in the CLI)")
     own = ap.parse_args(argv)
     args = G.parse_args(["--model", own.model])
     for k, v in vars(own).items():

@@ -21,7 +21,9 @@ setup for this rank of the tp group and the sparse site runs head-parallel;
 every rank runs the same loop on replicated activations and makes the same
 TeaCache decisions (checked each call).  ``vae_decode``
 (models/pretrained.py::load_vae) turns the final latents into pixels.
-Left out (raises NotImplementedError): the TPU lever ``scan_blocks``.
+``scan_blocks`` runs the block stack through models/scan.py (the blocks'
+weights stacked leaf-wise; one scan covers the whole stack, the gate
+being by call).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from ..models import scan
 from ..models.cogvideox import CogVideoXDiT
 from ..cache import TeaCache
 from ..cache.teacache import residual_value
@@ -85,7 +88,7 @@ class CogVideoXPipeline:
     vae_decode: Optional[Callable] = None
     # tensor-parallel process groups (parallel.make_mesh; tp only)
     mesh: Optional[object] = None
-    # TPU execution lever of the JAX pipeline: not ported
+    # run the block stack stacked (models/scan.py)
     scan_blocks: bool = False
     plan_row_chunk: int = 0              # SparseConfig.plan_row_chunk
     plan_kv_tile: int = 0                # SparseConfig.plan_kv_tile
@@ -95,13 +98,14 @@ class CogVideoXPipeline:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.scan_blocks:
-            raise NotImplementedError("not ported yet: scan_blocks")
         self.device = resolve_device(self.device)
         # shard before the move (only this rank's slices reach the device)
         self.tp = (shard_tensor_parallel(self.model, self.mesh)
                    if self.mesh is not None else None)
         self.model = self.model.to(self.device).eval()
+        # stack after sharding and quantizing, on the device
+        self.stack = (scan.stack_model_blocks(self.model, "blocks")[0]
+                      if self.scan_blocks else None)
         cfg = self.model.cfg
         self.lt = (self.frames - 1) // 8 + 1
         self.lh = self.height // 16
@@ -193,8 +197,11 @@ class CogVideoXPipeline:
                     if sparse_now:
                         self.sparse_calls.append(call)
                     x_in, ctx_in = x, ctx
-                    x, ctx = m.run_blocks(x, ctx, temb, rope,
-                                          sparse if sparse_now else dense)
+                    fn = sparse if sparse_now else dense
+                    x, ctx = (scan.cog_run_blocks_scan(m.cfg, self.stack, x,
+                                                       ctx, temb, rope, fn)
+                              if self.scan_blocks else
+                              m.run_blocks(x, ctx, temb, rope, fn))
                     if tea.enabled:
                         tea.record_residual_value(
                             residual_value(x, x_in),

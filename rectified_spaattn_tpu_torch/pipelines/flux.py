@@ -12,7 +12,10 @@ The mu-shifted Euler keeps its sigmas near 1 until the last step at
 
 With ``mesh`` (parallel.make_mesh, sp = 1) the trunk (and the
 ControlNet) is sliced once for this rank of the tp group; the two stages
-share one trunk.  Left out: the TPU lever ``scan_blocks``.
+share one trunk.  ``scan_blocks`` runs the trunk's stacks through
+models/scan.py (stacked once for both stages; one segment per run of
+equal gates; the ControlNet's raw samples indexed per block); the
+ControlNet itself runs unrolled, as in the JAX pipeline.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..models import scan
 from ..models.flux import (FluxControlNet, FluxDiT,
                            distribute_controlnet_samples)
 from ..cache import TeaCache
@@ -122,7 +126,7 @@ class FluxPipeline:
     vae_decode: Optional[Callable] = None
     # tensor-parallel process groups (parallel.make_mesh; tp only)
     mesh: Optional[object] = None
-    # TPU execution lever of the JAX pipeline: not ported
+    # run the trunk's block stacks stacked (models/scan.py)
     scan_blocks: bool = False
     plan_row_chunk: int = 0              # SparseConfig.plan_row_chunk
     plan_kv_tile: int = 0                # SparseConfig.plan_kv_tile
@@ -132,12 +136,15 @@ class FluxPipeline:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.scan_blocks:
-            raise NotImplementedError("not ported yet: scan_blocks")
         self.device = resolve_device(self.device)
         # shard before the move (only this rank's slices reach the device)
         self.tp = _shard_once(self.model, self.mesh)
         self.model = self.model.to(self.device).eval()
+        # stack after sharding and quantizing, on the device; the other
+        # stage's stacks are reused
+        self.stacks = (scan.stack_model_blocks(self.model, "dual_blocks",
+                                               "single_blocks")
+                       if self.scan_blocks else None)
         # latent grid: 2x2-packed 16-channel latents -> h/16 x w/16 tokens
         self.gh = self.height // 16
         self.gw = self.width // 16
@@ -156,7 +163,10 @@ class FluxPipeline:
         m = self.model
         x, ctx, temb, rope = m.embed(tokens, t, text, pooled, guidance,
                                      self.gh, self.gw, self.h2l)
-        sig = m.teacache_signal(x, temb)
+        # the dual blocks are HunyuanVideo's: the same block-0 signal
+        sig = (scan.hunyuan_teacache_signal_scan(m.cfg, self.stacks[0], x,
+                                                 temb)
+               if self.scan_blocks else m.teacache_signal(x, temb))
         cd = self.compute_dtype
         return x.to(cd), ctx.to(cd), temb.to(cd), rope, sig.to(cd)
 
@@ -179,6 +189,27 @@ class FluxPipeline:
     def _as_tensor(self, x, dtype=None):
         return None if x is None else torch.as_tensor(
             x, dtype=dtype, device=self.device)
+
+    def _run_blocks(self, x, ctx, temb, rope, dual_fns, single_fns,
+                    controlnet_fn, tokens, t):
+        """The trunk's blocks with the ControlNet's samples of this step:
+        unrolled over the per-block residual lists, or stacked over the
+        raw sample lists."""
+        m = self.model
+        dual_s = single_s = None
+        if controlnet_fn is not None:
+            dual_s, single_s = controlnet_fn(tokens, t)
+        if self.scan_blocks:
+            segs = [scan.gate_segments(len(fns), fns.__getitem__)
+                    for fns in (dual_fns, single_fns)]
+            return scan.flux_run_blocks_scan(m.cfg, *self.stacks, x, ctx,
+                                             temb, rope, *segs, dual_s,
+                                             single_s)
+        return m.run_blocks(
+            x, ctx, temb, rope, None, dual_fns, single_fns,
+            distribute_controlnet_samples(dual_s, m.cfg.num_dual_blocks),
+            distribute_controlnet_samples(single_s,
+                                          m.cfg.num_single_blocks))
 
     @torch.no_grad()
     def denoise(self, tokens, text_emb, text_mask, pooled,
@@ -216,16 +247,10 @@ class FluxPipeline:
                                                      self.device):
                 x = tea.apply_residual(x)
             else:
-                cn_dual = cn_single = None
-                if controlnet_fn is not None:
-                    dual_s, single_s = controlnet_fn(tokens, float(t))
-                    cn_dual = distribute_controlnet_samples(
-                        dual_s, m.cfg.num_dual_blocks)
-                    cn_single = distribute_controlnet_samples(
-                        single_s, m.cfg.num_single_blocks)
                 x_in = x
-                x, ctx = m.run_blocks(x, ctx, temb, rope, None, dual_fns,
-                                      single_fns, cn_dual, cn_single)
+                x, ctx = self._run_blocks(x, ctx, temb, rope, dual_fns,
+                                          single_fns, controlnet_fn, tokens,
+                                          float(t))
                 if tea.enabled:
                     tea.record_residual_value(residual_value(x, x_in))
             v = m.head(x, temb, self.l2h)

@@ -16,7 +16,14 @@ into pixels.  Image-to-video: ``first_frame`` (token_replace,
 ``i2v_first_frame``) holds the clean image latent in the stream with its
 tokens modulated at t = 0; ``condition`` (latent_concat,
 ``i2v_condition_concat``) concatenates onto the noise channels at every
-call.  Left out: the TPU levers ``scan_blocks`` and ``dispatch_segments``.
+call.
+
+``scan_blocks`` runs the block stacks through models/scan.py (the
+blocks' weights stacked leaf-wise, each block on its views of the
+stacks; the same launches and numbers as the unrolled loop);
+``dispatch_segments`` is checked as the JAX pipeline checks it (k > 1
+needs ``scan_blocks``) and needs no split here: windows run back to back
+in eager PyTorch are the one pass.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..models import scan
 from ..models.hunyuan import HunyuanVideoDiT
 from ..cache import TeaCache
 from ..cache.teacache import residual_value
@@ -110,15 +118,25 @@ class HunyuanVideoPipeline:
     density_probe: bool = False
     # tensor-parallel process groups (parallel.make_mesh; tp only)
     mesh: Optional[object] = None
+    # run the block stacks stacked (models/scan.py); the JAX pipeline's
+    # ``dispatch_segments`` windows a phase are that one pass here
+    scan_blocks: bool = False
+    dispatch_segments: int = 1
     device: str = "cuda"
 
     def __post_init__(self):
+        if self.dispatch_segments > 1 and not self.scan_blocks:
+            raise ValueError("dispatch_segments > 1 requires scan_blocks")
         self.device = resolve_device(self.device)
         # shard before the move, so a model built on the host sends only
         # this rank's slices to the device
         self.tp = (shard_tensor_parallel(self.model, self.mesh)
                    if self.mesh is not None else None)
         self.model = self.model.to(self.device).eval()
+        # stack after sharding and quantizing, on the device
+        self.stacks = (scan.stack_model_blocks(self.model, "dual_blocks",
+                                               "single_blocks")
+                       if self.scan_blocks else None)
         cfg = self.model.cfg
         self.lt = self.frames // 4
         self.lh = self.height // 16
@@ -151,7 +169,9 @@ class HunyuanVideoPipeline:
         m = self.model
         x, ctx, temb, rope = m.embed(latents, t, text, mask, guidance,
                                      self.h2l, pooled)
-        sig = m.teacache_signal(x, temb)
+        sig = (scan.hunyuan_teacache_signal_scan(m.cfg, self.stacks[0], x,
+                                                 temb)
+               if self.scan_blocks else m.teacache_signal(x, temb))
         if self.teacache_signal_stride > 1:
             sig = sig[:, ::self.teacache_signal_stride]
         cd = self.compute_dtype
@@ -172,9 +192,21 @@ class HunyuanVideoPipeline:
             return torch.zeros_like(q)
 
         m = self.model
+        # under scan_blocks the block runs on its views of the stack
         blk = m.dual_blocks[0] if len(m.dual_blocks) else m.single_blocks[0]
         blk(x, ctx, temb, rope, attn_probe)
         return rank_mean(self.tp, float(got["d"]), self.device)
+
+    def _run_blocks(self, x, ctx, temb, rope, fn, temb_tr, mask_curve):
+        """The block stacks, unrolled or stacked.  ``dispatch_segments``
+        windows run back to back are the one pass, so it takes no branch
+        here (models/scan.py)."""
+        m = self.model
+        if not self.scan_blocks:
+            return m.run_blocks(x, ctx, temb, rope, fn, temb_tr, mask_curve)
+        return scan.hunyuan_run_blocks_scan(m.cfg, *self.stacks, x, ctx,
+                                            temb, rope, fn, temb_tr,
+                                            mask_curve)
 
     def _as_tensor(self, x, dtype=None):
         return None if x is None else torch.as_tensor(
@@ -245,8 +277,8 @@ class HunyuanVideoPipeline:
                 x = tea.apply_residual(x)
             else:
                 x_in = x
-                x, ctx = m.run_blocks(x, ctx, temb, rope, fn, temb_tr,
-                                      mask_curve)
+                x, ctx = self._run_blocks(x, ctx, temb, rope, fn, temb_tr,
+                                          mask_curve)
                 if tea.enabled:
                     tea.record_residual_value(
                         residual_value(x, x_in, self.teacache_residual))

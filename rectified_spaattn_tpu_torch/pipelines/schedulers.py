@@ -70,6 +70,13 @@ class FlowMatchEulerScheduler:
         dtype = _update_dtype(model_out, sample)
         return sample.to(dtype) + model_out.to(dtype) * dt
 
+    def scale_noise(self, sample, noise, i: int):
+        """The sample noised to sigma_i: (1 - sigma_i) * sample + sigma_i
+        * noise."""
+        s = float(self.sigmas[i])
+        dtype = _update_dtype(noise, sample)
+        return (1.0 - s) * sample.to(dtype) + s * noise.to(dtype)
+
 
 def _update_dtype(model_out, sample) -> torch.dtype:
     return torch.promote_types(

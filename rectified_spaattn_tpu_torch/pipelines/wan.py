@@ -31,8 +31,12 @@ the dense warm layers and the cross-attention on the rank's heads, and the
 TeaCache decisions are checked to agree across ranks each call.
 
 ``vae_decode`` (models/pretrained.py::load_vae) turns the final latents
-into pixels.  Left out (raise NotImplementedError): the TPU levers
-``scan_blocks`` and ``dispatch_segments``.
+into pixels.  ``scan_blocks`` runs the block stack through models/scan.py
+(the blocks' weights stacked leaf-wise, one segment per run of equal
+warm gates); ``dispatch_segments`` is checked as the JAX pipeline checks
+it and needs no split here, since windows run back to back in eager
+PyTorch are the one pass.  Under
+``host_swap`` the tree swapped is the stacked one.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..models import scan
 from ..models.wan import WanDiT
 from ..attention import attention
 from ..cache import TeaCache
@@ -148,7 +153,8 @@ class WanPipeline:
     mesh: Optional[object] = None
     # latents -> pixels, applied to the final latents (None: latents out)
     vae_decode: Optional[Callable] = None
-    # TPU execution levers of the JAX pipeline: not ported
+    # run the block stack stacked (models/scan.py); the JAX pipeline's
+    # ``dispatch_segments`` windows a segment are that one pass here
     scan_blocks: bool = False
     dispatch_segments: int = 1
     # leave the model's weights where they are (the host) instead of
@@ -159,11 +165,8 @@ class WanPipeline:
     device: str = "cuda"
 
     def __post_init__(self):
-        unported = {"scan_blocks": self.scan_blocks,
-                    "dispatch_segments > 1": self.dispatch_segments > 1}
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+        if self.dispatch_segments > 1 and not self.scan_blocks:
+            raise ValueError("dispatch_segments > 1 requires scan_blocks")
         if self.defer_device and self.mesh is not None:
             raise ValueError("defer_device does not compose with a mesh")
         self.device = resolve_device(self.device)
@@ -173,6 +176,9 @@ class WanPipeline:
         if not self.defer_device:
             self.model = self.model.to(self.device)
         self.model.eval()
+        # stack after sharding and quantizing, where the weights live
+        self.stack = (scan.stack_model_blocks(self.model, "blocks")[0]
+                      if self.scan_blocks else None)
         cfg = self.model.cfg
         self.lt = (self.frames + 3) // self.vae_stride[0]
         self.lh = self.height // self.vae_stride[1]
@@ -225,8 +231,15 @@ class WanPipeline:
                    for i in range(n)]
         else:
             fns = [dense] * n
-        return self.model.run_blocks(x, ctx, ctx_img, temb6, rope, dense,
-                                     self._cross, fns)
+        if not self.scan_blocks:
+            return self.model.run_blocks(x, ctx, ctx_img, temb6, rope, dense,
+                                         self._cross, fns)
+        # dispatch_segments windows of a segment, run back to back, are
+        # the one pass (models/scan.py)
+        return scan.wan_run_blocks_scan(self.model.cfg, self.stack, x, ctx,
+                                        ctx_img, temb6, rope,
+                                        scan.gate_segments(n, fns.__getitem__),
+                                        self._cross)
 
     def _head(self, x, temb):
         sv = self.site.visual_len
@@ -250,6 +263,7 @@ class WanPipeline:
                 visual_len=site.visual_len, density_only=True)
             return torch.zeros_like(q)
 
+        # under scan_blocks the block runs on its views of the stack
         self.model.blocks[self.warm_layers](x, ctx, temb6, rope, attn_probe,
                                             self._cross, ctx_img=ctx_img)
         return rank_mean(self.tp, float(got["d"]), self.device)
@@ -401,14 +415,22 @@ class WanPipeline:
 def _host_tree(model: torch.nn.Module, pin: bool) -> dict:
     """The model's weights as host tensors (pinned for fast copies when
     ``pin``), which the caller keeps; each tensor is replaced in the
-    module as it is pinned, so the host holds one copy."""
+    module as it is pinned, so the host holds one copy.  A stacked model
+    (scan_blocks) gives its stacked tree (models/scan.py::
+    stacked_state_dict), each stack pinned whole and its blocks rebound
+    to the pinned views."""
     for v in [*model.parameters(), *model.buffers()]:
         if v.device.type != "cpu":
             raise ValueError("host_swap: construct both pipelines with "
                              "defer_device=True on host weights")
-        if pin and not v.is_pinned():
-            v.data = v.data.pin_memory()
-    return dict(model.state_dict())
+    if pin:
+        for st in scan.model_stacks(model).values():
+            st.bind({n: t if t.is_pinned() else t.pin_memory()
+                     for n, t in st.params.items()})
+        for v in [*model.parameters(), *model.buffers()]:
+            if not v.is_pinned():
+                v.data = v.data.pin_memory()
+    return scan.stacked_state_dict(model)
 
 
 @dataclasses.dataclass
@@ -442,13 +464,17 @@ class Wan22A14BPipeline:
         """Free pipe_out's device tree, then place ``host_tree`` on the
         device for pipe_in; returns the copy seconds (sync-bounded)."""
         pipe_out.model.to("meta")
+        scan.release_model_stacks(pipe_out.model)
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         device_sync()
         t0 = time.perf_counter()
         dev = {k: v.to(self.device, non_blocking=True)
                for k, v in host_tree.items()}
-        pipe_in.model.load_state_dict(dev, strict=True, assign=True)
+        if pipe_in.scan_blocks:
+            scan.load_stacked_state_dict(pipe_in.model, dev)
+        else:
+            pipe_in.model.load_state_dict(dev, strict=True, assign=True)
         device_sync()
         return time.perf_counter() - t0
 
@@ -487,6 +513,7 @@ class Wan22A14BPipeline:
                 self._host = (_host_tree(hi.model, pin),
                               _host_tree(lo.model, pin))
                 lo.model.to("meta")
+                scan.release_model_stacks(lo.model)
             self.load_seconds = self._swap_in(hi, self._host[0], lo)
 
         b = latents.shape[0]

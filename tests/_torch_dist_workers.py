@@ -227,3 +227,66 @@ def eval_worker(rank: int, world: int, tmp: str):
                os.path.join(tmp, f"eval_out_{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
+
+
+def scan_tp_worker(rank: int, world: int, tmp: str):
+    """At tp = ``world``: the tiny HunyuanVideo (int8 QLinears) and Wan
+    pipelines of scan_tp_in.pt, unrolled and stacked (scan_blocks,
+    dispatch_segments=2), each on a model sharded for this rank; writes
+    scan_tp_out_<rank>.pt with both latents and the stacked leaves that
+    are tp parts."""
+    _init(rank, world, tmp)
+    from rectified_spaattn_tpu_torch.models import (
+        HunyuanVideoConfig, HunyuanVideoDiT, WanConfig, WanDiT, quant)
+    from rectified_spaattn_tpu_torch.parallel import make_mesh
+    from rectified_spaattn_tpu_torch.pipelines import (HunyuanVideoPipeline,
+                                                       WanPipeline)
+    mesh = make_mesh(tp=world)
+    inp = _load(tmp, "scan_tp_in.pt")
+    out = {}
+
+    def hunyuan():
+        cfg = dataclasses.replace(HunyuanVideoConfig.tiny(),
+                                  num_dual_blocks=2, num_single_blocks=3)
+        m = HunyuanVideoDiT(cfg)
+        m.load_state_dict(inp["hunyuan"])
+        return quant.quantize_model(m, bits=8, min_size=1)
+
+    def wan():
+        m = WanDiT(dataclasses.replace(WanConfig.tiny(), num_blocks=5))
+        m.load_state_dict(inp["wan"])
+        return m
+
+    hkw = dict(height=64, width=128, frames=8, num_steps=2, mode="sparse",
+               sa_drop_rate=0.5, p_remain_rates=0.5, text_len=128,
+               group_rows=2, enable_teacache=True, rel_l1_thresh=0.8,
+               device="cpu", mesh=mesh)
+    wkw = dict(height=192, width=240, frames=5, num_steps=2, mode="sparse",
+               sa_drop_rate=0.5, p_remain_rates=0.5, warm_layers=1,
+               warm_calls=0, device="cpu", mesh=mesh)
+    g = torch.Generator()
+    g.manual_seed(3)
+    text_c = torch.randn((1, 6, 32), generator=g)
+    for name, build, make, run in (
+            ("hunyuan", hunyuan, HunyuanVideoPipeline,
+             lambda p: p(inp["text"], inp["mask"], init_latents=inp["init"])),
+            ("wan", wan, WanPipeline,
+             lambda p: p.denoise(torch.zeros((1, 4, *p.grid)) + 0.5, text_c,
+                                 torch.zeros_like(text_c)))):
+        kw = hkw if name == "hunyuan" else wkw
+        res = {"unrolled": run(make(model=build(), **kw))}
+        pipe = make(model=build(), scan_blocks=True, dispatch_segments=2,
+                    **kw)
+        res["scan"] = run(pipe)
+        stacks = (pipe.stacks if name == "hunyuan" else (pipe.stack,))
+        leaves = [n for st in stacks for n in st.params]
+        # the row-parallel parts, and Wan's norms over the full width
+        res["sharded_leaves"] = [n for n in leaves if ".parts." in n]
+        res["int8_leaves"] = [n for n in leaves if n.endswith("weight_q")]
+        res["sharded_norms"] = [
+            n for st in stacks for n, m in st.blocks[0].named_modules()
+            if type(m).__name__ == "ShardedRMSNorm"]
+        out[name] = res
+    torch.save(out, os.path.join(tmp, f"scan_tp_out_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()

@@ -310,7 +310,9 @@ def test_i2v_condition_and_ofs():
 
 def test_pipeline_pads_t5_tokens_and_refuses_scan():
     """A 226-token prompt embedding fills the 256-slot text tail with zeros
-    (the valid length 226 masks them); scan_blocks raises."""
+    (the valid length 226 masks them); scan_blocks, once refused, runs the
+    stacked blocks to the same latents bit for bit
+    (tests/test_torch_scan.py holds it against JAX)."""
     _, _, tmod = cog_pair()
     pipe = CogVideoXPipeline(model=tmod, device="cpu", height=64, width=64,
                              frames=9, num_steps=1, mode="vanilla",
@@ -323,8 +325,13 @@ def test_pipeline_pads_t5_tokens_and_refuses_scan():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError, match="exceed text_len"):
         pipe.denoise(init, arr(3, 1, 300, 32), arr(3, 1, 300, 32))
-    with pytest.raises(NotImplementedError, match="scan_blocks"):
-        CogVideoXPipeline(model=tmod, device="cpu", scan_blocks=True)
+    stacked = CogVideoXPipeline(model=cog_pair()[2], device="cpu", height=64,
+                                width=64, frames=9, num_steps=1,
+                                mode="vanilla", text_len=256,
+                                scan_blocks=True)
+    torch.testing.assert_close(stacked.denoise(init, text,
+                                               np.zeros_like(text)), a,
+                               rtol=0, atol=0)
 
 
 def test_tensor_parallel_two_gloo_ranks(tmp_path):

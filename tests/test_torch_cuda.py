@@ -7,8 +7,11 @@ tensors (bit for bit), the full-width HunyuanVideo VAE decode on the
 GPU against the CPU (fp32 rtol 2e-4 / atol 2e-5, TF32 off), Wan2.2
 A14B's host_swap against its co-resident run (bit for bit), and the tiny
 Flux upscale with a ControlNet (bf16 against the CPU's fp32, 5 % of the
-output's scale) and its bicubic resize (fp32 2e-4 / 2e-5), and the eval
-diff metrics in float64 on the card against the CPU (rtol 1e-10).
+output's scale) and its bicubic resize (fp32 2e-4 / 2e-5), the eval
+diff metrics in float64 on the card against the CPU (rtol 1e-10), and
+the stacked block execution (scan_blocks, dispatch_segments) of the
+HunyuanVideo and Wan pipelines against their unrolled runs (bit for
+bit).
 Marked ``cuda``; each test skips without a GPU.  This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
 
@@ -803,3 +806,81 @@ def test_cuda_diff_metrics_match_cpu(cuda):
         assert sorted(got) == sorted(want)
         for k in want:
             assert got[k] == pytest.approx(want[k], rel=1e-10), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["hunyuan", "wan"])
+def test_cuda_scan_pipelines_equal_unrolled(cuda, family):
+    """HunyuanVideo (2 + 2 blocks, int8 QLinears, G = 2, TeaCache on) and
+    Wan (4 blocks, a dense and a sparse warm-gate segment) at head_dim 128
+    in bf16 on the card: stacked, with dispatch_segments 1 and 2, each equal
+    to the unrolled run bit for bit with the same kernel launches;
+    stacking leaves the card's allocated bytes as they were (one copy of
+    the weights)."""
+    from rectified_spaattn_tpu_torch.models import (
+        HunyuanVideoConfig, HunyuanVideoDiT, WanConfig, WanDiT,
+        init_random_weights, quant, scan)
+    from rectified_spaattn_tpu_torch.pipelines import (HunyuanVideoPipeline,
+                                                       WanPipeline)
+    counters = (tk.block_sparse_flash_attention,
+                tk.block_sparse_flash_attention_grouped,
+                tk.dense_flash_attention, tk.block_sparse.merge_splits)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+
+    def model():
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(0)
+        with torch.device(cuda):
+            m = (HunyuanVideoDiT(HunyuanVideoConfig(
+                hidden_dim=256, heads=2, num_dual_blocks=2,
+                num_single_blocks=2, text_dim=64, pooled_dim=32,
+                num_refiner_blocks=1)) if family == "hunyuan" else
+                 WanDiT(WanConfig(hidden_dim=256, heads=2, num_blocks=4,
+                                  ffn_dim=512, text_dim=64)))
+        m = init_random_weights(m.to(torch.bfloat16), gen)
+        return (quant.quantize_model(m, bits=8, min_size=1)
+                if family == "hunyuan" else m)
+
+    if family == "hunyuan":
+        kw = dict(height=128, width=128, frames=8, num_steps=3,
+                  sa_drop_rate=0.5, p_remain_rates=0.5, group_rows=2,
+                  enable_teacache=True, device=cuda)
+        text = torch.randn((1, 256, 64), generator=g, device=cuda)
+        mask = torch.zeros((1, 256), dtype=torch.bool, device=cuda)
+        mask[:, :20] = True
+        make = lambda m, **k: HunyuanVideoPipeline(model=m, **kw, **k)
+        run = lambda p, init: p(text, mask, init_latents=init)
+        lists = ("dual_blocks", "single_blocks")
+    else:
+        kw = dict(height=192, width=240, frames=5, num_steps=3,
+                  sa_drop_rate=0.5, p_remain_rates=0.5, mode="sparse",
+                  warm_layers=1, warm_last_layers=1, warm_calls=2,
+                  device=cuda)
+        text = torch.randn((1, 32, 64), generator=g, device=cuda)
+        make = lambda m, **k: WanPipeline(model=m, **kw, **k)
+        run = lambda p, init: p.denoise(init, text, torch.zeros_like(text))
+        lists = ("blocks",)
+
+    def counted(pipe, init):
+        for f in counters:
+            f.launches = 0
+        out = run(pipe, init)
+        torch.cuda.synchronize()
+        return out, [f.launches for f in counters]
+
+    ref = make(model())
+    init = torch.randn((1, 16, *ref.grid), generator=g, device=cuda)
+    want, launches = counted(ref, init)
+    assert launches[0] > 0
+    m = model()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    scan.stack_model_blocks(m, *lists)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - before <= 2**20
+    for k in (1, 2):
+        got, got_l = counted(make(m, scan_blocks=True, dispatch_segments=k),
+                             init)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert got_l == launches

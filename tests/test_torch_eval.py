@@ -19,6 +19,7 @@ import os
 import socket
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import jax
@@ -46,6 +47,7 @@ from rectified_spaattn_tpu_torch.models import pretrained as pre
 from rectified_spaattn_tpu_torch.parallel import shard_prompts
 
 import _torch_dist_workers as workers
+import test_torch_flux
 import test_torch_io
 from test_torch_parallel import join, spawn
 
@@ -301,12 +303,17 @@ def record(monkeypatch, module, runners, frames):
         return run, is_video
     monkeypatch.setattr(module, "make_runner", recorded)
     gmod = (generation if module is run_eval else jgeneration)
-    save = gmod.save_video
+    save, save_img = gmod.save_video, gmod.save_image
 
     def saved(arr, path, fps=24):
         frames[os.path.basename(path)] = np.array(arr)
         return save(arr, path, fps)
+
+    def saved_image(arr, path):
+        frames[os.path.basename(path)] = np.array(arr)
+        return save_img(arr, path)
     monkeypatch.setattr(gmod, "save_video", saved)
+    monkeypatch.setattr(gmod, "save_image", saved_image)
 
 
 def sharp_snapshot(root, gain: float = 8.0):
@@ -389,6 +396,96 @@ def test_run_eval_matches_jax_on_a_snapshot(tmp_path, monkeypatch):
     assert "hash" in res["vision_reward"]["status"]
     assert [os.path.basename(p) for p in written] == [
         f for f in sorted(os.listdir(tmp_path / "jax")) if f != "scores.json"]
+
+
+def sharp_flux_snapshot(root, gain: float = 8.0):
+    """tests/test_torch_flux.py's tiny Flux snapshot (transformer/ and the
+    2-D vae/, no controlnet/: JAX's ControlNet runs on mixed token orders,
+    ROADMAP Queue 3) with every q / k RMSNorm gain of its blocks raised to
+    ``gain``, so that its attention is not flat (sharp_snapshot)."""
+    from safetensors.numpy import load_file, save_file
+    test_torch_flux.write_flux_snapshot(root, controlnet=False)
+    tdir = os.path.join(root, "transformer")
+    for name in os.listdir(tdir):
+        if name.endswith(".safetensors"):
+            path = os.path.join(tdir, name)
+            sd = load_file(path)
+            for k in sd:
+                if k.endswith(("norm_q.weight", "norm_k.weight")):
+                    sd[k] = sd[k] * np.float32(gain)
+            save_file(sd, path)
+    return root
+
+
+def test_run_eval_flux_upscale_matches_jax(tmp_path, monkeypatch):
+    """--model flux-upscale through the port's run_eval.main and JAX's,
+    both with --score, on one tiny snapshot (base 96^2, up 384^2: 576
+    visual tokens in 5 blocks; one step a stage; the img2img fallback
+    through pixels):
+    JAX's namespace
+    from JAX's CLI defaults, JAX's PRNGKey(seed) and PRNGKey(seed + 1)
+    noise handed to the port.  The written images and each runner's last
+    full output agree at fp32 2e-4 / 2e-5, diff_vs_dense at rtol 1e-3."""
+    root = sharp_flux_snapshot(str(tmp_path / "snap"))
+    prompts = tmp_path / "p.txt"
+    prompts.write_text("a lighthouse at dusk\n")
+    argv = ["--model", "flux-upscale", "--height", "384", "--width", "384",
+            "--num_steps", "1", "--score", "--ckpt_dir", root, "--prompts",
+            str(prompts)]
+
+    fill_jax_namespace(monkeypatch)
+    jload = jpre.load_transformer
+    monkeypatch.setattr(jpre, "load_transformer", lambda f, r, **k: jload(
+        f, r, dtype="float32", cache=False))
+    monkeypatch.setattr(jgen, "_random_text", lambda p, n, d, batch=1: tuple(
+        jnp.asarray(x.numpy()) for x in gen._random_text(p, n, d, batch)))
+    jrunners, jframes = [], {}
+    record(monkeypatch, jrun_eval, jrunners, jframes)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # the no-ControlNet warning
+        jrun_eval.main(argv + ["--out_dir", str(tmp_path / "jax")])
+
+    from rectified_spaattn_tpu_torch.pipelines import FluxUpscalePipeline
+    call = FluxUpscalePipeline.__call__
+
+    def jax_noise(self, text, mask, pooled, seed=42, generator=None, **k):
+        c = self.up.model.cfg.in_channels
+        base, up = (np.array(jax.random.normal(
+            jax.random.PRNGKey(seed + i), (1, p.gh * p.gw, c), jnp.float32))
+            for i, p in enumerate((self.base, self.up)))
+        return call(self, text, mask, pooled, seed=seed,
+                    base_init=torch.from_numpy(base),
+                    up_noise=torch.from_numpy(up), **k)
+    monkeypatch.setattr(FluxUpscalePipeline, "__call__", jax_noise)
+    runners, frames = [], {}
+    record(monkeypatch, run_eval, runners, frames)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        written, res = run_eval.main(argv + ["--device", "cpu", "--out_dir",
+                                             str(tmp_path / "port")])
+
+    assert sorted(frames) == sorted(jframes) == ["a_lighthouse_at_dusk-0.png"]
+    for name, want in jframes.items():
+        assert frames[name].shape == want.shape and want.shape[-1] == 3
+        np.testing.assert_allclose(frames[name], want, err_msg=name, **FP32)
+    assert [r[0] for r in runners] == [r[0] for r in jrunners] == [
+        "sparse", "flash"]
+    for r, jr in zip(runners, jrunners):
+        np.testing.assert_allclose(r[1].last_raw(), jr[1].last_raw(),
+                                   err_msg=r[0], **FP32)
+    with open(tmp_path / "jax" / "scores.json") as f:
+        jres = json.load(f)
+    d, jd = res["diff_vs_dense"], jres["diff_vs_dense"]
+    assert sorted(d) == sorted(jd) and d["relative_l1"] > 1e-4
+    for k in jd:
+        np.testing.assert_allclose(d[k], jd[k], rtol=1e-3, err_msg=k)
+    assert res["live_metrics"] == jres["live_metrics"]
+    # the images, and the dense reference over the prompt grid (FID's)
+    listing = lambda *d: sorted(os.listdir(tmp_path.joinpath(*d)))
+    assert listing("port") == listing("jax")
+    assert listing("port", "dense_ref") == listing("jax", "dense_ref")
+    assert [os.path.basename(p) for p in written] == [
+        f for f in listing("jax") if f not in ("scores.json", "dense_ref")]
 
 
 def test_score_outputs_scores_full_outputs(tmp_path, monkeypatch):

@@ -415,7 +415,8 @@ def test_pipeline_gate_and_modes():
     """Under "sparse" the gate picks the site's sparse function outside
     the dense band and the windowed dense inside it (Flux's (37, 57) over
     19 + 38 blocks: 37 sparse, 20 dense); "flash" and "vanilla" run every
-    block dense; scan_blocks raises."""
+    block dense; scan_blocks, once refused, stacks the trunk's two lists
+    (tests/test_torch_scan.py runs it)."""
     cfg = FluxConfig(hidden_dim=64, heads=2, head_dim=32, text_dim=32,
                      pooled_dim=16, in_channels=8, out_channels=8,
                      rope_axes_dim=(8, 12, 12))
@@ -436,9 +437,12 @@ def test_pipeline_gate_and_modes():
     for mode, dense in (("flash", "flash"), ("vanilla", "vanilla")):
         pipe.mode = mode
         assert set(sum(pipe.attn_fns(None), [])) == {dense}
-    _, _, tmod = flux_pair()
-    with pytest.raises(NotImplementedError, match="scan_blocks"):
-        FluxPipeline(model=tmod, device="cpu", scan_blocks=True)
+    _, params, _ = flux_pair()
+    tmod = load_flax_params(FluxDiT(FluxConfig.tiny()), params)
+    stacks = FluxPipeline(model=tmod, device="cpu", scan_blocks=True).stacks
+    assert [len(s) for s in stacks] == [1, 1]
+    assert all(s.blocks is b for s, b in zip(stacks, (tmod.dual_blocks,
+                                                      tmod.single_blocks)))
 
 
 UP_KW = dict(PIPE_KW, num_steps=2, mode="vanilla")
@@ -735,7 +739,8 @@ def test_cli_ckpt(controlnet, tmp_path):
                                   ["--teacache_residual", "int8"],
                                   ["--teacache_offload"],
                                   ["--replay_trace", "x.json"],
-                                  ["--density"], ["--scan_blocks"]])
+                                  ["--density"],
+                                  ["--density", "--scan_blocks"]])
 def test_cli_refuses_unported_flags(flag, tmp_path):
     from rectified_spaattn_tpu_torch.cli.generate import main
     with pytest.raises(NotImplementedError, match=flag[0]):

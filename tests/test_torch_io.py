@@ -680,10 +680,12 @@ def test_cli_trace_out_profile_and_refusals(tmp_path):
         r["compute"] for r in records[1:])
     assert os.path.exists(prof / "trace.json")
     assert res["output"].endswith(".npy")          # latents without a VAE
-    # --image is ported (tests/test_torch_i2v.py); the TPU levers are
-    # still refused, before anything is built
-    with pytest.raises(NotImplementedError, match="--scan_blocks"):
-        gen.main(["--device", "cpu", "--scan_blocks"])
+    # --image and the TPU levers are ported (tests/test_torch_i2v.py,
+    # tests/test_torch_scan.py); the levers JAX's CogVideoX pipeline lacks
+    # are refused, before anything is built
+    with pytest.raises(NotImplementedError, match="--density"):
+        gen.main(["--device", "cpu", "--model", "cogvideox-t2v",
+                  "--scan_blocks", "--density"])
 
 
 # ---------------------------------------------------------- video, encoders ---

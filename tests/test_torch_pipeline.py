@@ -159,11 +159,14 @@ def test_cli_runs_on_cpu(tmp_path, capsys):
     assert res["teacache"] == {"skipped": 0, "computed": 2}
     assert 0 < res["density"] <= 1
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == res
-    # every --model is ported; the TPU lever dispatch_segments is refused,
-    # before anything is built
-    with pytest.raises(NotImplementedError, match="--dispatch_segments"):
-        main(["--model", "hunyuan", "--device", "cpu",
-              "--dispatch_segments", "2"])
+    # every --model is ported; --dispatch_segments reaches the pipeline
+    # under --scan_blocks only and is ignored without it, as in the JAX CLI
+    # (tests/test_torch_scan.py runs both)
+    from rectified_spaattn_tpu_torch.cli.generate import _serving, parse_args
+    kw = _serving(parse_args(["--dispatch_segments", "2"]))
+    assert not kw["scan_blocks"] and "dispatch_segments" not in kw
+    kw = _serving(parse_args(["--dispatch_segments", "2", "--scan_blocks"]))
+    assert kw["scan_blocks"] and kw["dispatch_segments"] == 2
     # --image conditions hunyuan-i2v (tests/test_torch_i2v.py holds it
     # against JAX)
     img = str(tmp_path / "x.npy")

@@ -271,11 +271,15 @@ def test_tiny_wan_pipeline_inputs_match_jax(variant):
 
 def test_wan_pipeline_unported_options_raise():
     _, _, tmod = tiny_pair()
-    # the int8 / offloaded TeaCache residual is ported (test_torch_quant.py)
-    for kw in (dict(scan_blocks=True), dict(dispatch_segments=2)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            WanPipeline(model=tmod, height=64, width=64, frames=5,
-                        device="cpu", **kw)
+    # the int8 / offloaded TeaCache residual is ported (test_torch_quant.py),
+    # and scan_blocks with its windows (test_torch_scan.py); windows alone
+    # raise, as the JAX pipeline does
+    pipe = WanPipeline(model=tiny_pair()[2], height=64, width=64, frames=5,
+                       device="cpu", scan_blocks=True, dispatch_segments=2)
+    assert len(pipe.stack) == pipe.model.cfg.num_blocks
+    with pytest.raises(ValueError, match="requires scan_blocks"):
+        WanPipeline(model=tmod, height=64, width=64, frames=5, device="cpu",
+                    dispatch_segments=2)
     # defer_device is ported (Wan22A14BPipeline host_swap,
     # tests/test_torch_i2v.py): it leaves the weights where they are, and
     # refuses a mesh as the JAX pipeline asserts
