@@ -270,6 +270,32 @@ ranges that the merge kernel folds:
      pipeline at tp = 2, held against phase 4's output, with per-rank
      weight bytes and peak memory.  With one card it prints a "skipped"
      line and goes on.
+ 14. fp32: the widths and types the JAX kernels take beyond the paths
+     above (TF32 off).  fp32_small: fp32 K1 / K1s (text window at B=2,
+     count-0 and degenerate rows, chunk_blocks 2 and 16, packed K|V), K2
+     at G = 2 and 4, the key split and its merge, full lists at block_m
+     1024, K3 off its tiles and with a kv_valid mask, and the merge
+     writing fp32 rows, each at head_dim 128 and 64 against its plain
+     version at F32_TOL; K1q / K1q-s in both modes at head_dim 64 and
+     with an fp16 or fp32 q, and K3 in bf16 at 64, at phase 2's limits.
+     fp32_site: at the Hunyuan site in fp32 K1 visual rows, K2 at G = 2,
+     K1 and K1s on the text rows (split, merged), the merge writing fp32
+     rows and the windowed dense (beside SDPA in fp32), K1q with an fp32
+     and an fp16 q; Wan's text cross K3 in fp32 (beside SDPA); at the
+     CogVideoX site (48 x 64) K1q / K1q-s in both modes and K3 unmasked
+     over its 24,736 tokens (beside SDPA); fp32 held to F32_REL, each
+     with its time, bound (4 bytes an element, the products counted once
+     at the TF32 rate; the split route's 3x bf16 operations apart as
+     route_bound_ms) and plain time.  fp32_small_pipelines: the small
+     Hunyuan, Wan and CogVideoX T2V pipelines with the GPU model in fp32
+     against the CPU at PIPE_F32 (CogVideoX again with TeaCache on, at
+     PIPE_BF16: its residual is stored in bf16), launch counters zeroed
+     just before and read just after.  fp32_full_width:
+     HunyuanVideoConfig() cut to 2 + 2 blocks with fp32 weights at
+     480x832x33, 3 steps, G = 2: s/step, peak, launches per computed call
+     (counters zeroed just before, read just after), then the same
+     weights in bf16 and the largest difference of the two outputs
+     (reported).
 
 Each phase prints one JSON line with its seconds.  Then a {"kernels": ...}
 line, the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any
@@ -298,9 +324,14 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_INT8_OPS = 1979e12       # H100 SXM dense int8 (NVIDIA data sheet)
+PEAK_TF32_FLOPS = 494.7e12    # H100 SXM dense TF32 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12      # H100 SXM HBM3
 TOL = 2e-2                    # the repo's bf16 tolerance (tests/test_kernels.py:101)
 REL_MAX, REL_RMS = 0.05, 0.02  # limits relative to the output's scale
+F32_TOL = dict(rtol=2e-4, atol=2e-5)   # fp32 (tests/test_kernels.py:44)
+F32_REL = (1e-3, 1e-4)        # fp32 at the sites: of max |output|, of its std
+PIPE_F32 = dict(rtol=1e-3, atol=1e-4)  # one-device pipelines (PERF.md §2)
+PIPE_BF16 = dict(rtol=TOL, atol=TOL)   # with TeaCache's bf16 residual (§2)
 M_TOL, L_REL = 2e-2, 0.01     # K1s's row max (absolute) and row sum (relative)
 DEV = "cuda"
 # the operating point: latent grid (T', H', W') of 128x720x1280 video,
@@ -401,21 +432,36 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def held_to_scale(name, got, want) -> dict:
+def held_f32(name, got, want, tol=PIPE_F32) -> dict:
+    """got within ``tol`` (rtol / atol) of want everywhere, and finite."""
+    err = (got.float() - want.float()).abs()
+    bound = tol["atol"] + tol["rtol"] * want.float().abs()
+    r = {"max_abs_err": float(err.max()),
+         "max_err_over_tol": float((err / bound).max()),
+         "ref_max_abs": float(want.float().abs().max()), **tol}
+    if not (torch.isfinite(got.float()).all() and r["max_err_over_tol"] <= 1):
+        raise AssertionError(f"{name}: beyond rtol {tol['rtol']} / atol "
+                             f"{tol['atol']}: {r}")
+    return r
+
+
+def held_to_scale(name, got, want, limits=(REL_MAX, REL_RMS)) -> dict:
     """Kernel vs plain version held to the output's own scale: max abs
     error <= REL_MAX x the largest |output| and rms error <= REL_RMS x the
-    output's std.  At the operating point an output averages ~10^5 keys,
-    so its values are ~1e-2 and a fixed 2e-2 could not fail."""
+    output's std (``limits``: fp32 F32_REL).  At the operating point an
+    output averages ~10^5 keys, so its values are ~1e-2 and a fixed 2e-2
+    could not fail."""
+    rel_max, rel_rms = limits
     diff = got.float() - want.float()
     ref = want.float()
     r = {"max_abs_err": float(diff.abs().max()),
          "rms_err": float(diff.square().mean().sqrt()),
          "ref_max_abs": float(ref.abs().max()), "ref_std": float(ref.std())}
     if not (torch.isfinite(got.float()).all()
-            and r["max_abs_err"] <= REL_MAX * r["ref_max_abs"]
-            and r["rms_err"] <= REL_RMS * r["ref_std"]):
-        raise AssertionError(f"{name}: error beyond {REL_MAX} x max |ref| "
-                             f"or {REL_RMS} x std(ref): {r}")
+            and r["max_abs_err"] <= rel_max * r["ref_max_abs"]
+            and r["rms_err"] <= rel_rms * r["ref_std"]):
+        raise AssertionError(f"{name}: error beyond {rel_max} x max |ref| "
+                             f"or {rel_rms} x std(ref): {r}")
     return r
 
 
@@ -475,29 +521,40 @@ def ptxas_table(log: str) -> dict:
     return table
 
 
+FP_OPS = re.compile(r"^(?!FENCE)(F|H|MUFU|I2F|IGMMA)")  # SASS opcode prefixes
+
+
 def sass_counts(lib: str) -> dict:
     """Per kernel of a built library (hopper_attn_kernel: K1/K1s, K2, K3,
     the S3 / S2 policies; hopper_attn_q_kernel: K1q/K1q-s; loop_kernel:
     S1; the merge kernel), its count of SASS branches (BRA), selects
     (FSEL), wgmma instructions (HGMMA: bf16 / fp16, IGMMA: int8), warp-level
     mma.sync (HMMA, IMMA) and TMA tile loads (UTMALDG: the boxes the code
-    issues, q's among them), read with cuobjdump: the mask is branch-free
-    when its 64 scores a thread show up as 64 FSEL and the kernel's
-    branches do not grow with them.  "sha1": a digest of the kernel's
-    instruction text, equal for the same code in two trees."""
+    issues, q's among them) and its fp32 FFMA / FADD / FMUL, read with
+    cuobjdump: the mask is branch-free when its 64 scores a thread show
+    up as 64 FSEL and the kernel's branches do not grow with them.
+    "sha1": a digest of the kernel's instruction text, equal for the same
+    code in two trees; "ops_sha1": a digest of its multiset of opcodes
+    with their modifiers (operands dropped, order ignored), equal where
+    two builds issue the same instructions in another order or on other
+    registers; "fp_ops_sha1": the same over its floating-point,
+    conversion and tensor-core opcodes alone (FP_OPS), the instructions
+    that make the output's bits, equal where two builds differ only in
+    integer, address, control or memory instructions."""
     from rectified_spaattn_tpu_torch.kernels import cuda_build
     tool = os.path.join(os.path.dirname(cuda_build._nvcc()), "cuobjdump")
     proc = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True)
     if proc.returncode:
         return {"cuobjdump": proc.stderr.strip()[:200]}
-    counts, digests, fn = {}, {}, None
+    counts, digests, opcodes, fn = {}, {}, {}, None
     for ln in proc.stdout.splitlines():
         if "Function :" in ln:
             fn = kernel_name(ln.split("Function :")[1].strip())
             counts[fn] = {"BRA": 0, "FSEL": 0, "HGMMA": 0, "IGMMA": 0,
-                          "HMMA": 0, "IMMA": 0, "UTMALDG": 0}
-            digests[fn] = hashlib.sha1()
+                          "HMMA": 0, "IMMA": 0, "UTMALDG": 0, "FFMA": 0,
+                          "FADD": 0, "FMUL": 0}
+            digests[fn], opcodes[fn] = hashlib.sha1(), []
         elif fn and "*/" in ln:
             text = ln.split("*/", 1)[1].split("/*")[0].strip()
             digests[fn].update(text.encode())
@@ -507,8 +564,15 @@ def sass_counts(lib: str) -> dict:
             op = ops[0].split(".")[0] if ops else ""
             if op in counts[fn]:
                 counts[fn][op] += 1
+            if ops:
+                opcodes[fn].append(ops[0])
+    multiset = lambda ops: hashlib.sha1(
+        "\n".join(sorted(ops)).encode()).hexdigest()[:12]
     for fn, d in digests.items():
         counts[fn]["sha1"] = d.hexdigest()[:12]
+        counts[fn]["ops_sha1"] = multiset(opcodes[fn])
+        counts[fn]["fp_ops_sha1"] = multiset(
+            [o for o in opcodes[fn] if FP_OPS.match(o)])
     return counts
 
 
@@ -843,12 +907,16 @@ def k1q_cases(kernels, ops):
 # --------------------------------------------------------------- phase 3 ---
 
 def measure(kern, name, regime, check: bool, kern_fn, plain_fn, flops,
-            nbytes, library=None, peak=PEAK_BF16_FLOPS):
+            nbytes, library=None, peak=PEAK_BF16_FLOPS,
+            limits=(REL_MAX, REL_RMS), route_ops=None):
     """One kernel at the main path's shapes: with ``check``, its plain
-    version on the same inputs (time and the relative limits); then its
-    CUDA-event time, its bound and, where one PyTorch call computes the
-    same function, that call's time.  Stores the result in ``kern[name]``
-    and prints it on a kernel_at_site line."""
+    version on the same inputs (time and the relative ``limits``); then
+    its CUDA-event time, its bound (``flops``, the function's operations
+    counted once, at ``peak``) and, where one PyTorch call computes the
+    same function, that call's time.  With ``route_ops``, also
+    ``route_bound_ms``: the chosen route's ``route_ops`` x ``flops`` at the
+    bf16 rate.  Stores the result in ``kern[name]`` and prints it on a
+    kernel_at_site line."""
     got = kern_fn()
     r = {}
     if check:
@@ -856,13 +924,15 @@ def measure(kern, name, regime, check: bool, kern_fn, plain_fn, flops,
         want = plain_fn()
         torch.cuda.synchronize()
         r["plain_ms"] = (time.perf_counter() - t_plain) * 1e3
-        r.update(held_to_scale(name, got, want))
+        r.update(held_to_scale(name, got, want, limits))
         del want
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: output is not finite")
     del got
     torch.cuda.empty_cache()
     r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes, peak)
+    if route_ops:
+        r["route_bound_ms"] = bound_ms(route_ops * flops, nbytes)[0]
     r["ms"] = cuda_ms(kern_fn)
     r["library_ms"] = cuda_ms(library, reps=2) if library else None
     r["roofline_share"] = r["bound_ms"] / r["ms"]
@@ -1089,11 +1159,13 @@ def site_phase(kernels, ops, regime: str):
 
 
 def merge_at_site(kernels, kern, regime, tiles, nb_slots,
-                  d: int = SITE["head_dim"], name: str = "K1_merge"):
+                  d: int = SITE["head_dim"], name: str = "K1_merge",
+                  out_dtype=torch.bfloat16):
     """The key split's merge kernel at the shape of the text rows' split
     (the ranges _split_plan gives their launch on this card), on seeded
-    partials, against its plain version (``_merge_splits``); bound: the
-    partials read once, o and the stats written once."""
+    partials, against its plain version (``_merge_splits``), writing rows
+    in ``out_dtype`` (bf16: TOL; fp32: F32_TOL); bound: the partials read
+    once, o and the stats written once."""
     bs = kernels.block_sparse
     n, _ = bs._split_plan(tiles, nb_slots, 16, torch.cuda.get_device_properties(
         0).multi_processor_count)
@@ -1104,20 +1176,22 @@ def merge_at_site(kernels, kern, regime, tiles, nb_slots,
     m_p = torch.randn((n, rows), generator=gen, device=DEV)
     l_p = torch.rand((n, rows), generator=gen, device=DEV) * 100 + 1
     m_p[0, :64], l_p[0, :64] = -torch.inf, 0.0       # an empty range
-    args = (o_p, m_p, l_p, torch.bfloat16)
+    args = (o_p, m_p, l_p, out_dtype)
     got = bs.merge_splits(*args, return_stats=True)
     t0 = time.perf_counter()
     want = bs._merge_splits(list(o_p), list(m_p), list(l_p))
     torch.cuda.synchronize()
     r = {"plain_ms": (time.perf_counter() - t0) * 1e3, "n_split": n,
-         **held_to_scale("K1 split merge", got[0], want[0].to(torch.bfloat16))}
+         **held_to_scale(name, got[0], want[0].to(out_dtype))}
     r["m_max_abs_err"] = max_err(got[1], want[1])
     r["l_max_rel_err"] = float(((got[2] - want[2]).abs() / want[2]).max())
-    if not (r["max_abs_err"] <= TOL and r["m_max_abs_err"] == 0
+    f32 = out_dtype == torch.float32
+    if not ((torch.allclose(got[0], want[0], **F32_TOL) if f32
+             else r["max_abs_err"] <= TOL) and r["m_max_abs_err"] == 0
             and r["l_max_rel_err"] <= 1e-4):
-        raise AssertionError(f"K1 split merge vs its plain version: {r}")
+        raise AssertionError(f"{name} vs its plain version: {r}")
     r["bound_ms"], r["bound_by"] = bound_ms(
-        0.0, n * rows * (d + 2) * 4 + rows * (d * 2 + 8))
+        0.0, n * rows * (d + 2) * 4 + rows * (d * (4 if f32 else 2) + 8))
     r["ms"] = cuda_ms(lambda: bs.merge_splits(*args, return_stats=True),
                       reps=20)
     r["library_ms"] = None
@@ -1273,9 +1347,10 @@ def text_weighted_checks(kernels, ops, q, k, v, k1_lists, k2_lists,
 
 # --------------------------------------------------------------- phase 4 ---
 
-def hunyuan_full_model(image_condition_type=None):
-    """The full-width HunyuanVideoDiT of PIPE with seeded bf16 weights (the
-    same for T2V and I2V: the condition type adds no weight)."""
+def hunyuan_full_model(image_condition_type=None, dtype=torch.bfloat16):
+    """The full-width HunyuanVideoDiT of PIPE with seeded bf16 (or
+    ``dtype``) weights (the same for T2V and I2V: the condition type adds
+    no weight)."""
     from rectified_spaattn_tpu_torch.models import (
         HunyuanVideoConfig, HunyuanVideoDiT, init_random_weights)
 
@@ -1286,7 +1361,7 @@ def hunyuan_full_model(image_condition_type=None):
         model = HunyuanVideoDiT(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    return init_random_weights(model.to(torch.bfloat16), gen)
+    return init_random_weights(model.to(dtype), gen)
 
 
 def hunyuan_full_pipe(image_condition_type=None, model=None, **pipe_kw):
@@ -1452,9 +1527,10 @@ def pipeline_i2v_phase(kernels, t2v: dict):
 
 
 def small_pipeline_check(quant_bits: int = 0, image_condition_type=None,
-                         **pipe_kw):
+                         dtype=torch.bfloat16, **pipe_kw):
     """A small pipeline (head_dim 128, one block of each kind) on the GPU
-    in bf16 against the same weights on the CPU in fp32; with
+    in bf16 (or ``dtype``: fp32, held to PIPE_F32) against the same
+    weights on the CPU in fp32; with
     ``quant_bits`` both run the same quantized weights, and ``pipe_kw``
     sets pipeline options (K1q, the TeaCache residual) on both.  With
     ``image_condition_type`` both run I2V on the same seeded first frame
@@ -1479,7 +1555,7 @@ def small_pipeline_check(quant_bits: int = 0, image_condition_type=None,
     gpu = HunyuanVideoDiT(cfg)
     quant.adopt_layout(gpu, ref.state_dict())
     gpu.load_state_dict(ref.state_dict())
-    gpu = gpu.to(torch.bfloat16)
+    gpu = gpu.to(dtype)
     text = torch.randn((1, 256, cfg.text_dim), generator=gen)
     mask = torch.zeros((1, 256), dtype=torch.bool)
     mask[:, :20] = True
@@ -1499,6 +1575,8 @@ def small_pipeline_check(quant_bits: int = 0, image_condition_type=None,
     want = p_cpu(text, mask, init_latents=init, **extra)
     p_gpu = HunyuanVideoPipeline(model=gpu, device=DEV, **kw)
     got = p_gpu(text, mask, init_latents=init, **extra).cpu()
+    if dtype == torch.float32:
+        return held_f32("small pipeline fp32 GPU vs CPU", got, want)
     if image_condition_type:
         res = held_to_scale(f"small {image_condition_type} pipeline GPU vs "
                             "CPU", got, want)
@@ -2484,11 +2562,19 @@ def pipeline_cogvideox_i2v_phase(kernels):
     return res
 
 
-def small_cog_check(i2v: bool) -> dict:
+def small_cog_check(i2v: bool, dtype=torch.bfloat16,
+                    teacache=None) -> dict:
     """A small CogVideoX pipeline (2 blocks of 4 heads x 64) on the GPU in
     bf16 against the same weights on the CPU in fp32, TeaCache on (calls
     2 and 3 skip; the same decisions on both), sparse from call 5, I2V on
-    a seeded condition; held to the output's scale."""
+    a seeded condition; held to the output's scale.  With ``dtype`` fp32
+    the output is held to PIPE_F32 with TeaCache off (``teacache``'s
+    default there), to PIPE_BF16 with it on: its residual is stored in
+    bf16 on both devices, so a residual element whose fp32 values straddle
+    a bf16 rounding boundary differs by one bf16 step, which the skipped
+    calls add to the latents (PERF.md §2).  The run with it on reports
+    its reading against PIPE_F32 and those steps in the last residuals
+    stored."""
     from rectified_spaattn_tpu_torch.models import (
         CogVideoXConfig, CogVideoXDiT, init_random_weights)
     from rectified_spaattn_tpu_torch.pipelines import CogVideoXPipeline
@@ -2501,11 +2587,14 @@ def small_cog_check(i2v: bool) -> dict:
     ref = init_random_weights(CogVideoXDiT(cfg), gen)
     gpu = CogVideoXDiT(cfg)
     gpu.load_state_dict(ref.state_dict())
-    gpu = gpu.to(torch.bfloat16)
+    gpu = gpu.to(dtype)
     text = torch.randn((1, 256, cfg.text_dim), generator=gen)
     neg = torch.zeros_like(text)
+    f32 = dtype == torch.float32
+    tea = not f32 if teacache is None else teacache
     kw = dict(height=128, width=256, frames=17, num_steps=4, sa_drop_rate=0.5,
-              p_remain_rates=0.5, group_rows=2, **SMALL_COG_TEACACHE)
+              p_remain_rates=0.5, group_rows=2,
+              **(SMALL_COG_TEACACHE if tea else {}))
     p_cpu = CogVideoXPipeline(model=ref, device="cpu", **kw)
     init = torch.randn((1, cfg.out_channels, *p_cpu.grid), generator=gen)
     extra = {}
@@ -2518,16 +2607,50 @@ def small_cog_check(i2v: bool) -> dict:
     p_gpu = CogVideoXPipeline(model=gpu, device=DEV, **kw)
     got = p_gpu(text, neg, init_latents=init, **extra).cpu()
     if p_gpu.teacache.decisions != p_cpu.teacache.decisions \
-            or False not in p_gpu.teacache.decisions \
+            or (tea and False not in p_gpu.teacache.decisions) \
             or not p_gpu.sparse_calls:
         raise AssertionError(
             f"small CogVideoX pipeline: decisions {p_gpu.teacache.decisions}"
             f" (CPU {p_cpu.teacache.decisions}), sparse calls "
             f"{p_gpu.sparse_calls}")
     name = f"small CogVideoX {'I2V' if i2v else 'T2V'} pipeline GPU vs CPU"
+    if f32 and tea:
+        err = (got - want).abs()
+        return {**held_f32(name + " (fp32, TeaCache)", got, want, PIPE_BF16),
+                "max_err_over_pipe_f32": float(
+                    (err / (PIPE_F32["atol"]
+                            + PIPE_F32["rtol"] * want.abs())).max()),
+                "residual_bf16_steps": bf16_steps(p_gpu.teacache,
+                                                  p_cpu.teacache),
+                "teacache_decisions": p_gpu.teacache.decisions,
+                "sparse_calls": p_gpu.sparse_calls}
+    if f32:
+        return {**held_f32(name + " (fp32)", got, want),
+                "teacache_decisions": p_gpu.teacache.decisions,
+                "sparse_calls": p_gpu.sparse_calls}
     return {**held_to_scale(name, got, want),
             "teacache_decisions": p_gpu.teacache.decisions,
             "sparse_calls": p_gpu.sparse_calls}
+
+
+def bf16_steps(tea_gpu, tea_cpu) -> list:
+    """For each CFG stream, the last bf16 residuals the two runs stored:
+    the count of elements that differ, how many of them are neighbouring
+    bf16 values (one step apart), and the largest difference over the
+    residual's max |value|."""
+    out = []
+    for sg, sc in zip(tea_gpu.states, tea_cpu.states):
+        a = sg.previous_residual.cpu().float()
+        b = sc.previous_residual.float()
+        top = torch.maximum(a.abs(), b.abs()).clamp_min(
+            torch.finfo(torch.bfloat16).tiny)
+        step = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        diff, err = a != b, (a - b).abs()
+        out.append({"differ": int(diff.sum()),
+                    "one_step": int((diff & (err <= step)).sum()),
+                    "of": b.numel(),
+                    "max_diff_over_max": float(err.max() / b.abs().max())})
+    return out
 
 
 def synth_cog_sd(cj: dict, gen) -> dict:
@@ -4061,9 +4184,10 @@ def wan22_a14b_phase(kernels):
     return res
 
 
-def small_wan_pipeline_check():
+def small_wan_pipeline_check(dtype=torch.bfloat16):
     """A small sparse Wan pipeline (head_dim 128, 360 tokens padded to 384)
-    on the GPU in bf16 against the same weights on the CPU in fp32."""
+    on the GPU in bf16 (or ``dtype``: fp32, held to PIPE_F32) against the
+    same weights on the CPU in fp32."""
     from rectified_spaattn_tpu_torch.models import (
         WanConfig, WanDiT, init_random_weights)
     from rectified_spaattn_tpu_torch.pipelines import WanPipeline
@@ -4075,7 +4199,7 @@ def small_wan_pipeline_check():
     ref = init_random_weights(WanDiT(cfg), gen)
     gpu = WanDiT(cfg)
     gpu.load_state_dict(ref.state_dict())
-    gpu = gpu.to(torch.bfloat16)
+    gpu = gpu.to(dtype)
     text = torch.randn((1, 32, cfg.text_dim), generator=gen)
     neg = torch.zeros_like(text)
     kw = dict(height=192, width=240, frames=5, num_steps=3, sa_drop_rate=0.5,
@@ -4085,6 +4209,8 @@ def small_wan_pipeline_check():
     want = p_cpu(text, neg, init_latents=init)
     got = WanPipeline(model=gpu, device=DEV, **kw)(
         text, neg, init_latents=init).cpu()
+    if dtype == torch.float32:
+        return held_f32("small Wan pipeline fp32 GPU vs CPU", got, want)
     err = max_err(got, want)
     scale = float(want.abs().max())
     if not err <= 0.05 * scale:
@@ -5067,6 +5193,591 @@ def joint_jobs(name: str, csites: dict, model: str = "cog") -> dict:
     return out
 
 
+# ------------------------------------------------------------------- fp32 ---
+#
+# The widths and types the JAX kernels take beyond the paths above: fp32
+# q, K and V on the mainloop's split route (K1/K1s, K2, K3, the merge),
+# K1q / K1q-s at head_dim 64 and with an fp16 or fp32 q, K3 at head_dim 64;
+# and the pipelines with fp32 weights on the card.
+
+# the fp32 full-width run: HunyuanVideoConfig() cut to 2 dual + 2 single
+# blocks (as PIPE), fp32 weights, at the ckpt phase's 480x832x33, 3 steps,
+# TeaCache on, G = 2
+FP32_FULL = dict(cfg=dict(num_dual_blocks=2, num_single_blocks=2),
+                 height=480, width=832, frames=33, steps=3, group_rows=2)
+
+
+def sdpa_efficient(*args, **kw):
+    """scaled_dot_product_attention on its memory-efficient backend (the
+    one that takes fp32 and a mask), the yardstick of the fp32 jobs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        return torch.nn.functional.scaled_dot_product_attention(*args, **kw)
+
+
+def fp32_small_cases(kernels, ops):
+    """(a) Small shapes.  In fp32 at head_dim 128 and 64, against the plain
+    versions at F32_TOL (TF32 off): K1 and K1s (the text window at B=2, a
+    count-0 and a degenerate row, chunk_blocks 2 and 16, the packed K|V
+    stream), K2 at G = 2 and 4, the key split (16 row tiles, merged by the
+    merge kernel), full lists at block_m 1024, K3 off its tiles and with a
+    kv_valid mask at B=2, the merge writing fp32 rows.  Then K1q / K1q-s
+    in both modes at head_dim 64 (bf16 q) and with an fp16 or fp32 q at 64
+    and 128, and K3 in bf16 at 64, at phase 2's limits.  Returns max
+    errors by kernel and the cases."""
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3232)
+    rnd = lambda *s, dt=torch.float32: torch.randn(
+        s, generator=gen, device=dev).to(dt)
+    bs, k1 = kernels.block_sparse, kernels.block_sparse_flash_attention
+    errs, cases = {}, []
+
+    def check(name, kern, got, want, f32=True):
+        if f32:
+            r = held_f32(name, got, want, F32_TOL)
+        else:
+            e = max_err(got, want)
+            if not (torch.isfinite(got.float()).all() and e <= TOL):
+                raise AssertionError(f"{name}: max abs err {e} > {TOL}")
+            r = held_to_scale(name, got, want)
+        errs[kern] = max(errs.get(kern, 0.0), r["max_abs_err"])
+        cases.append({"case": name, **r})
+
+    for d in (128, 64):
+        b, h, nq, nb = 2, 3, 4, 10
+        q, k, v = rnd(b, h, nq * 128, d), rnd(b, h, nb * 128, d), \
+            rnd(b, h, nb * 128, d)
+        m = torch.rand((b, h, nq, nb), generator=gen, device=dev) < 0.4
+        m[..., 0] = m[..., -1] = True
+        m[0, 1, 0] = False                       # count 0
+        m[1, 2, 1] = False
+        m[1, 2, 1, -1] = True                    # only batch 1's text
+        tl = torch.tensor([90, 0], dtype=torch.int32, device=dev)
+        kw = dict(visual_len=(nb - 1) * 128 - 50, text_start=(nb - 1) * 128)
+        idx, cnt = ops.mask_to_indices(m)
+        for cb in (2, 16):
+            args, ckw = (q, k, v, idx, cnt, tl), dict(chunk_blocks=cb, **kw)
+            check(f"k1_fp32_d{d}_chunk{cb}", f"K1_d{d}", k1(*args, **ckw),
+                  kernels.block_sparse_flash_attention_torch(*args, **ckw))
+        packed = dict(packed_kv=torch.cat([k, v], dim=-1), **kw)
+        check(f"k1_fp32_d{d}_packed_kv", f"K1_d{d}",
+              k1(q, k, v, idx, cnt, tl, **packed),
+              kernels.block_sparse_flash_attention_torch(
+                  q, k, v, idx, cnt, tl, **packed))
+        o, mo, lo = k1(q, k, v, idx, cnt, tl, return_stats=True, **kw)
+        wo, wm, wl = kernels.block_sparse_flash_attention_torch(
+            q, k, v, idx, cnt, tl, return_stats=True, **kw)
+        live = lo > 0
+        check(f"k1s_fp32_d{d}", f"K1s_d{d}", o, wo)
+        check(f"k1s_fp32_d{d}_m", f"K1s_d{d}", mo[live], wm[live])
+        check(f"k1s_fp32_d{d}_l", f"K1s_d{d}", lo, wl)
+        for grp in (2, 4):
+            ui, uc, rb, cl = ops.group_rows(m, grp,
+                                            clean_blocks=kw["visual_len"] // 128)
+            gkw = dict(group=grp, **kw)
+            check(f"k2_fp32_d{d}_g{grp}", f"K2_d{d}",
+                  kernels.block_sparse_flash_attention_grouped(
+                      q, k, v, ui, uc, rb, cl, tl, **gkw),
+                  kernels.block_sparse_flash_attention_grouped_torch(
+                      q, k, v, ui, uc, rb, cl, tl, **gkw))
+        # the key split: 16 row tiles over lists of 40 blocks, merged
+        ms = torch.rand((2, 4, 2, 40), generator=gen, device=dev) < 0.5
+        ms[..., -1] = True
+        ms[1, 2, 1] = False
+        ms[1, 2, 1, -1] = True
+        qs, ks, vs = rnd(2, 4, 256, d), rnd(2, 4, 40 * 128, d), \
+            rnd(2, 4, 40 * 128, d)
+        sidx, scnt = ops.mask_to_indices(ms)
+        skw = dict(visual_len=39 * 128 - 40, text_start=39 * 128,
+                   chunk_blocks=4)
+        merges = bs.merge_splits.launches
+        check(f"k1_fp32_d{d}_split", f"K1_d{d}",
+              k1(qs, ks, vs, sidx, scnt, tl, **skw),
+              kernels.block_sparse_flash_attention_torch(
+                  qs, ks, vs, sidx, scnt, tl, **skw))
+        if bs.merge_splits.launches != merges + 1:
+            raise AssertionError(f"k1_fp32_d{d}_split did not split")
+        # full lists at block_m 1024 (the windowed dense)
+        qd, kd, vd = rnd(1, 4, 1024, d), rnd(1, 4, nb * 128, d), \
+            rnd(1, 4, nb * 128, d)
+        full = torch.ones((1, 4, 1, nb), dtype=torch.bool, device=dev)
+        fidx, fcnt = ops.mask_to_indices(full)
+        dargs, dkw = (qd, kd, vd, fidx, fcnt, tl[:1]), dict(block_m=1024, **kw)
+        check(f"k1_fp32_d{d}_full_lists_bm1024", f"K1_d{d}", k1(*dargs, **dkw),
+              kernels.block_sparse_flash_attention_torch(*dargs, **dkw))
+        # K3: Sq and Sk off the tiles; a kv_valid mask at B=2 with a row of
+        # no valid key
+        valid = torch.rand((2, 257), generator=gen, device=dev) < 0.6
+        valid[1] = False
+        for name, bb, vm in (("tails", 1, None), ("mask_b2", 2, valid)):
+            q3, k3, v3 = rnd(bb, 3, 200, d), rnd(bb, 3, 257, d), \
+                rnd(bb, 3, 257, d)
+            check(f"k3_fp32_d{d}_{name}", f"K3_d{d}",
+                  kernels.dense_attention(q3, k3, v3, vm, mode="flash"),
+                  kernels.flash._vanilla_attention(q3, k3, v3, vm))
+        # the merge kernel writing fp32 rows
+        o_p, m_p = rnd(3, 512, d), rnd(3, 512)
+        l_p = rnd(3, 512).abs() * 50
+        m_p[1, :7], l_p[1, :7] = -torch.inf, 0.0
+        got = bs.merge_splits(o_p, m_p, l_p, torch.float32,
+                              return_stats=True)
+        want = bs._merge_splits(list(o_p), list(m_p), list(l_p))
+        for part, g_, w_ in zip("oml", got, want):
+            check(f"merge_fp32_d{d}_{part}", f"K1_merge_d{d}", g_, w_)
+
+    # K1q / K1q-s: head_dim 64 (bf16 q) and fp16 / fp32 q at 64 and 128
+    for d, qdt in ((64, torch.bfloat16), (64, torch.float16),
+                   (64, torch.float32), (128, torch.float16),
+                   (128, torch.float32)):
+        b, h, nq, nb = 2, 3, 6, 12
+        q, k, v = rnd(b, h, nq * 128, d, dt=qdt), \
+            rnd(b, h, nb * 128, d, dt=torch.bfloat16), \
+            rnd(b, h, nb * 128, d, dt=torch.bfloat16)
+        m = torch.rand((b, h, nq, nb), generator=gen, device=dev) < 0.4
+        m[..., 0] = m[..., -1] = True
+        m[0, 1, 3] = False
+        m[1, 2, 4] = False
+        m[1, 2, 4, -1] = True
+        tl = torch.tensor([90, 0], dtype=torch.int32, device=dev)
+        idx, cnt = ops.mask_to_indices(m)
+        zero = (cnt == 0).repeat_interleave(128, dim=2)
+        payload = ops.quantize_kv_blocks(k, v, 128)
+        for mode in ("int8", "mxu8"):
+            for cb in (2, 24):
+                kw = dict(visual_len=(nb - 1) * 128 - 50,
+                          text_start=(nb - 1) * 128, chunk_blocks=cb,
+                          kv_quant=payload, quant_mode=mode)
+                name = f"k1q_{mode}_d{d}_q_{str(qdt)[6:]}_chunk{cb}"
+                got = k1(q, k, v, idx, cnt, tl, **kw)
+                o, mo, lo = k1(q, k, v, idx, cnt, tl, return_stats=True, **kw)
+                wo, wm, wl = kernels.block_sparse_flash_attention_torch(
+                    q, k, v, idx, cnt, tl, return_stats=True, **kw)
+                if got.dtype != qdt or not torch.equal(o, got) \
+                        or got[zero].abs().max() != 0:
+                    raise AssertionError(f"{name}: dtype {got.dtype}, K1q-s's "
+                                         "o not K1q's, or a count-0 row not 0")
+                kern = f"K1q_d{d}" if qdt == torch.bfloat16 else \
+                    f"K1q_q_{str(qdt)[6:]}"
+                check(name, kern, got, wo, f32=False)
+                if not (max_err(mo[~zero], wm[~zero]) <= M_TOL and float(
+                        ((lo - wl).abs() / wl.clamp(min=1e-30))[~zero].max())
+                        <= L_REL):
+                    raise AssertionError(f"{name}: K1q-s's m / l off the plain")
+    # K3 in bf16 at head_dim 64
+    for name, bb, sq, sk in (("tails", 1, 200, 257), ("sk512", 1, 256, 512)):
+        q3, k3, v3 = (rnd(bb, 4, n, 64, dt=torch.bfloat16)
+                      for n in (sq, sk, sk))
+        check(f"k3_bf16_d64_{name}", "K3_d64_bf16",
+              kernels.dense_attention(q3, k3, v3, mode="flash"),
+              kernels.flash._vanilla_attention(q3, k3, v3), f32=False)
+    return errs, cases
+
+
+def fp32_site_phase(kernels, ops):
+    """(b) Site shapes, random inputs, each job against its plain version
+    on the full inputs (fp32 at F32_REL; K1q and K3 in bf16 at the
+    relative limits), its CUDA-event time, bound and library time.  The
+    fp32 bounds count 4 bytes an element and the operations of the split
+    route: three bf16 products for each product, at the bf16 rate.
+      HunyuanVideo (115,200 + 256 tokens, 24 x 128, build_site(32, 45,
+    80), the single-row plan of site_inputs): K1 visual rows (G = 1), K2
+    at G = 2, K1 and K1s on the text rows (split into key ranges and
+    merged), the merge kernel writing fp32 rows, the windowed dense at
+    block_m 1024 (beside SDPA in fp32 with the same key mask); K1q in both
+    modes with an fp32 and an fp16 q on the same plan.
+      Wan2.1's text cross (q [1,40,75648,128] x 512 keys): K3 in fp32,
+    beside SDPA in fp32.
+      CogVideoX1.5 (joint_site_inputs(COG_SITE); 48 x 64): K1q and K1q-s
+    in both modes on the visual rows' plan at head_dim 64, and K3 at 64
+    unmasked over the 24,736 tokens (beside SDPA)."""
+    dev = torch.device(DEV)
+    kern, res = {}, {"launches": {}}
+    k1 = kernels.block_sparse_flash_attention
+    k3 = kernels.dense_flash_attention
+    # fp32's bound: each product counted once, at the TF32 tensor-core
+    # rate; route_bound_ms: the split route's three bf16 products for one
+    f32 = dict(limits=F32_REL, peak=PEAK_TF32_FLOPS, route_ops=3)
+    # the launches of K1s, K1q, K1q-s and K3 a block of jobs below makes
+    counts = lambda: {"K1s": k1.stats_launches,
+                      "K1q": sum(k1.quant_launches.values()),
+                      "K1q-s": sum(k1.quant_stats_launches.values()),
+                      "K3": k3.launches}
+
+    def launched(name, before):
+        res["launches"][name] = {n: c - before[n]
+                                 for n, c in counts().items()}
+    idx_bytes = lambda *ts: sum(t.numel() * 4 for t in ts)
+
+    # HunyuanVideo
+    b, h, d, text_len = 1, SITE["heads"], SITE["head_dim"], SITE["text_len"]
+    st = site_inputs("random")
+    site, tlen, valid, plan = (st[n] for n in ("site", "tlen", "valid",
+                                               "plan"))
+    sv = site.visual_len
+    s = sv + text_len
+    nbt = s // 128
+    q, kz, vz = (st[n].float() for n in ("q", "kz", "vz"))
+    q_vis, q_txt = q[:, :, :sv], q[:, :, sv:]
+    pairs = float(plan.counts.sum())
+    used = torch.zeros((b * h, nbt), dtype=torch.int32, device=dev)
+    used.scatter_add_(1, plan.indices.reshape(b * h, -1).long(),
+                      (torch.arange(plan.indices.shape[-1], device=dev)
+                       < plan.counts[..., None]).reshape(b * h, -1).int())
+    vis_blocks = float((used > 0).sum())
+    del used
+    qo4 = lambda rows: 2 * b * h * rows * d * 4
+    kv4 = lambda blocks: 2 * blocks * 128 * d * 4
+    kw = dict(visual_len=sv, text_start=sv)
+    res["hunyuan"] = {"pairs": pairs, "visual_kv_blocks": vis_blocks}
+    measure(kern, "K1_fp32_visual_g1", "random", True,
+            lambda: k1(q_vis, kz, vz, plan.indices, plan.counts, tlen, **kw),
+            lambda: kernels.block_sparse_flash_attention_torch(
+                q_vis, kz, vz, plan.indices, plan.counts, tlen, **kw),
+            flops=pairs * 4.0 * 128 * 128 * d,
+            nbytes=qo4(sv) + kv4(vis_blocks)
+            + idx_bytes(plan.indices, plan.counts), **f32)
+    ui, uc, rb, cl = ops.group_rows(plan.block_mask, 2,
+                                    clean_blocks=sv // 128)
+    g2 = dict(group=2, **kw)
+    measure(kern, "K2_fp32_visual_g2", "random", True,
+            lambda: kernels.block_sparse_flash_attention_grouped(
+                q_vis, kz, vz, ui, uc, rb, cl, tlen, **g2),
+            lambda: kernels.block_sparse_flash_attention_grouped_torch(
+                q_vis, kz, vz, ui, uc, rb, cl, tlen, **g2),
+            flops=pairs * 4.0 * 128 * 128 * d,
+            nbytes=qo4(sv) + kv4(vis_blocks) + idx_bytes(ui, uc, rb, cl),
+            **f32)
+    del ui, uc, rb, cl
+    nt = text_len // 128
+    fidx = torch.arange(nbt, dtype=torch.int32, device=dev).expand(
+        b, h, nt, nbt)
+    fcnt = torch.full((b, h, nt), nbt, dtype=torch.int32, device=dev)
+    amask = valid[:, None, None, :]
+    txt = (q_txt, kz, vz, fidx, fcnt, tlen)
+    merges = kernels.block_sparse.merge_splits.launches
+    before = counts()
+    for name, stats in (("K1_fp32_text_rows", False),
+                        ("K1s_fp32_text_rows", True)):
+        pick = (lambda r: r[0]) if stats else (lambda r: r)
+        measure(kern, name, "random", True,
+                lambda: pick(k1(*txt, return_stats=stats, **kw)),
+                lambda: pick(kernels.block_sparse_flash_attention_torch(
+                    *txt, return_stats=stats, **kw)),
+                flops=b * h * nt * nbt * 4.0 * 128 * 128 * d,
+                nbytes=qo4(text_len) + kv4(b * h * nbt)
+                + idx_bytes(fidx, fcnt)
+                + (2 * b * h * text_len * 4 if stats else 0),
+                library=lambda: sdpa_efficient(q_txt, kz, vz,
+                                               attn_mask=amask), **f32)
+    launched("hunyuan_text_rows", before)
+    if kernels.block_sparse.merge_splits.launches == merges:
+        raise AssertionError("the fp32 text rows did not split")
+    merge_at_site(kernels, kern, "random", b * h * nt, nbt,
+                  name="K1_merge_fp32", out_dtype=torch.float32)
+    nqd = -(-s // 1024)
+    qd = torch.nn.functional.pad(q, (0, 0, 0, nqd * 1024 - s))
+    kf, vf = st["k"].float(), st["v"].float()
+    didx = torch.arange(nbt, dtype=torch.int32, device=dev).expand(
+        b, h, nqd, nbt)
+    dcnt = torch.full((b, h, nqd), nbt, dtype=torch.int32, device=dev)
+    dkw = dict(block_m=1024, **kw)
+    measure(kern, "K1_fp32_dense_bm1024", "random", True,
+            lambda: k1(qd, kf, vf, didx, dcnt, tlen, **dkw),
+            lambda: kernels.block_sparse_flash_attention_torch(
+                qd, kf, vf, didx, dcnt, tlen, **dkw),
+            flops=b * h * nqd * nbt * 4.0 * 1024 * 128 * d,
+            nbytes=qo4(nqd * 1024) + kv4(b * h * nbt)
+            + idx_bytes(didx, dcnt),
+            library=lambda: sdpa_efficient(q, kf, vf, attn_mask=amask),
+            **f32)
+    del qd, kf, vf, didx, dcnt
+    torch.cuda.empty_cache()
+    # K1q with an fp32 and an fp16 q on the same plan and payload
+    payload = ops.quantize_kv_blocks(st["kz"], st["vz"], 128)
+    qkw = dict(chunk_blocks=site.cfg.kernel_chunk_blocks, kv_quant=payload,
+               **kw)
+    before = counts()
+    for qdt in (torch.float32, torch.float16):
+        qq = q_vis.to(qdt)
+        for mode in ("int8", "mxu8"):
+            args = (qq, kz, vz, plan.indices, plan.counts, tlen)
+            mkw = dict(quant_mode=mode, **qkw)
+            # the plain version on the fp32 q (the small cases hold fp16)
+            measure(kern, f"K1q_{mode}_q_{str(qdt)[6:]}_visual", "random",
+                    qdt == torch.float32, lambda: k1(*args, **mkw),
+                    lambda: kernels.block_sparse_flash_attention_torch(
+                        *args, **mkw),
+                    flops=pairs * 4.0 * 128 * 128 * d,
+                    nbytes=2 * b * h * sv * d * qq.element_size()
+                    + 2 * vis_blocks * 128 * d + 2 * b * h * nbt * 4
+                    + idx_bytes(plan.indices, plan.counts),
+                    peak=PEAK_INT8_OPS if mode == "mxu8" else PEAK_BF16_FLOPS)
+        del qq
+    launched("hunyuan_k1q_q_types", before)
+    del st, q, q_vis, q_txt, kz, vz, payload, plan
+    torch.cuda.empty_cache()
+
+    # Wan2.1's text cross in fp32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    before = counts()
+    wh, ws, wk = WAN_SITE["heads"], 75648, WAN_SITE["text_len"]
+    qx = torch.randn((1, ws, wh, d), generator=gen, device=dev).transpose(1, 2)
+    kx, vx = (torch.randn((1, wk, wh, d), generator=gen, device=dev
+                          ).transpose(1, 2) for _ in range(2))
+    measure(kern, "K3_fp32_t2v_text", "random", True,
+            lambda: kernels.dense_attention(qx, kx, vx, mode="flash"),
+            lambda: plain_dense(kernels, qx, kx, vx),
+            flops=4.0 * wh * ws * wk * d,
+            nbytes=2 * wh * (ws + wk) * d * 4,
+            library=lambda: sdpa_efficient(qx, kx, vx), **f32)
+    launched("wan_text_cross", before)
+    del qx, kx, vx
+    torch.cuda.empty_cache()
+
+    # CogVideoX1.5 at head_dim 64: K1q / K1q-s on the visual rows' plan,
+    # K3 unmasked over every token
+    c = COG_SITE
+    cst = joint_site_inputs(c, "random")
+    h, d = c["heads"], c["head_dim"]
+    cq, ck, cv, qp, kz, vz, tlen, plan, sv_pad = (
+        cst[n] for n in ("q", "k", "v", "qp", "kz", "vz", "tlen", "plan",
+                         "sv_pad"))
+    sv = cst["site"].visual_len
+    nbt = (sv_pad + c["text_len"]) // 128
+    q_vis = qp[:, :, :sv_pad]
+    pairs = float(plan.counts.sum())
+    used = torch.zeros((h, nbt), dtype=torch.int32, device=dev)
+    used.scatter_add_(1, plan.indices.reshape(h, -1).long(),
+                      (torch.arange(plan.indices.shape[-1], device=dev)
+                       < plan.counts[..., None]).reshape(h, -1).int())
+    vis_blocks = float((used > 0).sum())
+    kw = dict(visual_len=sv, text_start=sv_pad)
+    args = (q_vis, kz, vz, plan.indices, plan.counts, tlen)
+    ref = k1(*args, **kw)
+    qkw = dict(chunk_blocks=cst["site"].cfg.kernel_chunk_blocks, **kw)
+    k1q_bytes = (2 * h * sv_pad * d * 2 + 2 * vis_blocks * 128 * d
+                 + 2 * h * nbt * 4 + idx_bytes(plan.indices, plan.counts))
+    cog = {}
+    before = counts()
+    for mode in ("int8", "mxu8"):
+        k1q_at_site(kernels, ops, cog, mode, "random", True, ref, args, qkw,
+                    flops=pairs * 4.0 * 128 * 128 * d, nbytes=k1q_bytes)
+    for mode in ("int8", "mxu8"):
+        k1q_stats_at_site(kernels, ops, cog, mode, "random", True, args, qkw,
+                          flops=pairs * 4.0 * 128 * 128 * d,
+                          nbytes=k1q_bytes + 2 * h * sv_pad * 4)
+    kern.update({f"cog_{n}": r for n, r in cog.items()})
+    del ref, args, kz, vz, qp, q_vis
+    torch.cuda.empty_cache()
+    tok = cq.shape[2]                            # 24,736
+    launched("cogvideox_k1q", before)
+    before = counts()
+    measure(kern, "cog_K3_self_24736", "random", True,
+            lambda: kernels.dense_attention(cq, ck, cv, mode="flash"),
+            lambda: plain_dense(kernels, cq, ck, cv, heads=8, rows=4096),
+            flops=4.0 * h * tok * tok * d, nbytes=4 * h * tok * d * 2,
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                cq, ck, cv))
+    launched("cogvideox_k3", before)
+    res["cogvideox"] = {"pairs": pairs, "tokens": tok,
+                        "chunk_blocks": qkw["chunk_blocks"]}
+    return res, kern
+
+
+def fp32_small_pipelines(kernels):
+    """(c) The small HunyuanVideo, Wan and CogVideoX T2V pipelines with the
+    GPU model in fp32 against the CPU in fp32, held to PIPE_F32 (CogVideoX
+    again with TeaCache on, held to PIPE_BF16); the launch counters zeroed
+    just before and read just after."""
+    kerns = path_kernels(kernels)
+    for f in kerns.values():
+        f.launches = 0
+    res = {"hunyuan": small_pipeline_check(dtype=torch.float32),
+           "wan": small_wan_pipeline_check(dtype=torch.float32),
+           "cogvideox_t2v": small_cog_check(False, dtype=torch.float32),
+           "cogvideox_t2v_teacache": small_cog_check(
+               False, dtype=torch.float32, teacache=True)}
+    res["launches"] = {n: f.launches for n, f in kerns.items()}
+    if min(res["launches"][n] for n in ("K1", "K2", "K3")) == 0:
+        raise AssertionError(f"fp32 small pipelines: {res['launches']}")
+    return res
+
+
+def fp32_full_width(kernels):
+    """(d) HunyuanVideoConfig() at full width cut to 2 + 2 blocks with fp32
+    weights, FP32_FULL's 480x832x33, 3 steps, TeaCache on, G = 2: s/step,
+    peak memory, launches per computed call (counters zeroed just before,
+    read just after); then the same weights in bf16 on the same noise, and
+    the largest difference of the two outputs (reported, not held: the two
+    types may select other blocks)."""
+    from rectified_spaattn_tpu_torch.cli.generate import _random_text
+    from rectified_spaattn_tpu_torch.pipelines import HunyuanVideoPipeline
+
+    dev = torch.device(DEV)
+    model = hunyuan_full_model(dtype=torch.float32)
+    cfg = model.cfg
+    kerns = path_kernels(kernels)
+    text, mask = _random_text("several hot air balloons flying over a city.",
+                              256, cfg.text_dim, device=dev)
+    res, outs = {"cut": "2 dual + 2 single of 20 + 40 blocks"}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        model.to(dt)
+        pipe = HunyuanVideoPipeline(
+            model=model, height=FP32_FULL["height"], width=FP32_FULL["width"],
+            frames=FP32_FULL["frames"], num_steps=FP32_FULL["steps"],
+            sa_drop_rate=0.8, p_remain_rates=0.3, mode="sparse",
+            enable_teacache=True, rel_l1_thresh=0.15,
+            group_rows=FP32_FULL["group_rows"], device=dev)
+        noise = torch.Generator(device=dev)
+        noise.manual_seed(42)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f in kerns.values():
+            f.launches = 0
+        out = pipe(text, mask, generator=noise)
+        torch.cuda.synchronize()
+        launches = {n: f.launches for n, f in kerns.items()}
+        if not torch.isfinite(out).all() or min(
+                launches["K1"], launches["K2"], launches["K1_merge"]) == 0:
+            raise AssertionError(f"fp32 full width ({name}): launches "
+                                 f"{launches}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+        computed = pipe.teacache_stats["computed"]
+        res[name] = {
+            "step_seconds": pipe.step_seconds,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "weight_gb": sum(p.numel() * p.element_size()
+                             for p in model.parameters()) / 2**30,
+            "launches": launches,
+            "launches_per_computed_call": {
+                n: c / computed for n, c in launches.items()},
+            "teacache_decisions": pipe.teacache.decisions,
+            "visual_tokens": pipe.site.visual_len}
+        outs[name] = out.float()
+        del pipe, out
+        torch.cuda.empty_cache()
+    res["max_abs_diff_fp32_vs_bf16"] = max_err(outs["float32"],
+                                               outs["bfloat16"])
+    res["ref_max_abs"] = float(outs["float32"].abs().max())
+    del model, outs
+    torch.cuda.empty_cache()
+    return res
+
+
+def fp32_entries(errs, site, res, pipes, full) -> list:
+    """The {"kernels": ...} line's entries of the fp32 phase's
+    instantiations: fp32 K1/K1s, K2, K3 and the merge (the split route),
+    K1q / K1q-s at head_dim 64, K3 at 64, K1q with an fp16 / fp32 q.  The
+    fp32 kernels' launches are the fp32 pipelines' (small and full
+    width); the others run on no pipeline of either package, so theirs
+    are the site jobs'."""
+    src = "rectified_spaattn_tpu_torch/csrc/block_sparse.cu"
+    src3 = "rectified_spaattn_tpu_torch/csrc/dense_flash.cu"
+    split = ("the mainloop's split route (csrc/hopper_attn.cuh): fp32 rows "
+             "read by the producer warpgroup into bf16 hi / lo tiles, three "
+             "bf16 wgmma a product; bound: 4 bytes an element, the "
+             "products counted once at the TF32 rate; route_bound_ms: 3x "
+             "them at the bf16 rate")
+    pipe_paths = lambda n: {"small_pipelines_fp32": pipes["launches"][n],
+                            "hunyuan_full_width_fp32":
+                                full["float32"]["launches"][n]}
+    site_paths = lambda window, kern: {f"fp32_site_{window}":
+                                       res["launches"][window][kern]}
+
+    def entry(name, r, source, replaces, by_path, err, shape, design,
+              **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "max_abs_err": err,
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "shape": shape,
+                "design": design, **extra,
+                **({"route_bound_ms": r["route_bound_ms"]}
+                   if "route_bound_ms" in r else {})}
+
+    e = lambda *keys: max(errs.get(k, 0.0) for k in keys)
+    hq = "q [1,24,115200,128]"
+    k1q = "rectified_spaattn_tpu/kernels/block_sparse.py:176"
+    entries = [
+        entry("K1_fp32", site["K1_fp32_visual_g1"], src,
+              "rectified_spaattn_tpu/kernels/block_sparse.py:89",
+              pipe_paths("K1"), max(e("K1_d128", "K1_d64"),
+                                    site["K1_fp32_visual_g1"]["max_abs_err"]),
+              f"fp32 visual rows: {hq}, the single-row plan", split,
+              other_jobs={"text_rows": site["K1_fp32_text_rows"],
+                          "dense_bm1024": site["K1_fp32_dense_bm1024"]}),
+        entry("K1s_fp32", site["K1s_fp32_text_rows"], src,
+              "rectified_spaattn_tpu/kernels/block_sparse.py:311",
+              site_paths("hunyuan_text_rows", "K1s"),
+              max(e("K1s_d128", "K1s_d64"),
+                  site["K1s_fp32_text_rows"]["max_abs_err"]),
+              "fp32 text rows: q [1,24,256,128] x full lists over 902 "
+              "blocks, split and merged", split),
+        entry("K2_fp32", site["K2_fp32_visual_g2"], src,
+              "rectified_spaattn_tpu/kernels/block_sparse.py:317",
+              pipe_paths("K2"), max(e("K2_d128", "K2_d64"),
+                                    site["K2_fp32_visual_g2"]["max_abs_err"]),
+              f"fp32 visual rows: {hq}, G=2 union lists", split),
+        entry("K3_fp32", site["K3_fp32_t2v_text"], src3,
+              "rectified_spaattn_tpu/kernels/flash.py:49", pipe_paths("K3"),
+              max(e("K3_d128", "K3_d64"),
+                  site["K3_fp32_t2v_text"]["max_abs_err"]),
+              "fp32 Wan T2V text cross: q [1,40,75648,128] x 512 keys",
+              split + ", persistent CTAs"),
+        entry("K1_merge_fp32", site["K1_merge_fp32"], src,
+              "rectified_spaattn_tpu/kernels/block_sparse.py:89 (K1/K1s's "
+              "key split; the merge of "
+              "rectified_spaattn_tpu/attention/ring.py:48)",
+              pipe_paths("K1_merge"),
+              max(e("K1_merge_d128", "K1_merge_d64"),
+                  site["K1_merge_fp32"]["max_abs_err"]),
+              f"{site['K1_merge_fp32']['n_split']} ranges x 6,144 rows x "
+              "128, fp32 rows", "one warp a row"),
+        entry("K1q_d64", site["cog_K1q_mxu8_visual"], src, k1q,
+              site_paths("cogvideox_k1q", "K1q"),
+              max(e("K1q_d64"), site["cog_K1q_mxu8_visual"]["max_abs_err"],
+                  site["cog_K1q_int8_visual"]["max_abs_err"]),
+              "mxu8, CogVideoX visual rows: q [1,48,24576,64], int8 K|V "
+              "[48,24832,128]",
+              "hopper_attn_q_kernel_at<*, *, 64, bf16>: one TMA box holds a "
+              "row's K8 and V8",
+              other_jobs={"int8": site["cog_K1q_int8_visual"]}),
+        entry("K1q-s_d64", site["cog_K1q-s_mxu8_visual"], src,
+              "rectified_spaattn_tpu/kernels/block_sparse.py:606",
+              site_paths("cogvideox_k1q", "K1q-s"),
+              max(e("K1q_d64"),
+                  site["cog_K1q-s_mxu8_visual"]["max_abs_err"]),
+              "mxu8 with m and l, CogVideoX visual rows",
+              "K1q_d64 with STATS",
+              other_jobs={"int8": site["cog_K1q-s_int8_visual"]}),
+        entry("K3_d64", site["cog_K3_self_24736"], src3,
+              "rectified_spaattn_tpu/kernels/flash.py:49",
+              site_paths("cogvideox_k3", "K3"),
+              max(e("K3_d64_bf16"),
+                  site["cog_K3_self_24736"]["max_abs_err"]),
+              "bf16, unmasked self-attention over CogVideoX's 24,736 "
+              "tokens: q [1,48,24736,64]", "DenseTilesAt<T, 64>"),
+        entry("K1q_q_fp32", site["K1q_mxu8_q_float32_visual"], src, k1q,
+              site_paths("hunyuan_k1q_q_types", "K1q"),
+              max(e("K1q_q_float32", "K1q_q_float16"),
+                  site["K1q_mxu8_q_float32_visual"]["max_abs_err"],
+                  site["K1q_int8_q_float32_visual"]["max_abs_err"]),
+              f"mxu8, fp32 {hq} over the int8 payload, chunk_blocks 24",
+              "hopper_attn_q_kernel_at<*, *, *, QT>: q read from global "
+              "memory at the tile's start, no tensor map",
+              other_jobs={n: site[f"K1q_{n}_visual"] for n in (
+                  "int8_q_float32", "int8_q_float16", "mxu8_q_float16")}),
+    ]
+    idle = [e["name"] for e in entries if not e["launches"]]
+    if idle:
+        raise AssertionError(f"kernels never launched on their path: {idle}")
+    return entries
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5265,6 +5976,22 @@ def main() -> int:
     else:
         emit("multi_gpu", t0, **multi_gpu_phase(ring_ref, pipe_latents))
 
+    # the fp32 phase: (a) small shapes, (b) site shapes, (c) the small
+    # pipelines in fp32 on the GPU, (d) full width in fp32
+    t0 = time.perf_counter()
+    f32errs, f32cases = fp32_small_cases(kernels, ops)
+    emit("fp32_small", t0, tolerance=F32_TOL, max_abs_err=f32errs,
+         cases=f32cases)
+    t0 = time.perf_counter()
+    f32res, f32site = fp32_site_phase(kernels, ops)
+    emit("fp32_site", t0, nvidia_smi=smi, limits=F32_REL, **f32res)
+    t0 = time.perf_counter()
+    f32pipes = fp32_small_pipelines(kernels)
+    emit("fp32_small_pipelines", t0, tolerance=PIPE_F32, **f32pipes)
+    t0 = time.perf_counter()
+    f32full = fp32_full_width(kernels)
+    emit("fp32_full_width", t0, nvidia_smi=smi, **f32full)
+
     site, smooth = sites["random"], sites["smooth"]
     wsite = wsites["random"]
     src = "rectified_spaattn_tpu_torch/csrc/block_sparse.cu"
@@ -5445,6 +6172,7 @@ def main() -> int:
                         **joint_jobs("K1_merge", fsites, "flux")}},
         k1q_stats_entry(src, site, smooth, qserrs),
         *variant_entries(s3, s2, ptxas["sass"]),
+        *fp32_entries(f32errs, f32site, f32res, f32pipes, f32full),
     ]}
     t0 = time.perf_counter()
     emit("total", t0, total_seconds=time.perf_counter() - t_start)

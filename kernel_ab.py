@@ -36,6 +36,10 @@ hopper_attn_kernel alone, from torch.profiler traces of one wrapper call
 each, the calls taken in turns ``--reps`` times (bench/common.py's
 ``kernel_ms_turns``).
 
+It also records, under "digest", a sha1 of each kernel's output bytes
+(the first call's; K1q-s "int8" and K3 on fp16 inputs added), so that
+two trees' lines show whether a kernel computes the same bits.
+
 Each time is chip_smoke.py's ``cuda_ms`` over ``--reps`` calls; each
 ``<name>_sdpa`` is the SDPA call's time on the same inputs (the yardstick
 chip_smoke.py reports as ``library_ms``).  Prints one JSON line {"label",
@@ -47,6 +51,7 @@ kernel registers, spill bytes, SASS counts and digest) as "build".
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import math
@@ -84,8 +89,18 @@ def main(argv=None) -> dict:
     if a.build:
         res["build"] = smoke.build(kernels)[1]
 
+    res["digest"] = {}
+
+    def digest(out):
+        h = hashlib.sha1()
+        for t in out if isinstance(out, tuple) else (out,):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()[:12]
+
     def time_all(calls):
         for name, fn in calls.items():
+            if not name.endswith("_sdpa"):
+                res["digest"][name] = digest(fn())
             res[name] = smoke.cuda_ms(fn, reps=a.reps)
         print(json.dumps({n: res[n] for n in calls}), file=sys.stderr,
               flush=True)
@@ -136,6 +151,9 @@ def main(argv=None) -> dict:
                                     return_stats=True),
         "K1s_ring_text_sdpa": lambda: flash(qt, k0, v0),
     })
+    res["digest"]["K1q-s_int8_visual"] = digest(k1(
+        qv, kz, vz, plan.indices, plan.counts, tlen, chunk_blocks=24,
+        kv_quant=payload, quant_mode="int8", return_stats=True, **kw))
     if a.ablations:
         from rectified_spaattn_tpu_torch.bench.common import kernel_ms_turns
         kv = kernels.variants
@@ -192,6 +210,9 @@ def main(argv=None) -> dict:
         **{f"{n}_sdpa": (lambda kv=kv: sdpa(qx, *kv))
            for n, kv in cross.items()},
     })
+    kx = [t.half() for t in cross["K3_t2v_text"]]
+    res["digest"]["K3_t2v_text_fp16"] = digest(
+        kernels.dense_attention(qx.half(), *kx, mode="flash"))
     print(json.dumps(res), flush=True)
     return res
 

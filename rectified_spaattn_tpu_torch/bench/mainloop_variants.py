@@ -62,12 +62,12 @@ EDITS = {
         (HEADER, "    int st = 0;\n    uint32_t ph = 0, qph = 0;\n"
          "    for (int t = P::first(p); t < P::count(p); t += P::stride(p)) {"
          "\n      const typename P::Tile c = P::tile(p, t);\n"
-         "      mbar_wait_or_trap(q_full, qph);",
+         "      if constexpr (F32) {",
          "    if (f.wg == 1) turn_pass(1);\n"
          "    int st = 0;\n    uint32_t ph = 0, qph = 0;\n"
          "    for (int t = P::first(p); t < P::count(p); t += P::stride(p)) {"
          "\n      const typename P::Tile c = P::tile(p, t);\n"
-         "      mbar_wait_or_trap(q_full, qph);"),
+         "      if constexpr (F32) {"),
         (HEADER, "        float s[64];\n        wgmma_fence();",
          "        float s[64];\n        turn_wait(f.wg);\n"
          "        wgmma_fence();"),
@@ -83,17 +83,17 @@ EDITS = {
                  "            mbar_expect_tx(&full[st], 0);\n"
                  "            (void)row;"),
                 (K1Q, "        mbar_expect_tx(&sfull[ss_next], L::STAGE8);\n"
-                 "        stage_load<MODE>(stg + ss_next * L::STAGE8, "
-                 "&p.tmkv, row_next,\n                         "
+                 "        stage_load<MODE, D>(stg + ss_next * L::STAGE8, "
+                 "&p.tmkv, row_next,\n                            "
                  "&sfull[ss_next]);",
                  "        mbar_expect_tx(&sfull[ss_next], 0);"),
                 (K1Q, "        mbar_expect_tx(&full[st], HA_TILE8);\n"
                  "        tma_load(ring + st * L::RING, &p.tmkv, 0, row, "
                  "&full[st]);",
                  "        mbar_expect_tx(&full[st], 0);")],
-    "load": [(HEADER, "        mbar_wait_or_trap(&full[st], ph);\n"
+    "load": [(HEADER, "        mbar_wait_or_trap(&full[F32 ? 2 * st : st], ph);\n"
               "        const unsigned char* ks = ring + st * STAGE;",
-              "        mbar_wait_or_trap(&full[st], ph);\n"
+              "        mbar_wait_or_trap(&full[F32 ? 2 * st : st], ph);\n"
               "        if (u >= 0) {\n          (void)win;\n"
               "          un = P::next(p, c, u + 1);\n"
               "          if (un >= c.u1) mbar_arrive(q_empty);\n"

@@ -60,9 +60,12 @@
 // merge_splits_kernel) and 64 (CogVideoX: SparseTilesAt<T, *, 64>,
 // GroupedTilesAt<T, 64>, merge_splits64_kernel): at 64 a q / K / V tile is
 // one 64-column half and O += P V runs m64n64k16, the head_dim being the
-// policy's compile-time D; K1q stays at 128.  K1q/K1q-s
+// policy's compile-time D.  Each for T = bf16, fp16 and fp32 (by_dtype):
+// fp32 runs the mainloop's split route (hopper_attn.cuh: bf16 hi / lo
+// operands, three products each; the wrappers cast nothing).  K1q/K1q-s
 // (section "K1q") is hopper_attn_q_kernel: the same CTA, with the
-// producer warpgroup converting int8 tiles and, for "mxu8", the s8 wgmma.
+// producer warpgroup converting int8 tiles and, for "mxu8", the s8 wgmma,
+// at head_dim 128 and 64 and for a bf16, fp16 or fp32 q.
 //
 // What bounds K1 on the H100.  At the HunyuanVideo operating point
 // (115,456 keys, 24 heads x 128) the sparse visual rows do 4*128^3 flops
@@ -99,9 +102,9 @@ __device__ __forceinline__ float ex2(float x) {
 // ------------------------------------------------------ K1's split merge ---
 //
 // The key split's merge: row r's n_split partials (o normalised, m, l) into
-// o in T (and, K1s, the merged m and l), the closed form of folding
-// attention/ring.py::_merge over the ranges.  One warp per row, 4 columns
-// a lane.
+// o in T (bf16, fp16 or fp32; and, K1s, the merged m and l), the closed
+// form of folding attention/ring.py::_merge over the ranges.  One warp per
+// row, 4 columns a lane.
 template <typename T, bool STATS>
 __global__ void __launch_bounds__(256)
 merge_splits_kernel(const float* o_part, const float* m_part,
@@ -128,9 +131,14 @@ merge_splits_kernel(const float* o_part, const float* m_part,
   }
   const float den = lsum > 0.f ? lsum : 1.f;
   T* out = o + row * HA_D + col;
+  if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float4*>(out) =
+        make_float4(acc[0] / den, acc[1] / den, acc[2] / den, acc[3] / den);
+  } else {
   *reinterpret_cast<uint32_t*>(out) = Type<T>::pack(acc[0] / den, acc[1] / den);
   *reinterpret_cast<uint32_t*>(out + 2) =
       Type<T>::pack(acc[2] / den, acc[3] / den);
+  }
   if constexpr (STATS) {
     if (col == 0) {
       m_out[row] = mx;
@@ -163,6 +171,10 @@ merge_splits64_kernel(const float* o_part, const float* m_part,
     acc[1] += x.y * w;
   }
   const float den = lsum > 0.f ? lsum : 1.f;
+  if constexpr (std::is_same<T, float>::value)
+    *reinterpret_cast<float2*>(o + row * 64 + col) =
+        make_float2(acc[0] / den, acc[1] / den);
+  else
   *reinterpret_cast<uint32_t*>(o + row * 64 + col) =
       Type<T>::pack(acc[0] / den, acc[1] / den);
   if constexpr (STATS) {
@@ -256,6 +268,23 @@ int launch_merge(const float* o_part, const float* m_part, const float* l_part,
 // 16 KB for mxu8; V as 16 bits, 32 KB), the staging ring (per stage: K8 and
 // V8, or V8 alone for mxu8), mxu8's q8 (16 KB) and row scales: 225.6 KB
 // ("int8") and 177.6 KB ("mxu8").
+//
+// Head_dim 64 (hopper_attn_q_kernel_at<*, *, 64, *>; CogVideoX's width):
+// a payload row is 128 bytes, K in bytes 0-63 and V in 64-127, so one
+// 128 x 128-byte TMA box holds a unit's K8 and V8 in one swizzle row: it
+// is staged once in both modes, and the converter (convert_tile64) turns
+// its two 64-byte halves into the 16-bit K and V tiles of one column
+// half each.  mxu8's s8 wgmma reads the same box as K8 in the ring, two
+// k32 steps over its bytes 0-63 (q8's rows likewise: 128-byte rows, bytes
+// 0-63 written); O is 64 x 64 a warpgroup, P V on m64n64k16.  113.6 KB
+// ("int8") and 129.6 KB ("mxu8").
+//
+// q in fp16 or fp32 (hopper_attn_q_kernel_at<*, *, *, QT>; the JAX kernel
+// takes any q, :176-192): no tensor map of q; each consumer thread reads
+// its chunks of q from global memory at the tile's start and, "int8",
+// writes q * sm_scale rounded to bf16 into the q tile, or, "mxu8",
+// quantizes the fp32 values of its rows as the bf16 path does.  The output
+// is in q's type (the JAX wrapper's out.astype(q.dtype)).
 
 constexpr int MODE_INT8 = 0, MODE_MXU8 = 1;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -280,16 +309,20 @@ struct QParams {
   int heads, sq, n_list, nb_slots, num_key_blocks, block_m, chunk_blocks;
   int visual_len, text_start, has_text;
   float sm_scale, row_scale;  // row_scale = sm_scale / 127 (mxu8)
+  const void* q;              // fp16 / fp32 q [BH, Sq, D] (no map)
 };
 
-template <int MODE>
+template <int MODE, int D = HA_D>
 struct QLayout {
-  static constexpr int RING_K = MODE == MODE_INT8 ? HA_TILE : HA_TILE8;
-  static constexpr int RING = RING_K + HA_TILE;         // K, then V (16-bit)
-  static constexpr int STAGE8 = MODE == MODE_INT8 ? 2 * HA_TILE8 : HA_TILE8;
+  static constexpr int TILE16 = ha_tile(D);             // a 16-bit tile
+  static constexpr int RING_K = MODE == MODE_INT8 ? TILE16 : HA_TILE8;
+  static constexpr int RING = RING_K + TILE16;          // K, then V (16-bit)
+  // staged: K8 and V8 boxes ("int8") or V8 ("mxu8"); at D = 64 one box
+  static constexpr int STAGE8 =
+      MODE == MODE_INT8 && D == HA_D ? 2 * HA_TILE8 : HA_TILE8;
   static constexpr int Q8 = MODE == MODE_MXU8 ? HA_TILE8 : 0;
   static constexpr int BARS = 1 + 3 * HA_STAGES;        // q, full/empty, staged
-  static constexpr int BYTES = 1024 + HA_TILE + HA_STAGES * RING +
+  static constexpr int BYTES = 1024 + TILE16 + HA_STAGES * RING +
                                HA_STAGES * STAGE8 + Q8 + 8 * BARS +
                                HA_ROWS * 4;
 };
@@ -351,28 +384,72 @@ __device__ __forceinline__ int q_unit(const QTile& c, int cb, int n,
   return s0 + (pass_b ? r - len : r);
 }
 
-// a unit's staged int8 tiles: K8 and V8 ("int8"), V8 ("mxu8")
-template <int MODE>
+// a unit's staged int8 tiles: K8 and V8 ("int8"), V8 ("mxu8"); at D = 64
+// the box of both
+template <int MODE, int D>
 __device__ __forceinline__ void stage_load(unsigned char* dst,
                                            const CUtensorMap* map, int row,
                                            uint64_t* bar) {
+  if constexpr (D == 64) {
+    tma_load(dst, map, 0, row, bar);
+  } else {
   if (MODE == MODE_INT8) {
     tma_load(dst, map, 0, row, bar);
     tma_load(dst + HA_TILE8, map, HA_D, row, bar);
   } else {
     tma_load(dst, map, HA_D, row, bar);
   }
+  }
 }
 
-template <int MODE, bool STATS>
-__global__ void __launch_bounds__(HA_THREADS, 1)
-hopper_attn_q_kernel(const __grid_constant__ QParams p) {
-  using L = QLayout<MODE>;
+// columns col0 .. col0 + 63 of a D = 64 payload box (K at 0, V at 64) into
+// a 16-bit tile of one column half: thread i converts columns 8 (i % 8) ..
+// + 7 of rows i / 8 + 16 t, t = 0 .. 7 (rows that share their swizzle)
+template <typename T>
+__device__ __forceinline__ void convert_tile64(unsigned char* dst,
+                                               const unsigned char* src,
+                                               int i, int col0) {
+  const int r = i >> 3, j = i & 7, x = r & 7, c8 = (col0 >> 3) + j;
+  const unsigned char* s = src + r * 128 + (((c8 >> 1) ^ x) << 4) + ((c8 & 1) << 3);
+  unsigned char* d = dst + r * 128 + ((j ^ x) << 4);
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+    *reinterpret_cast<uint4*>(d + t * 2048) =
+        Cvt8<T>::run(*reinterpret_cast<const uint2*>(s + t * 2048));
+}
+
+// 8 consecutive q values in fp32 (an fp32 or a 16-bit q read from global
+// memory)
+__device__ __forceinline__ void load8(const float* g, float (&x)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(g));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(g) + 1);
+  const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = v[i];
+}
+template <typename T16>
+__device__ __forceinline__ void load8(const T16* g, float (&x)[8]) {
+  const uint4 w = __ldg(reinterpret_cast<const uint4*>(g));
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = Type<T16>::unpack(u[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+// The body of K1q's kernels at head_dim D with q in QT: QT = bf16 by TMA as
+// its 16-bit tile, fp16 / fp32 read from global memory
+template <int MODE, bool STATS, int D, typename QT>
+__device__ __forceinline__ void q_attn(const QParams& p) {
+  using L = QLayout<MODE, D>;
   using V16 = typename std::conditional<MODE == MODE_INT8, __nv_bfloat16,
                                         __half>::type;
+  constexpr bool Q16 = std::is_same<QT, __nv_bfloat16>::value;
   extern __shared__ unsigned char ha_raw[];
   unsigned char* sq = ha_raw + ((1024u - (smem_addr(ha_raw) & 1023u)) & 1023u);
-  unsigned char* ring = sq + HA_TILE;
+  unsigned char* ring = sq + L::TILE16;
   unsigned char* stg = ring + HA_STAGES * L::RING;
   unsigned char* sq8 = stg + HA_STAGES * L::STAGE8;
   uint64_t* bars = reinterpret_cast<uint64_t*>(sq8 + L::Q8);
@@ -414,16 +491,16 @@ hopper_attn_q_kernel(const __grid_constant__ QParams p) {
     };
     int st = 0, ss = 0, ss_next = 0;
     uint32_t ph = 0, sph = 0;
-    if (issuer) {
-      mbar_expect_tx(q_full, HA_TILE);
-      tma_tile(sq, &p.tmq, c.q_row, c.bh, 0, q_full);
+    if (Q16 && issuer) {
+      mbar_expect_tx(q_full, L::TILE16);
+      tma_tile<D>(sq, &p.tmq, c.q_row, c.bh, 0, q_full);
     }
     for (int n = -1; n < c.n_units; ++n) {
       int row, row_next;
       if (issuer && n + 1 < c.n_units && staged(n + 1, row_next)) {
         mbar_expect_tx(&sfull[ss_next], L::STAGE8);
-        stage_load<MODE>(stg + ss_next * L::STAGE8, &p.tmkv, row_next,
-                         &sfull[ss_next]);
+        stage_load<MODE, D>(stg + ss_next * L::STAGE8, &p.tmkv, row_next,
+                            &sfull[ss_next]);
         ss_next ^= 1;
       }
       if (n < 0) continue;
@@ -437,8 +514,13 @@ hopper_attn_q_kernel(const __grid_constant__ QParams p) {
         mbar_wait_or_trap(&sfull[ss], sph);
         unsigned char* dst = ring + st * L::RING;
         const unsigned char* src = stg + ss * L::STAGE8;
+        if constexpr (D == 64) {
+          if (MODE == MODE_INT8) convert_tile64<V16>(dst, src, ci, 0);
+          convert_tile64<V16>(dst + L::RING_K, src, ci, 64);
+        } else {
         if (MODE == MODE_INT8) convert_tile<V16>(dst, src, ci);
         convert_tile<V16>(dst + L::RING_K, src + L::STAGE8 - HA_TILE8, ci);
+        }
         if (++ss == HA_STAGES) {
           ss = 0;
           sph ^= 1;
@@ -460,7 +542,7 @@ hopper_attn_q_kernel(const __grid_constant__ QParams p) {
     f.wtid = tid & 127;
     f.row = 64 * f.wg + 16 * (f.wtid >> 5) + ((tid & 31) >> 2);
     f.t4 = tid & 3;
-    mbar_wait_or_trap(q_full, 0);
+    if (Q16) mbar_wait_or_trap(q_full, 0);
     float rs[2] = {0.f, 0.f};   // mxu8: the rows' scales
     // this thread's 16 bytes of q in row group r4 and column half h: chunk
     // wtid % 8 of row r4 * 16 + wtid / 8 of the warpgroup's 64 rows
@@ -468,10 +550,11 @@ hopper_attn_q_kernel(const __grid_constant__ QParams p) {
       return reinterpret_cast<uint4*>(sq + h * HA_HALF + f.wg * HA_BOX) +
              r4 * 128 + f.wtid;
     };
+    if constexpr (Q16) {
     if constexpr (MODE == MODE_INT8) {
       // q * sm_scale in fp32, rounded to bf16, in place (as K1)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < 4 * (D / 64); ++i) {
         uint4* v = q_chunk(i & 3, i >> 2);
         uint4 x = *v;
         uint32_t* w = reinterpret_cast<uint32_t*>(&x);
@@ -487,10 +570,12 @@ hopper_attn_q_kernel(const __grid_constant__ QParams p) {
       // :184-189) into sq8: a row's 16 chunks lie in 8 adjacent lanes
 #pragma unroll
       for (int r4 = 0; r4 < 4; ++r4) {
-        const uint4 x[2] = {*q_chunk(r4, 0), *q_chunk(r4, 1)};
+        uint4 x[D / 64];
+#pragma unroll
+        for (int h = 0; h < D / 64; ++h) x[h] = *q_chunk(r4, h);
         float amax = 0.f;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
+        for (int h = 0; h < D / 64; ++h) {
           const uint32_t* w = reinterpret_cast<const uint32_t*>(&x[h]);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
@@ -505,7 +590,7 @@ hopper_attn_q_kernel(const __grid_constant__ QParams p) {
         const int rr = r4 * 16 + (f.wtid >> 3), R = 64 * f.wg + rr;
         const int lc = (f.wtid & 7) ^ (rr & 7);   // logical 16-bit chunk
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
+        for (int h = 0; h < D / 64; ++h) {
           const uint32_t* w = reinterpret_cast<const uint32_t*>(&x[h]);
           int q8[8];
 #pragma unroll
@@ -524,6 +609,62 @@ hopper_attn_q_kernel(const __grid_constant__ QParams p) {
         if ((f.wtid & 7) == 0) row_sc[R] = amax * p.row_scale;
       }
     }
+    } else {
+      // q from global memory: the 8 values of chunk (r4, h) in q_chunk's
+      // place, row r4 * 16 + wtid / 8 of the warpgroup's, columns 64 h +
+      // 8 lc .. + 7 with lc the chunk's logical index
+      const QT* qg = static_cast<const QT*>(p.q) +
+                     ((long long)c.bh * p.sq + c.q_row + 64 * f.wg) * D;
+      auto q_vals = [&](int r4, int h, float (&x)[8]) {
+        const int rr = r4 * 16 + (f.wtid >> 3);
+        load8(qg + rr * D + 64 * h + 8 * ((f.wtid & 7) ^ (rr & 7)), x);
+      };
+      if constexpr (MODE == MODE_INT8) {
+        // q * sm_scale in fp32, rounded to bf16 (the JAX kernel's :190-191)
+#pragma unroll
+        for (int i = 0; i < 4 * (D / 64); ++i) {
+          float x[8];
+          q_vals(i & 3, i >> 2, x);
+          uint32_t w[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            w[j] = Type<__nv_bfloat16>::pack(x[2 * j] * p.sm_scale,
+                                             x[2 * j + 1] * p.sm_scale);
+          *q_chunk(i & 3, i >> 2) = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      } else {
+        // q's fp32 values per row to int8 against their absmax (:184-189)
+#pragma unroll
+        for (int r4 = 0; r4 < 4; ++r4) {
+          float x[D / 64][8];
+          float amax = 0.f;
+#pragma unroll
+          for (int h = 0; h < D / 64; ++h) {
+            q_vals(r4, h, x[h]);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(x[h][j]));
+          }
+#pragma unroll
+          for (int k = 1; k < 8; k <<= 1)
+            amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, k));
+          const float inv = 127.f / fmaxf(amax, 1e-30f);
+          const int rr = r4 * 16 + (f.wtid >> 3), R = 64 * f.wg + rr;
+          const int lc = (f.wtid & 7) ^ (rr & 7);
+#pragma unroll
+          for (int h = 0; h < D / 64; ++h) {
+            int q8[8];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) q8[j] = __float2int_rn(x[h][j] * inv);
+            *reinterpret_cast<uint2*>(
+                sq8 + R * 128 + (((4 * h + (lc >> 1)) ^ (rr & 7)) << 4) +
+                ((lc & 1) << 3)) =
+                make_uint2(pack_s8(q8[0], q8[1], q8[2], q8[3]),
+                           pack_s8(q8[4], q8[5], q8[6], q8[7]));
+          }
+          if ((f.wtid & 7) == 0) row_sc[R] = amax * p.row_scale;
+        }
+      }
+    }
     // q (or q8) written by this warpgroup, visible to its wgmma
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     wg_sync(f.wg);
@@ -533,9 +674,9 @@ hopper_attn_q_kernel(const __grid_constant__ QParams p) {
     }
     const unsigned char* qw = MODE == MODE_INT8 ? sq + f.wg * HA_BOX
                                                 : sq8 + f.wg * 64 * 128;
-    float o[64];
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {neg_inf(), neg_inf()};
     float l[2] = {0.f, 0.f};   // this thread's 32 columns of each row
     // mxu8: pass A's running row max and max of exp(s - ma) * vsc; pass
@@ -581,7 +722,7 @@ hopper_attn_q_kernel(const __grid_constant__ QParams p) {
             post[r] = on ? pm / 127.f : 1.f;
           }
 #pragma unroll
-          for (int i = 0; i < 64; ++i) o[i] *= sc[(i >> 1) & 1];
+          for (int i = 0; i < D / 2; ++i) o[i] *= sc[(i >> 1) & 1];
         }
       }
       // mxu8 pass B: the scores' scale in log2 units, and p's scale to p8
@@ -594,7 +735,7 @@ hopper_attn_q_kernel(const __grid_constant__ QParams p) {
       if constexpr (MODE == MODE_INT8) {
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
+        for (int kk = 0; kk < D / 16; ++kk) {
           const int off = (kk >> 2) * HA_HALF + (kk & 3) * 32;
           Wgmma<__nv_bfloat16>::ss(s, sw128_desc(qw + off, 16),
                                    sw128_desc(kst + off, 16), kk);
@@ -608,7 +749,7 @@ hopper_attn_q_kernel(const __grid_constant__ QParams p) {
         int si[64];
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+        for (int kk = 0; kk < D / 32; ++kk)
           wgmma_s8(si, sw128_desc(qw + kk * 32, 16),
                    sw128_desc(kst + kk * 32, 16), kk);
         wgmma_commit();
@@ -684,7 +825,7 @@ hopper_attn_q_kernel(const __grid_constant__ QParams p) {
         l[0] = alpha[0] * l[0] + ls[0];
         l[1] = alpha[1] * l[1] + ls[1];
 #pragma unroll
-        for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
       } else {
         // pass B: m is the chunk's; p8 = round(p * vsc * 127 / pm): 1024 +
         // p * vsc * 127 / pm (at most 1151.5) rounds to an integer as it
@@ -723,48 +864,98 @@ hopper_attn_q_kernel(const __grid_constant__ QParams p) {
     }
     if constexpr (MODE == MODE_MXU8) {
 #pragma unroll
-      for (int i = 0; i < 64; ++i) o[i] *= post[(i >> 1) & 1];
+      for (int i = 0; i < D / 2; ++i) o[i] *= post[(i >> 1) & 1];
     }
     float inv[2];
     quad_sum(l, inv);
-    store_rows<__nv_bfloat16, STATS>(p.o, p.m_out, p.l_out,
-                                     (long long)c.bh * p.sq + c.q_row + f.row,
-                                     o, m, l, inv, f);
+    store_rows<QT, STATS>(p.o, p.m_out, p.l_out,
+                          (long long)c.bh * p.sq + c.q_row + f.row, o, m, l,
+                          inv, f);
   }
 }
 
-
+// K1q/K1q-s at head_dim 128 with a bf16 q (the kernels' names before
+// head_dim 64 and the other q types)
 template <int MODE, bool STATS>
+__global__ void __launch_bounds__(HA_THREADS, 1)
+hopper_attn_q_kernel(const __grid_constant__ QParams p) {
+  q_attn<MODE, STATS, HA_D, __nv_bfloat16>(p);
+}
+
+// K1q/K1q-s at head_dim D (64 or 128) with q in QT (fp16, fp32; bf16 at 64)
+template <int MODE, bool STATS, int D, typename QT>
+__global__ void __launch_bounds__(HA_THREADS, 1)
+hopper_attn_q_kernel_at(const __grid_constant__ QParams p) {
+  q_attn<MODE, STATS, D, QT>(p);
+}
+
+template <int MODE, bool STATS, int D, typename QT>
 int launch_q(const QParams& p, dim3 grid, cudaStream_t s) {
-  auto kern = hopper_attn_q_kernel<MODE, STATS>;
+  void (*kern)(const QParams);
+  if constexpr (D == HA_D && std::is_same<QT, __nv_bfloat16>::value)
+    kern = hopper_attn_q_kernel<MODE, STATS>;
+  else
+    kern = hopper_attn_q_kernel_at<MODE, STATS, D, QT>;
+  constexpr int bytes = QLayout<MODE, D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, QLayout<MODE>::BYTES);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid, HA_THREADS, QLayout<MODE>::BYTES, s>>>(p);
+  kern<<<grid, HA_THREADS, bytes, s>>>(p);
   return (int)cudaGetLastError();
 }
 
-// The kernels of one head_dim, D = 128 or 64: q [BH, Sq, D] dense, K and V
-// rows of D elements `kv_row_stride` apart (D, or 2D for the packed K|V
-// stream), maps of D columns.
-template <int D>
-int encode_k1_maps(K1Params& p, int dtype, const void* q, const void* k,
-                   const void* v, int bh, int sq, long long s,
-                   long long kv_bh_stride, long long kv_row_stride) {
-  if (encode_rows_map(&p.tmq, dtype, q, sq, bh, 1, D, (long long)sq * D,
-                      (long long)bh * sq * D, 64, D) ||
-      encode_rows_map(&p.tmk, dtype, k, s, bh, 1, kv_row_stride, kv_bh_stride,
-                      bh * kv_bh_stride, 64, D) ||
-      encode_rows_map(&p.tmv, dtype, v, s, bh, 1, kv_row_stride, kv_bh_stride,
-                      bh * kv_bh_stride, 64, D))
-    return -2;
+template <int D, typename QT>
+int launch_q_modes(const QParams& p, int mode, bool stats, dim3 grid,
+                   cudaStream_t s) {
+  if (mode == MODE_INT8)
+    return stats ? launch_q<MODE_INT8, true, D, QT>(p, grid, s)
+                 : launch_q<MODE_INT8, false, D, QT>(p, grid, s);
+  return stats ? launch_q<MODE_MXU8, true, D, QT>(p, grid, s)
+               : launch_q<MODE_MXU8, false, D, QT>(p, grid, s);
+}
+
+// f(x) with x a value of the type of dtype code 0 (bf16), 1 (fp16) or 2
+// (fp32): each call site's kernels at the three input types
+template <class F>
+int by_dtype(int dtype, F&& f) {
+  if (dtype == 0) return f(__nv_bfloat16{});
+  if (dtype == 1) return f(__half{});
+  return f(0.f);
+}
+
+// The operands of K1/K1s and K2 at head_dim D = 128 or 64: q [BH, Sq, D]
+// dense, K and V rows of D elements `kv_row_stride` apart (D, or 2D for the
+// packed K|V stream): maps of D columns (dtype 0 bf16, 1 fp16), or the
+// fp32 pointers (2; the producer reads rows, no maps)
+int k1_operands(K1Params& p, int dtype, int head_dim, const void* q,
+                const void* k, const void* v, int bh, int sq, long long s,
+                long long kv_bh_stride, long long kv_row_stride) {
+  if (dtype == 2) {
+    p.q = q;
+    p.k = k;
+    return 0;
+  }
+  for (int i = 0; i < 3; ++i) {
+    const bool is_q = i == 0;
+    CUtensorMap* map = i == 0 ? &p.tmq : (i == 1 ? &p.tmk : &p.tmv);
+    const void* base = i == 0 ? q : (i == 1 ? k : v);
+    if (encode_rows_map(map, dtype, base, is_q ? sq : s, bh, 1,
+                        is_q ? head_dim : kv_row_stride,
+                        is_q ? (long long)sq * head_dim : kv_bh_stride,
+                        is_q ? (long long)bh * sq * head_dim
+                             : bh * kv_bh_stride,
+                        64, head_dim))
+      return -2;
+  }
   return 0;
 }
 
-// head_dim 128 or 64 with K and V rows D or 2D (packed) apart
-bool k1_shape_ok(int head_dim, long long kv_row_stride) {
+// head_dim 128 or 64 with K and V rows D or 2D (packed) apart; bf16, fp16
+// or fp32
+bool k1_shape_ok(int head_dim, long long kv_row_stride, int dtype) {
   return (head_dim == HA_D || head_dim == 64) &&
-         (kv_row_stride == head_dim || kv_row_stride == 2 * head_dim);
+         (kv_row_stride == head_dim || kv_row_stride == 2 * head_dim) &&
+         dtype >= 0 && dtype <= 2;
 }
 
 }  // namespace
@@ -775,9 +966,9 @@ extern "C" {
 // K1s when `stats`.  n_split == 1: o [BH, Sq, D] in the K/V type, and K1s's
 // m_out / l_out [BH, Sq].  n_split > 1: the ranges' partials into o_part
 // [n_split, BH, Sq, D] and m_out / l_out [n_split, BH, Sq], all fp32, for
-// rsa_k1_merge_launch.  head_dim 128 or 64.  Returns a cudaError_t value (0
-// on success), -1 for an unsupported (dtype, head_dim, row stride), -2 if
-// a tensor map cannot be encoded.
+// rsa_k1_merge_launch.  head_dim 128 or 64; dtype 0 bf16, 1 fp16, 2 fp32.
+// Returns a cudaError_t value (0 on success), -1 for an unsupported
+// (dtype, head_dim, row stride), -2 if a tensor map cannot be encoded.
 int rsa_k1_launch(const void* q, const void* k, const void* v, void* o,
                   float* o_part, float* m_out, float* l_out,
                   const int* indices, const int* counts, const int* clean,
@@ -787,14 +978,11 @@ int rsa_k1_launch(const void* q, const void* k, const void* v, void* o,
                   int chunk_blocks, int visual_len, int text_start,
                   int has_text, int n_split, int split_slots, float sm_scale,
                   int head_dim, int dtype, int stats, void* stream) {
-  if (!k1_shape_ok(head_dim, kv_row_stride) || (dtype != 0 && dtype != 1))
-    return -1;
+  if (!k1_shape_ok(head_dim, kv_row_stride, dtype)) return -1;
   K1Params p{};
   const long long s = (long long)num_key_blocks * HA_KEYS;
-  if (head_dim == HA_D ? encode_k1_maps<HA_D>(p, dtype, q, k, v, bh, sq, s,
-                                              kv_bh_stride, kv_row_stride)
-                       : encode_k1_maps<64>(p, dtype, q, k, v, bh, sq, s,
-                                            kv_bh_stride, kv_row_stride))
+  if (k1_operands(p, dtype, head_dim, q, k, v, bh, sq, s, kv_bh_stride,
+                  kv_row_stride))
     return -2;
   p.o = o; p.o_part = o_part; p.m_out = m_out; p.l_out = l_out; p.v = v;
   p.indices = indices; p.counts = counts; p.clean = clean;
@@ -808,37 +996,32 @@ int rsa_k1_launch(const void* q, const void* k, const void* v, void* o,
   p.sm_scale = sm_scale;
   cudaStream_t st = (cudaStream_t)stream;
   const bool sts = stats != 0;
-  if (head_dim == HA_D)
-    return dtype == 0 ? launch_k1<__nv_bfloat16, HA_D>(p, bh, sts, st)
-                      : launch_k1<__half, HA_D>(p, bh, sts, st);
-  return dtype == 0 ? launch_k1<__nv_bfloat16, 64>(p, bh, sts, st)
-                    : launch_k1<__half, 64>(p, bh, sts, st);
+  return by_dtype(dtype, [&](auto x) {
+    using T = decltype(x);
+    return head_dim == HA_D ? launch_k1<T, HA_D>(p, bh, sts, st)
+                            : launch_k1<T, 64>(p, bh, sts, st);
+  });
 }
 
 // The key split's merge: `rows` = BH * Sq rows of n_split partials into o
-// [rows, D] in the K/V type (D = head_dim, 128 or 64); K1s when m_out and
-// l_out ([rows] fp32) are given.
+// [rows, D] in the K/V type (D = head_dim, 128 or 64; dtype as
+// rsa_k1_launch's); K1s when m_out and l_out ([rows] fp32) are given.
 int rsa_k1_merge_launch(const float* o_part, const float* m_part,
                         const float* l_part, void* o, float* m_out,
                         float* l_out, long long rows, int n_split,
                         int head_dim, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if ((m_out == nullptr) != (l_out == nullptr) ||
-      (head_dim != HA_D && head_dim != 64) || (dtype != 0 && dtype != 1))
+      (head_dim != HA_D && head_dim != 64) || dtype < 0 || dtype > 2)
     return -1;
-  if (head_dim == HA_D)
-    return dtype == 0
-               ? launch_merge<__nv_bfloat16, HA_D>(o_part, m_part, l_part, o,
-                                                   m_out, l_out, rows,
-                                                   n_split, st)
-               : launch_merge<__half, HA_D>(o_part, m_part, l_part, o, m_out,
-                                            l_out, rows, n_split, st);
-  return dtype == 0
-             ? launch_merge<__nv_bfloat16, 64>(o_part, m_part, l_part, o,
-                                               m_out, l_out, rows, n_split,
-                                               st)
-             : launch_merge<__half, 64>(o_part, m_part, l_part, o, m_out,
-                                        l_out, rows, n_split, st);
+  return by_dtype(dtype, [&](auto x) {
+    using T = decltype(x);
+    return head_dim == HA_D
+               ? launch_merge<T, HA_D>(o_part, m_part, l_part, o, m_out,
+                                       l_out, rows, n_split, st)
+               : launch_merge<T, 64>(o_part, m_part, l_part, o, m_out, l_out,
+                                     rows, n_split, st);
+  });
 }
 
 // K2: one union list per group * block_m query rows (block_m a multiple
@@ -853,15 +1036,13 @@ int rsa_k2_launch(const void* q, const void* k, const void* v, void* o,
                   int chunk_blocks, int visual_len, int text_start,
                   int has_text, float sm_scale, int head_dim, int dtype,
                   void* stream) {
-  if (!k1_shape_ok(head_dim, kv_row_stride) || (dtype != 0 && dtype != 1) ||
-      block_m % HA_ROWS || sq % HA_ROWS)
+  if (!k1_shape_ok(head_dim, kv_row_stride, dtype) || block_m % HA_ROWS ||
+      sq % HA_ROWS)
     return -1;
   K1Params p{};
   const long long s = (long long)num_key_blocks * HA_KEYS;
-  if (head_dim == HA_D ? encode_k1_maps<HA_D>(p, dtype, q, k, v, bh, sq, s,
-                                              kv_bh_stride, kv_row_stride)
-                       : encode_k1_maps<64>(p, dtype, q, k, v, bh, sq, s,
-                                            kv_bh_stride, kv_row_stride))
+  if (k1_operands(p, dtype, head_dim, q, k, v, bh, sq, s, kv_bh_stride,
+                  kv_row_stride))
     return -2;
   p.o = o; p.v = v;
   p.indices = indices; p.counts = counts; p.clean = clean;
@@ -875,24 +1056,19 @@ int rsa_k2_launch(const void* q, const void* k, const void* v, void* o,
   p.sm_scale = sm_scale;
   const dim3 grid(sq / HA_ROWS, bh);
   cudaStream_t st = (cudaStream_t)stream;
-  if (head_dim == HA_D)
-    return dtype == 0
-               ? launch_hopper_attn<__nv_bfloat16,
-                                    GroupedTiles<__nv_bfloat16>>(p, grid, st)
-               : launch_hopper_attn<__half, GroupedTiles<__half>>(p, grid,
-                                                                  st);
-  return dtype == 0
-             ? launch_hopper_attn<__nv_bfloat16,
-                                  GroupedTilesAt<__nv_bfloat16, 64>>(p, grid,
-                                                                     st)
-             : launch_hopper_attn<__half, GroupedTilesAt<__half, 64>>(p, grid,
-                                                                      st);
+  return by_dtype(dtype, [&](auto x) {
+    using T = decltype(x);
+    return head_dim == HA_D
+               ? launch_hopper_attn<T, GroupedTiles<T>>(p, grid, st)
+               : launch_hopper_attn<T, GroupedTilesAt<T, 64>>(p, grid, st);
+  });
 }
 
 // K1q: K1 on an int8 K|V payload kv [BH, S, 2D] (kv_bh_stride = S * 2D
 // bytes); mode 0 = "int8", 1 = "mxu8"; K1q-s when m_out and l_out are
 // given ([BH, Sq] fp32 each; both null for K1q).  indices, ksc and vsc hold
-// nb_slots slots, a multiple of chunk_blocks.  Returns as rsa_k1_launch.
+// nb_slots slots, a multiple of chunk_blocks.  head_dim 128 or 64; q and o
+// in q_dtype (0 bf16, 1 fp16, 2 fp32).  Returns as rsa_k1_launch.
 int rsa_k1q_launch(const void* q, const void* kv, void* o, const int* indices,
                    const int* counts, const int* clean, const float* ksc,
                    const float* vsc, const int* text_len, float* m_out,
@@ -900,19 +1076,23 @@ int rsa_k1q_launch(const void* q, const void* kv, void* o, const int* indices,
                    int sq, int n_list, int nb_slots, int num_key_blocks,
                    int block_m, int chunk_blocks, int visual_len,
                    int text_start, int has_text, float sm_scale,
-                   float row_scale, int head_dim, int mode, void* stream) {
-  if (head_dim != HA_D || block_m % HA_ROWS || sq % HA_ROWS ||
-      nb_slots % chunk_blocks ||
-      kv_bh_stride != (long long)num_key_blocks * HA_KEYS * 2 * HA_D ||
+                   float row_scale, int head_dim, int mode, int q_dtype,
+                   void* stream) {
+  if ((head_dim != HA_D && head_dim != 64) || block_m % HA_ROWS ||
+      sq % HA_ROWS || nb_slots % chunk_blocks ||
+      kv_bh_stride != (long long)num_key_blocks * HA_KEYS * 2 * head_dim ||
       (m_out == nullptr) != (l_out == nullptr) ||
-      (mode != MODE_INT8 && mode != MODE_MXU8))
+      (mode != MODE_INT8 && mode != MODE_MXU8) || q_dtype < 0 || q_dtype > 2)
     return -1;
   QParams p{};
-  if (encode_rows_map(&p.tmq, 0, q, sq, bh, 1, HA_D, (long long)sq * HA_D,
-                      (long long)bh * sq * HA_D) ||
+  if ((q_dtype == 0 &&
+       encode_rows_map(&p.tmq, 0, q, sq, bh, 1, head_dim,
+                       (long long)sq * head_dim,
+                       (long long)bh * sq * head_dim, 64, head_dim)) ||
       encode_rows8_map(&p.tmkv, kv, (long long)bh * num_key_blocks * HA_KEYS,
-                       256))
+                       2 * head_dim))
     return -2;
+  p.q = q;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.m_out = m_out; p.l_out = l_out;
   p.indices = indices; p.counts = counts; p.clean = clean;
@@ -924,11 +1104,13 @@ int rsa_k1q_launch(const void* q, const void* kv, void* o, const int* indices,
   p.sm_scale = sm_scale; p.row_scale = row_scale;
   const dim3 grid(sq / HA_ROWS, bh);
   cudaStream_t s = (cudaStream_t)stream;
-  if (mode == MODE_INT8)
-    return m_out ? launch_q<MODE_INT8, true>(p, grid, s)
-                 : launch_q<MODE_INT8, false>(p, grid, s);
-  return m_out ? launch_q<MODE_MXU8, true>(p, grid, s)
-               : launch_q<MODE_MXU8, false>(p, grid, s);
+  const bool stats = m_out != nullptr;
+  return by_dtype(q_dtype, [&](auto x) {
+    using QT = decltype(x);
+    return head_dim == HA_D
+               ? launch_q_modes<HA_D, QT>(p, mode, stats, grid, s)
+               : launch_q_modes<64, QT>(p, mode, stats, grid, s);
+  });
 }
 
 const char* rsa_error_string(int code) {

@@ -33,6 +33,13 @@
 // it (0.46 ms).  A 512-key tile is four units between a q prologue and an
 // o epilogue, so the persistent walk matters there; each tile still reads
 // its head's K/V (256 KB at 512 keys) from L2, ~8x the q and o bytes.
+//
+// Widths and types.  DenseTilesAt<T, D> is the policy at head_dim D = 128
+// (DenseTiles, whose kernels keep their names) or 64 (tiles of one column
+// half, O += P V on m64n64k16), for T bf16, fp16 or fp32; fp32 runs the
+// mainloop's split route (hopper_attn.cuh: hi / lo bf16 operands, three
+// products each), its rows read through the same strides from global
+// memory, rows past Sq or Sk read as zeros.
 
 #include "hopper_attn.cuh"
 
@@ -45,11 +52,16 @@ struct K3Params {
   const unsigned* kv_bits;     // [B, words]: bit k%32 of word k/32 = key k valid; or null
   int heads, sq, sk, row_tiles, tiles, words;
   float sm_scale;
+  const void* q;               // fp32: q, k and v read as rows through the
+  const void* k;               //   strides below (no tensor maps)
+  const void* v;
+  long long q_b, q_h, q_r, k_b, k_h, k_r, v_b, v_h, v_r;
 };
 
-template <typename T>
-struct DenseTiles : MainloopDefaults {
+template <typename T, int D>
+struct DenseTilesAt : MainloopBase<D> {
   using Params = K3Params;
+  using Cursor = typename MainloopBase<D>::Cursor;
   static constexpr bool SCALE_Q = false;   // the scores are scaled in fp32
   struct Tile {
     int q_row, q_head, q_batch, kv_head, kv_batch, u0, u1;
@@ -67,6 +79,19 @@ struct DenseTiles : MainloopDefaults {
     c.u0 = 0;
     c.u1 = (p.sk + HA_KEYS - 1) / HA_KEYS;
     return c;
+  }
+  // fp32: the tile's q rows, and K (kv = 0) or V rows from key row `row`
+  static __device__ Rows q_rows(const Params& p, const Tile& c) {
+    return {static_cast<const float*>(p.q) + c.q_batch * p.q_b +
+                c.q_head * p.q_h + c.q_row * p.q_r,
+            p.q_r, p.sq - c.q_row};
+  }
+  static __device__ Rows kv_rows(const Params& p, const Tile& c, int kv,
+                                 int row) {
+    const float* base = static_cast<const float*>(kv ? p.v : p.k);
+    const long long b = kv ? p.v_b : p.k_b, h = kv ? p.v_h : p.k_h,
+                    r = kv ? p.v_r : p.k_r;
+    return {base + c.kv_batch * b + c.kv_head * h + row * r, r, p.sk - row};
   }
   static __device__ int next(const Params&, const Tile&, int u) { return u; }
   static __device__ int key_row(const Params&, const Tile&, int u,
@@ -111,8 +136,8 @@ struct DenseTiles : MainloopDefaults {
     }
   }
   static __device__ void finish(const Params& p, const Tile& c,
-                                float (&o)[64], float (&)[2], float (&l)[2],
-                                const Frag& f, float*) {
+                                float (&o)[D / 2], float (&)[2],
+                                float (&l)[2], const Frag& f, float*) {
     float inv[2];
     quad_sum(l, inv);   // l >= 1: the row max itself contributes exp(0)
     T* og = reinterpret_cast<T*>(p.o) + c.q_batch * p.o_b + c.q_head * p.o_h +
@@ -123,12 +148,27 @@ struct DenseTiles : MainloopDefaults {
       if (row >= p.sq) continue;
       T* orow = og + (long long)row * p.o_r;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < D / 8; ++j) {
+        if constexpr (std::is_same<T, float>::value)
+          *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(
+              o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+        else
         *reinterpret_cast<uint32_t*>(orow + 8 * j) = Type<T>::pack(
             o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+      }
     }
   }
 };
+
+template <typename T>
+struct DenseTiles : DenseTilesAt<T, HA_D> {};
+
+template <typename T, int D>
+int launch_k3(const K3Params& p, dim3 grid, cudaStream_t s) {
+  using P = typename std::conditional<D == HA_D, DenseTiles<T>,
+                                      DenseTilesAt<T, D>>::type;
+  return launch_hopper_attn<T, P>(p, grid, s);
+}
 
 }  // namespace
 
@@ -136,9 +176,10 @@ extern "C" {
 
 // K3.  Pointers to q/k/v/out (element (b, h, row, d) at b*s_b + h*s_h +
 // row*s_r + d, d contiguous; strides in elements, multiples of 8),
-// kv_bits [B, words] (words = 4 * ceil(sk / 128)) or null.  Returns a
-// cudaError_t value (0 on success), -1 for an unsupported (dtype,
-// head_dim), -2 if a tensor map cannot be encoded.
+// kv_bits [B, words] (words = 4 * ceil(sk / 128)) or null; head_dim 128 or
+// 64, dtype 0 bf16, 1 fp16, 2 fp32.  Returns a cudaError_t value (0 on
+// success), -1 for an unsupported (dtype, head_dim), -2 if a tensor map
+// cannot be encoded.
 int rsa_k3_launch(const void* q, const void* k, const void* v, void* o,
                   const void* kv_bits, long long q_b, long long q_h,
                   long long q_r, long long k_b, long long k_h, long long k_r,
@@ -146,13 +187,21 @@ int rsa_k3_launch(const void* q, const void* k, const void* v, void* o,
                   long long o_h, long long o_r, int batch, int heads, int sq,
                   int sk, float sm_scale, int head_dim, int dtype,
                   void* stream) {
-  // head_dim 128 only: the width of every model this port runs
-  if (head_dim != HA_D || (dtype != 0 && dtype != 1)) return -1;
+  if ((head_dim != HA_D && head_dim != 64) || dtype < 0 || dtype > 2)
+    return -1;
   K3Params p{};
-  if (encode_rows_map(&p.tmq, dtype, q, sq, heads, batch, q_r, q_h, q_b) ||
-      encode_rows_map(&p.tmk, dtype, k, sk, heads, batch, k_r, k_h, k_b) ||
-      encode_rows_map(&p.tmv, dtype, v, sk, heads, batch, v_r, v_h, v_b))
+  if (dtype != 2 &&
+      (encode_rows_map(&p.tmq, dtype, q, sq, heads, batch, q_r, q_h, q_b, 64,
+                       head_dim) ||
+       encode_rows_map(&p.tmk, dtype, k, sk, heads, batch, k_r, k_h, k_b, 64,
+                       head_dim) ||
+       encode_rows_map(&p.tmv, dtype, v, sk, heads, batch, v_r, v_h, v_b, 64,
+                       head_dim)))
     return -2;
+  p.q = q; p.k = k; p.v = v;
+  p.q_b = q_b; p.q_h = q_h; p.q_r = q_r;
+  p.k_b = k_b; p.k_h = k_h; p.k_r = k_r;
+  p.v_b = v_b; p.v_h = v_h; p.v_r = v_r;
   p.o = o; p.o_b = o_b; p.o_h = o_h; p.o_r = o_r;
   p.kv_bits = static_cast<const unsigned*>(kv_bits);
   p.heads = heads; p.sq = sq; p.sk = sk;
@@ -167,8 +216,14 @@ int rsa_k3_launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(p.tiles < sms ? p.tiles : sms);
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_hopper_attn<__nv_bfloat16, DenseTiles<__nv_bfloat16>>(p, grid, s);
-  return launch_hopper_attn<__half, DenseTiles<__half>>(p, grid, s);
+  if (dtype == 0)
+    return head_dim == HA_D ? launch_k3<__nv_bfloat16, HA_D>(p, grid, s)
+                            : launch_k3<__nv_bfloat16, 64>(p, grid, s);
+  if (dtype == 1)
+    return head_dim == HA_D ? launch_k3<__half, HA_D>(p, grid, s)
+                            : launch_k3<__half, 64>(p, grid, s);
+  return head_dim == HA_D ? launch_k3<float, HA_D>(p, grid, s)
+                          : launch_k3<float, 64>(p, grid, s);
 }
 
 const char* rsa_error_string(int code) {

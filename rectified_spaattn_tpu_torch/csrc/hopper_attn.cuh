@@ -37,9 +37,42 @@
 // Shared memory (1024-byte aligned for the swizzle): q [D / 64 column
 // halves][128 rows][128 B], then the ring: per stage K then V in the same layout,
 // then the barriers and 1 KB of per-warpgroup floats for the epilogue.
+//
+// fp32 inputs (T = float; JAX computes fp32 q, K and V in fp32).  Every
+// operand x is split into bf16 hi = bf16(x) and lo = bf16(x - hi), 16 of
+// its 24 significant bits, and each product runs as three bf16 wgmma
+// (hi hi + hi lo + lo hi, the lo lo term below 2^-16 of it) on the same
+// ss / rs paths as the 16-bit types, V still the transposed B operand
+// (tf32 wgmma reads both operands K-major only: V would have to be
+// transposed in shared memory, and its three passes run at half the
+// bf16 rate).  One pass of TF32 would keep 11 bits, ~5e-4 relative.
+//   * q (times sm_scale where the policy scales q) is read from global
+//     memory by each consumer warpgroup for its own 64 rows at a tile's
+//     start and split into a hi and a lo tile (no TMA copy of q).
+//   * K and V: the whole producer warpgroup reads a unit's fp32 rows from
+//     global memory (16-byte loads, a warp on whole rows) and writes the
+//     ring's hi and lo tiles in the swizzled layout; a row past the
+//     policy's last reads as zero.  K and V have a full and an empty
+//     barrier each, so that K of the next unit is converted while the
+//     consumers run this unit's softmax and P V.
+//   * P is split in registers; a unit's ph vh + ph vl + pl vh goes to an
+//     accumulator of its own that is added to O by FADD: the tensor
+//     cores round their fp32 accumulation toward zero, which over 10^5
+//     keys in one accumulator moved O by 2.7e-4 of its std on the H100
+//     (the windowed dense at the HunyuanVideo site), where one unit's 24
+//     steps keep it below 1e-5.
+//   * Shared memory: q hi and lo (2 tiles) and per stage K hi, K lo, V hi,
+//     V lo (4 tiles): one stage at D = 128 (198,704 bytes; two would need
+//     329,808), two at D = 64 (165,968).
+//   * Registers: the producer converts (setmaxnreg 72, four rows of loads
+//     in flight a thread), the consumers keep 216 (ph and pl take 64
+//     registers where the 16-bit P takes 32, the unit's accumulator D /
+//     2 more); 128 x 72 + 256 x 216 is the 384 x 168 the CTA starts with,
+//     as 40 / 232.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap (the encoder is reached through the runtime)
+#include <type_traits>
 
 #include "attn_common.cuh"
 
@@ -120,10 +153,13 @@ constexpr int HA_STAGE = 2 * HA_TILE; // K and V of one unit: 64 KB
 __host__ __device__ constexpr int ha_tile(int d) { return d / 64 * HA_HALF; }
 // the dynamic shared memory of a ring of `stages` stages at head_dim d:
 // 165,936 bytes at 2 stages and d = 128, 231,488 at 3 (of the 232,448 a
-// CTA can have); 84,016 at 2 stages and d = 64
-constexpr int ha_smem(int stages, int d = HA_D) {
-  return 1024 + ha_tile(d) + stages * 2 * ha_tile(d) + 8 * (2 + 2 * stages) +
-         2 * 128 * 4;
+// CTA can have); 84,016 at 2 stages and d = 64.  `split` (fp32 inputs):
+// q, K and V each as a hi and a lo tile, K and V with their own barriers
+constexpr int ha_smem(int stages, int d = HA_D, bool split = false) {
+  return split ? 1024 + 2 * ha_tile(d) + stages * 4 * ha_tile(d) +
+                     8 * (2 + 4 * stages) + 2 * 128 * 4
+               : 1024 + ha_tile(d) + stages * 2 * ha_tile(d) +
+                     8 * (2 + 2 * stages) + 2 * 128 * 4;
 }
 
 // one box of each 64-column half (128 columns of 16-bit elements) from
@@ -438,6 +474,54 @@ __device__ __forceinline__ void convert_tile(unsigned char* dst,
         Cvt8<T>::run(*reinterpret_cast<const uint2*>(s + t * 1024));
 }
 
+// ---------------------------------------------- fp32 tiles (T = float) ---
+
+// Where a unit's key rows, or a tile's q rows, lie in global memory: the
+// first row, the row stride in elements, and the rows that exist from
+// there (later rows read as zeros)
+struct Rows {
+  const float* p;
+  long long stride;
+  int n;
+};
+
+// ROWS rows of D fp32 columns (times `scale`) into the bf16 tiles `hi`
+// (bf16(x)) and `lo` (bf16(x - hi)) in tma_tile's swizzled layout, by 128
+// threads: thread i splits columns 8 (i % (D / 8)) .. + 7 of every
+// (128 / (D / 8))-th row from row i / (D / 8), two 16-byte loads and a
+// 16-byte store into each tile a row; a warp reads whole rows.
+template <int D, int ROWS>
+__device__ __forceinline__ void split_rows(unsigned char* hi,
+                                           unsigned char* lo,
+                                           const Rows& src, int i,
+                                           float scale) {
+  constexpr int CH = D / 8, STEP = 128 / CH;
+  const int j = i % CH, r0 = i / CH;
+  const float* g = src.p + 8 * j;
+#pragma unroll 4
+  for (int t = 0; t < ROWS / STEP; ++t) {
+    const int r = r0 + t * STEP;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+    if (r < src.n) {
+      const float4* x = reinterpret_cast<const float4*>(g + r * src.stride);
+      a = __ldg(x);
+      b = __ldg(x + 1);
+    }
+    const float v[8] = {a.x * scale, a.y * scale, a.z * scale, a.w * scale,
+                        b.x * scale, b.y * scale, b.z * scale, b.w * scale};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      h[k] = Type<__nv_bfloat16>::pack(v[2 * k], v[2 * k + 1]);
+      const float2 f = Type<__nv_bfloat16>::unpack(h[k]);
+      l[k] = Type<__nv_bfloat16>::pack(v[2 * k] - f.x, v[2 * k + 1] - f.y);
+    }
+    const int off = (j >> 3) * HA_HALF + r * 128 + (((j & 7) ^ (r & 7)) << 4);
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
 // One consumer thread's view of its warpgroup's 64 rows: rows
 // 16 * warp + g (r = 0) and + 8 (r = 1) with g = lane / 4; column
 // 8 j + 2 (lane % 4) + e of a 128-wide accumulator is element 4 j + 2 r + e.
@@ -488,6 +572,13 @@ struct MainloopBase {
 };
 using MainloopDefaults = MainloopBase<HA_D>;
 
+// The ring's depth: the policy's, but one stage for fp32 at D = 128 (two
+// would not fit: ha_smem)
+template <typename T, class P>
+__host__ __device__ constexpr int ha_stages() {
+  return std::is_same<T, float>::value && P::D == HA_D ? 1 : P::STAGES;
+}
+
 // The shared mainloop.  P (the policy, a MainloopDefaults) provides
 //   Params (with CUtensorMap tmq, tmk, tmv), Tile, Window, SCALE_Q,
 //   first(p) / count(p) / stride(p): the tiles this CTA walks,
@@ -499,31 +590,41 @@ using MainloopDefaults = MainloopBase<HA_D>;
 //   window(p, tile, u, frag) -> Window: unit u's key window, once,
 //   mask(p, window, s): the thread's 64 scores of the unit masked (and
 //     scaled) by selects,
-//   finish(p, tile, o, m, l, frag, sums): what follows the walk.
+//   finish(p, tile, o, m, l, frag, sums): what follows the walk;
+//   for T = float also q_rows(p, tile) and kv_rows(p, tile, kv, row) ->
+//     Rows: the tile's q rows, and K (kv = 0) or V (1) from key row `row`.
 template <typename T, class P>
 __global__ void __launch_bounds__(HA_THREADS, 1)
 hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
-  constexpr int NS = P::STAGES;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  // the operands' type on the tensor cores (fp32: bf16 hi and lo)
+  using W = typename std::conditional<F32, __nv_bfloat16, T>::type;
+  constexpr int NS = ha_stages<T, P>();
   constexpr int D = P::D;
   constexpr int TILE = ha_tile(D);    // a q, K or V tile
-  constexpr int STAGE = 2 * TILE;     // K and V of one unit
+  constexpr int KV = F32 ? 2 * TILE : TILE;   // K (or V): fp32 hi and lo
+  constexpr int STAGE = 2 * KV;       // K and V of one unit
+  constexpr int NB = F32 ? 2 * NS : NS;   // fp32: K and V barriers apart
   static_assert(D == 64 || D == 128, "head_dim 64 or 128");
   static_assert(P::COPIES || D == HA_D, "the copy-free walk fills 128 columns");
+  static_assert(!F32 || (P::COPIES && !P::LOAD_ONLY),
+                "fp32 takes the walk that copies and computes");
   extern __shared__ unsigned char ha_raw[];
   unsigned char* sq = ha_raw + ((1024u - (smem_addr(ha_raw) & 1023u)) & 1023u);
-  unsigned char* ring = sq + TILE;
+  unsigned char* ring = sq + KV;
   uint64_t* bars = reinterpret_cast<uint64_t*>(ring + NS * STAGE);
   uint64_t* q_full = bars;
   uint64_t* q_empty = bars + 1;
   uint64_t* full = bars + 2;
-  uint64_t* empty = bars + 2 + NS;
-  float* sums = reinterpret_cast<float*>(bars + 2 + 2 * NS);
+  uint64_t* empty = bars + 2 + NB;
+  float* sums = reinterpret_cast<float*>(bars + 2 + 2 * NB);
   const int tid = threadIdx.x;
   if (tid == 0) {
     mbar_init(q_full, 1);
     mbar_init(q_empty, HA_CONSUMERS);
-    for (int s = 0; s < NS; ++s) {
-      mbar_init(&full[s], 1);
+    for (int s = 0; s < NB; ++s) {
+      // fp32: the producer warpgroup's threads arrive
+      mbar_init(&full[s], F32 ? HA_THREADS - HA_CONSUMERS : 1);
       mbar_init(&empty[s], HA_CONSUMERS);
     }
   }
@@ -531,6 +632,36 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
   __syncthreads();
 
   if (tid >= HA_CONSUMERS) {
+    if constexpr (F32) {
+      // producer: every thread splits a unit's fp32 K rows, then its V
+      // rows, into the stage's hi and lo tiles (K of the next unit while
+      // the consumers still read this unit's V)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n" ::: "memory");
+      const int ci = tid - HA_CONSUMERS;
+      int st = 0;
+      uint32_t ph = 0;
+      for (int t = P::first(p); t < P::count(p); t += P::stride(p)) {
+        const typename P::Tile c = P::tile(p, t);
+        typename P::Cursor cur{};
+        for (int u = P::next(p, c, c.u0); u < c.u1; u = P::next(p, c, u + 1)) {
+          const int row = P::key_row(p, c, u, cur);
+          unsigned char* dst = ring + st * STAGE;
+#pragma unroll 1
+          for (int kv = 0; kv < 2; ++kv) {
+            mbar_wait_or_trap(&empty[2 * st + kv], ph ^ 1);
+            split_rows<D, HA_KEYS>(dst + kv * KV, dst + kv * KV + TILE,
+                                   P::kv_rows(p, c, kv, row), ci, 1.f);
+            // the generic writes, visible to wgmma (the async proxy)
+            asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+            mbar_arrive(&full[2 * st + kv]);
+          }
+          if (++st == NS) {
+            st = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    } else {
     // producer: one thread issues the copies; the ring's parity starts
     // flipped so that its first wait on each empty stage passes
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
@@ -574,8 +705,12 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
         }
       }
     }
+    }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    if constexpr (F32)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n" ::: "memory");
+    else
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     Frag f;
     f.wg = tid >> 7;
     f.wtid = tid & 127;
@@ -586,6 +721,18 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
     uint32_t ph = 0, qph = 0;
     for (int t = P::first(p); t < P::count(p); t += P::stride(p)) {
       const typename P::Tile c = P::tile(p, t);
+      if constexpr (F32) {
+        // this warpgroup's 64 q rows (times sm_scale where the policy
+        // scales q) split into its rows of the hi and lo tiles; its own
+        // products of the previous tile are done
+        Rows src = P::q_rows(p, c);
+        src.p += 64 * f.wg * src.stride;
+        src.n -= 64 * f.wg;
+        split_rows<D, 64>(sq + f.wg * HA_BOX, sq + TILE + f.wg * HA_BOX, src,
+                          f.wtid, P::SCALE_Q ? p.sm_scale : 1.f);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        wg_sync(f.wg);
+      } else {
       mbar_wait_or_trap(q_full, qph);
       qph ^= 1;
       if constexpr (P::SCALE_Q) {
@@ -607,6 +754,7 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         wg_sync(f.wg);
       }
+      }
       float o[D / 2];
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
@@ -615,7 +763,7 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
       for (int u = P::next(p, c, c.u0), un; u < c.u1; u = un) {
         // the unit's key window, read before the waits hide its loads
         const typename P::Window win = P::window(p, c, u, f);
-        mbar_wait_or_trap(&full[st], ph);
+        mbar_wait_or_trap(&full[F32 ? 2 * st : st], ph);
         const unsigned char* ks = ring + st * STAGE;
         if constexpr (P::LOAD_ONLY) {
           P::load_only(p, c, u, ks, o, f);
@@ -628,20 +776,30 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
           }
           continue;
         }
-        const unsigned char* vs = ks + TILE;
+        const unsigned char* vs = ks + KV;
         float s[64];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int off = (kk >> 2) * HA_HALF + (kk & 3) * 32;
-          Wgmma<T>::ss(s, sw128_desc(qw + off, 16), sw128_desc(ks + off, 16),
+          Wgmma<W>::ss(s, sw128_desc(qw + off, 16), sw128_desc(ks + off, 16),
                        kk);
+          if constexpr (F32) {
+            // + q hi K lo + q lo K hi
+            Wgmma<W>::ss(s, sw128_desc(qw + off, 16),
+                         sw128_desc(ks + TILE + off, 16), 1);
+            Wgmma<W>::ss(s, sw128_desc(qw + TILE + off, 16),
+                         sw128_desc(ks + off, 16), 1);
+          }
         }
         wgmma_commit();
         un = P::next(p, c, u + 1);   // its loads overlap the products
         wgmma_wait_all();
         fence_regs(s);
-        if (un >= c.u1) mbar_arrive(q_empty);   // q is read no more
+        if constexpr (F32)
+          mbar_arrive(&empty[2 * st]);   // K is read no more
+        else if (un >= c.u1)
+          mbar_arrive(q_empty);   // q is read no more
         P::mask(p, win, s);
 
         // online softmax over the unit (a row's 128 scores sit in the
@@ -680,27 +838,60 @@ hopper_attn_kernel(const __grid_constant__ typename P::Params p) {
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
         uint32_t pa[8][4];
+        uint32_t pl[F32 ? 8 : 1][4];   // fp32: P's lo part
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
 #pragma unroll
-          for (int q = 0; q < 4; ++q)
-            pa[kk][q] = Type<T>::pack(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1]);
+          for (int q = 0; q < 4; ++q) {
+            pa[kk][q] = Type<W>::pack(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1]);
+            if constexpr (F32) {
+              const float2 h = Type<W>::unpack(pa[kk][q]);
+              pl[kk][q] = Type<W>::pack(s[8 * kk + 2 * q] - h.x,
+                                        s[8 * kk + 2 * q + 1] - h.y);
+            }
+          }
         }
+        if constexpr (F32) {
+          // this unit's P V (ph vh + ph vl + pl vh) in an accumulator of
+          // its own, added to O in fp32 on the CUDA cores: the tensor
+          // cores' accumulation rounds toward zero, and a running sum
+          // there over 10^5 keys drifts by ~1e-4 of O
+          float ou[D / 2];
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) ou[i] = 0.f;
+          mbar_wait_or_trap(&full[2 * st + 1], ph);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk) {
+            Wgmma<W>::rs(ou, pa[kk], sw128_desc(vs + kk * 2048, HA_HALF));
+            Wgmma<W>::rs(ou, pa[kk],
+                         sw128_desc(vs + TILE + kk * 2048, HA_HALF));
+            Wgmma<W>::rs(ou, pl[kk], sw128_desc(vs + kk * 2048, HA_HALF));
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(ou);
+          fence_regs(pa);
+          fence_regs(pl);
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) o[i] += ou[i];
+        } else {
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk)
-          Wgmma<T>::rs(o, pa[kk], sw128_desc(vs + kk * 2048, HA_HALF));
+          Wgmma<W>::rs(o, pa[kk], sw128_desc(vs + kk * 2048, HA_HALF));
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(o);
         fence_regs(pa);
-        mbar_arrive(&empty[st]);
+        }
+        mbar_arrive(&empty[F32 ? 2 * st + 1 : st]);
         if (++st == NS) {
           st = 0;
           ph ^= 1;
         }
       }
-      if (P::next(p, c, c.u0) >= c.u1)
+      if (!F32 && P::next(p, c, c.u0) >= c.u1)
         mbar_arrive(q_empty);   // a tile without units
       P::finish(p, c, o, m, l, f, sums + 128 * f.wg);
     }
@@ -720,7 +911,8 @@ __device__ __forceinline__ void quad_sum(float (&l)[2], float (&inv)[2]) {
 template <typename T, class P>
 int launch_hopper_attn(const typename P::Params& p, dim3 grid,
                        cudaStream_t stream) {
-  constexpr int smem = ha_smem(P::STAGES, P::D);
+  constexpr int smem = ha_smem(ha_stages<T, P>(), P::D,
+                               std::is_same<T, float>::value);
   auto kern = hopper_attn_kernel<T, P>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

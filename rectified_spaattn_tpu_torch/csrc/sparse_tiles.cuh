@@ -14,7 +14,9 @@ namespace {
 //
 // K1 (and K1s, STATS) on the Hopper mainloop of hopper_attn.cuh.  A CTA
 // owns 128 query rows, so with block_m in {128, ..., 1024} it reads exactly
-// one index list, once.  Its producer loads the list and issues one TMA
+// one index list, once.  For fp32 (T = float) q_rows / kv_rows give the
+// mainloop's split route the rows of q, K and V (K1Params' q and k, and
+// v; K2's tiles too).  Its producer loads the list and issues one TMA
 // box pair per listed block (gathering is the block's row coordinate); the
 // consumers mask each unit branch-free: the clean prefix keeps every key,
 // a later slot keeps col < visual_len or text_start <= col < text_start +
@@ -51,12 +53,15 @@ struct K1Params {
   int n_split, split_slots;
   int group;                   // K2: row blocks per union list
   float sm_scale;
+  const void* q;               // fp32: q [BH, Sq, D] and K, read as rows
+  const void* k;               //   (no tensor maps)
 };
 
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_float(float x) { return x; }
 
 // A unit's key window, computed once: offsets (from this thread's first
 // column) below `vis` or in [t_lo, t_lo + t_n) are keys, the rest score
@@ -98,7 +103,7 @@ __device__ __forceinline__ bool block_has_key(int k0, int visual_len,
                              k0 + HA_KEYS > text_start);
 }
 // o / l of a thread's rows (row: the r = 0 row's index in [BH * Sq]) in
-// T, and with STATS m and l, one lane of each row's quad; o holds N = D / 2
+// T (bf16, fp16 or fp32), and with STATS m and l, one lane of each row's quad; o holds N = D / 2
 // floats a thread at head_dim D
 template <typename T, bool STATS, int N>
 __device__ __forceinline__ void store_rows(void* out, float* m_out,
@@ -113,10 +118,16 @@ __device__ __forceinline__ void store_rows(void* out, float* m_out,
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<uint32_t*>(o0 + r * 8 * D + 8 * j) =
-          Type<T>::pack(o[4 * j + 2 * r] * inv[r],
+    for (int r = 0; r < 2; ++r) {
+      if constexpr (std::is_same<T, float>::value)
+        *reinterpret_cast<float2*>(o0 + r * 8 * D + 8 * j) =
+            make_float2(o[4 * j + 2 * r] * inv[r],
                         o[4 * j + 2 * r + 1] * inv[r]);
+      else
+        *reinterpret_cast<uint32_t*>(o0 + r * 8 * D + 8 * j) =
+            Type<T>::pack(o[4 * j + 2 * r] * inv[r],
+                          o[4 * j + 2 * r + 1] * inv[r]);
+    }
   }
   if constexpr (STATS) {
     if (f.t4 == 0) {
@@ -164,6 +175,21 @@ struct SparseTilesAt : MainloopBase<D> {
   static __device__ int block_of(const Params& p, const Tile& c, int slot) {
     const int blk = c.idx[slot];
     return blk < 0 ? 0 : (blk >= p.num_key_blocks ? p.num_key_blocks - 1 : blk);
+  }
+  // fp32: the tile's q rows, and K (kv = 0) or V rows from key row `row`
+  // (K2's tiles too)
+  template <class C>
+  static __device__ Rows q_rows(const Params& p, const C& c) {
+    return {static_cast<const float*>(p.q) +
+                ((long long)c.bh * p.sq + c.q_row) * D,
+            D, HA_ROWS};
+  }
+  template <class C>
+  static __device__ Rows kv_rows(const Params& p, const C& c, int kv,
+                                 int row) {
+    return {static_cast<const float*>(kv ? p.v : p.k) +
+                c.bh * p.kv_bh_stride + (long long)row * p.kv_row_stride,
+            p.kv_row_stride, HA_KEYS};
   }
   static __device__ int next(const Params&, const Tile&, int u) { return u; }
   static __device__ int key_row(const Params& p, const Tile& c, int u,

@@ -29,10 +29,14 @@ them run on the Hopper mainloop of ``csrc/hopper_attn.cuh`` (128-row CTAs,
 TMA copies into an mbarrier ring, wgmma): K2 walks only its row block's
 member slots; K1q converts its int8 tiles in the producer warpgroup and,
 for "mxu8", runs QK^T on the int8 wgmma.  So ``block_m`` must be a
-multiple of 128 on the card.  K1/K1s, K2 and the split merge take
-head_dim 128 or 64 (CogVideoX), each width its own instantiation of the
-mainloop (``_HEAD_DIMS``); K1q takes 128.  The library is built with nvcc at first use
-into the package's ``build/`` directory and loaded with ctypes
+multiple of 128 on the card.  Every kernel here takes head_dim 128 or 64
+(CogVideoX), each width its own instantiation of the mainloop
+(``_HEAD_DIMS``), and bf16, fp16 or fp32 inputs (``_DTYPE_CODE``): fp32 q,
+K and V run the mainloop's split route (bf16 hi and lo parts, three
+products each, fp32-accurate; csrc/hopper_attn.cuh), and K1q takes a q of
+any of the three types, its output in q's type, as the JAX kernel does
+(:176-192, :810).  The library is built with nvcc at first use into the
+package's ``build/`` directory and loaded with ctypes
 (kernels/cuda_build.py).
 
 Key split.  A K1/K1s launch with fewer 128-row tiles than the card has
@@ -84,10 +88,11 @@ from . import cuda_build
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
+# the input types the CUDA kernels take (csrc's dtype codes)
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _QUANT_CODE = {"int8": 0, "mxu8": 1}
 _CTA_ROWS = 128       # query rows per CTA of every kernel here (csrc HA_ROWS)
-_HEAD_DIMS = (64, 128)  # the head_dims K1/K1s, K2 and the merge are built for
+_HEAD_DIMS = (64, 128)  # the head_dims every kernel here is built for
 
 
 def _declare(lib):
@@ -102,7 +107,7 @@ def _declare(lib):
     lib.rsa_k2_launch.restype = i
     lib.rsa_k1q_launch.argtypes = [p, p, p, p, p, p, p, p, p, p, p, ll, i,
                                    i, i, i, i, i, i, i, i, i, i, f, f, i, i,
-                                   p]
+                                   i, p]
     lib.rsa_k1q_launch.restype = i
 
 
@@ -451,10 +456,15 @@ def _operands(q, k, v, packed_kv):
 
 def _cuda_checks(q, k, v, packed_kv, block_m, block_n, *ints,
                  head_dims=_HEAD_DIMS):
+    """What the CUDA kernels take (a CUDA launch's gate; the tests run it
+    on meta tensors): q/k/v in one of ``_DTYPE_CODE``'s types (K1q's q in
+    any of them, its payload int8), head_dim in ``head_dims`` (the S3 / S2
+    variants: 128), block_n 128 and block_m a multiple of 128, every
+    operand on q's device."""
     kvt = packed_kv if packed_kv is not None else k
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the CUDA kernels take bf16 or fp16, got {q.dtype} "
-                        "(fp32 inputs are not supported yet)")
+        raise TypeError(f"the CUDA kernels take bf16, fp16 or fp32, got "
+                        f"{q.dtype}")
     if kvt is not None and (kvt.dtype != q.dtype or (
             packed_kv is None and v.dtype != q.dtype)):
         raise TypeError("q, k and v must share one dtype")
@@ -497,14 +507,13 @@ def _launch_k1q(q, kv_quant, quant_mode, indices, counts, clean, text_len, *,
                 sm_scale, return_stats):
     """K1q (K1q-s with ``return_stats``) on the card: the wrapper gathers
     the per-slot scales to row order and pads the slots to a multiple of
-    ``chunk_blocks`` (index 0, scale 0), as the JAX wrapper does."""
+    ``chunk_blocks`` (index 0, scale 0), as the JAX wrapper does.  q may be
+    bf16, fp16 or fp32 (the kernel rounds q * sm_scale to bf16 for "int8"
+    and quantizes q's own values for "mxu8"); the output is in q's type."""
     kv, scale_k, scale_v = kv_quant
     b, h, sq, d = q.shape
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"K1q takes bf16 q (its dots run in bf16 or int8), "
-                        f"got {q.dtype}")
     _cuda_checks(q, None, None, None, block_m, block_n, kv, scale_k, scale_v,
-                 indices, counts, text_len, head_dims=(128,))
+                 indices, counts, text_len)
     s = kv.shape[1]
     if kv.dtype != torch.int8 or tuple(kv.shape) != (b * h, s, 2 * d):
         raise ValueError(f"kv_quant payload must be int8 [B*H, S, 2D], got "
@@ -533,7 +542,7 @@ def _launch_k1q(q, kv_quant, quant_mode, indices, counts, clean, text_len, *,
         idx.shape[3], s // block_n, block_m, chunk_blocks, visual_len,
         -1 if text_start is None else text_start, int(text_start is not None),
         float(sm_scale), float(sm_scale / 127.0), d, _QUANT_CODE[quant_mode],
-        _stream(q))
+        _DTYPE_CODE[q.dtype], _stream(q))
     name = "K1q-s" if return_stats else "K1q"
     if rc:
         raise RuntimeError(
@@ -636,7 +645,7 @@ def merge_splits(o_part, m_part, l_part, out_dtype, *, return_stats=False):
     """The key split's merge: n partial attentions of the same rows over
     disjoint key ranges, o_part [n, rows, D] (normalised) and m_part /
     l_part [n, rows], all fp32, folded as attention/ring.py::_merge folds
-    them; returns o [rows, D] in ``out_dtype`` (bf16 or fp16 on the card),
+    them; returns o [rows, D] in ``out_dtype`` (bf16, fp16 or fp32),
     with ``return_stats`` (o, m, l).  On the card a CUDA kernel
     (``merge_splits_kernel`` in csrc/block_sparse.cu, one warp a row;
     ``merge_splits.launches`` counts it); on the CPU ``_merge_splits``."""
@@ -645,9 +654,7 @@ def merge_splits(o_part, m_part, l_part, out_dtype, *, return_stats=False):
         o, m, l = _merge_splits(list(o_part), list(m_part), list(l_part))
         o = o.to(out_dtype)
         return (o, m, l) if return_stats else o
-    if out_dtype not in _DTYPE_CODE or d not in _HEAD_DIMS:
-        raise TypeError(f"the merge kernel writes bf16 or fp16 rows of 64 or "
-                        f"128, got {out_dtype} and {d}")
+    _merge_checks(out_dtype, d)
     parts = (o_part, m_part, l_part)
     if any(t.dtype != torch.float32 or not t.is_contiguous()
            or t.device != o_part.device for t in parts) \
@@ -667,6 +674,14 @@ def merge_splits(o_part, m_part, l_part, out_dtype, *, return_stats=False):
                            f"{lib.rsa_error_string(rc).decode()}")
     merge_splits.launches += 1
     return (out, *stats) if return_stats else out
+
+
+def _merge_checks(out_dtype, d):
+    """The merge kernel writes rows of ``_HEAD_DIMS`` in ``_DTYPE_CODE``'s
+    types."""
+    if out_dtype not in _DTYPE_CODE or d not in _HEAD_DIMS:
+        raise TypeError(f"the merge kernel writes bf16, fp16 or fp32 rows of "
+                        f"64 or 128, got {out_dtype} and {d}")
 
 
 merge_splits.launches = 0

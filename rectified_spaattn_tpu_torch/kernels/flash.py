@@ -15,7 +15,9 @@
 
 K3 takes arbitrary Sq and Sk without padding the caller's tensors, an
 optional ``kv_valid`` [B, S] bool (packed here into 32 keys a word) and
-``sm_scale`` (default 1/sqrt(D)), bf16 or fp16 with head_dim 128.  A CPU
+``sm_scale`` (default 1/sqrt(D)), bf16, fp16 or fp32 (the mainloop's split
+route: bf16 hi and lo parts, three products each) with head_dim 128 or
+64, each its own instantiation of the mainloop.  A CPU
 tensor runs the plain version, ``_vanilla_attention`` (the tests' path); a
 CUDA tensor launches the kernel or raises; nothing falls back.
 ``dense_flash_attention.launches`` counts its launches.  Invalid keys score
@@ -34,7 +36,9 @@ from . import cuda_build
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1}
+# the input types and head_dims K3 takes on the card (csrc's codes)
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_HEAD_DIMS = (64, 128)
 
 
 def _vanilla_attention(q, k, v, kv_valid=None, sm_scale=None):
@@ -100,15 +104,7 @@ def dense_flash_attention(q, k, v, kv_valid=None, *, sm_scale=None):
         return _vanilla_attention(q, k, v, kv_valid, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the CUDA kernels take bf16 or fp16, got {q.dtype} "
-                        "(fp32 inputs are not supported yet)")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("q, k and v must share one dtype")
-    if d != 128:
-        raise ValueError(f"the CUDA kernels take head_dim 128, got {d}")
-    if any(t is not None and t.device != q.device for t in (k, v, kv_valid)):
-        raise ValueError("all operands must be on one CUDA device")
+    _cuda_checks(q, k, v, kv_valid)
     q, k, v = _strided(q), _strided(k), _strided(v)
     out = _strided(torch.empty_like(q))
     if sq == 0:
@@ -127,6 +123,22 @@ def dense_flash_attention(q, k, v, kv_valid=None, *, sm_scale=None):
             f"K3 launch failed: {lib.rsa_error_string(rc).decode()}")
     dense_flash_attention.launches += 1
     return out
+
+
+def _cuda_checks(q, k, v, kv_valid):
+    """What K3 takes on the card (the launch's gate; the tests run it on
+    meta tensors): q, k and v in one of ``_DTYPE_CODE``'s types, head_dim
+    in ``_HEAD_DIMS``, every operand on q's device."""
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the CUDA kernels take bf16, fp16 or fp32, got "
+                        f"{q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one dtype")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"the CUDA kernels take head_dim 64 or 128, got "
+                         f"{q.shape[-1]}")
+    if any(t is not None and t.device != q.device for t in (k, v, kv_valid)):
+        raise ValueError("all operands must be on one CUDA device")
 
 
 dense_flash_attention.launches = 0

@@ -36,7 +36,8 @@ cudaError_t cudaGetDriverEntryPoint(const char*, void**, unsigned long long, cud
 struct uint4 { unsigned x, y, z, w; }; struct uint2 { unsigned x, y; };
 struct float2 { float x, y; }; struct float4 { float x, y, z, w; };
 uint4 make_uint4(unsigned, unsigned, unsigned, unsigned); uint2 make_uint2(unsigned, unsigned);
-float2 make_float2(float, float);
+float2 make_float2(float, float); float4 make_float4(float, float, float, float);
+float4 __ldg(const float4*); uint4 __ldg(const uint4*);
 float __shfl_xor_sync(unsigned, float, int); int __shfl_xor_sync(unsigned, int, int);
 float __expf(float); float __int_as_float(int); float __fmul_rn(float, float); float __fadd_rn(float, float); float __fmaf_rn(float, float, float);
 int __float2int_rn(float); unsigned __byte_perm(unsigned, unsigned, unsigned);

@@ -51,16 +51,17 @@ def _syntax_check(tmp_path, main: str, text: str):
 
 @pytest.mark.parametrize("head_dim", [64, 128, 96])
 def test_mainloop_policies_at_head_dim(tmp_path, head_dim):
-    """K1/K1s's and K2's policies instantiated on the mainloop at an
-    explicit head_dim (the CogVideoX width 64 and 128) pass the host
-    syntax check; 96 is refused at compile time (the mainloop's
-    static_assert), so no other width can be built by mistake."""
+    """K1/K1s's, K2's and K3's policies instantiated on the mainloop at an
+    explicit head_dim (the CogVideoX width 64 and 128), in bf16, fp16 and
+    fp32 (the split route), pass the host syntax check; 96 is refused at
+    compile time (the mainloop's static_assert), so no other width can be
+    built by mistake."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ for the host-compiler check")
     text = "#include \"sparse_tiles.cuh\"\n" + "".join(
         f"template void hopper_attn_kernel<{t}, {p}>("
         f"const typename {p}::Params);\n"
-        for t in ("__nv_bfloat16", "__half")
+        for t in ("__nv_bfloat16", "__half", "float")
         for p in (f"SparseTilesAt<{t}, false, {head_dim}>",
                   f"SparseTilesAt<{t}, true, {head_dim}>",
                   f"GroupedTilesAt<{t}, {head_dim}>"))
@@ -70,13 +71,20 @@ def test_mainloop_policies_at_head_dim(tmp_path, head_dim):
         assert "head_dim 64 or 128" in proc.stderr, proc.stderr[-2000:]
     else:
         assert proc.returncode == 0, proc.stderr[-4000:]
-    # block_sparse.cu launches both widths of K1/K1s, K2 and the merge
+    # block_sparse.cu launches both widths of K1/K1s, K2, the merge and
+    # K1q at each input type (by_dtype: bf16, fp16, fp32), dense_flash.cu
+    # both widths of K3
     with open(os.path.join(cuda_build.CSRC, "block_sparse.cu")) as f:
         src = f.read()
-    for call in ("launch_k1<__nv_bfloat16, 64>", "launch_k1<__half, 64>",
-                 "GroupedTilesAt<__nv_bfloat16, 64>",
-                 "GroupedTilesAt<__half, 64>", "merge_splits64_kernel<T, true>",
-                 "launch_merge<__nv_bfloat16, 64>"):
+    for call in ("launch_k1<T, 64>", "launch_k1<T, HA_D>",
+                 "GroupedTilesAt<T, 64>", "merge_splits64_kernel<T, true>",
+                 "launch_merge<T, 64>", "launch_q_modes<64, QT>",
+                 "launch_q_modes<HA_D, QT>", "return f(0.f);"):
+        assert call in src, call
+    with open(os.path.join(cuda_build.CSRC, "dense_flash.cu")) as f:
+        src = f.read()
+    for call in ("launch_k3<__nv_bfloat16, 64>", "launch_k3<float, 64>",
+                 "launch_k3<float, HA_D>"):
         assert call in src, call
 
 
@@ -104,7 +112,7 @@ def _sass(**s1_int8):
     """A build's SASS table as chip_smoke.sass_counts gives it (names from
     an H100 build), S1's int8 counts overridden by ``s1_int8``."""
     zero = {"BRA": 0, "FSEL": 0, "HGMMA": 0, "IGMMA": 0, "HMMA": 0,
-            "IMMA": 0, "UTMALDG": 0}
+            "IMMA": 0, "UTMALDG": 0, "FFMA": 0, "FADD": 0, "FMUL": 0}
     s1 = "11loop_kernelILb{}EEEvNS_5ProbeIXT_EE6ParamsE"
     return {
         "int8_probe": {s1.format(1): {**zero, "IGMMA": 20, "UTMALDG": 2,

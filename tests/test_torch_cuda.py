@@ -1,7 +1,9 @@
-"""The port's CUDA kernels K1/K1s/K2/K1q/K1q-s/K3 (K1/K1s/K2 at head_dim
-128 and 64), the S1 probe and the S3/S2 ablation variants against their
-plain PyTorch versions, on a CUDA GPU (bf16, 2e-2: the repo's bf16 tolerance, tests/test_kernels.py; K1s's
-and K1q-s's l within 1 %; S1's int8 result, the load-only variants and S2
+"""The port's CUDA kernels K1/K1s/K2/K1q/K1q-s/K3 and the split merge (at
+head_dim 128 and 64), the S1 probe and the S3/S2 ablation variants
+against their plain PyTorch versions, on a CUDA GPU (bf16, 2e-2: the
+repo's bf16 tolerance, tests/test_kernels.py; K1s's and K1q-s's l within
+1 %; fp32 inputs at fp32 rtol 2e-4 / atol 2e-5 with TF32 off; K1q with
+fp16 and fp32 q; S1's int8 result, the load-only variants and S2
 full / prefetch against K2 bit for bit); the safetensors codec on device
 tensors (bit for bit), the full-width HunyuanVideo VAE decode on the
 GPU against the CPU (fp32 rtol 2e-4 / atol 2e-5, TF32 off), Wan2.2
@@ -28,6 +30,7 @@ from rectified_spaattn_tpu_torch.sparse import ops
 torch.set_num_threads(1)
 BM = BN = 128
 BF16 = dict(rtol=2e-2, atol=2e-2)
+F32 = dict(rtol=2e-4, atol=2e-5)
 
 
 @pytest.fixture
@@ -291,18 +294,20 @@ def test_cuda_int8_probe_matches_plain(cuda, pairs):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("case", ["tails", "mask_b2", "scale_fp16",
                                   "strided", "keys512", "persistent"])
-def test_cuda_dense_flash_matches_plain(cuda, case):
-    """K3 against its plain version: Sq and Sk off the 128-row/128-key
-    tiles (257 keys), 512 keys, a kv_valid mask at B=2 with a row that has
-    no valid key (V averaged over all keys), a given sm_scale in fp16, a
-    head-split [B,S,H,D] projection read and written in place, and more
-    row tiles than SMs (each persistent CTA walks several)."""
+def test_cuda_dense_flash_matches_plain(cuda, case, d):
+    """K3 at head_dim 128 and 64 against its plain version: Sq and Sk off
+    the 128-row/128-key tiles (257 keys), 512 keys, a kv_valid mask at B=2
+    with a row that has no valid key (V averaged over all keys), a given
+    sm_scale in fp16, a head-split [B,S,H,D] projection read and written
+    in place, and more row tiles than SMs (each persistent CTA walks
+    several)."""
     g = torch.Generator(device=cuda)
     g.manual_seed(11)
     dt = torch.float16 if case == "scale_fp16" else torch.bfloat16
-    b, h, sq, sk, d = (2 if case == "mask_b2" else 1), 3, 200, 257, 128
+    b, h, sq, sk = (2 if case == "mask_b2" else 1), 3, 200, 257
     if case == "keys512":
         sk = 512
     if case == "persistent":
@@ -377,17 +382,159 @@ def test_cuda_k1_split_matches_plain(cuda, packed):
     assert bool((m[1, 2, rows] == tk.block_sparse.MASK_VALUE).all())
 
 
+@pytest.fixture
+def no_tf32():
+    """fp32 products in full fp32 on the card for the plain versions."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
 @pytest.mark.cuda
-def test_cuda_rejects_fp32(cuda):
-    q = torch.zeros((1, 1, BM, 128), device=cuda)
-    idx = torch.zeros((1, 1, 1, 1), dtype=torch.int32, device=cuda)
-    cnt = torch.ones((1, 1, 1), dtype=torch.int32, device=cuda)
-    with pytest.raises(TypeError, match="bf16"):
-        tk.block_sparse_flash_attention(
-            q, q, q, idx, cnt, torch.zeros(1, dtype=torch.int32, device=cuda),
-            visual_len=BN, text_start=None)
-    with pytest.raises(TypeError, match="bf16"):
-        tk.dense_attention(q, q, q, mode="flash")
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kernel", ["k1", "k1s", "k1_split", "dense1024",
+                                    "k2g2", "k2g4", "k3", "k3_mask",
+                                    "merge"])
+def test_cuda_fp32_matches_plain(cuda, no_tf32, kernel, d):
+    """fp32 q, K and V on the mainloop's split route (bf16 hi and lo parts,
+    three products each) against the plain versions at fp32 rtol 2e-4 /
+    atol 2e-5: K1 and K1s (the text window at B=2, a degenerate row and a
+    count-0 row), K1 split into key ranges and merged (16 row tiles), K1
+    with full lists at block_m 1024, K2 at G = 2 and 4, K3 with Sq and Sk
+    off the tiles and with a kv_valid mask at B=2, and the merge kernel
+    writing fp32 rows; K1s's m and l at the same tolerance."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(320 + d)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=cuda)
+    tl = torch.tensor([90, 0], dtype=torch.int32, device=cuda)
+    if kernel == "merge":
+        n, rows = 3, 4 * BM
+        part = (rnd(n, rows, d), rnd(n, rows), rnd(n, rows).abs() * 50)
+        part[1][1, :7] = -torch.inf            # a range without keys
+        part[2][1, :7] = 0
+        before = tk.block_sparse.merge_splits.launches
+        o, m, l = tk.block_sparse.merge_splits(*part, torch.float32,
+                                                return_stats=True)
+        wo, wm, wl = tk.block_sparse._merge_splits(*(list(t) for t in part))
+        torch.cuda.synchronize()
+        assert tk.block_sparse.merge_splits.launches == before + 1
+        assert o.dtype == torch.float32
+        for got, want in ((o, wo), (m, wm), (l, wl)):
+            torch.testing.assert_close(got, want, **F32)
+        return
+    if kernel.startswith("k3"):
+        b = 2 if kernel == "k3_mask" else 1
+        q, k, v = rnd(b, 3, 200, d), rnd(b, 3, 257, d), rnd(b, 3, 257, d)
+        valid = None
+        if kernel == "k3_mask":
+            valid = torch.rand((b, 257), generator=g, device=cuda) < 0.6
+            valid[1] = False                   # no valid key: V averaged
+        before = tk.dense_flash_attention.launches
+        got = tk.dense_attention(q, k, v, valid, mode="flash")
+        want = tk.flash._vanilla_attention(q, k, v, valid)
+        torch.cuda.synchronize()
+        assert tk.dense_flash_attention.launches == before + 1
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, **F32)
+        return
+    b, h, nq, nb, cb, bm = 2, 3, 4, 10, 16, BM
+    if kernel == "k1_split":
+        h, nq, nb, cb = 4, 2, 40, 4            # 16 row tiles: key ranges
+    if kernel == "dense1024":
+        nq, bm = 8, 1024
+    q, k, v = rnd(b, h, nq * BM, d), rnd(b, h, nb * BN, d), rnd(b, h, nb * BN, d)
+    mask = torch.rand((b, h, nq * BM // bm, nb), generator=g,
+                      device=cuda) < 0.4
+    if kernel == "dense1024":
+        mask[:] = True
+    mask[..., 0] = mask[..., -1] = True
+    if kernel != "dense1024":
+        mask[0, 1, 0] = False                  # count 0
+        mask[1, 2, 1] = False
+        mask[1, 2, 1, -1] = True               # only the text block
+    kw = dict(visual_len=(nb - 1) * BN - 50, text_start=(nb - 1) * BN,
+              chunk_blocks=cb, block_m=bm)
+    if kernel.startswith("k2"):
+        group = int(kernel[-1])
+        args = (*ops.group_rows(mask, group,
+                                clean_blocks=kw["visual_len"] // BN), tl)
+        got = tk.block_sparse_flash_attention_grouped(q, k, v, *args,
+                                                      group=group, **kw)
+        want = tk.block_sparse_flash_attention_grouped_torch(
+            q, k, v, *args, group=group, **kw)
+    else:
+        idx, cnt = ops.mask_to_indices(mask)
+        merges = tk.block_sparse.merge_splits.launches
+        stats = kernel == "k1s"
+        got = tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl,
+                                              return_stats=stats, **kw)
+        want = tk.block_sparse_flash_attention_torch(
+            q, k, v, idx, cnt, tl, return_stats=stats, **kw)
+        torch.cuda.synchronize()
+        if kernel == "k1_split":
+            assert tk.block_sparse.merge_splits.launches == merges + 1
+        if stats:
+            (got, m, l), (want, wm, wl) = got, want
+            live = l > 0
+            torch.testing.assert_close(m[live], wm[live], **F32)
+            torch.testing.assert_close(l, wl, **F32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    if kernel != "dense1024":
+        assert want[1, 2, BM:2 * BM].abs().max() > 0.01   # degenerate
+    torch.testing.assert_close(got, want, **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "mxu8"])
+@pytest.mark.parametrize("d,q_dtype", [
+    (64, torch.bfloat16), (64, torch.float16), (64, torch.float32),
+    (128, torch.float16), (128, torch.float32)])
+def test_cuda_k1q_widths_and_q_types_match_plain(cuda, no_tf32, mode, d,
+                                                  q_dtype):
+    """K1q and K1q-s at head_dim 64 (the payload's K and V in one 128-byte
+    row) and with an fp16 or fp32 q (read from global memory; the output
+    in q's type, as the JAX wrapper gives it) against their plain versions
+    at chunk_blocks 2 and 24: the text window at B=2, a count-0 row (exact
+    zeros, m == -inf, l == 0) and a degenerate list; K1q-s's o equals
+    K1q's bit for bit, m within 2e-2, l within 1 %."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(90 + d)
+    b, h, nq, nb = 2, 3, 6, 12
+    q, k, v = (torch.randn((b, h, n * BM, d), generator=g, device=cuda)
+               for n in (nq, nb, nb))
+    q = q.to(q_dtype)
+    mask = torch.rand((b, h, nq, nb), generator=g, device=cuda) < 0.4
+    mask[..., 0] = mask[..., -1] = True
+    mask[0, 1, 3] = False                      # count 0
+    mask[1, 2, 4] = False
+    mask[1, 2, 4, -1] = True                   # only the text block
+    tl = torch.tensor([90, 0], dtype=torch.int32, device=cuda)
+    payload = ops.quantize_kv_blocks(k.to(torch.bfloat16),
+                                     v.to(torch.bfloat16), BN)
+    idx, cnt = ops.mask_to_indices(mask)
+    zero = (cnt == 0).repeat_interleave(BM, dim=2)
+    for cb in (2, 24):
+        kw = dict(visual_len=(nb - 1) * BN - 50, text_start=(nb - 1) * BN,
+                  chunk_blocks=cb, kv_quant=payload, quant_mode=mode)
+        before = dict(tk.block_sparse_flash_attention.quant_launches)
+        got = tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl, **kw)
+        o, m, l = tk.block_sparse_flash_attention(q, k, v, idx, cnt, tl,
+                                                  return_stats=True, **kw)
+        want, wm, wl = tk.block_sparse_flash_attention_torch(
+            q, k, v, idx, cnt, tl, return_stats=True, **kw)
+        torch.cuda.synchronize()
+        assert tk.block_sparse_flash_attention.quant_launches[mode] == \
+            before[mode] + 1
+        assert got.dtype == q_dtype and torch.equal(o, got)
+        assert got[zero].abs().max() == 0
+        assert bool((m[zero] == -torch.inf).all()) and bool((l[zero] == 0).all())
+        rows = slice(4 * BM, 5 * BM)           # the degenerate list
+        assert bool((m[1, 2, rows] == tk.block_sparse.MASK_VALUE).all())
+        torch.testing.assert_close(got.float(), want.float(), **BF16)
+        torch.testing.assert_close(m[~zero], wm[~zero], rtol=0, atol=2e-2)
+        torch.testing.assert_close(l[~zero], wl[~zero], rtol=1e-2, atol=0)
 
 
 @pytest.mark.cuda
@@ -708,8 +855,8 @@ def test_cuda_head_dim64_windowed_dense_matches_plain(cuda):
 
 @pytest.mark.cuda
 def test_cuda_rejects_head_dim_96(cuda):
-    """K1 and K2 take head_dim 64 or 128 on the card and raise otherwise
-    (no padded launch); K1q takes 128 only."""
+    """K1, K2, K1q and K3 take head_dim 64 or 128 on the card and raise
+    otherwise (no padded launch)."""
     z = lambda d: torch.zeros((1, 1, BM, d), dtype=torch.bfloat16,
                               device=cuda)
     tl = torch.zeros(1, dtype=torch.int32, device=cuda)
@@ -722,11 +869,13 @@ def test_cuda_rejects_head_dim_96(cuda):
     with pytest.raises(ValueError, match="head_dim 64 or 128, got 96"):
         tk.block_sparse_flash_attention_grouped(
             z(96), z(96), z(96), idx, cnt, idx, cnt * 0, tl, group=1, **kw)
-    with pytest.raises(ValueError, match="head_dim 128, got 64"):
+    with pytest.raises(ValueError, match="head_dim 64 or 128, got 96"):
         tk.block_sparse_flash_attention(
-            z(64), z(64), z(64), idx, cnt, tl,
-            kv_quant=ops.quantize_kv_blocks(z(64), z(64), BN),
+            z(96), z(96), z(96), idx, cnt, tl,
+            kv_quant=ops.quantize_kv_blocks(z(96), z(96), BN),
             quant_mode="int8", **kw)
+    with pytest.raises(ValueError, match="head_dim 64 or 128, got 96"):
+        tk.dense_attention(z(96), z(96), z(96), mode="flash")
 
 
 @pytest.mark.cuda

@@ -279,17 +279,18 @@ def test_degenerate_rows_match_jax():
     assert np.abs(want[0, 0, 2 * BM:3 * BM]).max() > 0.01
 
 
+@pytest.mark.parametrize("head_dim", [64, 128])
 @pytest.mark.parametrize("case", ["fp32", "fp32_mask_b2", "fp32_scale",
                                   "bf16_mask_b2"])
-def test_dense_flash_plain_matches_jax(case):
+def test_dense_flash_plain_matches_jax(case, head_dim):
     """K3's plain version (the CPU path of dense_attention "flash")
     against JAX dense_attention(mode="flash"), which runs its vanilla path
-    off the TPU: Sq 200 and Sk 257 (off every tile), a kv_valid mask at
-    B=2 with a row of no valid key; fp32 rtol 2e-4 / atol 2e-5, bf16
-    2e-2."""
+    off the TPU, at head_dim 64 and 128 (the widths K3 takes on the card):
+    Sq 200 and Sk 257 (off every tile), a kv_valid mask at B=2 with a row
+    of no valid key; fp32 rtol 2e-4 / atol 2e-5, bf16 2e-2."""
     b = 2 if "b2" in case else 1
     g = np.random.default_rng(61)
-    q, k, v = (g.normal(size=(b, 3, n, 64)).astype(np.float32)
+    q, k, v = (g.normal(size=(b, 3, n, head_dim)).astype(np.float32)
                for n in (200, 257, 257))
     valid, kw = None, {}
     if "mask" in case:
@@ -308,14 +309,14 @@ def test_dense_flash_plain_matches_jax(case):
                              else torch.from_numpy(valid), mode="flash", **kw)
     want = jk.dense_attention(*jq, None if valid is None
                               else jnp.asarray(valid), mode="flash", **kw)
-    assert got.shape == (b, 3, 200, 64) and got.dtype == tq[0].dtype
+    assert got.shape == (b, 3, 200, head_dim) and got.dtype == tq[0].dtype
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), **tol)
     if valid is not None:          # no valid key: V averaged over all keys
         np.testing.assert_allclose(
             got[1].float().numpy(),
             np.broadcast_to(tq[2][1].float().mean(1, keepdim=True).numpy(),
-                            (3, 200, 64)), **tol)
+                            (3, 200, head_dim)), **tol)
 
 
 @pytest.mark.parametrize("bm", [128, 256, 512])
@@ -425,3 +426,37 @@ def test_mismatched_lists_raise():
     # the matching lists run
     k1(idx, cnt)
     k2(ui, uc, rb, cl)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("head_dim", [64, 128, 96])
+def test_cuda_gates_admit_fp32_and_head_dim_64(dtype, head_dim):
+    """The CUDA launches' gates (pure Python, run here on meta tensors):
+    K1/K1s and K2, K1q (its q of any of the three types), K3 and the split
+    merge admit bf16, fp16 and fp32 at head_dim 64 and 128, the widths and
+    types their kernels are built for, and refuse 96; the S3 / S2 variants
+    stay at bf16 and 128."""
+    from rectified_spaattn_tpu_torch.kernels import flash
+    q = torch.empty((1, 1, BM, head_dim), dtype=dtype, device="meta")
+    ints = torch.empty((1, 1, 1, 1), dtype=torch.int32, device="meta")
+    gates = {
+        "k1_k2": lambda: block_sparse._cuda_checks(q, q, q, None, BM, BN,
+                                                   ints),
+        "k1q": lambda: block_sparse._cuda_checks(q, None, None, None, BM, BN,
+                                                 ints),
+        "k3": lambda: flash._cuda_checks(q, q, q, None),
+        "merge": lambda: block_sparse._merge_checks(dtype, head_dim),
+    }
+    for name, gate in gates.items():
+        if head_dim == 96:
+            with pytest.raises((ValueError, TypeError), match="64 or 128"):
+                gate()
+        else:
+            gate()
+    assert set(block_sparse._DTYPE_CODE) == set(flash._DTYPE_CODE) == {
+        torch.bfloat16, torch.float16, torch.float32}
+    if head_dim == 64:                         # the variants' gate
+        with pytest.raises(ValueError, match="head_dim 128, got 64"):
+            block_sparse._cuda_checks(q, q, q, None, BM, BN, ints,
+                                      head_dims=(128,))

@@ -119,6 +119,40 @@ def test_k1q_plain_matches_jax(mode, chunk_blocks):
 
 
 @pytest.mark.parametrize("mode", ["int8", "mxu8"])
+@pytest.mark.parametrize("q_dtype", ["float32", "float16"])
+def test_k1q_q_dtypes_match_jax(mode, q_dtype):
+    """K1q with an fp32 or fp16 q (the JAX kernel takes any q: "int8"
+    rounds q * sm_scale to bf16, "mxu8" quantizes q's own values per row)
+    against the Pallas kernel in interpret mode on the same payload, the
+    output in q's type in both: all but at most 16 of the 49,152 elements
+    (99.97 %) within fp32 rtol 2e-4 / atol 2e-5, and every element within
+    rtol 2e-3 / atol 5e-4.  The two sum the scores in another order, so a
+    p that lies within ~1e-7 of a rounding boundary of its bf16 ("int8")
+    or int8 ("mxu8") value, or an output of an fp16 one, rounds the other
+    way in one of them (on these inputs 0-13 elements, by at most 1.2e-4,
+    0.16 of the wider bound)."""
+    q, k, v, mask, tlen, kw = k1q_case(57)
+    q = q.astype(q_dtype)
+    payload = ops.quantize_kv_blocks(torch.from_numpy(k), torch.from_numpy(v),
+                                     BN)
+    idx, cnt = ops.mask_to_indices(torch.from_numpy(mask))
+    got = tk.block_sparse_flash_attention(
+        *map(torch.from_numpy, (q, k, v)), idx, cnt, torch.from_numpy(tlen),
+        chunk_blocks=2, kv_quant=payload, quant_mode=mode, **kw)
+    jidx, jcnt = jops.mask_to_indices(jnp.asarray(mask))
+    want = jk.block_sparse_flash_attention(
+        *map(jnp.asarray, (q, k, v)), jidx, jcnt, jnp.asarray(tlen),
+        chunk_blocks=2, interpret=True,
+        kv_quant=tuple(jnp.asarray(t.numpy()) for t in payload),
+        quant_mode=mode, **kw)
+    assert str(got.dtype) == f"torch.{q_dtype}" and want.dtype == q_dtype
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    assert (~np.isclose(got, want, **F32)).sum() <= 16
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=5e-4)
+    np.testing.assert_array_equal(got[0, 0, 2 * BM:], 0.0)
+
+
+@pytest.mark.parametrize("mode", ["int8", "mxu8"])
 def test_site_kv_quant_matches_jax(mode):
     """rectified_sparse_attention with SparseConfig(kv_quant=...): joint
     layout, a visual length off the block grid, B=2 runtime text lengths;
