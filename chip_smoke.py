@@ -296,6 +296,27 @@ ranges that the merge kernel folds:
      (counters zeroed just before, read just after), then the same
      weights in bf16 and the largest difference of the two outputs
      (reported).
+ 15. e2e: the end-to-end A/B benches of rectified_spaattn_tpu_torch/bench
+     (ports of scripts/bench_e2e*.py, fidelity_gate.py, bench_longctx.py,
+     ab_eval.py) through their run() at full width, one JSON line a leg
+     (E2E): HunyuanVideo at its published 20 + 40 blocks (int4, stacked,
+     p_remain 0.05, 1 step), Wan2.1-T2V-14B at 8 of 40 blocks (2 steps,
+     then the TeaCache tier at the script's signal_scale 0.0979),
+     CogVideoX1.5-5B at all 42 blocks (2 steps; its weights drawn leaf
+     by leaf onto the card inside the leg), Flux.1-dev at 4 + 8 of
+     19 + 38 blocks at 4096^2 (2 steps), each sparse and dense (flash):
+     s/step and their ratio; the fidelity gate at 115,456 tokens (joint)
+     and 115,200 (visual), held to FIDELITY_LIMITS; the long-context site
+     at 230,656 tokens (sparse and dense at group_rows 1, sparse at 2),
+     its K1 visual-row, K1 text-row (split and merged), K2 and
+     windowed-dense calls held on 2 of 24 heads (the first and the last)
+     to their plain versions at REL_MAX / REL_RMS, and the fidelity gate
+     at that point; ab_eval at its defaults.  Each leg with its launch
+     counters zeroed just before and read just after (the legs' kernels
+     launched, the others not), its peak memory, and the executed density
+     of every plan the leg built (build_sparse_plan wrapped to keep each
+     plan's counts; the densities taken after the leg); every latent
+     finite and of its shape.
 
 Each phase prints one JSON line with its seconds.  Then a {"kernels": ...}
 line, the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any
@@ -399,6 +420,25 @@ SCAN = dict(windows=2, cog_cfg=dict(num_blocks=4),
             full_cfg={}, full_bits=4, full_steps=1,
             cut="CogVideoX 4 of 42 blocks; Flux 2 + 2 of 19 + 38, "
                 "ControlNet 2 of 5; full depth: none (20 + 40 of 20 + 40)")
+# the e2e phase: the bench/ modules' run() keyword arguments a leg, at the
+# published widths and token counts (E2E["cut"]: the depth each leg cuts)
+E2E = dict(
+    hunyuan=dict(dual=20, single=40, scan_blocks=True, quant=4,
+                 p_remain=0.05, steps=1, modes="sparse,flash"),
+    wan=dict(blocks=8, steps=2, modes="sparse,flash", teacache=True,
+             signal_scale=0.0979),
+    cog=dict(steps=2, modes="sparse,flash"),
+    flux=dict(dual=4, single=8, size=4096, steps=2, modes="sparse,flash"),
+    fidelity=(dict(layout="joint", frames=128),
+              dict(layout="visual", frames=128)),
+    longctx=(dict(frames=256, group_rows=1),
+             dict(frames=256, group_rows=2, skip_dense=True)),
+    ab_eval={},
+    cut="HunyuanVideo none (20 + 40 of 20 + 40, 1 step); Wan2.1 8 of 40 "
+        "blocks; CogVideoX none (42 of 42); Flux 4 + 8 of 19 + 38")
+# the longctx leg's kernel calls held to their plain versions
+LONGCTX_HELD = ("K1_visual_g1", "K1_text_rows", "K2_visual_g2",
+                "K1_dense_bm1024")
 # the small GPU-vs-CPU CogVideoX pipelines' TeaCache: the random model's
 # temb signal scaled into the cogvideox polynomial's positive range; the
 # accumulated signal is 0.097-0.099 at call 2 (skip) and 0.19 at call 4
@@ -3060,14 +3100,14 @@ def scan_phase(kernels, hun: dict, hun_latents, wan: dict, wan_latents):
     stacked = {}
     for label, k in (("scan", 1), ("windows", w)):
         pipe.dispatch_segments = k
-        plans, restore = count_sparse_plans()
+        plans, restore = record_plan_counts()
         try:
             stacked[label] = counted_run(
                 kernels, lambda: pipe(wtext, wneg, generator=seeded()))
         finally:
             restore()
-        if plans[0] != wan["sparse_plans"]:
-            raise AssertionError(f"Wan {label}: {plans[0]} sparse plans, "
+        if len(plans) != wan["sparse_plans"]:
+            raise AssertionError(f"Wan {label}: {len(plans)} sparse plans, "
                                  f"the Wan phase's {wan['sparse_plans']}")
         stacked[label] += (pipe.step_seconds,)
     hold = scan_pair("Wan", (wan_latents, wan["launches"]), stacked)
@@ -3871,19 +3911,29 @@ def wan_site_phase(kernels, regime: str):
     return res, kern
 
 
-def count_sparse_plans():
-    """Count the rectified site's plan builds (one per sparse-layer call)
-    by wrapping the plan builder where the site looks it up; returns
-    (counter, restore)."""
+def record_plan_counts():
+    """Keep every plan the rectified site builds (one per sparse-layer
+    call) as (its per-row counts, its key-block count), by wrapping the
+    plan builder where the site looks it up: no device work inside the
+    run; ``plan_densities`` turns them into densities afterwards.  Returns
+    (list, restore)."""
     from rectified_spaattn_tpu_torch.attention import rectified
-    orig, count = rectified.build_sparse_plan, [0]
+    orig, got = rectified.build_sparse_plan, []
 
-    def counted(*a, **kw):
-        count[0] += 1
-        return orig(*a, **kw)
+    def recorded(*a, **kw):
+        plan = orig(*a, **kw)
+        got.append((plan.counts, plan.block_mask.shape[-1]))
+        return plan
 
-    rectified.build_sparse_plan = counted
-    return count, lambda: setattr(rectified, "build_sparse_plan", orig)
+    rectified.build_sparse_plan = recorded
+    return got, lambda: setattr(rectified, "build_sparse_plan", orig)
+
+
+def plan_densities(plans) -> torch.Tensor:
+    """The executed density of each recorded plan, by the site's own
+    formula (rectified.plan_density, which density_only returns)."""
+    from rectified_spaattn_tpu_torch.attention.rectified import plan_density
+    return torch.stack([plan_density(c, nb) for c, nb in plans]).cpu()
 
 
 def wan_full_model():
@@ -3936,7 +3986,7 @@ def wan_pipeline_phase(kernels):
              "K2": kernels.block_sparse_flash_attention_grouped,
              "K3": kernels.dense_flash_attention,
              "K1_merge": kernels.block_sparse.merge_splits}
-    plans, restore = count_sparse_plans()
+    plans, restore = record_plan_counts()
     try:
         for f in kerns.values():
             f.launches = 0
@@ -3959,11 +4009,11 @@ def wan_pipeline_phase(kernels):
     # split: Wan has no text rows, and its visual rows fill the card
     want = {"K1": cfg.num_blocks * computed, "K2": 0,
             "K3": cfg.num_blocks * computed, "K1_merge": 0}
-    if launches != want or plans[0] != want_plans or want_plans == 0:
+    if launches != want or len(plans) != want_plans or want_plans == 0:
         raise AssertionError(f"Wan launches {launches} (want {want}), "
-                             f"sparse plans {plans[0]} (want {want_plans} "
+                             f"sparse plans {len(plans)} (want {want_plans} "
                              "> 0)")
-    res = {"launches": launches, "sparse_plans": plans[0],
+    res = {"launches": launches, "sparse_plans": len(plans),
            "step_seconds": pipe.step_seconds,
            "denoise_seconds": pipe.denoise_seconds,
            "teacache": pipe.teacache_stats, "teacache_decisions": decisions,
@@ -4048,7 +4098,7 @@ def wan22_a14b_phase(kernels):
     def run(pipe):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        plans, restore = count_sparse_plans()
+        plans, restore = record_plan_counts()
         try:
             for f in kerns.values():
                 f.launches = 0
@@ -4057,7 +4107,7 @@ def wan22_a14b_phase(kernels):
         finally:
             restore()
         torch.cuda.synchronize()
-        return out, {"launches": launches, "sparse_plans": plans[0],
+        return out, {"launches": launches, "sparse_plans": len(plans),
                      "step_seconds": pipe.step_seconds,
                      "denoise_seconds": pipe.denoise_seconds,
                      "teacache": pipe.teacache_stats,
@@ -5193,6 +5243,198 @@ def joint_jobs(name: str, csites: dict, model: str = "cog") -> dict:
     return out
 
 
+# -------------------------------------------------------------------- e2e ---
+
+def e2e_leg(kernels, name: str, run, used: tuple, unused: tuple = ()):
+    """One leg: ``run(latents_out)`` with the launch counters zeroed just
+    before and read just after, and every plan it built kept (its counts);
+    raises unless each kernel of ``used`` launched, none of ``unused``
+    did, and every latent is finite.  The plans' densities are taken after
+    the leg.  Returns (the bench's line, the leg's fields)."""
+    latents = {}
+    plans, restore = record_plan_counts()
+    try:
+        line, launches, mem = counted_run(kernels, lambda: run(latents))
+    finally:
+        restore()
+    if any(launches[n] == 0 for n in used) or any(launches[n]
+                                                  for n in unused):
+        raise AssertionError(f"{name}: launches {launches}, want {used} > 0 "
+                             f"and {unused} = 0")
+    for mode, lat in latents.items():
+        if not torch.isfinite(lat).all():
+            raise AssertionError(f"{name}: {mode} latents not finite")
+    d = plan_densities(plans) if plans else None
+    return line, {
+        "launches": launches, **mem,
+        "latents": {m: list(lat.shape) for m, lat in latents.items()},
+        "plan_density": None if d is None else {
+            "mean": float(d.mean()), "min": float(d.min()),
+            "max": float(d.max()), "plans": len(plans)}}
+
+
+def finite_times(name: str, line: dict) -> None:
+    """Every mode's s/step finite and positive, and the ratio where both
+    modes ran."""
+    times = [m["s_per_step"] for m in line["modes"].values()]
+    if "speedup" in line:
+        times.append(line["speedup"])
+    if not times or not all(0 < t < float("inf") for t in times):
+        raise AssertionError(f"{name}: times {line['modes']}")
+
+
+# the sparse site against the windowed dense, far above the readings
+# (rel-L1 2.4-2.7e-5, cosine 0.9999992-0.9999994 at 115k tokens)
+FIDELITY_LIMITS = dict(rel_l1=1e-3, cosine=0.9999)
+
+
+def fidelity_check(name: str, lines) -> None:
+    for g in lines:
+        if not (g["cosine"] > FIDELITY_LIMITS["cosine"]
+                and g["rel_l1"] < FIDELITY_LIMITS["rel_l1"]
+                and 0 < g["density"] <= 1):
+            raise AssertionError(f"{name}: beyond {FIDELITY_LIMITS}: {g}")
+
+
+def held_on_path(kernels, heads: int = 2):
+    """Hold the site's kernels to their plain versions on the main path's
+    own calls: K1 and K2 wrapped where the rectified site looks them up,
+    K1 where the windowed dense does.  The first call of each role (K1's
+    visual rows, K1's text rows, which split their keys and merge them
+    with the merge kernel, K2, the windowed dense) has its output on the
+    first and the last ``heads`` // 2 heads (the last lie farthest into
+    K and V) held, right after the call, against the plain version on
+    those heads of the same inputs, to the site phases' limits.  The
+    plain versions launch no kernel; in a bench that times after one
+    warm-up call, the checks fall in the warm-up.  Returns (results by
+    role, restore)."""
+    from rectified_spaattn_tpu_torch.attention import modes, rectified
+
+    res = {}
+    merge = kernels.block_sparse.merge_splits
+    plain = {"K1": kernels.block_sparse_flash_attention_torch,
+             "K2": kernels.block_sparse_flash_attention_grouped_torch}
+
+    def wrap(orig, kind, role_of):
+        def call(*args, **kw):
+            role = role_of(args[0], kw)
+            if role in res:
+                return orig(*args, **kw)
+            merges = merge.launches
+            out = orig(*args, **kw)
+            h = args[0].shape[1]
+            hs = torch.tensor(sorted({*range(heads // 2),
+                                      *range(h - heads // 2, h)}),
+                              device=args[0].device)
+            cut = lambda t: (t.index_select(1, hs) if torch.is_tensor(t)
+                             and t.dim() >= 3 and t.shape[1] == h else t)
+            t0 = time.perf_counter()
+            want = plain[kind](*map(cut, args),
+                               **{k: cut(x) for k, x in kw.items()})
+            torch.cuda.synchronize()
+            r = {"heads": hs.tolist(), "q_shape": list(args[0].shape),
+                 "plain_ms": (time.perf_counter() - t0) * 1e3,
+                 **held_to_scale(f"{role} on the path", cut(out), want)}
+            if role == "K1_text_rows":
+                r["merge_launches"] = merge.launches - merges
+                if not r["merge_launches"]:
+                    raise AssertionError("the text rows did not split and "
+                                         "merge their keys")
+            res[role] = r
+            return out
+        return call
+
+    visual_or_text = lambda q, kw: ("K1_text_rows"
+                                    if q.shape[2] < kw["visual_len"]
+                                    else "K1_visual_g1")
+    saved = [(rectified, "block_sparse_flash_attention", "K1",
+              visual_or_text),
+             (rectified, "block_sparse_flash_attention_grouped", "K2",
+              lambda q, kw: "K2_visual_g2"),
+             (modes, "block_sparse_flash_attention", "K1",
+              lambda q, kw: "K1_dense_bm1024")]
+    origs = [getattr(mod, n) for mod, n, _, _ in saved]
+    for (mod, n, kind, role_of), orig in zip(saved, origs):
+        setattr(mod, n, wrap(orig, kind, role_of))
+
+    def restore():
+        for (mod, n, _, _), orig in zip(saved, origs):
+            setattr(mod, n, orig)
+    return res, restore
+
+
+def e2e_phase(kernels):
+    """Phase 15 (module docstring): one JSON line a leg; returns each leg's
+    launches for the kernels line."""
+    from rectified_spaattn_tpu_torch.bench import (
+        ab_eval, e2e, e2e_cog, e2e_flux, e2e_wan, fidelity_gate, longctx)
+
+    smi = smi_line()
+    launches = {}
+
+    def leg(name, run, used, unused=(), check=None):
+        t0 = time.perf_counter()
+        line, fields = e2e_leg(kernels, name, run, used, unused)
+        if check is not None:
+            check(name, line)
+        launches[name] = fields["launches"]
+        emit(name, t0, nvidia_smi=smi, line=line, **fields)
+        torch.cuda.empty_cache()
+
+    drive = lambda mod, kw: lambda lat: mod.run(latents_out=lat, **kw)
+    leg("e2e_hunyuan", drive(e2e, E2E["hunyuan"]), ("K1", "K1_merge"),
+        ("K2", "K3"), finite_times)
+    leg("e2e_wan", drive(e2e_wan, E2E["wan"]), ("K1", "K3"), ("K2",),
+        finite_times)
+    # the complete model: its weights are drawn leaf by leaf onto the card
+    # inside the leg, as the bench does (one numpy normal a leaf)
+    leg("e2e_cog", drive(e2e_cog, E2E["cog"]), ("K1", "K1_merge"),
+        ("K2", "K3"), finite_times)
+    leg("e2e_flux", drive(e2e_flux, E2E["flux"]), ("K1", "K1_merge"),
+        ("K2", "K3"), finite_times)
+
+    def fidelity(lat):
+        return [fidelity_gate.run(**kw) for kw in E2E["fidelity"]]
+
+    leg("fidelity", fidelity, ("K1", "K1_merge"), ("K2", "K3"),
+        fidelity_check)
+
+    def long_points(lat):
+        held, restore = held_on_path(kernels)
+        try:
+            points = [p for kw in E2E["longctx"] for p in longctx.run(**kw)]
+        finally:
+            restore()
+        if sorted(held) != sorted(LONGCTX_HELD):
+            raise AssertionError(f"longctx: held {sorted(held)}, want "
+                                 f"{sorted(LONGCTX_HELD)}")
+        # the sparse site against the windowed dense at this point (the
+        # longctx points' inputs: the same site, seed and smooth q / k / v)
+        gate = fidelity_gate.run(frames=E2E["longctx"][0]["frames"])
+        return {"points": points, "held_to_plain": held, "fidelity": gate}
+
+    def long_check(name, line):
+        for p in line["points"]:
+            ms = [p[k] for k in ("sparse_ms", "dense_ms") if k in p]
+            if not all(0 < t < float("inf") for t in ms) \
+                    or not 0 < p["density"] <= 1:
+                raise AssertionError(f"{name}: {p}")
+        fidelity_check(name, [line["fidelity"]])
+
+    leg("longctx", long_points, ("K1", "K2", "K1_merge"), ("K3",),
+        long_check)
+
+    def ab_check(name, line):
+        keys = ("ssim", "psnr", "cosine", "relative_l1", "rmse",
+                "dense_seconds", "sparse_seconds")
+        if not all(line[k] == line[k] for k in keys):
+            raise AssertionError(f"{name}: {line}")
+
+    leg("ab_eval", drive(ab_eval, E2E["ab_eval"]), ("K1",), ("K2", "K3"),
+        ab_check)
+    return {"cut": E2E["cut"], "launches": launches}
+
+
 # ------------------------------------------------------------------- fp32 ---
 #
 # The widths and types the JAX kernels take beyond the paths above: fp32
@@ -5991,6 +6233,11 @@ def main() -> int:
     t0 = time.perf_counter()
     f32full = fp32_full_width(kernels)
     emit("fp32_full_width", t0, nvidia_smi=smi, **f32full)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    e2e_res = e2e_phase(kernels)
+    emit("e2e", t0, cut=e2e_res["cut"])
 
     site, smooth = sites["random"], sites["smooth"]
     wsite = wsites["random"]
@@ -6014,7 +6261,9 @@ def main() -> int:
                          "eval_hunyuan": ehun["launches"][n],
                          "eval_flux": eflux["launches"][n],
                          **{f"scan_{r}": c[n] for r, c in
-                            scan["launches_by_run"].items()}}
+                            scan["launches_by_run"].items()},
+                         **{leg: c[n] for leg, c in
+                            e2e_res["launches"].items()}}
     ks_t, ks_v = rings["random"]["K1s_ring_text"], \
         rings["random"]["K1s_ring_visual"]
     mainloop = "rectified_spaattn_tpu_torch/csrc/hopper_attn.cuh"

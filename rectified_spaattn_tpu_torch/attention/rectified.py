@@ -44,6 +44,12 @@ def kv_validity(batch: int, seq_len: int, visual_len: int,
     return valid.expand(batch, seq_len)
 
 
+def plan_density(counts: torch.Tensor, key_blocks: int) -> torch.Tensor:
+    """The executed mask density of a plan: its mean per-row key-block
+    count over ``key_blocks`` key blocks (0-d fp32, on counts' device)."""
+    return counts.float().mean() / key_blocks
+
+
 def _head_chunked(q, k, v, cfg, neighbor_mask, *, visual_len, text_len_rt,
                   kv_packed, q_text, density_only):
     """Head-tiled execution of the whole site (SparseConfig.head_chunk):
@@ -161,7 +167,7 @@ def rectified_sparse_attention(
         text_valid=text_valid, kv_packed=kv_packed,
         kv_valid=valid if kv_packed is not None else None)
     if density_only:
-        return (plan.counts.float().mean() / plan.block_mask.shape[-1])
+        return plan_density(plan.counts, plan.block_mask.shape[-1])
 
     if kv_packed is not None and cfg.kv_quant != "none":
         # validity zeroing of k/v is skipped under kv_packed, and the

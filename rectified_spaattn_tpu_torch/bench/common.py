@@ -131,6 +131,20 @@ def oneshot_ms(fn, dev: torch.device, n: int = 4) -> float:
     return (time.perf_counter() - t0) * 1e3 / n
 
 
+def mode_list(modes: str) -> list:
+    """The modes of a comma-separated ``--modes`` value."""
+    return [m for m in modes.split(",") if m]
+
+
+def density_stats(samples) -> dict | None:
+    """Mean, min, max and count of the executed mask densities a pipeline
+    probed (its ``density_samples``), or None without any."""
+    if not samples:
+        return None
+    return {"mean": statistics.fmean(samples), "min": min(samples),
+            "max": max(samples), "n": len(samples)}
+
+
 def rel_err(got, want) -> dict:
     """Max abs and rms error beside the reference's max |value| and std."""
     diff = got.float() - want.float()
