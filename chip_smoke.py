@@ -16,7 +16,7 @@ stacked block execution (models/scan.py: scan_blocks and
 dispatch_segments, and HunyuanVideo at its published depth with int4 weights), the
 multi-device path (K1s, the ring, tensor parallelism)
 and the kernel-diagnostic path (K1q-s, the S3 / S2 ablations, the
-headline bench).  Every attention kernel (K1/K1s, K2, K1q/K1q-s, K3)
+headline bench, the plan-stage and diagnostic benches).  Every attention kernel (K1/K1s, K2, K1q/K1q-s, K3)
 and every S3 / S2 ablation run on the Hopper mainloop of
 csrc/hopper_attn.cuh (K1q with a converter warpgroup and, for "mxu8",
 the int8 wgmma; S3 and S2 as K1's and K2's policies with one part taken
@@ -317,6 +317,22 @@ ranges that the merge kernel folds:
      of every plan the leg built (build_sparse_plan wrapped to keep each
      plan's counts; the densities taken after the leg); every latent
      finite and of its shape.
+ 16. diag: the diagnostic benches of rectified_spaattn_tpu_torch/bench
+     (ports of the last scripts of scripts/) through their run() at their
+     defaults, one JSON line a leg with its launch counters (K1q's too)
+     zeroed just before and read just after: planstages at the Hunyuan
+     point and at the CogVideoX site, each in a process of its own (each
+     plan stage's host, event and kernel ms, every stage's trace holding
+     its kernels; the stages recomposed equal build_sparse_plan's mask,
+     indices and counts bit for bit, and the int16 sort its indices);
+     planopts (A == C, counts equal, sort == scatter == int16); runstats
+     (its histogram shares sum to 1); grouped at G = 1, 2, 4, 8 and again
+     with K1q "int8" at G = 1 and chunk_blocks 16, groupfull at G = 1, 2
+     (every run against the first within REL_MAX / REL_RMS); coalesce;
+     dense and kernel, whose K1, K3 and windowed-dense calls (block_m 256,
+     512, 1024) are held on heads 0 and 23 to their plain versions
+     (held_on_path); fullpath; ab_randreg.  The plan-only legs launch no
+     attention kernel.
 
 Each phase prints one JSON line with its seconds.  Then a {"kernels": ...}
 line, the nvidia-smi line, and last {"ok": true, "device": {...}}.  Any
@@ -5296,24 +5312,29 @@ def fidelity_check(name: str, lines) -> None:
             raise AssertionError(f"{name}: beyond {FIDELITY_LIMITS}: {g}")
 
 
-def held_on_path(kernels, heads: int = 2):
+def held_on_path(kernels, heads: int = 2, extra=()):
     """Hold the site's kernels to their plain versions on the main path's
     own calls: K1 and K2 wrapped where the rectified site looks them up,
-    K1 where the windowed dense does.  The first call of each role (K1's
-    visual rows, K1's text rows, which split their keys and merge them
-    with the merge kernel, K2, the windowed dense) has its output on the
-    first and the last ``heads`` // 2 heads (the last lie farthest into
-    K and V) held, right after the call, against the plain version on
-    those heads of the same inputs, to the site phases' limits.  The
-    plain versions launch no kernel; in a bench that times after one
-    warm-up call, the checks fall in the warm-up.  Returns (results by
-    role, restore)."""
+    K1 where the windowed dense does, and each (module, name, kind,
+    role) of ``extra`` (a bench's own K1 or K3 call).  The first call of
+    each role (K1's visual rows, K1's text rows, which split their keys
+    and merge them with the merge kernel, K2, the windowed dense at each
+    block_m, the extra roles) has its output on the first and the last
+    ``heads`` // 2 heads (the last lie farthest into K and V) held, right
+    after the call, against the plain version on those heads of the same
+    inputs, to the site phases' limits.  The plain versions launch no
+    kernel; in a bench that times after one warm-up call, the checks fall
+    in the warm-up.  Returns (results by role, restore)."""
     from rectified_spaattn_tpu_torch.attention import modes, rectified
 
     res = {}
     merge = kernels.block_sparse.merge_splits
     plain = {"K1": kernels.block_sparse_flash_attention_torch,
-             "K2": kernels.block_sparse_flash_attention_grouped_torch}
+             "K2": kernels.block_sparse_flash_attention_grouped_torch,
+             # K3's in chunks of one head x 8,192 rows (a 115k-key row
+             # block's fp32 scores: 3.8 GB)
+             "K3": lambda q, k, v, **kw: plain_dense(kernels, q, k, v,
+                                                     heads=1, rows=8192)}
 
     def wrap(orig, kind, role_of):
         def call(*args, **kw):
@@ -5352,7 +5373,9 @@ def held_on_path(kernels, heads: int = 2):
              (rectified, "block_sparse_flash_attention_grouped", "K2",
               lambda q, kw: "K2_visual_g2"),
              (modes, "block_sparse_flash_attention", "K1",
-              lambda q, kw: "K1_dense_bm1024")]
+              lambda q, kw: f"K1_dense_bm{kw['block_m']}"),
+             *((mod, n, kind, lambda q, kw, role=role: role)
+               for mod, n, kind, role in extra)]
     origs = [getattr(mod, n) for mod, n, _, _ in saved]
     for (mod, n, kind, role_of), orig in zip(saved, origs):
         setattr(mod, n, wrap(orig, kind, role_of))
@@ -5433,6 +5456,152 @@ def e2e_phase(kernels):
     leg("ab_eval", drive(ab_eval, E2E["ab_eval"]), ("K1",), ("K2", "K3"),
         ab_check)
     return {"cut": E2E["cut"], "launches": launches}
+
+
+# ------------------------------------------------------------------- diag ---
+
+# the diag phase: the diagnostic benches of bench/ (ports of the last
+# scripts of scripts/) at their defaults; planstages also at the CogVideoX
+# site (COG_SITE: 24,480 visual tokens padded to 192 blocks, 226 of 256
+# text tokens valid); grouped once more with K1q ("int8") at G = 1 and a
+# chunk_blocks 16 run
+DIAG_COG = ["--grid", ",".join(map(str, COG_SITE["grid"])),
+            "--heads", str(COG_SITE["heads"]),
+            "--head_dim", str(COG_SITE["head_dim"]),
+            "--drop", str(COG_SITE["sa_drop_rate"]),
+            "--tlen", str(COG_SITE["tlen"])]
+DIAG_K1Q = dict(groups=(1,), kv_quant="int8", chunks=(16,))
+# the bench calls held to their plain versions: kernel's K1, dense's K3
+# and its windowed dense at each block_m
+DIAG_HELD = ("K1_kernel", "K3_dense", "K1_dense_bm256", "K1_dense_bm512",
+             "K1_dense_bm1024")
+NO_KERNEL = ("K1", "K2", "K3", "K1q_int8", "K1q_mxu8", "K1_merge")
+
+
+def within_scale(name: str, errs: dict) -> None:
+    """Each rel_err entry within REL_MAX / REL_RMS of its reference."""
+    for run, r in errs.items():
+        if not (r["max_abs_err"] <= REL_MAX * r["ref_max_abs"]
+                and r["rms_err"] <= REL_RMS * r["ref_std"]):
+            raise AssertionError(f"{name} {run}: beyond {REL_MAX} x max "
+                                 f"|ref| or {REL_RMS} x std(ref): {r}")
+
+
+def planstages_child(argv) -> dict:
+    """bench.planstages' line from a process of its own: the profiler
+    traces of this long process lose device records late in the run
+    (stages traced with no kernel; kernelvars' nulls), a fresh process's
+    hold them all.  The plan launches no attention kernel."""
+    out = subprocess.run(
+        [sys.executable, "-m", "rectified_spaattn_tpu_torch.bench.planstages",
+         *argv], cwd=ROOT, stdout=subprocess.PIPE, text=True, check=True,
+        timeout=600)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def check_planstages(name, line):
+    if not (all(line["staged_equals_plan"].values())
+            and line["int16_sort_equals_indices"]):
+        raise AssertionError(f"{name}: the stages do not recompose "
+                             f"build_sparse_plan: {line}")
+    if not all(r["kernels"] and r["kernel_ms"] for r in line["stages"]):
+        raise AssertionError(f"{name}: a stage's trace holds no kernel: "
+                             f"{line['stages']}")
+
+
+def check_planopts(name, line):
+    t, m = line["topp"], line["mask2idx"]
+    if not (t["a_equals_c"] and t["counts_equal"]
+            and m["sort_equals_scatter"] and m["sort_equals_int16"]):
+        raise AssertionError(f"{name}: {t} {m}")
+
+
+def check_grouped(name, line):
+    """Every G and chunk run but the first against the first."""
+    if len(line["err_vs_g1"]) != len(line["groups"]) \
+            + len(line.get("chunks", {})) - 1:
+        raise AssertionError(f"{name}: {line['err_vs_g1']}")
+    within_scale(name, line["err_vs_g1"])
+
+
+def check_groupfull(name, line):
+    rel = {k: r for k, r in line.items() if k.endswith("_rel")}
+    if not rel:
+        raise AssertionError(f"{name}: no run against G = 1: {line}")
+    within_scale(name, rel)
+
+
+def check_runstats(name, line):
+    for regime in ("peaked", "random"):
+        share = sum(line[regime]["run_size_share"].values())
+        if abs(share - 1.0) > 1e-9:
+            raise AssertionError(f"{name} {regime}: histogram shares sum "
+                                 f"to {share}")
+
+
+def diag_phase(kernels):
+    """Phase 16 (module docstring): one JSON line a leg, each with its
+    launch counters (K1q's too) zeroed just before and read just after;
+    returns each leg's launches and the held calls."""
+    from rectified_spaattn_tpu_torch.bench import (
+        ab_randreg, coalesce, dense, fullpath, groupfull, grouped, kernel,
+        planopts, runstats)
+
+    smi = smi_line()
+    launches = {}
+
+    def leg(name, run, used, unused=(), check=None):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(kernels)
+        line = run()
+        torch.cuda.synchronize()
+        counts = quant_launches(kernels)
+        if any(counts[n] == 0 for n in used) or any(counts[n]
+                                                    for n in unused):
+            raise AssertionError(f"{name}: launches {counts}, want {used} "
+                                 f"> 0 and {unused} = 0")
+        if check is not None:
+            check(name, line)
+        launches[name] = counts
+        emit(name, t0, nvidia_smi=smi, line=line, launches=counts,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30)
+        torch.cuda.empty_cache()
+
+    leg("diag_planstages_hunyuan", lambda: planstages_child([]), (), (),
+        check_planstages)
+    leg("diag_planstages_cogvideox", lambda: planstages_child(DIAG_COG), (),
+        (), check_planstages)
+    leg("diag_planopts", lambda: planopts.run(), (), NO_KERNEL,
+        check_planopts)
+    leg("diag_runstats", lambda: runstats.run(), (), NO_KERNEL,
+        check_runstats)
+    leg("diag_grouped", lambda: grouped.run(), ("K1", "K2", "K1_merge"),
+        ("K3", "K1q_int8", "K1q_mxu8"), check_grouped)
+    leg("diag_grouped_k1q", lambda: grouped.run(**DIAG_K1Q),
+        ("K1q_int8", "K1"), ("K2", "K3", "K1q_mxu8"), check_grouped)
+    leg("diag_groupfull", lambda: groupfull.run(), ("K1", "K2", "K1_merge"),
+        ("K3",), check_groupfull)
+    leg("diag_coalesce", lambda: coalesce.run(), ("K1", "K1_merge"),
+        ("K2", "K3"))
+    held, restore = held_on_path(kernels, extra=(
+        (kernel, "block_sparse_flash_attention", "K1", "K1_kernel"),
+        (dense, "dense_attention", "K3", "K3_dense")))
+    try:
+        leg("diag_dense", lambda: dense.run(), ("K1", "K3"), ("K2",))
+        leg("diag_kernel", lambda: kernel.run(), ("K1", "K3"), ("K2",))
+    finally:
+        restore()
+    if sorted(held) != sorted(DIAG_HELD):
+        raise AssertionError(f"diag: held {sorted(held)}, want "
+                             f"{sorted(DIAG_HELD)}")
+    leg("diag_fullpath", lambda: fullpath.run(), ("K1", "K1_merge"),
+        ("K2", "K3"))
+    leg("diag_ab_randreg", lambda: ab_randreg.run(), ("K1", "K1_merge"),
+        ("K2", "K3"))
+    return {"launches": launches, "held_to_plain": held}
 
 
 # ------------------------------------------------------------------- fp32 ---
@@ -6238,6 +6407,11 @@ def main() -> int:
     t0 = time.perf_counter()
     e2e_res = e2e_phase(kernels)
     emit("e2e", t0, cut=e2e_res["cut"])
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    diag = diag_phase(kernels)
+    emit("diag", t0, held_to_plain=diag["held_to_plain"])
 
     site, smooth = sites["random"], sites["smooth"]
     wsite = wsites["random"]
@@ -6263,7 +6437,9 @@ def main() -> int:
                          **{f"scan_{r}": c[n] for r, c in
                             scan["launches_by_run"].items()},
                          **{leg: c[n] for leg, c in
-                            e2e_res["launches"].items()}}
+                            e2e_res["launches"].items()},
+                         **{leg: c[n] for leg, c in
+                            diag["launches"].items()}}
     ks_t, ks_v = rings["random"]["K1s_ring_text"], \
         rings["random"]["K1s_ring_visual"]
     mainloop = "rectified_spaattn_tpu_torch/csrc/hopper_attn.cuh"
@@ -6276,6 +6452,7 @@ def main() -> int:
                 "by TMA into a staging ring, converted to 16 bits by the "
                 "producer warpgroup; mxu8's QK^T on the s8 wgmma")
     merge = site["K1_merge"]
+    diag_k1q = diag["launches"]["diag_grouped_k1q"]
     line = {"kernels": [
         {"name": "K1", "route": "cuda", "source": src,
          "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:89",
@@ -6334,10 +6511,12 @@ def main() -> int:
         {"name": "K1q", "route": "cuda", "source": src,
          "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:176",
          "launches": (pipe8["launches"]["K1q_mxu8"]
-                      + small4["launches"]["K1q_int8"]),
+                      + small4["launches"]["K1q_int8"]
+                      + diag_k1q["K1q_int8"]),
          "launches_by_path": {
              "hunyuan_int8_pipeline_mxu8": pipe8["launches"]["K1q_mxu8"],
-             "small_int4_pipeline_int8": small4["launches"]["K1q_int8"]},
+             "small_int4_pipeline_int8": small4["launches"]["K1q_int8"],
+             "diag_grouped_k1q_int8": diag_k1q["K1q_int8"]},
          "max_abs_err": max(*qerrs.values(),
                             site["K1q_mxu8_visual"]["max_abs_err"],
                             site["K1q_int8_visual"]["max_abs_err"]),

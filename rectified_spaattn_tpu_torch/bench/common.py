@@ -22,15 +22,23 @@ HUNYUAN = dict(grid=(32, 45, 80), heads=24, head_dim=128, text_len=256)
 SMALL_GRID = (8, 24, 32)
 
 
-def point(small: bool = False, grid=None, heads=None) -> dict:
-    """The operating point; ``grid`` / ``heads`` override it (a CPU
-    rehearsal at a tiny size)."""
+def point(small: bool = False, grid=None, heads=None,
+          head_dim=None) -> dict:
+    """The operating point; ``grid`` / ``heads`` / ``head_dim`` override
+    it (a CPU rehearsal at a tiny size, or another model's site)."""
     pt = {**HUNYUAN, "grid": SMALL_GRID} if small else dict(HUNYUAN)
     if grid is not None:
         pt["grid"] = tuple(grid)
     if heads is not None:
         pt["heads"] = heads
+    if head_dim is not None:
+        pt["head_dim"] = head_dim
     return pt
+
+
+def parse_grid(text):
+    """A ``--grid T,H,W`` value as a tuple, or None."""
+    return tuple(int(x) for x in text.split(",")) if text else None
 
 
 def resolve(device: str) -> torch.device:
@@ -79,13 +87,10 @@ def time_ms(fn, dev: torch.device, reps: int = 3, warmup: int = 1) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def kernel_ms(fn, dev: torch.device) -> float | None:
-    """Device ms of one call's hopper_attn_kernel, from a torch.profiler
-    trace of that call after one warm-up: the kernel alone, without the
-    work the wrapper launches around it.  None off the card, or where the
-    trace holds no such kernel."""
-    if dev.type != "cuda":
-        return None
+def _device_events(fn, dev: torch.device) -> list:
+    """The device-side events (kernels, copies, memsets) of one call of
+    ``fn`` after one warm-up, from a torch.profiler trace, as (name,
+    count, self device us) by name."""
     fn()
     sync(dev)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -93,12 +98,36 @@ def kernel_ms(fn, dev: torch.device) -> float | None:
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         sync(dev)
-    us = [getattr(e, "self_device_time_total",
-                  getattr(e, "self_cuda_time_total", 0))
-          for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and "hopper_attn_kernel<" in e.key]
+    return [(e.key, e.count, getattr(e, "self_device_time_total",
+                                     getattr(e, "self_cuda_time_total", 0)))
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def kernel_ms(fn, dev: torch.device) -> float | None:
+    """Device ms of one call's hopper_attn_kernel, from a torch.profiler
+    trace of that call after one warm-up: the kernel alone, without the
+    work the wrapper launches around it.  None off the card, or where the
+    trace holds no such kernel."""
+    if dev.type != "cuda":
+        return None
+    us = [t for name, _, t in _device_events(fn, dev)
+          if "hopper_attn_kernel<" in name]
     return sum(us) / 1e3 if us else None
+
+
+def device_ms(fn, dev: torch.device) -> dict:
+    """Everything one call of ``fn`` ran on the card, from a profiler
+    trace after one warm-up: ``kernel_ms`` the summed device time of its
+    kernels, copies and memsets, ``kernels`` their count (launches), and
+    ``d2h`` the device-to-host copies among them (a host read of a device
+    value: a sync).  Nones off the card."""
+    if dev.type != "cuda":
+        return {"kernel_ms": None, "kernels": None, "d2h": None}
+    ev = _device_events(fn, dev)
+    return {"kernel_ms": sum(t for _, _, t in ev) / 1e3,
+            "kernels": sum(n for _, n, _ in ev),
+            "d2h": sum(n for name, n, _ in ev if "DtoH" in name)}
 
 
 def kernel_ms_turns(calls: dict, dev: torch.device, rounds: int = 5) -> dict:
