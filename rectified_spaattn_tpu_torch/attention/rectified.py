@@ -24,6 +24,7 @@ from ..sparse import SparseConfig, build_sparse_plan
 from ..sparse.ops import group_rows, quantize_kv_blocks
 from ..kernels import (block_sparse_flash_attention,
                        block_sparse_flash_attention_grouped)
+from ..utils.timing import span
 
 
 def kv_validity(batch: int, seq_len: int, visual_len: int,
@@ -99,7 +100,21 @@ def rectified_sparse_attention(
 
     ``kv_packed``: the caller holds KV packed as [..., K|V]; k/v must be
     the matching slices.  ``q_text``: the caller holds q split at the
-    visual/text seam (joint layout); ``q`` is then visual-only."""
+    visual/text seam (joint layout); ``q`` is then visual-only.
+
+    Under a running profiler the call is the host range ``rsa.site``,
+    holding ``rsa.plan``, ``rsa.group``, ``rsa.attn``, ``rsa.rectify``
+    and ``rsa.text`` (utils/timing.py::span); what the site launches
+    outside them (pad inserts, validity zeroing, the KV pack, the text
+    join, the pad removal) is the site's own."""
+    with span("rsa.site"):
+        return _site(q, k, v, cfg, neighbor_mask, visual_len=visual_len,
+                     text_len_rt=text_len_rt, kv_packed=kv_packed,
+                     q_text=q_text, density_only=density_only)
+
+
+def _site(q, k, v, cfg, neighbor_mask, *, visual_len, text_len_rt,
+          kv_packed, q_text, density_only):
     b, h, s, d = q.shape
     if cfg.head_chunk and 0 < cfg.head_chunk < h:
         return _head_chunked(q, k, v, cfg, neighbor_mask,
@@ -160,12 +175,13 @@ def rectified_sparse_attention(
                       < tlen[:, None])
 
     q_vis = q if q_text is not None else q[:, :, :sv_pad]
-    plan = build_sparse_plan(
-        q_vis, k, v, cfg,
-        neighbor_mask=(neighbor_mask.to(dev) if neighbor_mask is not None
-                       else None),
-        text_valid=text_valid, kv_packed=kv_packed,
-        kv_valid=valid if kv_packed is not None else None)
+    with span("rsa.plan"):
+        plan = build_sparse_plan(
+            q_vis, k, v, cfg,
+            neighbor_mask=(neighbor_mask.to(dev) if neighbor_mask is not None
+                           else None),
+            text_valid=text_valid, kv_packed=kv_packed,
+            kv_valid=valid if kv_packed is not None else None)
     if density_only:
         return plan_density(plan.counts, plan.block_mask.shape[-1])
 
@@ -182,26 +198,29 @@ def rectified_sparse_attention(
         if row_pad:
             pmask = F.pad(pmask, (0, 0, 0, row_pad))
             q_kern = F.pad(q_vis, (0, 0, 0, row_pad * bm))
-        u_idx, u_counts, rowbits, u_clean = group_rows(
-            pmask, gr, clean_blocks=visual_len // cfg.block_n)
-        sparse_out = block_sparse_flash_attention_grouped(
-            q_kern, k, v, u_idx, u_counts, rowbits, u_clean, tlen, group=gr,
-            visual_len=visual_len, text_start=text_start, block_m=bm,
-            block_n=cfg.block_n, chunk_blocks=cfg.kernel_chunk_blocks,
-            packed_kv=kv_packed)
+        with span("rsa.group"):
+            u_idx, u_counts, rowbits, u_clean = group_rows(
+                pmask, gr, clean_blocks=visual_len // cfg.block_n)
+        with span("rsa.attn"):
+            sparse_out = block_sparse_flash_attention_grouped(
+                q_kern, k, v, u_idx, u_counts, rowbits, u_clean, tlen,
+                group=gr, visual_len=visual_len, text_start=text_start,
+                block_m=bm, block_n=cfg.block_n,
+                chunk_blocks=cfg.kernel_chunk_blocks, packed_kv=kv_packed)
         if row_pad:
             sparse_out = sparse_out[:, :, :sv_pad]
     else:
-        kv_quant = None
-        if cfg.kv_quant != "none":
-            kv_quant = quantize_kv_blocks(k, v, cfg.block_n)
-        sparse_out = block_sparse_flash_attention(
-            q_vis, k, v, plan.indices, plan.counts, tlen,
-            visual_len=visual_len, text_start=text_start, block_m=bm,
-            block_n=cfg.block_n, chunk_blocks=cfg.kernel_chunk_blocks,
-            kv_quant=kv_quant,
-            quant_mode=None if kv_quant is None else cfg.kv_quant,
-            packed_kv=kv_packed)
+        with span("rsa.attn"):
+            kv_quant = None
+            if cfg.kv_quant != "none":
+                kv_quant = quantize_kv_blocks(k, v, cfg.block_n)
+            sparse_out = block_sparse_flash_attention(
+                q_vis, k, v, plan.indices, plan.counts, tlen,
+                visual_len=visual_len, text_start=text_start, block_m=bm,
+                block_n=cfg.block_n, chunk_blocks=cfg.kernel_chunk_blocks,
+                kv_quant=kv_quant,
+                quant_mode=None if kv_quant is None else cfg.kv_quant,
+                packed_kv=kv_packed)
         del kv_quant      # the payload is not held through rectification
 
     # R/comp broadcast at block granularity (the reference
@@ -210,11 +229,13 @@ def rectified_sparse_attention(
     # tiles, so the fp32 temporaries stay tile-sized
     so_blocks = sparse_out.reshape(b, h, nq, bm, d)
     chunk = cfg.plan_row_chunk if 0 < cfg.plan_row_chunk < nq else nq
-    for r0 in range(0, nq, chunk):
-        rows = slice(r0, min(r0 + chunk, nq))
-        so_blocks[:, :, rows] = (
-            so_blocks[:, :, rows].float() * plan.r_factor[:, :, rows, None, None]
-            + plan.comp[:, :, rows, None, :]).to(q.dtype)
+    with span("rsa.rectify"):
+        for r0 in range(0, nq, chunk):
+            rows = slice(r0, min(r0 + chunk, nq))
+            so_blocks[:, :, rows] = (
+                so_blocks[:, :, rows].float()
+                * plan.r_factor[:, :, rows, None, None]
+                + plan.comp[:, :, rows, None, :]).to(q.dtype)
     out_vis = so_blocks.reshape(b, h, sv_pad, d)
 
     if cfg.layout == "joint":
@@ -223,15 +244,16 @@ def rectified_sparse_attention(
         # rectified_hunyuan_attn.py:369-383)
         nb_total = s // cfg.block_n
         nq_text = cfg.text_blocks
-        full_idx = torch.arange(nb_total, dtype=torch.int32, device=dev
-                                ).expand(b, h, nq_text, nb_total)
-        full_counts = torch.full((b, h, nq_text), nb_total, dtype=torch.int32,
-                                 device=dev)
-        qt = q_text if q_text is not None else q[:, :, sv_pad:]
-        out_text = block_sparse_flash_attention(
-            qt, k, v, full_idx, full_counts, tlen, visual_len=visual_len,
-            text_start=text_start, block_m=bm, block_n=cfg.block_n,
-            packed_kv=kv_packed)
+        with span("rsa.text"):
+            full_idx = torch.arange(nb_total, dtype=torch.int32, device=dev
+                                    ).expand(b, h, nq_text, nb_total)
+            full_counts = torch.full((b, h, nq_text), nb_total,
+                                     dtype=torch.int32, device=dev)
+            qt = q_text if q_text is not None else q[:, :, sv_pad:]
+            out_text = block_sparse_flash_attention(
+                qt, k, v, full_idx, full_counts, tlen, visual_len=visual_len,
+                text_start=text_start, block_m=bm, block_n=cfg.block_n,
+                packed_kv=kv_packed)
         out = torch.cat([out_vis, out_text.to(q.dtype)], dim=2)
     else:
         out = out_vis

@@ -31,6 +31,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.timing import span
+
 # Polynomial rescaling coefficients for the raw rel-L1 signal
 # (numpy.poly1d convention: highest power first; reference:
 # main_hunyuan.py:118 and the Wan drivers).
@@ -233,8 +235,9 @@ class TeaCache:
                 compute = True
                 st.accumulated = 0.0
             else:
-                raw = (float(rel_l1_signal(modulated, st.previous_modulated))
-                       * self.signal_scale)
+                rel = rel_l1_signal(modulated, st.previous_modulated)
+                with span("rsa.sync.teacache"):
+                    raw = float(rel) * self.signal_scale
                 st.accumulated += float(self._poly(raw))
                 # signed comparison, as the reference (main_hunyuan.py:121)
                 compute = not st.accumulated < self.thresh

@@ -84,6 +84,7 @@ import math
 
 import torch
 
+from ..utils.timing import span
 from . import cuda_build
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -489,7 +490,11 @@ def _check_lists(indices, counts, n_lists: int):
         raise ValueError(f"indices {tuple(indices.shape)} / counts "
                          f"{tuple(counts.shape)} must hold {n_lists} lists "
                          "per (batch, head)")
-    if counts.numel() and int(counts.max()) > indices.shape[3]:
+    if not counts.numel():
+        return
+    with span("rsa.sync.lists"):
+        top = int(counts.max())        # a device-to-host readback
+    if top > indices.shape[3]:
         raise ValueError(f"a count exceeds the {indices.shape[3]} slots of "
                          "its index list")
 

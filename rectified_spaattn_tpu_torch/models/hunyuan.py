@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.timing import span
 from .layers import (AdaLayerNormContinuous, AttnFn, QLinear, DualStreamBlock,
                      LayerNorm, MLP, SingleStreamBlock, rope_axial_freqs,
                      timestep_embedding)
@@ -104,10 +105,13 @@ class TokenRefiner(nn.Module):
                        for t in blk("qkv")(blk("norm1")(x)).chunk(3, dim=-1))
             scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / hd ** 0.5
             if text_mask is not None:
-                scores = torch.where(
-                    text_mask[:, None, None, :].to(torch.bool), scores,
-                    torch.tensor(-1e9, dtype=scores.dtype,
-                                 device=scores.device))
+                keep = text_mask[:, None, None, :].to(torch.bool)
+                # a scalar from pageable host memory: the copy waits for
+                # the device's queue to drain
+                with span("rsa.sync.refiner"):
+                    floor = torch.tensor(-1e9, dtype=scores.dtype,
+                                         device=scores.device)
+                scores = torch.where(keep, scores, floor)
             attn = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, -1),
                                 v)
             attn = attn.transpose(1, 2).reshape(x.shape)

@@ -21,7 +21,7 @@ from ..curves import cached_curve
 from ..sparse import SparseConfig, select_block_num
 from ..attention import attention
 from ..utils.device import resolve_device
-from ..utils.timing import device_sync
+from ..utils.timing import device_sync, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,7 +143,9 @@ def teacache_decision(tea, signal, group, device) -> bool:
     votes = torch.tensor([int(compute), 1 - int(compute)], dtype=torch.int32,
                          device=device)
     group.all_reduce(votes)
-    if int(votes.min()) != 0:
+    with span("rsa.sync.tp"):
+        split = int(votes.min())
+    if split != 0:
         raise RuntimeError(f"TeaCache decisions differ across the "
                            f"{group.size} tensor-parallel ranks")
     return compute

@@ -40,7 +40,7 @@ from ..models.cogvideox import CogVideoXDiT
 from ..cache import TeaCache
 from ..cache.teacache import residual_value
 from ..utils.device import resolve_device
-from ..utils.timing import device_sync
+from ..utils.timing import device_sync, span
 from .base import (build_site, classifier_free_guidance, decode_timed,
                    param_compute_dtype, shard_tensor_parallel,
                    teacache_decision)
@@ -179,40 +179,42 @@ class CogVideoXPipeline:
         t0 = time.perf_counter()
         call = 0
         for i, t in enumerate(sched.timesteps):
-            ts = torch.full((b,), float(t), device=self.device)
-            model_in = (latents if condition is None
-                        else torch.cat([latents, condition], dim=1))
-            outs = []
-            for text in (text_cond, text_uncond):
-                x, ctx, temb, rope = self._embed(model_in, ts, text, ofs)
-                if tea.enabled and not teacache_decision(tea, temb, self.tp,
-                                                         self.device):
-                    # the head normalises concat(ctx, x), so the text
-                    # residual is re-applied too (reference:
-                    # main_cogvideox.py:129-143 previous_residual_encoder)
-                    x, ctx = tea.apply_residual(x, ctx)
-                else:
-                    sparse_now = (self.mode == "sparse"
-                                  and call >= self.sparse_warm_calls)
-                    if sparse_now:
-                        self.sparse_calls.append(call)
-                    x_in, ctx_in = x, ctx
-                    fn = sparse if sparse_now else dense
-                    x, ctx = (scan.cog_run_blocks_scan(m.cfg, self.stack, x,
-                                                       ctx, temb, rope, fn)
-                              if self.scan_blocks else
-                              m.run_blocks(x, ctx, temb, rope, fn))
-                    if tea.enabled:
-                        tea.record_residual_value(
-                            residual_value(x, x_in),
-                            residual_value(ctx, ctx_in))
-                outs.append(m.head(x, ctx, temb, self.l2h, *self.grid))
-                call += 1
-            g = (dynamic_cfg_scale(self.guidance_scale, float(t), steps)
-                 if self.use_dynamic_cfg else self.guidance_scale)
-            v = classifier_free_guidance(outs[0], outs[1], g)
-            latents = sched.step(v, latents, i)
-            device_sync(latents)
+            with span("rsa.step"):
+                ts = torch.full((b,), float(t), device=self.device)
+                model_in = (latents if condition is None
+                            else torch.cat([latents, condition], dim=1))
+                outs = []
+                for text in (text_cond, text_uncond):
+                    x, ctx, temb, rope = self._embed(model_in, ts, text, ofs)
+                    if tea.enabled and not teacache_decision(
+                            tea, temb, self.tp, self.device):
+                        # the head normalises concat(ctx, x), so the text
+                        # residual is re-applied too (reference:
+                        # main_cogvideox.py:129-143 previous_residual_encoder)
+                        x, ctx = tea.apply_residual(x, ctx)
+                    else:
+                        sparse_now = (self.mode == "sparse"
+                                      and call >= self.sparse_warm_calls)
+                        if sparse_now:
+                            self.sparse_calls.append(call)
+                        x_in, ctx_in = x, ctx
+                        fn = sparse if sparse_now else dense
+                        x, ctx = (scan.cog_run_blocks_scan(
+                            m.cfg, self.stack, x, ctx, temb, rope, fn)
+                            if self.scan_blocks else
+                            m.run_blocks(x, ctx, temb, rope, fn))
+                        if tea.enabled:
+                            tea.record_residual_value(
+                                residual_value(x, x_in),
+                                residual_value(ctx, ctx_in))
+                    outs.append(m.head(x, ctx, temb, self.l2h, *self.grid))
+                    call += 1
+                g = (dynamic_cfg_scale(self.guidance_scale, float(t), steps)
+                     if self.use_dynamic_cfg else self.guidance_scale)
+                v = classifier_free_guidance(outs[0], outs[1], g)
+                latents = sched.step(v, latents, i)
+                with span("rsa.sync.step"):
+                    device_sync(latents)
             self.step_seconds.append(time.perf_counter() - t0
                                      - sum(self.step_seconds))
         self.denoise_seconds = time.perf_counter() - t0

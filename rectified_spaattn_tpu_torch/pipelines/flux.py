@@ -32,7 +32,7 @@ from ..models.flux import (FluxControlNet, FluxDiT,
 from ..cache import TeaCache
 from ..cache.teacache import residual_value
 from ..utils.device import resolve_device
-from ..utils.timing import device_sync
+from ..utils.timing import device_sync, span
 from .base import (build_site, decode_timed, param_compute_dtype,
                    shard_tensor_parallel, teacache_decision)
 from .schedulers import FlowMatchEulerScheduler, flux_mu_shift
@@ -239,23 +239,25 @@ class FluxPipeline:
         device_sync(tokens)
         t0 = time.perf_counter()
         for i, t in enumerate(sched.timesteps):
-            ts = torch.full((b,), float(t) / 1000.0, dtype=torch.float32,
-                            device=self.device)
-            x, ctx, temb, rope, sig = self._embed(tokens, ts, text_emb,
-                                                  pooled, guidance)
-            if tea.enabled and not teacache_decision(tea, sig, self.tp,
-                                                     self.device):
-                x = tea.apply_residual(x)
-            else:
-                x_in = x
-                x, ctx = self._run_blocks(x, ctx, temb, rope, dual_fns,
-                                          single_fns, controlnet_fn, tokens,
-                                          float(t))
-                if tea.enabled:
-                    tea.record_residual_value(residual_value(x, x_in))
-            v = m.head(x, temb, self.l2h)
-            tokens = sched.step(v, tokens, i)
-            device_sync(tokens)
+            with span("rsa.step"):
+                ts = torch.full((b,), float(t) / 1000.0, dtype=torch.float32,
+                                device=self.device)
+                x, ctx, temb, rope, sig = self._embed(tokens, ts, text_emb,
+                                                      pooled, guidance)
+                if tea.enabled and not teacache_decision(tea, sig, self.tp,
+                                                         self.device):
+                    x = tea.apply_residual(x)
+                else:
+                    x_in = x
+                    x, ctx = self._run_blocks(x, ctx, temb, rope, dual_fns,
+                                              single_fns, controlnet_fn,
+                                              tokens, float(t))
+                    if tea.enabled:
+                        tea.record_residual_value(residual_value(x, x_in))
+                v = m.head(x, temb, self.l2h)
+                tokens = sched.step(v, tokens, i)
+                with span("rsa.sync.step"):
+                    device_sync(tokens)
             self.step_seconds.append(time.perf_counter() - t0
                                      - sum(self.step_seconds))
         self.denoise_seconds = time.perf_counter() - t0

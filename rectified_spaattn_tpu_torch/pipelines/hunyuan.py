@@ -39,7 +39,7 @@ from ..models.hunyuan import HunyuanVideoDiT
 from ..cache import TeaCache
 from ..cache.teacache import residual_value
 from ..utils.device import resolve_device
-from ..utils.timing import device_sync
+from ..utils.timing import device_sync, span
 from .base import (build_site, decode_timed, param_compute_dtype,
                    rank_mean, shard_tensor_parallel, teacache_decision)
 from .schedulers import FlowMatchEulerScheduler
@@ -261,31 +261,33 @@ class HunyuanVideoPipeline:
         device_sync(latents)
         t0 = time.perf_counter()
         for i, t in enumerate(sched.timesteps):
-            if tr:
-                latents = hold(latents)
-            ts = torch.full((b,), float(t), dtype=torch.float32,
-                            device=self.device)
-            model_in = (latents if condition is None
-                        else torch.cat([latents, condition], dim=1))
-            x, ctx, temb, rope, sig = self._embed(
-                model_in, ts, text_emb, text_mask, guidance, pooled)
-            if self.density_probe:
-                self.density_samples.append(
-                    self._density(x, ctx, temb, rope, tlen))
-            if tea.enabled and not teacache_decision(tea, sig, self.tp,
-                                                     self.device):
-                x = tea.apply_residual(x)
-            else:
-                x_in = x
-                x, ctx = self._run_blocks(x, ctx, temb, rope, fn, temb_tr,
-                                          mask_curve)
-                if tea.enabled:
-                    tea.record_residual_value(
-                        residual_value(x, x_in, self.teacache_residual))
-            v_pred = m.head(x, temb, self.l2h, *self.grid, temb_tr,
-                            mask_linear)
-            latents = sched.step(v_pred, latents, i)
-            device_sync(latents)
+            with span("rsa.step"):
+                if tr:
+                    latents = hold(latents)
+                ts = torch.full((b,), float(t), dtype=torch.float32,
+                                device=self.device)
+                model_in = (latents if condition is None
+                            else torch.cat([latents, condition], dim=1))
+                x, ctx, temb, rope, sig = self._embed(
+                    model_in, ts, text_emb, text_mask, guidance, pooled)
+                if self.density_probe:
+                    self.density_samples.append(
+                        self._density(x, ctx, temb, rope, tlen))
+                if tea.enabled and not teacache_decision(tea, sig, self.tp,
+                                                         self.device):
+                    x = tea.apply_residual(x)
+                else:
+                    x_in = x
+                    x, ctx = self._run_blocks(x, ctx, temb, rope, fn, temb_tr,
+                                              mask_curve)
+                    if tea.enabled:
+                        tea.record_residual_value(
+                            residual_value(x, x_in, self.teacache_residual))
+                v_pred = m.head(x, temb, self.l2h, *self.grid, temb_tr,
+                                mask_linear)
+                latents = sched.step(v_pred, latents, i)
+                with span("rsa.sync.step"):
+                    device_sync(latents)
             self.step_seconds.append(time.perf_counter() - t0
                                      - sum(self.step_seconds))
         if tr:

@@ -55,7 +55,7 @@ from ..attention import attention
 from ..cache import TeaCache
 from ..cache.teacache import residual_value
 from ..utils.device import resolve_device
-from ..utils.timing import device_sync
+from ..utils.timing import device_sync, span
 from .base import (build_site, decode_timed, classifier_free_guidance,
                    param_compute_dtype, rank_mean, shard_tensor_parallel,
                    teacache_decision)
@@ -343,43 +343,45 @@ class WanPipeline:
         t0 = time.perf_counter()
         call = 0
         for i, t in enumerate(sched.timesteps):
-            if first_frame is not None:
-                ts = torch.full((b, n_tok), float(t), device=self.device)
-                ts[:, :ff_tokens] = 0.0
-            else:
-                ts = torch.full((b,), float(t), device=self.device)
-            model_in = (latents if condition is None
-                        else torch.cat([latents, condition], dim=1))
-            outs = []
-            for text in (text_cond, text_uncond):
-                x, ctx, ctx_img, temb, temb6, rope = self._embed(
-                    model_in, ts, text, image_emb)
-                if self.density_probe:
-                    self.density_samples.append(self._density(
-                        x, ctx, ctx_img, temb6, rope))
-                # the reference's signal: timestep_proj under use_ret_steps,
-                # else temb (main_wan21t2v.py:103)
-                sig = temb6 if self.use_ret_steps else temb
-                if tea.enabled and not teacache_decision(
-                        tea, sig, self.tp, self.device):
-                    x = tea.apply_residual(x)
+            with span("rsa.step"):
+                if first_frame is not None:
+                    ts = torch.full((b, n_tok), float(t), device=self.device)
+                    ts[:, :ff_tokens] = 0.0
                 else:
-                    sparse_now = use_sparse and (
-                        self.is_i2v or call >= self.warm_calls)
-                    x_in = x
-                    x = self._run_blocks(x, ctx, ctx_img, temb6, rope,
-                                         sparse_now)
-                    if tea.enabled:
-                        tea.record_residual_value(residual_value(
-                            x, x_in, self.teacache_residual))
-                outs.append(self._head(x, temb))
-                call += 1
-            v = classifier_free_guidance(outs[0], outs[1],
-                                         self.guidance_scale)
-            latents = sched.step(v, latents, i)
-            if first_frame is not None:
-                latents[:, :, :1] = first_frame
-            device_sync(latents)
+                    ts = torch.full((b,), float(t), device=self.device)
+                model_in = (latents if condition is None
+                            else torch.cat([latents, condition], dim=1))
+                outs = []
+                for text in (text_cond, text_uncond):
+                    x, ctx, ctx_img, temb, temb6, rope = self._embed(
+                        model_in, ts, text, image_emb)
+                    if self.density_probe:
+                        self.density_samples.append(self._density(
+                            x, ctx, ctx_img, temb6, rope))
+                    # the reference's signal: timestep_proj under
+                    # use_ret_steps, else temb (main_wan21t2v.py:103)
+                    sig = temb6 if self.use_ret_steps else temb
+                    if tea.enabled and not teacache_decision(
+                            tea, sig, self.tp, self.device):
+                        x = tea.apply_residual(x)
+                    else:
+                        sparse_now = use_sparse and (
+                            self.is_i2v or call >= self.warm_calls)
+                        x_in = x
+                        x = self._run_blocks(x, ctx, ctx_img, temb6, rope,
+                                             sparse_now)
+                        if tea.enabled:
+                            tea.record_residual_value(residual_value(
+                                x, x_in, self.teacache_residual))
+                    outs.append(self._head(x, temb))
+                    call += 1
+                v = classifier_free_guidance(outs[0], outs[1],
+                                             self.guidance_scale)
+                latents = sched.step(v, latents, i)
+                if first_frame is not None:
+                    latents[:, :, :1] = first_frame
+                with span("rsa.sync.step"):
+                    device_sync(latents)
             self.step_seconds.append(time.perf_counter() - t0
                                      - sum(self.step_seconds))
         self.denoise_seconds = time.perf_counter() - t0
@@ -521,34 +523,36 @@ class Wan22A14BPipeline:
         device_sync(latents)
         t0 = time.perf_counter()
         for i, t in enumerate(sched.timesteps):
-            is_high = t >= boundary
-            if not is_high and not swapped:
-                # the one boundary swap: high tree out, low tree in
-                self.swap_seconds = self._swap_in(lo, self._host[1], hi)
-                swapped = True
-            pipe, tea = (hi, tea_h) if is_high else (lo, tea_l)
-            ts = torch.full((b,), float(t), device=self.device)
-            model_in = (latents if condition is None
-                        else torch.cat([latents, condition], dim=1))
-            outs = []
-            for text in (text_cond, text_uncond):
-                x, ctx, ctx_img, temb, temb6, rope = pipe._embed(
-                    model_in, ts, text, None)
-                if tea.enabled and not teacache_decision(
-                        tea, temb, pipe.tp, self.device):
-                    x = tea.apply_residual(x)
-                else:
-                    x_in = x
-                    x = pipe._run_blocks(x, ctx, ctx_img, temb6, rope,
-                                         pipe.mode == "sparse")
-                    if tea.enabled:
-                        tea.record_residual_value(residual_value(
-                            x, x_in, pipe.teacache_residual))
-                outs.append(pipe._head(x, temb))
-            v = classifier_free_guidance(outs[0], outs[1],
-                                         pipe.guidance_scale)
-            latents = sched.step(v, latents, i)
-            device_sync(latents)
+            with span("rsa.step"):
+                is_high = t >= boundary
+                if not is_high and not swapped:
+                    # the one boundary swap: high tree out, low tree in
+                    self.swap_seconds = self._swap_in(lo, self._host[1], hi)
+                    swapped = True
+                pipe, tea = (hi, tea_h) if is_high else (lo, tea_l)
+                ts = torch.full((b,), float(t), device=self.device)
+                model_in = (latents if condition is None
+                            else torch.cat([latents, condition], dim=1))
+                outs = []
+                for text in (text_cond, text_uncond):
+                    x, ctx, ctx_img, temb, temb6, rope = pipe._embed(
+                        model_in, ts, text, None)
+                    if tea.enabled and not teacache_decision(
+                            tea, temb, pipe.tp, self.device):
+                        x = tea.apply_residual(x)
+                    else:
+                        x_in = x
+                        x = pipe._run_blocks(x, ctx, ctx_img, temb6, rope,
+                                             pipe.mode == "sparse")
+                        if tea.enabled:
+                            tea.record_residual_value(residual_value(
+                                x, x_in, pipe.teacache_residual))
+                    outs.append(pipe._head(x, temb))
+                v = classifier_free_guidance(outs[0], outs[1],
+                                             pipe.guidance_scale)
+                latents = sched.step(v, latents, i)
+                with span("rsa.sync.step"):
+                    device_sync(latents)
             self.step_seconds.append(time.perf_counter() - t0
                                      - sum(self.step_seconds))
         self.denoise_seconds = time.perf_counter() - t0

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils.timing import span
 from .config import SparseConfig
 from . import ops
 
@@ -75,9 +76,11 @@ def _plan_rows(q_blocks, row_ids, *, cfg, nq, k_pool_vis, dk_vis, key_text,
             pad = torch.cat(
                 [torch.ones((b, nq), dtype=torch.bool, device=dev),
                  text_valid.to(torch.bool)], dim=-1)[:, None, None, :]
-            scores = torch.where(
-                pad, scores, torch.tensor(NEG_INF, dtype=scores.dtype,
-                                          device=dev))
+            # a scalar from pageable host memory: the copy waits for the
+            # device's queue to drain
+            with span("rsa.sync.plan"):
+                neg = torch.tensor(NEG_INF, dtype=scores.dtype, device=dev)
+            scores = torch.where(pad, scores, neg)
         probs_tok = F.softmax(scores, dim=-1)
         nogapr = ops.gapr_from_stats(
             q_blocks, q_pool, k_pool_vis, dk_vis,

@@ -1,13 +1,13 @@
-"""Wall-clock probes for the denoise loop (reference: utils/variable.py,
-scripts/main_hunyuan.py:105-108,199-202): CUDA work is asynchronous, so
-every stage boundary synchronises the device before reading the clock."""
+"""The device sync of the denoise loops' step clock (reference:
+utils/variable.py, scripts/main_hunyuan.py:105-108,199-202: CUDA work is
+asynchronous, so a step synchronises the device before reading the
+clock), the port's named host ranges (``span``) and the CLI's profiler
+trace."""
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from dataclasses import dataclass, field
 
 import torch
 
@@ -23,24 +23,18 @@ def device_sync(x=None):
         torch.cuda.synchronize(dev)
 
 
-@dataclass
-class StageTimer:
-    """Accumulates wall-clock per named stage."""
-    totals: dict = field(default_factory=dict)
-    counts: dict = field(default_factory=dict)
+_OFF = contextlib.nullcontext()
 
-    @contextlib.contextmanager
-    def stage(self, name: str, sync_on=None):
-        t0 = time.perf_counter()
-        yield
-        device_sync(sync_on)
-        dt = time.perf_counter() - t0
-        self.totals[name] = self.totals.get(name, 0.0) + dt
-        self.counts[name] = self.counts.get(name, 0) + 1
 
-    def summary(self) -> dict:
-        return {k: {"total_s": round(v, 3), "calls": self.counts[k]}
-                for k, v in self.totals.items()}
+def span(name: str):
+    """A host range ``name`` on the profiler's clock while a torch profiler
+    records (``profiler_trace``, the benchmark's traced steps): the trace
+    files each device operation under the ranges around its launch.  With
+    no profiler it is one shared null context: no ``record_function`` is
+    entered, and the check costs a small fraction of entering one."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
