@@ -43,7 +43,12 @@ ranges that the merge kernel folds:
      split and merged, the windowed dense at block_m 1024, K2 at G = 2 and
      4); max abs error <= 2e-2 and, relative to the output's
      own scale, max abs error <= 5 % of max |output| and rms error <= 2 %
-     of its std.  Then K1q ("int8" and "mxu8") against its plain version:
+     of its std.  Then P1 (the plan's top-p selection, plan_select.cu)
+     at the benchmark cells' probs shapes and the plan's other row
+     lengths: its masks against the plain model of its summation order
+     (bit for bit) and the plain bisection (rows apart only within 1e-5
+     of p_remain, counted), its device ms (a profiler trace) beside
+     its bound and the plain bisection's, its launches.  Then K1q ("int8" and "mxu8") against its plain version:
      random masks, the text window at B=2, zero-count and all-masked rows,
      a clean prefix followed by text blocks, chunk_blocks 2, 16 and 24.
   3. site: one rectified sparse-attention site at the HunyuanVideo
@@ -484,6 +489,30 @@ def cuda_ms(fn, reps: int = 3, warmup: int = 1) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def device_kernel_ms(fn, name: str, reps: int = 20) -> float | None:
+    """Device ms a call of the kernel whose name holds ``name``, from a
+    torch.profiler trace of ``reps`` calls after one warm-up: the kernel
+    alone, without the host's pace between launches (which CUDA events
+    over back-to-back calls include where a kernel is shorter than its
+    launch).  None where the trace does not hold ``reps`` such kernels."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and name in e.key]
+    if sum(e.count for e in ev) != reps:
+        return None
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)) for e in ev)
+    return us / 1e3 / reps
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -902,6 +931,72 @@ def head_dim64_cases(kernels, ops, check, rnd, gen):
     e = float((got.float() - ref.float())[live].abs().max())
     if e > TOL:
         raise AssertionError(f"K2 at head_dim 64 vs K1's rows: {e}")
+
+
+# the plan's probs: the benchmark cells' HunyuanVideo and CogVideoX sites,
+# then the other row lengths (Flux, Wan, the long-context point, one row
+# past the warp layout) at fewer rows
+TOPP_SHAPES = {"hunyuan": (1, 24, 900, 901), "cogvideox": (1, 48, 351, 352),
+               "flux": (1, 24, 256, 513), "wan": (1, 40, 256, 591),
+               "longctx": (1, 24, 256, 1803), "cta": (1, 4, 64, 3000)}
+
+
+def plan_select_leg(kernels, ops) -> dict:
+    """P1 (kernels/plan_select.py) against the plain bisection on each of
+    ``TOPP_SHAPES`` and four kinds of rows at p_remain 0.3 (the cells')
+    with top-k floors of 1 and a fifth of the row, and at 0.6 with 4: its
+    masks equal the plain model of its summation order bit for bit (its
+    search and the 32 rounds as written), and the plain bisection's except
+    on rows whose fp64 mass at the cut lies within 1e-5 of p_remain
+    (counted); then, on near-uniform rows at 0.3 with a floor of a fifth of
+    the row, its device time from a profiler trace (``ms``) beside its
+    bound (probs read once, the mask written once) and the plain
+    bisection's (CUDA events), the host-paced time of 50 back-to-back
+    calls by CUDA events (``host_paced_ms``: launch overhead, where it is
+    above ``ms``), and its launches."""
+    from rectified_spaattn_tpu_torch.bench.inputs import TOPP_KINDS, topp_rows
+    ps = kernels.plan_select
+    out = {}
+    for name, shape in TOPP_SHAPES.items():
+        cut = shape[-1] // 5      # a top-k floor near the cells' (0.2, 0.15)
+        r = {"shape": list(shape), "layout": list(ps.layout(shape[-1])),
+             "rows_apart": 0, "max_cut_gap": 0.0}
+        for kind in TOPP_KINDS:
+            p = topp_rows(kind, shape, DEV)
+            for p_remain, floor in ((0.3, 1), (0.6, 4), (0.3, cut)):
+                got = ps.topp_select(p, p_remain, floor)
+                if not (torch.equal(got, ps._simulate(p, p_remain, floor))
+                        and torch.equal(got, ps._simulate(
+                            p, p_remain, floor, snap=False))):
+                    raise AssertionError(f"P1 {name} {kind}: not its model")
+                gaps = ps.cut_gaps(p, got, ops.topp_threshold_onehot_bisect(
+                    p, p_remain, floor), p_remain)
+                if gaps.numel():
+                    r["rows_apart"] += gaps.numel()
+                    r["max_cut_gap"] = max(r["max_cut_gap"],
+                                           float(gaps.max()))
+                if not bool((gaps <= 1e-5).all()):
+                    raise AssertionError(f"P1 {name} {kind}: rows apart "
+                                         f"beyond 1e-5: {gaps.tolist()}")
+        p = topp_rows("random", shape, DEV)
+        before = ps.topp_select.launches
+        r["ms"] = device_kernel_ms(lambda: ps.topp_select(p, 0.3, cut),
+                                   "topp_select_kernel")
+        r["host_paced_ms"] = cuda_ms(lambda: ps.topp_select(p, 0.3, cut),
+                                     reps=50, warmup=5)
+        r["launches"] = ps.topp_select.launches - before
+        if r["launches"] != 76:
+            raise AssertionError(f"P1 {name}: {r['launches']} launches for "
+                                 "76 calls")
+        r["plain_ms"] = cuda_ms(
+            lambda: ops.topp_threshold_onehot_bisect(p, 0.3, cut), reps=5)
+        r["bound_ms"], r["bound_by"] = bound_ms(0, 5 * p.numel())
+        r["roofline_share"] = (r["bound_ms"] / r["ms"] if r["ms"]
+                               else None)
+        out[name] = r
+        del p
+        torch.cuda.empty_cache()
+    return out
 
 
 def k1q_cases(kernels, ops):
@@ -1443,10 +1538,13 @@ def hunyuan_full_pipe(image_condition_type=None, model=None, **pipe_kw):
 
 
 def path_kernels(kernels) -> dict:
+    """The main path's launch counters: the attention kernels and P1, the
+    plan's selection (one launch a plan)."""
     return {"K1": kernels.block_sparse_flash_attention,
             "K2": kernels.block_sparse_flash_attention_grouped,
             "K3": kernels.dense_flash_attention,
-            "K1_merge": kernels.block_sparse.merge_splits}
+            "K1_merge": kernels.block_sparse.merge_splits,
+            "P1": kernels.plan_select.topp_select}
 
 
 def pipeline_phase(kernels):
@@ -1673,13 +1771,15 @@ def int8_probe_phase():
 
 
 def quant_launches(kernels):
-    """{kernel: launches} for K1, K2, K3 and the two K1q modes."""
+    """{kernel: launches} for K1, K2, K3, the two K1q modes, the merge and
+    P1."""
     k1 = kernels.block_sparse_flash_attention
     return {"K1": k1.launches, "K1q_int8": k1.quant_launches["int8"],
             "K1q_mxu8": k1.quant_launches["mxu8"],
             "K2": kernels.block_sparse_flash_attention_grouped.launches,
             "K3": kernels.dense_flash_attention.launches,
-            "K1_merge": kernels.block_sparse.merge_splits.launches}
+            "K1_merge": kernels.block_sparse.merge_splits.launches,
+            "P1": kernels.plan_select.topp_select.launches}
 
 
 def zero_launches(kernels):
@@ -1689,6 +1789,7 @@ def zero_launches(kernels):
     kernels.block_sparse_flash_attention_grouped.launches = 0
     kernels.dense_flash_attention.launches = 0
     kernels.block_sparse.merge_splits.launches = 0
+    kernels.plan_select.topp_select.launches = 0
 
 
 def small_int4_check(kernels):
@@ -2181,10 +2282,7 @@ def ckpt_phase(kernels, root: str) -> dict:
                 "--frame", str(CKPT["frame"]), "--num_steps",
                 str(CKPT["steps"]), "--mode", "sparse", "--group_rows", "2",
                 "--out_dir", out_dir, "--device", DEV]
-        kerns = {"K1": kernels.block_sparse_flash_attention,
-                 "K2": kernels.block_sparse_flash_attention_grouped,
-                 "K3": kernels.dense_flash_attention,
-                 "K1_merge": kernels.block_sparse.merge_splits}
+        kerns = path_kernels(kernels)
         torch.backends.cudnn.allow_tf32 = True
         zero_launches(kernels)
         torch.cuda.reset_peak_memory_stats()
@@ -2503,7 +2601,7 @@ def cog_full_pipe(cfg_kw: dict, steps: int, seed: int = 0):
 
 def per_call_launches(kernels, pipe):
     """Wrap ``pipe.model.run_blocks`` to record, per computed call, the
-    K1 / K2 / merge launches it made; returns the list it fills."""
+    launches of ``path_kernels`` it made; returns the list it fills."""
     kerns = path_kernels(kernels)
     calls, run = [], pipe.model.run_blocks
 
@@ -2522,7 +2620,8 @@ def cog_pipe_run(kernels, pipe, text, neg, **call_kw):
     read just after, per call too; checks the shape, finiteness, the
     calls gated sparse (from call 5 on) and that each dense call launched
     K1 once a block (the windowed dense) and each sparse call K2 (visual
-    rows), K1 (text rows) and the merge once a block, and K3 never."""
+    rows), K1 (text rows), the merge and P1 (its plan) once a block, and
+    K3 never."""
     kerns = path_kernels(kernels)
     calls = per_call_launches(kernels, pipe)
     noise = torch.Generator(device=DEV)
@@ -2543,8 +2642,8 @@ def cog_pipe_run(kernels, pipe, text, neg, **call_kw):
                              f"finite or of the wrong shape")
     ncalls = 2 * len(pipe.step_seconds)
     want_sparse = list(range(pipe.sparse_warm_calls, ncalls))
-    dense_call = {"K1": n, "K2": 0, "K3": 0, "K1_merge": 0}
-    sparse_call = {"K1": n, "K2": n, "K3": 0, "K1_merge": n}
+    dense_call = {"K1": n, "K2": 0, "K3": 0, "K1_merge": 0, "P1": 0}
+    sparse_call = {"K1": n, "K2": n, "K3": 0, "K1_merge": n, "P1": n}
     want = [sparse_call if c in want_sparse else dense_call
             for c in range(ncalls)]
     if pipe.sparse_calls != want_sparse or calls != want:
@@ -2877,8 +2976,8 @@ def flux_full_pipe(cfg_kw=None, cn_kw=None, **pipe_kw):
 
 
 def record_calls(kernels, obj, name: str, calls: list):
-    """Wrap ``obj.<name>`` to append, per call, the K1 / K2 / K3 / merge
-    launches it made to ``calls``; returns the undo."""
+    """Wrap ``obj.<name>`` to append, per call, the launches of
+    ``path_kernels`` it made to ``calls``; returns the undo."""
     kerns = path_kernels(kernels)
     fn = getattr(obj, name)
 
@@ -2894,15 +2993,15 @@ def record_calls(kernels, obj, name: str, calls: list):
 
 def check_flux_launches(trunk: list, ctrl: list, steps: int) -> None:
     """Each of the 2 x ``steps`` trunk calls launched K2 37 times (the
-    visual rows of the 37 sparse blocks), K1 57 (their text rows, split
-    and merged, and the 20 windowed dense blocks) and K3 never; each of
-    the ``steps`` ControlNet calls K3 5 times (its 5 blocks) and nothing
-    else."""
-    want_trunk = {"K1": 57, "K2": 37, "K3": 0}
+    visual rows of the 37 sparse blocks), P1 37 (their plans), K1 57
+    (their text rows, split and merged, and the 20 windowed dense blocks)
+    and K3 never; each of the ``steps`` ControlNet calls K3 5 times (its 5
+    blocks) and nothing else."""
+    want_trunk = {"K1": 57, "K2": 37, "K3": 0, "P1": 37}
     bad = [c for c in trunk if {k: c[k] for k in want_trunk} != want_trunk
            or c["K1_merge"] == 0]
     bad += [c for c in ctrl if c != {"K1": 0, "K2": 0, "K3": 5,
-                                     "K1_merge": 0}]
+                                     "K1_merge": 0, "P1": 0}]
     if bad or len(trunk) != 2 * steps or len(ctrl) != steps:
         raise AssertionError(f"Flux launches per trunk call {trunk}, per "
                              f"ControlNet call {ctrl}")
@@ -3209,10 +3308,10 @@ def scan_phase(kernels, hun: dict, hun_latents, wan: dict, wan_latents):
                            lambda: upipe(ftext, fmask, generator=seeded()))
     blocks = fcfg.num_dual_blocks + fcfg.num_single_blocks
     n = blocks * SCAN["full_steps"]
-    want = {"K1": n, "K2": n, "K3": 0, "K1_merge": n}
+    want = {"K1": n, "K2": n, "K3": 0, "K1_merge": n, "P1": n}
     if unrolled[1] != want:
         raise AssertionError(f"full-depth launches {unrolled[1]}, want "
-                             f"{want} (one K2, K1 and merge a block)")
+                             f"{want} (one K2, K1, merge and P1 a block)")
     layouts = sorted({m.layout for m in model.modules()
                       if hasattr(m, "layout") and m.weight is None})
     res["hunyuan_full_depth"] = {
@@ -3594,9 +3693,9 @@ def eval_hunyuan_phase(kernels, root: str) -> dict:
     snapshot> --score in process, 3 prompts at 480x832x36, 2 sparse
     steps at G = 1 (run_eval has no --group_rows): the files written, the
     seconds per prompt (its decode apart) and the peak memory; K1's and
-    the merge's launches by mode against the count the blocks, steps and
-    prompts give (a sparse call: visual rows and split text rows per
-    block and step, 3 calls, as the scoring reuses the run's outputs of
+    the merge's and P1's launches by mode against the count the blocks,
+    steps and prompts give (a sparse call: visual rows, split text rows
+    and a plan per block and step, 3 calls, as the scoring reuses the run's outputs of
     its first 2 prompts; the dense rerun: one windowed dense K1 per block
     and step, 2 calls); diff_vs_dense finite with cosine in (0, 1]; each
     gated adapter's availability."""
@@ -3621,9 +3720,9 @@ def eval_hunyuan_phase(kernels, root: str) -> dict:
     per = blocks * c["steps"]
     modes = log.by_mode()
     want = {"sparse": {"calls": 3, "K1": 3 * 2 * per, "K1_merge": 3 * per,
-                       "K2": 0, "K3": 0},
+                       "K2": 0, "K3": 0, "P1": 3 * per},
             "flash": {"calls": 2, "K1": 2 * per, "K1_merge": 0, "K2": 0,
-                      "K3": 0}}
+                      "K3": 0, "P1": 0}}
     if modes != want or launches["K1"] != sum(m["K1"] for m in
                                               want.values()):
         raise AssertionError(f"eval_hunyuan launches {modes} (total "
@@ -3734,9 +3833,10 @@ def eval_flux_phase(kernels, root: str) -> dict:
     snapshot> --controlnet_dir <its 2-block ControlNet> at 1024^2, 2 steps
     a stage, --score, 2 prompts: the image branch (dense_ref over every
     prompt, FID's gate, CLIPScore refused on pseudo-text); K1, K3 (the
-    ControlNet) and merge launches by mode against the count the blocks
-    and steps give, K2 none (G = 1).  A sparse call (2, the scoring
-    reusing the run's): visual and text rows per block, step and stage,
+    ControlNet), merge and P1 launches by mode against the count the
+    blocks and steps give, K2 none (G = 1).  A sparse call (2, the scoring
+    reusing the run's): visual and text rows and a plan per block, step
+    and stage,
     the text rows split in the up stage only (the base stage's 256 + 512
     tokens make lists too short to split: _split_plan), K3 per ControlNet
     block and up step; a dense call (2 for the diffs, 2 for dense_ref):
@@ -3764,12 +3864,13 @@ def eval_flux_phase(kernels, root: str) -> dict:
     per = (tcfg["num_layers"] + tcfg["num_single_layers"]) * EVAL["steps"]
     k3 = FLUX_CKPT["controlnet"]["num_layers"] * EVAL["steps"]
     want = {"sparse": {"calls": 2, "K1": 2 * (2 * 2 * per),
-                       "K1_merge": 2 * per, "K2": 0, "K3": 2 * k3},
+                       "K1_merge": 2 * per, "K2": 0, "K3": 2 * k3,
+                       "P1": 2 * (2 * per)},
             "flash": {"calls": 4, "K1": 4 * (2 * per), "K1_merge": 0,
-                      "K2": 0, "K3": 4 * k3}}
+                      "K2": 0, "K3": 4 * k3, "P1": 0}}
     modes = log.by_mode()
     if modes != want or any(launches[n] != sum(m[n] for m in want.values())
-                            for n in ("K1", "K1_merge", "K2", "K3")):
+                            for n in ("K1", "K1_merge", "K2", "K3", "P1")):
         raise AssertionError(f"eval_flux launches {modes} (total "
                              f"{launches}), want {want}")
     fid, clip = scores["fid"], scores["clip_score"]
@@ -3998,10 +4099,7 @@ def wan_pipeline_phase(kernels):
     noise.manual_seed(42)
     torch.cuda.reset_peak_memory_stats()
     start_gb = torch.cuda.memory_allocated() / 2**30
-    kerns = {"K1": kernels.block_sparse_flash_attention,
-             "K2": kernels.block_sparse_flash_attention_grouped,
-             "K3": kernels.dense_flash_attention,
-             "K1_merge": kernels.block_sparse.merge_splits}
+    kerns = path_kernels(kernels)
     plans, restore = record_plan_counts()
     try:
         for f in kerns.values():
@@ -4024,7 +4122,8 @@ def wan_pipeline_phase(kernels):
     # once per block per computed call (windowed dense or sparse), never
     # split: Wan has no text rows, and its visual rows fill the card
     want = {"K1": cfg.num_blocks * computed, "K2": 0,
-            "K3": cfg.num_blocks * computed, "K1_merge": 0}
+            "K3": cfg.num_blocks * computed, "K1_merge": 0,
+            "P1": want_plans}
     if launches != want or len(plans) != want_plans or want_plans == 0:
         raise AssertionError(f"Wan launches {launches} (want {want}), "
                              f"sparse plans {len(plans)} (want {want_plans} "
@@ -4169,7 +4268,8 @@ def wan22_a14b_phase(kernels):
     # per computed call: K1 in every block (windowed dense or sparse), K3
     # the text cross of every block (no CLIP image branch on A14B); Wan's
     # visual rows fill the card, so nothing splits
-    want = {"K1": n * computed, "K2": 0, "K3": n * computed, "K1_merge": 0}
+    want = {"K1": n * computed, "K2": 0, "K3": n * computed, "K1_merge": 0,
+            "P1": sparse_blocks * computed}
     if (res["launches"] != want or res_co["launches"] != want
             or res["sparse_plans"] != sparse_blocks * computed
             or res_co["sparse_plans"] != res["sparse_plans"]):
@@ -6216,6 +6316,10 @@ def main() -> int:
     emit("kernels_vs_plain", t0, tolerance=TOL, max_abs_err=errs, cases=cases)
 
     t0 = time.perf_counter()
+    psel = plan_select_leg(kernels, ops)
+    emit("plan_select", t0, **psel)
+
+    t0 = time.perf_counter()
     qerrs, qcases = k1q_cases(kernels, ops)
     emit("k1q_vs_plain", t0, tolerance=TOL, max_abs_err=qerrs, cases=qcases)
 
@@ -6453,6 +6557,20 @@ def main() -> int:
                 "producer warpgroup; mxu8's QK^T on the s8 wgmma")
     merge = site["K1_merge"]
     diag_k1q = diag["launches"]["diag_grouped_k1q"]
+    # every sparse pipeline run plans, each plan through P1: none reads 0
+    p1_paths = by_path("P1")
+    unplanned = [path for path in ("hunyuan", "hunyuan_i2v", "wan",
+                                   "wan22_a14b", "hunyuan_ckpt",
+                                   "hunyuan_i2v_ckpt", "cogvideox",
+                                   "cogvideox_i2v", "cogvideox_ckpt", "flux",
+                                   "flux_ckpt", "eval_hunyuan", "eval_flux")
+                 if not p1_paths[path]]
+    unplanned += [path for path, c in p1_paths.items()
+                  if path.startswith("scan_") and not c]
+    if unplanned:
+        raise AssertionError(f"sparse pipeline paths without a P1 launch: "
+                             f"{unplanned} ({p1_paths})")
+    p1 = psel["hunyuan"]
     line = {"kernels": [
         {"name": "K1", "route": "cuda", "source": src,
          "replaces": "rectified_spaattn_tpu/kernels/block_sparse.py:89",
@@ -6598,6 +6716,23 @@ def main() -> int:
          "design": "one warp a row",
          "other_jobs": {**joint_jobs("K1_merge", csites),
                         **joint_jobs("K1_merge", fsites, "flux")}},
+        {"name": "P1", "route": "cuda",
+         "source": "rectified_spaattn_tpu_torch/csrc/plan_select.cu",
+         "replaces": "none (new on the port): "
+                     "rectified_spaattn_tpu/sparse/ops.py:146 "
+                     "topp_threshold_onehot_bisect, XLA operations",
+         "launches": sum(p1_paths.values()),
+         "launches_by_path": p1_paths,
+         "rows_apart": sum(r["rows_apart"] for r in psel.values()),
+         "max_cut_gap": max(r["max_cut_gap"] for r in psel.values()),
+         "ms": p1["ms"], "host_paced_ms": p1["host_paced_ms"],
+         "plain_ms": p1["plain_ms"], "bound_ms": p1["bound_ms"],
+         "bound_by": p1["bound_by"], "library_ms": None,
+         "shape": "HunyuanVideo's probs [1,24,900,901] fp32",
+         "design": "one warp a row in registers (one 16-warp CTA a row "
+                   "past 2,048 columns), fixed-order fp32 mass, bounds "
+                   "snapped to the row's values",
+         "other_jobs": {n: r for n, r in psel.items() if n != "hunyuan"}},
         k1q_stats_entry(src, site, smooth, qserrs),
         *variant_entries(s3, s2, ptxas["sass"]),
         *fp32_entries(f32errs, f32site, f32res, f32pipes, f32full),

@@ -11,6 +11,8 @@ than JAX's keys; the tests hand both sides the same numpy draws.
 - ``realistic_qkv``: a coarse random field trilinearly upsampled over the
   latent grid, in curve order, plus noise and a text tail (the plan
   inputs of the kernel-variant benchmark).
+- ``topp_rows``: rows of probabilities of four kinds for the plan's top-p
+  selection (kernels/plan_select.py's tests and chip_smoke.py's leg).
 """
 
 from __future__ import annotations
@@ -103,3 +105,22 @@ def realistic_qkv(gen, b: int, h: int, grid, text_len: int, d: int, h2l,
     text = torch.randn((b, h, text_len, d), generator=gen, device=dev)
     return tuple(torch.cat([f, text], dim=2).to(torch.bfloat16)
                  for f in fields)
+
+
+TOPP_KINDS = ("random", "peaked", "tied", "padded")
+
+
+def topp_rows(kind: str, shape, device=None) -> torch.Tensor:
+    """Rows of probabilities drawn on the host, seeded by the row length:
+    near-uniform (as random weights give), peaked, tied (four distinct
+    values a row) or padded (a zero tail, as padded text leaves)."""
+    g = torch.Generator().manual_seed(shape[-1])
+    if kind == "tied":
+        p = torch.randint(1, 5, shape, generator=g).float()
+    else:
+        x = torch.randn(shape, generator=g) * (6.0 if kind == "peaked"
+                                               else 0.5)
+        p = torch.softmax(x, dim=-1)
+        if kind == "padded":
+            p[..., -(shape[-1] // 3):] = 0.0
+    return (p / p.sum(dim=-1, keepdim=True)).to(device)

@@ -9,7 +9,7 @@ from .block_sparse import (
 )
 from .cuda_build import build_kernels
 from .flash import dense_attention, dense_flash_attention
-from . import int8_probe, variants
+from . import int8_probe, plan_select, variants
 
 __all__ = [
     "block_sparse_flash_attention",
@@ -23,5 +23,6 @@ __all__ = [
     "dense_attention",
     "dense_flash_attention",
     "int8_probe",
+    "plan_select",
     "variants",
 ]

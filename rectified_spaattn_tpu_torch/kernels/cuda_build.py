@@ -22,8 +22,9 @@ from ..utils.build import BUILD_DIR
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
-SOURCES = ("block_sparse", "dense_flash", "int8_probe", "variants")
-# K1/K1s/K2/K1q/K1q-s, K3, S1, S3/S2
+SOURCES = ("block_sparse", "dense_flash", "int8_probe", "variants",
+           "plan_select")
+# K1/K1s/K2/K1q/K1q-s, K3, S1, S3/S2, P1
 # included by the sources
 HEADERS = ("attn_common.cuh", "hopper_attn.cuh", "sparse_tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..kernels import plan_select
 from ..utils.timing import span
 from .config import SparseConfig
 from . import ops
@@ -93,7 +94,7 @@ def _plan_rows(q_blocks, row_ids, *, cfg, nq, k_pool_vis, dk_vis, key_text,
             q_blocks, q_pool, k_pool_vis, dk_vis, scores_unscaled,
             jk=cfg.block_n)
 
-    select = (ops.topp_threshold_onehot_bisect
+    select = (plan_select.topp_select
               if cfg.topp_impl == "bisect" else ops.topp_threshold_onehot)
     onehot_sel = select(probs, cfg.p_remain, cfg.top_k_floor)
 

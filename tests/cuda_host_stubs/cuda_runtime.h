@@ -39,7 +39,8 @@ uint4 make_uint4(unsigned, unsigned, unsigned, unsigned); uint2 make_uint2(unsig
 float2 make_float2(float, float); float4 make_float4(float, float, float, float);
 float4 __ldg(const float4*); uint4 __ldg(const uint4*);
 float __shfl_xor_sync(unsigned, float, int); int __shfl_xor_sync(unsigned, int, int);
-float __expf(float); float __int_as_float(int); float __fmul_rn(float, float); float __fadd_rn(float, float); float __fmaf_rn(float, float, float);
+int __reduce_add_sync(unsigned, int); int __reduce_min_sync(unsigned, int); int __reduce_max_sync(unsigned, int);
+float __expf(float); float __int_as_float(int); int __float_as_int(float); float __fmul_rn(float, float); float __fadd_rn(float, float); float __fmaf_rn(float, float, float);
 int __float2int_rn(float); unsigned __byte_perm(unsigned, unsigned, unsigned);
 void __syncthreads(); void __trap(); long long clock64();
 size_t __cvta_generic_to_shared(const void*);

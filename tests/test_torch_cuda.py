@@ -13,6 +13,9 @@ output's scale) and its bicubic resize (fp32 2e-4 / 2e-5), the eval
 diff metrics in float64 on the card against the CPU (rtol 1e-10), and
 the stacked block execution (scan_blocks, dispatch_segments) of the
 HunyuanVideo and Wan pipelines against their unrolled runs (bit for
+bit); the plan's top-p selection kernel P1 against the plain bisection
+(a row apart only where its fp64 mass at the cut lies within 1e-5 of
+p_remain) and against the plain model of its summation order (bit for
 bit).
 Marked ``cuda``; each test skips without a GPU.  This file imports neither
 JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -24,7 +27,9 @@ import pytest
 import torch
 
 from rectified_spaattn_tpu_torch import kernels as tk
-from rectified_spaattn_tpu_torch.kernels import int8_probe, variants
+from rectified_spaattn_tpu_torch.bench.inputs import TOPP_KINDS, topp_rows
+from rectified_spaattn_tpu_torch.kernels import (int8_probe, plan_select,
+                                                 variants)
 from rectified_spaattn_tpu_torch.sparse import ops
 
 torch.set_num_threads(1)
@@ -1033,3 +1038,33 @@ def test_cuda_scan_pipelines_equal_unrolled(cuda, family):
                              init)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
         assert got_l == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", TOPP_KINDS)
+@pytest.mark.parametrize("shape", [
+    (1, 24, 900, 901), (1, 48, 351, 352), (1, 4, 64, 513), (1, 4, 64, 591),
+    (1, 4, 64, 1803), (1, 2, 16, 3000)])
+def test_cuda_topp_select_matches_plain(cuda, kind, shape):
+    """P1 at the benchmark cells' probs shapes (HunyuanVideo, CogVideoX)
+    and the other row lengths of the plan (Flux, Wan, the long-context
+    point, one row past the warp layout), with top-k floors of 1, 4 and a
+    fifth of the row (the cells' is ~0.2 and 0.15): one launch a call; the
+    plain model of its order bit for bit, with its search and with the 32
+    rounds as written; the plain bisection except where a row's fp64 mass
+    at the cut lies within 1e-5 of p_remain."""
+    p = topp_rows(kind, shape, cuda)
+    for p_remain, floor in ((0.3, 1), (0.6, 4), (0.3, shape[-1] // 5)):
+        before = plan_select.topp_select.launches
+        got = plan_select.topp_select(p, p_remain, floor)
+        torch.cuda.synchronize()
+        assert plan_select.topp_select.launches == before + 1
+        assert torch.equal(got, plan_select._simulate(p, p_remain, floor))
+        assert torch.equal(got, plan_select._simulate(p, p_remain, floor,
+                                                      snap=False))
+        want = ops.topp_threshold_onehot_bisect(p, p_remain, floor)
+        gaps = plan_select.cut_gaps(p, got, want, p_remain)
+        assert bool((gaps <= 1e-5).all()), gaps
+    before = plan_select.topp_select.launches
+    assert bool(plan_select.topp_select(p, 1.0, 1).all())
+    assert plan_select.topp_select.launches == before
