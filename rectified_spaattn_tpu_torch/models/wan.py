@@ -68,8 +68,11 @@ class WanDiT(nn.Module):
         pt, ph, pw = c.patch_size
         self.patch_embedding = QLinear(pt * ph * pw * c.in_channels, hd)
         # linear(text_dim -> hidden), gelu, linear(hidden -> hidden): the
-        # diffusers WanTextEmbedder layout
-        self.text_embedder = MLP(hd, 1.0, activation="gelu",
+        # diffusers WanTextEmbedder layout, in the published tanh form of
+        # the GELU (Wan2.1's text_embedding, diffusers'
+        # PixArtAlphaTextProjection "gelu_tanh"; the JAX package builds
+        # the exact form)
+        self.text_embedder = MLP(hd, 1.0, activation="gelu_tanh",
                                  in_dim=c.text_dim)
         self.time_in = QLinear(c.freq_dim, hd)
         self.time_embedder = MLP(hd, 1.0, activation="silu")

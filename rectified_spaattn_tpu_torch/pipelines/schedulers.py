@@ -87,8 +87,9 @@ def _update_dtype(model_out, sample) -> torch.dtype:
 class UniPCScheduler:
     """UniPC multistep (order 2) for flow matching, the Wan2.1 sampler
     (diffusers UniPCMultistepScheduler with flow_shift and flow
-    prediction), the B(h)=h "bh2" variant: the corrector refines the
-    previous prediction with this step's x0, then the predictor advances."""
+    prediction), its "bh2" variant, B(h) = e^h - 1 (Zhao et al. 2023,
+    UniPC): the corrector refines the previous prediction with this
+    step's x0, then the predictor advances."""
     num_steps: int
     shift: float = 5.0
     order: int = 2
@@ -115,11 +116,14 @@ class UniPCScheduler:
 
     @staticmethod
     def _coeffs(hh):
-        """(h_phi_1, b1, b2) of the bh2 data-prediction branch."""
+        """(h_phi_1, B(h), rho_p, b1, b2) of the data-prediction branch:
+        rho_p the order-2 predictor's, 0.5 as UniPC takes it; b1, b2 the
+        order-2 corrector's right-hand side."""
         h_phi_1 = math.expm1(hh)
         h_phi_2 = h_phi_1 / hh - 1.0
         h_phi_3 = h_phi_2 / hh - 0.5
-        return h_phi_1, h_phi_2 / hh, h_phi_3 * 2.0 / hh
+        b_h = h_phi_1
+        return h_phi_1, b_h, 0.5, h_phi_2 / b_h, h_phi_3 * 2.0 / b_h
 
     def step(self, model_out, sample, i: int):
         dtype = _update_dtype(model_out, sample)
@@ -140,23 +144,20 @@ class UniPCScheduler:
         s0, st = self.sigmas[i], self.sigmas[i + 1]
         h = self._lambda(st) - self._lambda(s0)
         a_t, sg_t = self._alpha_sigma(st)
-        hh = -h
-        h_phi_1, b1, _ = self._coeffs(hh)
+        h_phi_1, b_h, rho_p, _, _ = self._coeffs(-h)
         x0_0 = self._model_outputs[-1]
         x_t = float(sg_t / s0) * sample - float(a_t * h_phi_1) * x0_0
         if order >= 2 and self._model_outputs[-2] is not None:
             rk = (self._lambda(self.sigmas[i - 1]) - self._lambda(s0)) / h
             d1 = (self._model_outputs[-2] - x0_0) / rk
-            # order-2 predictor: rho solves the 1x1 system [1][rho] = [b1]
-            x_t = x_t - float(a_t * hh * b1) * d1
+            x_t = x_t - float(a_t * b_h * rho_p) * d1
         return x_t
 
     def _unic(self, x0_new, last_sample, i):
         s0, st = self.sigmas[i - 1], self.sigmas[i]
         h = self._lambda(st) - self._lambda(s0)
         a_t, sg_t = self._alpha_sigma(st)
-        hh = -h
-        h_phi_1, b1, b2 = self._coeffs(hh)
+        h_phi_1, b_h, _, b1, b2 = self._coeffs(-h)
         x0_0 = self._model_outputs[-1]
         d1_t = x0_new - x0_0
         x_t_ = float(sg_t / s0) * last_sample - float(a_t * h_phi_1) * x0_0
@@ -169,7 +170,7 @@ class UniPCScheduler:
             corr = rho1 * d1 + rho2 * d1_t
         else:
             corr = 0.5 * d1_t      # order-1 corrector
-        return x_t_ - float(a_t * hh) * corr
+        return x_t_ - float(a_t * b_h) * corr
 
 
 

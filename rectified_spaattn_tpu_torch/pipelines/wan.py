@@ -21,6 +21,11 @@ Wan specifics:
     in_channels-36 transformers) and ``ti2v_first_frame`` (TI2V's held
     first latent frame).
 
+Under a running profiler each dense self-attention call (the warm gate)
+is the host range ``rsa.dense`` and each cross-attention call
+``rsa.cross``, each named with the call's sizes
+(utils/timing.py::attention_span).
+
 The visual token stream is padded once in embed to a multiple of the mask
 block, so every layer's attention sees block-aligned shapes, and sliced
 back in head.
@@ -55,7 +60,7 @@ from ..attention import attention
 from ..cache import TeaCache
 from ..cache.teacache import residual_value
 from ..utils.device import resolve_device
-from ..utils.timing import device_sync, span
+from ..utils.timing import attention_span, device_sync, span
 from .base import (build_site, decode_timed, classifier_free_guidance,
                    param_compute_dtype, rank_mean, shard_tensor_parallel,
                    teacache_decision)
@@ -217,12 +222,18 @@ class WanPipeline:
                 temb.to(cd), temb6.to(cd), rope)
 
     def _cross(self, q, k, v):
-        return attention(q, k, v, mode="vanilla" if self.mode == "vanilla"
-                         else "flash")
+        with attention_span("rsa.cross", q, k):
+            return attention(q, k, v, mode="vanilla"
+                             if self.mode == "vanilla" else "flash")
 
     def _run_blocks(self, x, ctx, ctx_img, temb6, rope, sparse: bool):
-        dense = self.site.attn_fn("vanilla" if self.mode == "vanilla"
-                                  else "flash")
+        dense_fn = self.site.attn_fn("vanilla" if self.mode == "vanilla"
+                                     else "flash")
+
+        def dense(q, k, v):
+            with attention_span("rsa.dense", q, k):
+                return dense_fn(q, k, v)
+
         n = self.model.cfg.num_blocks
         if sparse:
             sp = self.site.attn_fn("sparse")

@@ -37,6 +37,18 @@ def span(name: str):
     return _OFF
 
 
+def attention_span(name: str, q: torch.Tensor, k: torch.Tensor):
+    """``span`` around an attention call on q, k [B, H, S, D], its range
+    named with the call's sizes, ``<name>:b=1,h=40,q=75648,k=512,d=128``,
+    so that a reader of the trace can count its operations and bytes.
+    The name is built only while a profiler records."""
+    if torch.autograd._profiler_enabled():
+        b, h, sq, d = q.shape
+        return torch.profiler.record_function(
+            f"{name}:b={b},h={h},q={sq},k={k.shape[2]},d={d}")
+    return _OFF
+
+
 @contextlib.contextmanager
 def profiler_trace(log_dir: str | None):
     """Optional torch.profiler trace around a region (CPU, and CUDA where

@@ -59,6 +59,9 @@ def _model(kind: str, sd: dict):
     else:
         model = (HunyuanVideoDiT(HunyuanVideoConfig.tiny())
                  if kind == "hunyuan" else WanDiT(WanConfig.tiny()))
+    if kind == "wan":
+        # the text embedder's GELU in the JAX package's exact form
+        model.text_embedder.act = torch.nn.functional.gelu
     quant.adopt_layout(model, sd)
     model.load_state_dict(sd)
     return model
@@ -76,6 +79,8 @@ def tp_worker(rank: int, world: int, tmp: str):
     from rectified_spaattn_tpu_torch.pipelines import (HunyuanVideoPipeline,
                                                        WanPipeline)
     from rectified_spaattn_tpu_torch.sparse import SparseConfig
+    from _jax_forms import jax_unipc
+    jax_unipc()         # the Wan case is held to the JAX package's pipeline
     mesh = make_mesh(tp=world)
     inp = _load(tmp, "tp_in.pt")
     out = {}

@@ -322,10 +322,13 @@ A14B_KW = dict(height=64, width=64, frames=5, num_steps=4, sa_drop_rate=0.5,
 
 
 def port_a14b(trees, in_channels=4, host_swap=False, kw=A14B_KW):
-    pipes = [WanPipeline(
-        model=load_flax_params(WanDiT(WanConfig.tiny(
-            in_channels=in_channels)), p), device="cpu",
-        defer_device=host_swap, **kw) for p in trees]
+    pipes = []
+    for p in trees:
+        model = load_flax_params(WanDiT(WanConfig.tiny(
+            in_channels=in_channels)), p)
+        model.text_embedder.act = torch.nn.functional.gelu  # JAX's form
+        pipes.append(WanPipeline(model=model, device="cpu",
+                                 defer_device=host_swap, **kw))
     return Wan22A14BPipeline(high=pipes[0], low=pipes[1],
                              boundary_ratio=0.7, host_swap=host_swap)
 

@@ -47,6 +47,8 @@ from rectified_spaattn_tpu_torch.pipelines import (HunyuanVideoPipeline,
                                                    WanPipeline)
 from rectified_spaattn_tpu_torch.sparse import SparseConfig, ops
 
+from _jax_forms import jax_unipc  # noqa: E402
+
 torch.set_num_threads(1)
 BM = BN = 128
 F32 = dict(rtol=2e-4, atol=2e-5)
@@ -332,7 +334,7 @@ def test_tiny_hunyuan_pipeline_quantized_matches_jax(bits, tmp_path):
     assert_close_but_residual_ties(got, want, pipe.teacache)
 
 
-def test_tiny_wan_pipeline_quantized_matches_jax(tmp_path):
+def test_tiny_wan_pipeline_quantized_matches_jax(tmp_path, monkeypatch):
     """3 CFG steps of the sparse Wan pipeline on int8 weights with the
     int8, host-offloaded residual: decisions identical, latents within
     1e-3 / 1e-4 but for residual rounding ties."""
@@ -344,10 +346,12 @@ def test_tiny_wan_pipeline_quantized_matches_jax(tmp_path):
         np.zeros((1,), np.float32), arr(7, 1, 5, jcfg.text_dim), None))
     jp = jq.quantize_params(params, bits=8, min_size=1)
     tmod = load_flax_params(WanDiT(WanConfig.tiny()), jp)
+    tmod.text_embedder.act = torch.nn.functional.gelu   # JAX's exact form
     kw = dict(height=192, width=240, frames=5, num_steps=3, sa_drop_rate=0.5,
               p_remain_rates=0.5, mode="sparse", enable_teacache=True,
               teacache_thresh=0.3, warm_layers=1, warm_calls=0,
               teacache_residual="int8", teacache_offload=True)
+    jax_unipc(monkeypatch)
     jpipe = JWPipe(model=jmod, params=jp, interpret=True, **kw)
     pipe = WanPipeline(model=tmod, device="cpu", **kw)
     g = np.random.default_rng(14)

@@ -25,7 +25,9 @@ from rectified_spaattn_tpu_torch.cache import TeaCache
 from rectified_spaattn_tpu_torch.models import (WanConfig, WanDiT,
                                                 flax_to_state_dict, layers,
                                                 load_flax_params)
-from rectified_spaattn_tpu_torch.pipelines import UniPCScheduler, WanPipeline
+from rectified_spaattn_tpu_torch.pipelines import WanPipeline
+
+from _jax_forms import JaxUniPC, jax_unipc  # noqa: E402
 
 torch.set_num_threads(1)
 TOL = dict(rtol=1e-3, atol=1e-4)
@@ -84,6 +86,7 @@ def tiny_pair(image_cross=False, per_token=False, grid=(2, 8, 8)):
     params = jax.tree_util.tree_map(np.asarray, jmod.init(
         jax.random.PRNGKey(0), lat, ts, text, img))
     tmod = load_flax_params(WanDiT(WanConfig.tiny(**kw)), params)
+    tmod.text_embedder.act = torch.nn.functional.gelu   # JAX's exact form
     return jmod, params, tmod
 
 
@@ -146,10 +149,11 @@ def test_convert_wan_tree_is_strict():
 
 
 def test_unipc_scheduler_ten_steps():
-    """UniPC (order 2, bh2) over 10 steps: the predictor-corrector chain
-    from the same model outputs."""
-    ours, ref = UniPCScheduler(10, shift=5.0), jsched.UniPCScheduler(10,
-                                                                     shift=5.0)
+    """UniPC (order 2) over 10 steps: the predictor-corrector chain from
+    the same model outputs, the port's built with the JAX package's
+    coefficients (its own, the published bh2, are held to the plain
+    reference in test_torch_wan_reference.py)."""
+    ours, ref = JaxUniPC(10, shift=5.0), jsched.UniPCScheduler(10, shift=5.0)
     np.testing.assert_allclose(ours.timesteps, ref.timesteps)
     x = arr(12, 2, 4, 3, 5)
     xt, xj = torch.from_numpy(x), jnp.asarray(x)
@@ -191,7 +195,7 @@ def pipeline_pair(**kw):
 
 
 @pytest.mark.parametrize("warm_calls", [0, 2])
-def test_tiny_wan_pipeline_matches_jax(warm_calls, tmp_path):
+def test_tiny_wan_pipeline_matches_jax(warm_calls, tmp_path, monkeypatch):
     """3 CFG steps of the sparse pipeline: 360 visual tokens (2x12x15
     latent grid) padded once to 384, first-frame retention, warm_layers 1,
     TeaCache on with a skip; decisions identical, latents within 1e-3 /
@@ -200,6 +204,7 @@ def test_tiny_wan_pipeline_matches_jax(warm_calls, tmp_path):
     kw = dict(height=192, width=240, frames=5, num_steps=3, sa_drop_rate=0.5,
               p_remain_rates=0.5, mode="sparse", enable_teacache=True,
               teacache_thresh=0.3, warm_layers=1, warm_calls=warm_calls)
+    jax_unipc(monkeypatch)
     jpipe, pipe = pipeline_pair(**kw)
     assert pipe.site.visual_len == 360 and pipe.pad == 24
     assert pipe.site.cfg.first_frame_blocks == jpipe.site.cfg.first_frame_blocks == 1
@@ -254,6 +259,7 @@ def test_tiny_wan_pipeline_inputs_match_jax(variant):
                                         np.float32),
         ts0, text_c, extra.get("image_emb")))
     tmod = load_flax_params(WanDiT(WanConfig.tiny(**kw)), params)
+    tmod.text_embedder.act = torch.nn.functional.gelu   # JAX's exact form
     common = dict(height=96, width=128, frames=5, num_steps=2,
                   sa_drop_rate=0.5, p_remain_rates=0.5, **pkw)
     jpipe = JPipe(model=jmod, params=params, interpret=True, **common)
